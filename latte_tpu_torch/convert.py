@@ -1,0 +1,110 @@
+"""Weight carry-over: JAX/Flax Latte params -> the port's state dict.
+
+The port's own copy of ``latte_tpu/tools/convert.py``
+(``flax_to_reference_state_dict``), plus the two steps that make its output
+load into :class:`latte_tpu_torch.models.Latte` with ``strict=True``: the
+patch-embedding weight is reshaped from (D, C·p·p) to the conv's
+(D, C, p, p), and the leaves become torch tensors. The qkv projection goes
+from the JAX head-major (H, 3, hd) column layout to the reference's
+``[q|k|v]`` rows. The frozen sincos tables are not carried: the model
+computes them. Works on any nested mapping of arrays (``np.asarray`` is
+applied to every leaf), so it needs neither JAX nor Flax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = [
+    "qkv_to_reference",
+    "flax_to_state_dict",
+    "load_flax_params",
+    "load_reference_checkpoint",
+]
+
+# frozen sincos tables in reference checkpoints; the port recomputes them
+FROZEN_BUFFERS = ("pos_embed", "temp_embed")
+
+
+def _t(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+def qkv_to_reference(kernel, bias, num_heads: int):
+    """Flax qkv ``kernel`` (D, 3D) and ``bias`` (3D,), columns head-major
+    (H, 3, hd) -> torch ``weight`` (3D, D) and ``bias`` with ``[q|k|v]`` rows."""
+    k = np.asarray(kernel)
+    d = k.shape[0]
+    hd = d // num_heads
+    w = k.reshape(d, num_heads, 3, hd).transpose(2, 1, 3, 0).reshape(3 * d, d)
+    b = None if bias is None else np.asarray(bias).reshape(num_heads, 3, hd).transpose(1, 0, 2)
+    return np.ascontiguousarray(w), None if b is None else np.ascontiguousarray(b.reshape(-1))
+
+
+def flax_to_state_dict(
+    params: Mapping[str, Any], depth: int, num_heads: int, patch_size: int
+) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` (the tree under ``"params"``) -> the port's state dict."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_linear(prefix: str, p: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.weight"] = _t(p["kernel"])
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+    def put_qkv(prefix: str, p: Mapping[str, Any]) -> None:
+        w, b = qkv_to_reference(p["kernel"], p.get("bias"), num_heads)
+        sd[f"{prefix}.weight"] = w
+        if b is not None:
+            sd[f"{prefix}.bias"] = b
+
+    k = np.asarray(params["x_embedder"]["proj"]["kernel"])  # (C·p·p, D)
+    D = k.shape[1]
+    C = k.shape[0] // (patch_size * patch_size)
+    sd["x_embedder.proj.weight"] = _t(k).reshape(D, C, patch_size, patch_size)
+    sd["x_embedder.proj.bias"] = np.asarray(params["x_embedder"]["proj"]["bias"])
+    put_linear("t_embedder.mlp.0", params["t_embedder"]["mlp_0"])
+    put_linear("t_embedder.mlp.2", params["t_embedder"]["mlp_2"])
+    if "y_embedder" in params:
+        sd["y_embedder.embedding_table.weight"] = np.asarray(
+            params["y_embedder"]["embedding_table"]
+        )
+
+    def unstack(tree, i):
+        if isinstance(tree, Mapping):
+            return {key: unstack(v, i) for key, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    for i in range(depth // 2):
+        for kind, idx in (("spatial", 2 * i), ("temporal", 2 * i + 1)):
+            blk = unstack(params["blocks"][kind], i)
+            put_qkv(f"blocks.{idx}.attn.qkv", blk["attn"]["qkv"])
+            put_linear(f"blocks.{idx}.attn.proj", blk["attn"]["proj"])
+            put_linear(f"blocks.{idx}.mlp.fc1", blk["mlp"]["fc1"])
+            put_linear(f"blocks.{idx}.mlp.fc2", blk["mlp"]["fc2"])
+            put_linear(f"blocks.{idx}.adaLN_modulation.1", blk["adaLN_modulation"])
+    put_linear("final_layer.adaLN_modulation.1", params["final_layer"]["adaLN_modulation"])
+    put_linear("final_layer.linear", params["final_layer"]["linear"])
+    return {key: torch.from_numpy(np.array(v, dtype=np.float32)) for key, v in sd.items()}
+
+
+def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
+    """Load Flax ``params`` into ``model`` (strict: every key must match)."""
+    sd = flax_to_state_dict(
+        params, model.depth, model.num_heads, model.patch_size
+    )
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_reference_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """A reference-format ``.pt`` (a state dict, or ``{"model", "ema"}`` of
+    them; "ema" preferred as by the reference loader) -> the port's state
+    dict, without the frozen sincos tables."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and ("ema" in ckpt or "model" in ckpt):
+        ckpt = ckpt["ema"] if prefer_ema and "ema" in ckpt else ckpt["model"]
+    return {k: v for k, v in ckpt.items() if k not in FROZEN_BUFFERS}

@@ -1,0 +1,277 @@
+"""Gaussian diffusion engine, sampling half (port of ``latte_tpu/core/diffusion.py``).
+
+Schedule tables are fp64 numpy, computed once; each step gathers its
+coefficients in fp32 on the tensor's device, as the JAX engine does.
+Respacing is folded into the engine: loops run over respaced indices and
+:meth:`GaussianDiffusion.map_t` maps them to the model's timesteps.
+
+The model contract: ``model_fn(x, t, **model_kwargs)`` with ``x`` of shape
+(B, F, C, H, W), returning (B, F, 2C, H, W) when the variance is learned.
+``training_losses`` and the bits-per-dim loop come with the training slice.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any, Callable, Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from latte_tpu_torch.core.schedules import get_named_beta_schedule, space_timesteps
+
+ModelFn = Callable[..., torch.Tensor]
+
+
+class ModelMeanType(enum.Enum):
+    PREVIOUS_X = enum.auto()
+    START_X = enum.auto()
+    EPSILON = enum.auto()
+
+
+class ModelVarType(enum.Enum):
+    LEARNED = enum.auto()
+    FIXED_SMALL = enum.auto()
+    FIXED_LARGE = enum.auto()
+    LEARNED_RANGE = enum.auto()
+
+
+class GaussianDiffusion:
+    """The diffusion engine over fp64 ``betas`` (possibly respaced, with
+    ``timestep_map`` from engine index to original model timestep)."""
+
+    def __init__(
+        self,
+        *,
+        betas: np.ndarray,
+        model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
+        model_var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+        timestep_map: Optional[np.ndarray] = None,
+        original_num_steps: Optional[int] = None,
+    ):
+        betas = np.asarray(betas, dtype=np.float64)
+        if betas.ndim != 1 or not ((0 < betas).all() and (betas <= 1).all()):
+            raise ValueError("betas must be a 1-D array in (0, 1]")
+        self.betas = betas
+        self.num_timesteps = int(betas.shape[0])
+        self.model_mean_type = model_mean_type
+        self.model_var_type = model_var_type
+        self.timestep_map = (
+            None if timestep_map is None else np.asarray(timestep_map, dtype=np.int64)
+        )
+        self.original_num_steps = original_num_steps or self.num_timesteps
+
+        alphas = 1.0 - betas
+        self.alphas_cumprod = np.cumprod(alphas, axis=0)
+        self.alphas_cumprod_prev = np.append(1.0, self.alphas_cumprod[:-1])
+        self.sqrt_alphas_cumprod = np.sqrt(self.alphas_cumprod)
+        self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - self.alphas_cumprod)
+        self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / self.alphas_cumprod)
+        self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / self.alphas_cumprod - 1.0)
+        self.log_betas = np.log(betas)
+        self.posterior_variance = (
+            betas * (1.0 - self.alphas_cumprod_prev) / (1.0 - self.alphas_cumprod)
+        )
+        # the posterior variance is 0 at t=0: borrow the t=1 entry (or, for a
+        # one-step schedule, the clipped t=0 value) before taking the log
+        pv1 = (
+            self.posterior_variance[1]
+            if len(self.posterior_variance) > 1
+            else max(self.posterior_variance[0], 1e-20)
+        )
+        self.posterior_log_variance_clipped = np.log(
+            np.append(pv1, self.posterior_variance[1:])
+        )
+        self.posterior_mean_coef1 = (
+            betas * np.sqrt(self.alphas_cumprod_prev) / (1.0 - self.alphas_cumprod)
+        )
+        self.posterior_mean_coef2 = (
+            (1.0 - self.alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - self.alphas_cumprod)
+        )
+        self._recip_posterior_mean_coef1 = 1.0 / self.posterior_mean_coef1
+        self._posterior_mean_coef_ratio = self.posterior_mean_coef2 / self.posterior_mean_coef1
+        self._fixed_large_variance = np.append(pv1, betas[1:])
+        self._fixed_large_log_variance = np.log(self._fixed_large_variance)
+        self._device_tables: Dict[Any, torch.Tensor] = {}
+
+    def _table(self, name: str, device: torch.device) -> torch.Tensor:
+        key = (name, device)
+        if key not in self._device_tables:
+            arr = getattr(self, name)
+            dtype = torch.int64 if name == "timestep_map" else torch.float32
+            self._device_tables[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+        return self._device_tables[key]
+
+    def _gather(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """fp32 per-timestep coefficients, shaped to broadcast over ``ndim`` axes."""
+        out = self._table(name, t.device)[t]
+        return out.reshape(out.shape + (1,) * (ndim - 1))
+
+    def map_t(self, t: torch.Tensor) -> torch.Tensor:
+        """Map engine timestep indices to original model timesteps."""
+        if self.timestep_map is None:
+            return t
+        return self._table("timestep_map", t.device)[t]
+
+    def q_sample(self, x_start, t, noise):
+        """Diffuse x_0 to x_t given noise ~ N(0, I)."""
+        return (
+            self._gather("sqrt_alphas_cumprod", t, x_start.dim()) * x_start
+            + self._gather("sqrt_one_minus_alphas_cumprod", t, x_start.dim()) * noise
+        )
+
+    def q_posterior_mean_variance(self, x_start, x_t, t):
+        n = x_t.dim()
+        mean = (
+            self._gather("posterior_mean_coef1", t, n) * x_start
+            + self._gather("posterior_mean_coef2", t, n) * x_t
+        )
+        return (
+            mean,
+            self._gather("posterior_variance", t, n),
+            self._gather("posterior_log_variance_clipped", t, n),
+        )
+
+    def _predict_xstart_from_eps(self, x_t, t, eps):
+        n = x_t.dim()
+        return (
+            self._gather("sqrt_recip_alphas_cumprod", t, n) * x_t
+            - self._gather("sqrt_recipm1_alphas_cumprod", t, n) * eps
+        )
+
+    def _predict_xstart_from_xprev(self, x_t, t, xprev):
+        n = x_t.dim()
+        return (
+            self._gather("_recip_posterior_mean_coef1", t, n) * xprev
+            - self._gather("_posterior_mean_coef_ratio", t, n) * x_t
+        )
+
+    def _predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        n = x_t.dim()
+        return (
+            self._gather("sqrt_recip_alphas_cumprod", t, n) * x_t - pred_xstart
+        ) / self._gather("sqrt_recipm1_alphas_cumprod", t, n)
+
+    def p_mean_variance(
+        self,
+        model_fn: ModelFn,
+        x,
+        t,
+        clip_denoised: bool = True,
+        denoised_fn: Optional[Callable] = None,
+        model_kwargs: Optional[Dict[str, Any]] = None,
+        model_output: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """p(x_{t-1} | x_t) mean and variance, and the x_0 prediction."""
+        if model_output is None:
+            model_output = model_fn(x, self.map_t(t), **(model_kwargs or {}))
+        n = x.dim()
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, var_values = torch.split(
+                model_output, [x.shape[2], model_output.shape[2] - x.shape[2]], dim=2
+            )
+            if self.model_var_type == ModelVarType.LEARNED:
+                model_log_variance = var_values
+            else:
+                min_log = self._gather("posterior_log_variance_clipped", t, n)
+                max_log = self._gather("log_betas", t, n)
+                frac = (var_values + 1.0) / 2.0
+                model_log_variance = frac * max_log + (1.0 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        elif self.model_var_type == ModelVarType.FIXED_LARGE:
+            model_variance = self._gather("_fixed_large_variance", t, n)
+            model_log_variance = self._gather("_fixed_large_log_variance", t, n)
+        else:
+            model_variance = self._gather("posterior_variance", t, n)
+            model_log_variance = self._gather("posterior_log_variance_clipped", t, n)
+
+        def process_xstart(x0):
+            if denoised_fn is not None:
+                x0 = denoised_fn(x0)
+            return x0.clamp(-1.0, 1.0) if clip_denoised else x0
+
+        if self.model_mean_type == ModelMeanType.START_X:
+            pred_xstart = process_xstart(model_output)
+        elif self.model_mean_type == ModelMeanType.EPSILON:
+            pred_xstart = process_xstart(self._predict_xstart_from_eps(x, t, model_output))
+        else:
+            pred_xstart = process_xstart(self._predict_xstart_from_xprev(x, t, model_output))
+        model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
+        return {
+            "mean": model_mean,
+            "variance": model_variance,
+            "log_variance": model_log_variance,
+            "pred_xstart": pred_xstart,
+        }
+
+    def p_sample(
+        self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True,
+        denoised_fn=None, model_kwargs=None,
+    ):
+        """One DDPM ancestral step; ``noise`` is caller-supplied N(0, I)."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn, model_kwargs)
+        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+        sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_sample(
+        self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True,
+        denoised_fn=None, model_kwargs=None, eta: float = 0.0,
+    ):
+        """One DDIM step (deterministic at eta=0)."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn, model_kwargs)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        n = x.dim()
+        alpha_bar = self._gather("alphas_cumprod", t, n)
+        alpha_bar_prev = self._gather("alphas_cumprod_prev", t, n)
+        sigma = (
+            eta
+            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+        )
+        mean_pred = (
+            out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+            + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
+        )
+        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (n - 1))
+        return {"sample": mean_pred + nonzero * sigma * noise, "pred_xstart": out["pred_xstart"]}
+
+
+def create_diffusion(
+    timestep_respacing: Union[str, Sequence[int], None],
+    noise_schedule: str = "linear",
+    sigma_small: bool = False,
+    predict_xstart: bool = False,
+    learn_sigma: bool = True,
+    diffusion_steps: int = 1000,
+) -> GaussianDiffusion:
+    """The reference defaults: 1000 linear steps, epsilon prediction,
+    LEARNED_RANGE variance. ``"ddim50"`` or ``"250"`` respaces the process."""
+    betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
+    if timestep_respacing is None or timestep_respacing == "":
+        timestep_respacing = [diffusion_steps]
+    use_timesteps = space_timesteps(diffusion_steps, timestep_respacing)
+
+    # respace: recompute betas over the retained subset of alphas_cumprod
+    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    timestep_map, new_betas = [], []
+    last = 1.0
+    for i, ab in enumerate(alphas_cumprod):
+        if i in use_timesteps:
+            new_betas.append(1 - ab / last)
+            last = ab
+            timestep_map.append(i)
+
+    return GaussianDiffusion(
+        betas=np.array(new_betas, dtype=np.float64),
+        model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
+        model_var_type=(
+            ModelVarType.LEARNED_RANGE
+            if learn_sigma
+            else (ModelVarType.FIXED_SMALL if sigma_small else ModelVarType.FIXED_LARGE)
+        ),
+        timestep_map=(
+            np.array(timestep_map, dtype=np.int64) if len(timestep_map) != diffusion_steps else None
+        ),
+        original_num_steps=diffusion_steps,
+    )

@@ -1,0 +1,96 @@
+"""Sampling loops (port of ``latte_tpu/core/samplers.py``) as Python loops.
+
+Each step's noise comes from ``noise_schedule[t]`` when given (the tests
+inject the same numbers into the JAX loop), else from ``generator``, else
+zeros, the order the JAX loops use.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from latte_tpu_torch.core.diffusion import GaussianDiffusion, ModelFn
+
+__all__ = ["p_sample_loop", "ddim_sample_loop", "cfg_model_fn"]
+
+
+def _noise_for(x, t_scalar, generator, noise_schedule):
+    if noise_schedule is not None:
+        return noise_schedule[t_scalar].to(x.device, x.dtype)
+    if generator is not None:
+        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return torch.zeros_like(x)
+
+
+@torch.no_grad()
+def _sample_loop(
+    step, diffusion: GaussianDiffusion, x_T: torch.Tensor, generator, noise_schedule
+) -> torch.Tensor:
+    x = x_T
+    for t_scalar in range(diffusion.num_timesteps - 1, -1, -1):
+        t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)
+        x = step(x, t, _noise_for(x, t_scalar, generator, noise_schedule))["sample"]
+    return x
+
+
+def p_sample_loop(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    x_T: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    clip_denoised: bool = True,
+    denoised_fn=None,
+    model_kwargs: Optional[Dict[str, Any]] = None,
+    noise_schedule: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Ancestral DDPM sampling from pure noise x_T."""
+
+    def step(x, t, noise):
+        return diffusion.p_sample(
+            model_fn, x, t, noise, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+        )
+
+    return _sample_loop(step, diffusion, x_T, generator, noise_schedule)
+
+
+def ddim_sample_loop(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    x_T: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    clip_denoised: bool = True,
+    denoised_fn=None,
+    model_kwargs: Optional[Dict[str, Any]] = None,
+    eta: float = 0.0,
+    noise_schedule: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """DDIM sampling (deterministic at eta=0)."""
+
+    def step(x, t, noise):
+        return diffusion.ddim_sample(
+            model_fn, x, t, noise, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, model_kwargs=model_kwargs, eta=eta,
+        )
+
+    return _sample_loop(step, diffusion, x_T, generator, noise_schedule)
+
+
+def cfg_model_fn(
+    model_apply: Callable[..., torch.Tensor], cfg_scale: float, guidance_channels: int = 4
+) -> ModelFn:
+    """Classifier-free guidance over a [cond | uncond] batch, guiding only the
+    first ``guidance_channels`` channels (the reference's quirk); both halves
+    get the guided eps."""
+
+    def fn(x, t, **kwargs):
+        half = x[: x.shape[0] // 2]
+        model_out = model_apply(torch.cat([half, half], dim=0), t, **kwargs)
+        eps, rest = model_out[:, :, :guidance_channels], model_out[:, :, guidance_channels:]
+        cond_eps, uncond_eps = eps.chunk(2, dim=0)
+        half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=2)
+
+    return fn

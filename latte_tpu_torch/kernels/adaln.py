@@ -1,0 +1,135 @@
+"""Fused adaLN glue: the CUDA kernels' wrappers and their plain versions.
+
+Counterpart of ``latte_tpu/kernels/adaln.py`` (forward only). The kernels in
+``csrc/adaln.cu`` replace the Pallas ``_ln_mod_kernel`` (``adaln.py:49``,
+launched by ``_ln_modulate_fwd_impl`` at ``:111``) and ``_res_ln_mod_kernel``
+(``adaln.py:59``, launched by ``_res_ln_modulate_fwd_impl`` at ``:139``).
+Both stream their rows once and are bound by bytes on the H100.
+
+- :func:`ln_modulate`            out = LN(x) * (1 + scale) + shift
+- :func:`residual_ln_modulate`   y = x + gate * delta (rounded to x's type),
+                                 out = LN(y) * (1 + scale) + shift
+
+LN has no affine terms, eps 1e-6, fp32 two-pass statistics E[(x - mu)^2].
+x and delta are (B, N, D) contiguous; shift, scale and gate are (B, D) with a
+contiguous last axis (column chunks of the modulation output are fine) and
+broadcast over N. A wrapper launches its kernel for CUDA tensors and runs the
+plain version for CPU tensors, nothing else.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from latte_tpu_torch.kernels import build
+
+__all__ = [
+    "ln_modulate",
+    "residual_ln_modulate",
+    "ln_modulate_reference",
+    "residual_ln_modulate_reference",
+]
+
+EPS = 1e-6
+MAX_DIM = 1536  # 8 rows of fp32 in the kernel's 48 KB of shared memory
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ln_modulate_reference(
+    x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
+) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    norm = (x32 - mu) * torch.rsqrt(var + EPS)
+    out = norm * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
+    return out.to(x.dtype)
+
+
+def residual_ln_modulate_reference(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    gate: torch.Tensor,
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    y = (x.float() + gate.float()[:, None, :] * delta.float()).to(x.dtype)
+    return y, ln_modulate_reference(y, shift, scale)
+
+
+def _check(x: torch.Tensor, rows, vecs) -> int:
+    """Validate the operands as the kernel takes them, on either device, so a
+    CPU run rehearses the layouts; return the common row stride of the vectors."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, D); got {tuple(x.shape)}")
+    B, N, D = x.shape
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    for t in rows:
+        if t.shape != x.shape:
+            raise ValueError(f"expected {tuple(x.shape)}; got {tuple(t.shape)}")
+    for t in vecs:
+        if t.shape != (B, D):
+            raise ValueError(f"expected a ({B}, {D}) vector; got {tuple(t.shape)}")
+    for t in (*rows, *vecs):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError("all operands must share x's dtype and device")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"adaLN kernels run on cuda or cpu tensors, not {x.device}")
+    if D > MAX_DIM:
+        raise ValueError(f"D = {D} exceeds the kernel's {MAX_DIM}")
+    if not all(t.is_contiguous() for t in (x, *rows)):
+        raise ValueError("x (and delta) must be contiguous")
+    vec_strides = {t.stride(0) for t in vecs}
+    if any(t.stride(1) != 1 for t in vecs) or len(vec_strides) != 1:
+        raise ValueError("shift/scale/gate need a contiguous last axis and one row stride")
+    return vec_strides.pop()
+
+
+def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``LN(x) * (1 + scale) + shift`` in one pass over x. ``ln_modulate.launches``
+    counts the kernel launches."""
+    vec_stride = _check(x, (), (shift, scale))
+    if x.device.type == "cpu":
+        return ln_modulate_reference(x, shift, scale)
+    B, N, D = x.shape
+    out = torch.empty_like(x)
+    err = build.load_library().latte_ln_modulate(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), shift.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), B, N, D, vec_stride, EPS, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "ln_modulate")
+    ln_modulate.launches += 1
+    return out
+
+
+def residual_ln_modulate(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    gate: torch.Tensor,
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gated residual + LN + modulate in one pass: returns ``(y, out)``.
+    ``residual_ln_modulate.launches`` counts the kernel launches."""
+    vec_stride = _check(x, (delta,), (gate, shift, scale))
+    if x.device.type == "cpu":
+        return residual_ln_modulate_reference(x, delta, gate, shift, scale)
+    B, N, D = x.shape
+    y = torch.empty_like(x)
+    out = torch.empty_like(x)
+    err = build.load_library().latte_residual_ln_modulate(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), delta.data_ptr(), gate.data_ptr(),
+        shift.data_ptr(), scale.data_ptr(), y.data_ptr(), out.data_ptr(), B, N, D,
+        vec_stride, EPS, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "residual_ln_modulate")
+    residual_ln_modulate.launches += 1
+    return y, out
+
+
+ln_modulate.launches = 0
+residual_ln_modulate.launches = 0

@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under ``latte_tpu_torch/csrc/`` go through one ``nvcc`` call
+into one shared library with a plain C interface (no PyTorch headers, so
+the build takes seconds), which :func:`load_library` opens with ``ctypes``.
+The library lands in ``build/latte_tpu_torch/`` at the root of the checkout,
+named by a hash of the sources and flags, so an unchanged tree reuses it
+and a changed one rebuilds.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "latte_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# argtypes of each C entry point: pointers and the stream as c_void_p so
+# ctypes does not cut them to 32 bits
+_SIGNATURES = {
+    "latte_flash_attention_fwd": (
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_I64] * 9 + [_F, _I, _P]
+    ),
+    "latte_ln_modulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P],
+    "latte_residual_ln_modulate": (
+        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
+    ),
+}
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):  # .cu and .cuh
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"liblatte_kernels_{_digest()}.so"
+
+
+def find_nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (
+        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> Path:
+    """Compile the library unless the current sources are already built."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-8000:]}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, open the library and declare every entry point."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

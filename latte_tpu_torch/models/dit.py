@@ -1,0 +1,182 @@
+"""Latte: factorized spatio-temporal video DiT (port of ``latte_tpu/models/dit.py``).
+
+Input (B, F, C, H, W) and timesteps (B,) -> (B, F, C', H, W), with C' = 2C
+under ``learn_sigma``. The blocks alternate spatial (tokens of one frame)
+and temporal (one patch across frames); they are a plain list, where the
+JAX model scans over stacked (spatial, temporal) pairs. The temporal
+position embedding is added before the first temporal block only.
+
+The model computes in the type of its parameters: ``model.to(torch.bfloat16)``
+is the port of the JAX model's ``dtype=bfloat16`` (sincos tables and inputs
+follow, the output comes back in the input's type).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from latte_tpu_torch.models.embeddings import (
+    LabelEmbedder,
+    TimestepEmbedder,
+    get_1d_sincos_pos_embed,
+    get_2d_sincos_pos_embed,
+)
+from latte_tpu_torch.models.layers import AdaLNBlock, FinalLayer, PatchEmbed, unpatchify
+
+__all__ = ["Latte"]
+
+
+class Latte(nn.Module):
+    """Video DiT. ``extras``: 1 = unconditional, 2 = class-conditional.
+
+    ``plain=True`` runs the kernels' plain PyTorch versions on any device
+    (see :mod:`latte_tpu_torch.models.layers`).
+    """
+
+    def __init__(
+        self,
+        input_size: int = 32,
+        patch_size: int = 2,
+        in_channels: int = 4,
+        hidden_size: int = 1152,
+        depth: int = 28,
+        num_heads: int = 16,
+        mlp_ratio: float = 4.0,
+        num_frames: int = 16,
+        class_dropout_prob: float = 0.1,
+        num_classes: int = 1000,
+        learn_sigma: bool = True,
+        extras: int = 1,
+        plain: bool = False,
+    ):
+        super().__init__()
+        if extras not in (1, 2):
+            raise NotImplementedError(
+                f"extras={extras}: only 1 (unconditional) and 2 (class) are ported; "
+                "the text-conditioned model comes with the T2V slice"
+            )
+        if depth % 2:
+            raise ValueError(f"depth must be even (spatial/temporal pairs); got {depth}")
+        self.input_size = input_size
+        self.patch_size = patch_size
+        self.in_channels = in_channels
+        self.hidden_size = hidden_size
+        self.depth = depth
+        self.num_heads = num_heads
+        self.num_frames = num_frames
+        self.num_classes = num_classes
+        self.extras = extras
+        self.out_channels = in_channels * 2 if learn_sigma else in_channels
+
+        self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
+        self.t_embedder = TimestepEmbedder(hidden_size)
+        if extras == 2:
+            self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
+        self.blocks = nn.ModuleList(
+            AdaLNBlock(hidden_size, num_heads, mlp_ratio, plain=plain) for _ in range(depth)
+        )
+        self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
+        grid = input_size // patch_size
+        self.register_buffer(
+            "pos_embed",
+            torch.tensor(get_2d_sincos_pos_embed(hidden_size, grid), dtype=torch.float32)[None],
+            persistent=False,
+        )
+        self.register_buffer(
+            "temp_embed",
+            torch.tensor(get_1d_sincos_pos_embed(hidden_size, num_frames), dtype=torch.float32)[None],
+            persistent=False,
+        )
+
+    @torch.no_grad()
+    def initialize_weights(self, generator: Optional[torch.Generator] = None) -> None:
+        """The reference's init (as the JAX modules' initializers): xavier-uniform
+        linears and patch embedding with zero biases, N(0, 0.02) timestep MLP and
+        label table, zero adaLN modulations and output layer (adaLN-Zero)."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+                nn.init.zeros_(m.bias)
+        w = self.x_embedder.proj.weight
+        nn.init.xavier_uniform_(w.view(w.shape[0], -1), generator=generator)
+        nn.init.zeros_(self.x_embedder.proj.bias)
+        for lin in (self.t_embedder.mlp[0], self.t_embedder.mlp[2]):
+            nn.init.normal_(lin.weight, std=0.02, generator=generator)
+        if self.extras == 2:
+            nn.init.normal_(self.y_embedder.embedding_table.weight, std=0.02, generator=generator)
+        for blk in self.blocks:
+            nn.init.zeros_(blk.adaLN_modulation[1].weight)
+            nn.init.zeros_(blk.adaLN_modulation[1].bias)
+        for lin in (self.final_layer.adaLN_modulation[1], self.final_layer.linear):
+            nn.init.zeros_(lin.weight)
+            nn.init.zeros_(lin.bias)
+
+    def _pos_embed(self, grid: int, dtype: torch.dtype) -> torch.Tensor:
+        if self.pos_embed.shape[1] == grid * grid:
+            return self.pos_embed.to(dtype)
+        table = get_2d_sincos_pos_embed(self.hidden_size, grid)
+        return torch.from_numpy(table).to(self.pos_embed.device, dtype)[None]
+
+    def _temp_embed(self, frames: int, dtype: torch.dtype) -> torch.Tensor:
+        if self.temp_embed.shape[1] == frames:
+            return self.temp_embed.to(dtype)
+        table = get_1d_sincos_pos_embed(self.hidden_size, frames)
+        return torch.from_numpy(table).to(self.temp_embed.device, dtype)[None]
+
+    def forward(
+        self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        B, F, C, H, W = x.shape
+        in_dtype = x.dtype
+        dtype = self.x_embedder.proj.weight.dtype
+        p = self.patch_size
+
+        x = self.x_embedder(x.reshape(B * F, C, H, W))  # (B·F, T, D)
+        T, D = x.shape[1], x.shape[2]
+        x = x + self._pos_embed(H // p, dtype)
+
+        t_emb = self.t_embedder(t)
+        # per-frame conditioning for spatial blocks, per-patch for temporal
+        c_spatial = t_emb.repeat_interleave(F, dim=0)
+        c_temp = t_emb.repeat_interleave(T, dim=0)
+        if self.extras == 2:
+            y_emb = self.y_embedder(y)
+            c_spatial = c_spatial + y_emb.repeat_interleave(F, dim=0)
+            c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
+
+        temp_embed = self._temp_embed(F, dtype)
+        # the relayouts copy: the kernels take contiguous activations (at B = 1
+        # a reshape of the transposed view would otherwise stay strided)
+        for i in range(0, self.depth, 2):
+            x = self.blocks[i](x, c_spatial)
+            # (b f) t d -> (b t) f d
+            x = x.reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
+            if i == 0:
+                x = x + temp_embed
+            x = self.blocks[i + 1](x, c_temp)
+            # (b t) f d -> (b f) t d
+            x = x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
+
+        c_final = c_spatial if self.extras == 2 else t_emb.repeat_interleave(F, dim=0)
+        x = self.final_layer(x, c_final)
+        x = unpatchify(x, p, self.out_channels)
+        return x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
+
+    def forward_with_cfg(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        y: Optional[torch.Tensor] = None,
+        cfg_scale: float = 7.0,
+    ) -> torch.Tensor:
+        """CFG forward: the batch is [cond | uncond]; guidance applies to the
+        first 4 (eps) channels only, as in the reference."""
+        half = x[: x.shape[0] // 2]
+        model_out = self.forward(torch.cat([half, half], dim=0), t, y=y)
+        eps, rest = model_out[:, :, :4], model_out[:, :, 4:]
+        cond_eps, uncond_eps = eps.chunk(2, dim=0)
+        half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=2)
