@@ -8,7 +8,10 @@ patch-embedding weight is reshaped from (D, C·p·p) to the conv's
 from the JAX head-major (H, 3, hd) column layout to the reference's
 ``[q|k|v]`` rows. The frozen sincos tables are not carried: the model
 computes them. Works on any nested mapping of arrays (``np.asarray`` is
-applied to every leaf), so it needs neither JAX nor Flax.
+applied to every leaf), so it needs neither JAX nor Flax. The map is linear
+(transposes, reshapes and the qkv permutation), so it carries a tree shaped
+like the params, such as a gradient tree of ``jax.grad`` or a train state's
+EMA, onto the same parameter names.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ def qkv_to_reference(kernel, bias, num_heads: int):
 def flax_to_state_dict(
     params: Mapping[str, Any], depth: int, num_heads: int, patch_size: int
 ) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` (the tree under ``"params"``) -> the port's state dict."""
+    """Flax ``params`` (the tree under ``"params"``), or any tree of that
+    shape such as its gradient, -> the port's state dict."""
     sd: Dict[str, np.ndarray] = {}
 
     def put_linear(prefix: str, p: Mapping[str, Any]) -> None:
@@ -104,7 +108,7 @@ def load_reference_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, t
     """A reference-format ``.pt`` (a state dict, or ``{"model", "ema"}`` of
     them; "ema" preferred as by the reference loader) -> the port's state
     dict, without the frozen sincos tables."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     if isinstance(ckpt, dict) and ("ema" in ckpt or "model" in ckpt):
         ckpt = ckpt["ema"] if prefer_ema and "ema" in ckpt else ckpt["model"]
     return {k: v for k, v in ckpt.items() if k not in FROZEN_BUFFERS}

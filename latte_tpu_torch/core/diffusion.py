@@ -7,7 +7,9 @@ Respacing is folded into the engine: loops run over respaced indices and
 
 The model contract: ``model_fn(x, t, **model_kwargs)`` with ``x`` of shape
 (B, F, C, H, W), returning (B, F, 2C, H, W) when the variance is learned.
-``training_losses`` and the bits-per-dim loop come with the training slice.
+``training_losses`` is the training loss of the MSE loss type (the one the
+trainer builds; the KL loss types and the bits-per-dim evaluation loop are
+not ported).
 """
 
 from __future__ import annotations
@@ -18,6 +20,11 @@ from typing import Any, Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from latte_tpu_torch.core.diffusion_utils import (
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+)
 from latte_tpu_torch.core.schedules import get_named_beta_schedule, space_timesteps
 
 ModelFn = Callable[..., torch.Tensor]
@@ -235,6 +242,59 @@ class GaussianDiffusion:
         )
         nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (n - 1))
         return {"sample": mean_pred + nonzero * sigma * noise, "pred_xstart": out["pred_xstart"]}
+
+
+    # ------------------------------------------------------------------
+    # Variational bound and training losses
+    # ------------------------------------------------------------------
+    def _vb_terms_bpd(
+        self, model_fn: ModelFn, x_start, x_t, t, clip_denoised: bool = True,
+        model_kwargs=None, model_output: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One term of the variational bound in bits per dim: the KL of the
+        posterior against the model's p(x_{t-1} | x_t), or at t = 0 the
+        decoder's negative log-likelihood."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(
+            model_fn, x_t, t, clip_denoised=clip_denoised, model_kwargs=model_kwargs,
+            model_output=model_output,
+        )
+        kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"]))
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+        )
+        decoder_nll = mean_flat(decoder_nll) / np.log(2.0)
+        output = torch.where(t == 0, decoder_nll, kl / np.log(2.0))
+        return {"output": output, "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(
+        self, model_fn: ModelFn, x_start, t, noise, model_kwargs=None
+    ) -> Dict[str, torch.Tensor]:
+        """Per-example training losses (shape [B]) for the given ``noise``:
+        ``mse`` and, with a learned variance, the hybrid loss ``mse + vb``,
+        where the VB term sees a detached mean so only the variance head
+        learns from it (``diffusion.py:426-488`` of the JAX engine)."""
+        x_t = self.q_sample(x_start, t, noise)
+        model_output = model_fn(x_t, self.map_t(t), **(model_kwargs or {}))
+        terms: Dict[str, torch.Tensor] = {}
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            c = x_t.shape[2]
+            mean_out, var_values = torch.split(model_output, [c, model_output.shape[2] - c], dim=2)
+            frozen_out = torch.cat([mean_out.detach(), var_values], dim=2)
+            terms["vb"] = self._vb_terms_bpd(
+                model_fn, x_start, x_t, t, clip_denoised=False, model_output=frozen_out
+            )["output"]
+            model_output = mean_out
+
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.model_mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        return terms
 
 
 def create_diffusion(

@@ -6,11 +6,28 @@ from latte_tpu_torch.kernels.adaln import (
     residual_ln_modulate,
     residual_ln_modulate_reference,
 )
-from latte_tpu_torch.kernels.attention import attention_reference, flash_attention
+from latte_tpu_torch.kernels.attention import (
+    attention_qkv,
+    attention_backward_reference,
+    attention_bwd_dkv_reference,
+    attention_bwd_dq_reference,
+    attention_delta,
+    attention_reference,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+)
 
 __all__ = [
     "flash_attention",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv",
+    "attention_qkv",
     "attention_reference",
+    "attention_backward_reference",
+    "attention_bwd_dq_reference",
+    "attention_bwd_dkv_reference",
+    "attention_delta",
     "ln_modulate",
     "ln_modulate_reference",
     "residual_ln_modulate",

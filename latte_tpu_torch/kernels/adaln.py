@@ -1,6 +1,6 @@
 """Fused adaLN glue: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``latte_tpu/kernels/adaln.py`` (forward only). The kernels in
+Counterpart of ``latte_tpu/kernels/adaln.py``. The kernels in
 ``csrc/adaln.cu`` replace the Pallas ``_ln_mod_kernel`` (``adaln.py:49``,
 launched by ``_ln_modulate_fwd_impl`` at ``:111``) and ``_res_ln_mod_kernel``
 (``adaln.py:59``, launched by ``_res_ln_modulate_fwd_impl`` at ``:139``).
@@ -15,6 +15,10 @@ x and delta are (B, N, D) contiguous; shift, scale and gate are (B, D) with a
 contiguous last axis (column chunks of the modulation output are fine) and
 broadcast over N. A wrapper launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors, nothing else.
+
+Both are differentiable. As in the JAX package, whose backward is jnp and not
+Pallas, the backward is plain PyTorch in fp32 with the same saved residuals
+(x, or y) and the same final casts to each input's type.
 """
 
 from __future__ import annotations
@@ -88,9 +92,8 @@ def _check(x: torch.Tensor, rows, vecs) -> int:
     return vec_strides.pop()
 
 
-def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``LN(x) * (1 + scale) + shift`` in one pass over x. ``ln_modulate.launches``
-    counts the kernel launches."""
+def _ln_modulate_forward(x, shift, scale) -> torch.Tensor:
+    """The ln_modulate kernel (or, for CPU tensors, its plain version)."""
     vec_stride = _check(x, (), (shift, scale))
     if x.device.type == "cpu":
         return ln_modulate_reference(x, shift, scale)
@@ -106,15 +109,8 @@ def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> to
     return out
 
 
-def residual_ln_modulate(
-    x: torch.Tensor,
-    delta: torch.Tensor,
-    gate: torch.Tensor,
-    shift: torch.Tensor,
-    scale: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gated residual + LN + modulate in one pass: returns ``(y, out)``.
-    ``residual_ln_modulate.launches`` counts the kernel launches."""
+def _residual_ln_modulate_forward(x, delta, gate, shift, scale):
+    """The residual_ln_modulate kernel (or, for CPU tensors, its plain version)."""
     vec_stride = _check(x, (delta,), (gate, shift, scale))
     if x.device.type == "cpu":
         return residual_ln_modulate_reference(x, delta, gate, shift, scale)
@@ -129,6 +125,87 @@ def residual_ln_modulate(
     build.check(err, "residual_ln_modulate")
     residual_ln_modulate.launches += 1
     return y, out
+
+
+def _ln_mod_backward(y, scale, g_out):
+    """VJP of ``out = LN(y)·(1+scale)+shift`` in fp32 (``_ln_mod_bwd_math``,
+    ``adaln.py:165-180``): with n = LN(y) and dn = g·(1+scale),
+    ``dy = rstd·(dn − mean(dn) − n·mean(dn·n))``; returns (dy, dshift, dscale)."""
+    y32, g32 = y.float(), g_out.float()
+    mu = y32.mean(dim=-1, keepdim=True)
+    var = (y32 - mu).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + EPS)
+    norm = (y32 - mu) * rstd
+    dshift = g32.sum(dim=1)
+    dscale = (g32 * norm).sum(dim=1)
+    dn = g32 * (1.0 + scale.float()[:, None, :])
+    dy = rstd * (dn - dn.mean(dim=-1, keepdim=True) - norm * (dn * norm).mean(dim=-1, keepdim=True))
+    return dy, dshift, dscale
+
+
+class _LnModulate(torch.autograd.Function):
+    """Forward: the kernel. Backward: plain fp32 math, saving x (``_ln_modulate_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale):
+        ctx.save_for_backward(x, shift, scale)
+        return _ln_modulate_forward(x, shift, scale)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, shift, scale = ctx.saved_tensors
+        dx, dshift, dscale = _ln_mod_backward(x, scale, g_out)
+        return dx.to(x.dtype), dshift.to(shift.dtype), dscale.to(scale.dtype)
+
+
+class _ResidualLnModulate(torch.autograd.Function):
+    """Forward: the kernel. Backward: plain fp32 math, saving y
+    (``_res_ln_modulate_bwd``, ``adaln.py:225-241``)."""
+
+    @staticmethod
+    def forward(ctx, x, delta, gate, shift, scale):
+        y, out = _residual_ln_modulate_forward(x, delta, gate, shift, scale)
+        ctx.save_for_backward(y, delta, gate, shift, scale)
+        return y, out
+
+    @staticmethod
+    def backward(ctx, g_y, g_out):
+        y, delta, gate, shift, scale = ctx.saved_tensors
+        dy, dshift, dscale = _ln_mod_backward(y, scale, g_out)
+        dy = dy + g_y.float()
+        ddelta = dy * gate.float()[:, None, :]
+        dgate = (dy * delta.float()).sum(dim=1)
+        return (
+            dy.to(y.dtype), ddelta.to(delta.dtype), dgate.to(gate.dtype),
+            dshift.to(shift.dtype), dscale.to(scale.dtype),
+        )
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``LN(x) * (1 + scale) + shift`` in one pass over x; differentiable.
+    ``ln_modulate.launches`` counts the kernel launches."""
+    if _needs_grad(x, shift, scale):
+        return _LnModulate.apply(x, shift, scale)
+    return _ln_modulate_forward(x, shift, scale)
+
+
+def residual_ln_modulate(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    gate: torch.Tensor,
+    shift: torch.Tensor,
+    scale: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gated residual + LN + modulate in one pass: returns ``(y, out)``;
+    differentiable. ``residual_ln_modulate.launches`` counts the kernel
+    launches."""
+    if _needs_grad(x, delta, gate, shift, scale):
+        return _ResidualLnModulate.apply(x, delta, gate, shift, scale)
+    return _residual_ln_modulate_forward(x, delta, gate, shift, scale)
 
 
 ln_modulate.launches = 0

@@ -1,24 +1,43 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers, their
+plain versions, and the autograd functions that join them.
 
-Counterpart of ``latte_tpu/kernels/attention.py`` (forward only). The kernel,
-``csrc/flash_attention.cu``, replaces the Pallas ``_flash_kernel``
-(``attention.py:56``, launched by ``_flash_forward`` at ``:122``). It is
-bound by bytes on the H100 at Latte's shapes (see the note in the source).
+Counterpart of ``latte_tpu/kernels/attention.py``. The kernels replace the
+Pallas kernels of that file:
 
-:func:`flash_attention` launches the kernel for a CUDA tensor and runs
-:func:`attention_reference` for a CPU tensor, nothing else: there is no
-fallback from one to the other.
+- ``csrc/flash_attention.cu``: ``_flash_kernel`` (``attention.py:56``,
+  launched by ``_flash_forward`` at ``:122``);
+- ``csrc/flash_attention_bwd.cu``: ``_flash_bwd_dq_kernel`` (``:143``,
+  launched at ``:257``) and ``_flash_bwd_dkv_kernel`` (``:184``, at ``:273``).
+
+:func:`flash_attention` and :func:`attention_qkv` are differentiable through
+``torch.autograd.Function``\\ s, the counterpart of the ``custom_vjp`` at
+``attention.py:299-327``: the forward saves q, k, v, the output and the fp32
+logsumexp; the backward computes ``delta = rowsum(dO * O)`` in fp32 and
+launches the dQ and dK/dV kernels. Each kernel wrapper launches its kernel
+for CUDA tensors and runs its plain version for CPU tensors, nothing else:
+there is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple, Union
 
 import torch
 
 from latte_tpu_torch.kernels import build
 
-__all__ = ["flash_attention", "attention_reference"]
+__all__ = [
+    "flash_attention",
+    "attention_qkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv",
+    "attention_reference",
+    "attention_backward_reference",
+    "attention_bwd_dq_reference",
+    "attention_bwd_dkv_reference",
+    "attention_delta",
+]
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,11 +64,64 @@ def attention_reference(
     out = (pv / l).permute(0, 2, 1, 3).to(q.dtype)
     if not return_lse:
         return out
-    return out, (m + torch.log(l)).reshape(B * H, N)
+    return out, (m + torch.log(l)).reshape(B * H, N).contiguous()
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32, as the (B·H, N) rows the backward
+    kernels read (the JAX code leaves it to XLA, ``attention.py:247-249``)."""
+    B, N, H, _ = out.shape
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(B * H, N).contiguous()
+
+
+def _backward_terms(q, k, v, lse, dout, delta):
+    """fp32 (B, H, N, N) probabilities and ds, and the rounded scaled q, at
+    the TPU kernels' rounding points."""
+    B, N, H, D = q.shape
+    qs = (q.float() * D**-0.5).to(q.dtype).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", qs, k.float())
+    p = torch.exp(s - lse.reshape(B, H, N, 1))
+    dp = torch.einsum("bnhd,bmhd->bhnm", dout.float(), v.float())
+    ds = (p * (dp - delta.reshape(B, H, N, 1))).to(q.dtype).float()
+    return qs, p, ds
+
+
+def attention_bwd_dq_reference(q, k, v, lse, dout, delta) -> torch.Tensor:
+    """The dQ kernel's plain version: ``dq = round(scale·ds·K)``."""
+    _, _, ds = _backward_terms(q, k, v, lse, dout, delta)
+    return (torch.einsum("bhnm,bmhd->bnhd", ds, k.float()) * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def attention_bwd_dkv_reference(q, k, v, lse, dout, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel's plain version: ``dk = round(dsᵀ·qs)``,
+    ``dv = round(round(p)ᵀ·dO)``."""
+    qs, p, ds = _backward_terms(q, k, v, lse, dout, delta)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qs).to(k.dtype)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(dout.dtype).float(), dout.float()).to(v.dtype)
+    return dk, dv
+
+
+def attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of attention over (B, N, H, D) with the TPU
+    kernels' rounding points (``_flash_backward``, ``attention.py:238``):
+    ``qs = round(q·scale)``, ``p = exp(qs·Kᵀ − lse)`` in fp32,
+    ``ds = round(p∘(dO·Vᵀ − Δ))``, ``dq = round(scale·ds·K)``,
+    ``dk = round(dsᵀ·qs)``, ``dv = round(round(p)ᵀ·dO)``; all sums fp32.
+    Returns ``(dq, dk, dv)``."""
+    delta = attention_delta(out, dout)
+    dq = attention_bwd_dq_reference(q, k, v, lse, dout, delta)
+    return (dq, *attention_bwd_dkv_reference(q, k, v, lse, dout, delta))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Validate the operands as the kernel takes them, on either device."""
+    """Validate the operands as the kernels take them, on either device."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"q, k, v must share one (B, N, H, D) shape; got "
@@ -69,19 +141,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Attention over (B, N, H, D) -> (B, N, H, D), plus the fp32 (B·H, N)
-    logsumexp when ``return_lse``.
+def _check_backward(q, k, v, dout, lse, delta, grads) -> None:
+    _check(q, k, v)
+    for t in (dout, *grads):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("dout and the gradients must match q's shape, dtype and device")
+        if t.stride(-1) != 1:
+            raise ValueError("dout and the gradients need a contiguous last (head_dim) axis")
+    B, N, H, _ = q.shape
+    for t in (lse, delta):
+        if t.shape != (B * H, N) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"lse and delta must be contiguous fp32 ({B * H}, {N}) tensors")
 
-    q, k, v may be strided views (the head-dim axis must be contiguous): the
-    kernel reads them in place. ``flash_attention.launches`` counts the
-    kernel launches.
-    """
+
+def _forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel (or, for CPU tensors, its plain version)."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, return_lse)
+        if return_lse:
+            return attention_reference(q, k, v, return_lse=True)
+        return attention_reference(q, k, v), None
     lib = build.load_library()
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
@@ -96,7 +177,164 @@ def flash_attention(
     )
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    return out, lse
+
+
+def _launch_backward(entry: str, q, k, v, dout, lse, delta, dq, dk, dv) -> None:
+    """Call one backward entry point; unused gradient slots are None."""
+    B, N, H, D = q.shape
+    ops = (q, k, v, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 21)(
+        *(0 if t is None else t.stride(i) for t in ops for i in range(3))
+    )
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = getattr(build.load_library(), entry)(
+        _DTYPE_CODE[q.dtype], *map(ptr, (q, k, v, dout, lse, delta, dq, dk, dv)),
+        B, N, H, D, strides, float(D**-0.5), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, entry)
+
+
+def flash_attention_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    dq: torch.Tensor,
+) -> torch.Tensor:
+    """dQ of attention over (B, N, H, D), written into ``dq`` (which may be a
+    strided view, e.g. of a fused (B, N, 3, H, D) gradient). ``lse`` and
+    ``delta`` are fp32 (B·H, N). ``flash_attention_bwd_dq.launches`` counts
+    the kernel launches."""
+    _check_backward(q, k, v, dout, lse, delta, (dq,))
+    if q.device.type == "cpu":
+        return dq.copy_(attention_bwd_dq_reference(q, k, v, lse, dout, delta))
+    _launch_backward("latte_flash_attention_bwd_dq", q, k, v, dout, lse, delta, dq, None, None)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    dk: torch.Tensor,
+    dv: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of attention over (B, N, H, D), written into ``dk`` and
+    ``dv`` (strided views allowed). ``flash_attention_bwd_dkv.launches``
+    counts the kernel launches."""
+    _check_backward(q, k, v, dout, lse, delta, (dk, dv))
+    if q.device.type == "cpu":
+        want_k, want_v = attention_bwd_dkv_reference(q, k, v, lse, dout, delta)
+        return dk.copy_(want_k), dv.copy_(want_v)
+    _launch_backward("latte_flash_attention_bwd_dkv", q, k, v, dout, lse, delta, None, dk, dv)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _backward_into(q, k, v, out, lse, dout, dq, dk, dv, plain: bool) -> None:
+    """The attention backward into dq, dk, dv: both kernels, or with
+    ``plain`` the plain backward on any device."""
+    if dout.dtype != q.dtype:
+        dout = dout.to(q.dtype)
+    if dout.stride(-1) != 1:  # e.g. expanded along head_dim: not readable by the kernels
+        dout = dout.contiguous()
+    if plain:
+        for grad, want in zip((dq, dk, dv), attention_backward_reference(q, k, v, out, lse, dout)):
+            grad.copy_(want)
+        return
+    delta = attention_delta(out, dout)
+    flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq)
+    flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv)
+
+
+def _forward_with_lse(q, k, v, plain: bool):
+    if plain:
+        _check(q, k, v)
+        return attention_reference(q, k, v, return_lse=True)
+    return _forward(q, k, v, return_lse=True)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention over separate q, k, v; the gradients are new tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward_with_lse(q, k, v, plain=False)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+        _backward_into(q, k, v, out, lse, dout, dq, dk, dv, plain=False)
+        return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Attention over one (B, N, 3, H, D) qkv tensor; its gradient comes back
+    as one tensor of that shape, written in place by the kernels."""
+
+    @staticmethod
+    def forward(ctx, qkv, plain):
+        out, lse = _forward_with_lse(*qkv.unbind(2), plain=plain)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        _backward_into(*qkv.unbind(2), out, lse, dout, *dqkv.unbind(2), plain=ctx.plain)
+        return dqkv, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Attention over (B, N, H, D) -> (B, N, H, D), plus the fp32 (B·H, N)
+    logsumexp (not differentiable) when ``return_lse``.
+
+    q, k, v may be strided views (the head-dim axis must be contiguous): the
+    kernels read them in place. Differentiable: the backward runs the dQ and
+    dK/dV kernels. Without autograd only the forward kernel runs, and the
+    logsumexp is computed only when asked for. ``flash_attention.launches``
+    counts the forward kernel's launches.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v)
+        return (out, lse) if return_lse else out
+    out, lse = _forward(q, k, v, return_lse)
     return (out, lse) if return_lse else out
 
 
+def attention_qkv(qkv: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Attention over the fused (B, N, 3, H, D) qkv projection -> (B, N, H, D),
+    the model's call. Differentiable; the gradient of qkv is written by the
+    backward kernels straight into one (B, N, 3, H, D) tensor. ``plain``
+    runs the plain forward and backward on any device instead of the kernels
+    (to hold the kernel path against them on the card)."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (B, N, 3, H, D); got {tuple(qkv.shape)}")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedAttention.apply(qkv, plain)
+    q, k, v = qkv.unbind(2)
+    if plain:
+        _check(q, k, v)
+        return attention_reference(q, k, v)
+    return _forward(q, k, v, return_lse=False)[0]
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

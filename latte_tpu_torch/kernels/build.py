@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``latte_tpu_torch/csrc/`` go through one ``nvcc`` call
+Each source under ``latte_tpu_torch/csrc/`` is compiled by its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
 into one shared library with a plain C interface (no PyTorch headers, so
 the build takes seconds), which :func:`load_library` opens with ``ctypes``.
 The library lands in ``build/latte_tpu_torch/`` at the root of the checkout,
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "latte_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -38,6 +39,13 @@ _SIGNATURES = {
     "latte_ln_modulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P],
     "latte_residual_ln_modulate": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
+    ),
+    # dtype, q, k, v, dout, lse, delta, dq, dk, dv, B, N, H, D, strides[21], ...
+    "latte_flash_attention_bwd_dq": (
+        [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]
+    ),
+    "latte_flash_attention_bwd_dkv": (
+        [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]
     ),
 }
 
@@ -76,15 +84,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-8000:]}"
-        )
+    nvcc, tag = find_nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources(), objs)]
+    try:
+        _run_all(jobs)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for path in (*objs, *(o.with_suffix(".log") for o in objs), tmp.with_suffix(".log")):
+            path.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def _run_all(cmds: list) -> None:
+    """Run the nvcc commands at once (each writes its errors to a log beside
+    its output) and wait for all; raise with the errors of any that failed."""
+    procs = []
+    for cmd in cmds:
+        log = Path(cmd[cmd.index("-o") + 1]).with_suffix(".log")
+        with open(log, "w") as f:
+            procs.append((cmd, log, subprocess.Popen(cmd, stderr=f)))
+    failed = [(cmd, log, p.wait()) for cmd, log, p in procs]
+    failed = [(cmd, log, rc) for cmd, log, rc in failed if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log.read_text()[-8000:]}"
+            for cmd, log, rc in failed
+        ))
 
 
 @functools.cache

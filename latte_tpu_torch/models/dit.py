@@ -6,9 +6,17 @@ and temporal (one patch across frames); they are a plain list, where the
 JAX model scans over stacked (spatial, temporal) pairs. The temporal
 position embedding is added before the first temporal block only.
 
-The model computes in the type of its parameters: ``model.to(torch.bfloat16)``
-is the port of the JAX model's ``dtype=bfloat16`` (sincos tables and inputs
-follow, the output comes back in the input's type).
+The model computes in ``compute_dtype``, by default the type of its
+parameters: ``model.to(torch.bfloat16)`` is the port of the JAX model's
+``dtype=bfloat16`` with bf16 weights (the sampler), and ``compute_dtype=
+torch.bfloat16`` over fp32 parameters the port of ``model.clone(dtype=
+bfloat16)`` in training, where the weights are cast per forward and the
+gradients reach the fp32 masters. Sincos tables and inputs follow; the
+output comes back in the input's type.
+
+``gradient_checkpointing`` recomputes each spatial/temporal pair in the
+backward (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` with
+the "full" policy does around the JAX model's scanned pair.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from latte_tpu_torch.models.embeddings import (
     LabelEmbedder,
@@ -51,6 +60,8 @@ class Latte(nn.Module):
         learn_sigma: bool = True,
         extras: int = 1,
         plain: bool = False,
+        gradient_checkpointing: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if extras not in (1, 2):
@@ -69,6 +80,8 @@ class Latte(nn.Module):
         self.num_frames = num_frames
         self.num_classes = num_classes
         self.extras = extras
+        self.gradient_checkpointing = gradient_checkpointing
+        self.compute_dtype = compute_dtype
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
@@ -126,39 +139,47 @@ class Latte(nn.Module):
         table = get_1d_sincos_pos_embed(self.hidden_size, frames)
         return torch.from_numpy(table).to(self.temp_embed.device, dtype)[None]
 
+    def _pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int) -> torch.Tensor:
+        """Blocks i (spatial) and i + 1 (temporal) on (B·F, T, D) tokens.
+
+        The relayouts copy: the kernels take contiguous activations (at B = 1
+        a reshape of the transposed view would otherwise stay strided)."""
+        T, D = x.shape[1], x.shape[2]
+        x = self.blocks[i](x, c_spatial)
+        # (b f) t d -> (b t) f d
+        x = x.reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
+        if temp_embed is not None:
+            x = x + temp_embed
+        x = self.blocks[i + 1](x, c_temp)
+        # (b t) f d -> (b f) t d
+        return x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
+
     def forward(
         self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         B, F, C, H, W = x.shape
         in_dtype = x.dtype
-        dtype = self.x_embedder.proj.weight.dtype
+        dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
         p = self.patch_size
 
-        x = self.x_embedder(x.reshape(B * F, C, H, W))  # (B·F, T, D)
-        T, D = x.shape[1], x.shape[2]
+        x = self.x_embedder(x.reshape(B * F, C, H, W), dtype)  # (B·F, T, D)
+        T = x.shape[1]
         x = x + self._pos_embed(H // p, dtype)
 
-        t_emb = self.t_embedder(t)
+        t_emb = self.t_embedder(t, dtype)
         # per-frame conditioning for spatial blocks, per-patch for temporal
         c_spatial = t_emb.repeat_interleave(F, dim=0)
         c_temp = t_emb.repeat_interleave(T, dim=0)
         if self.extras == 2:
-            y_emb = self.y_embedder(y)
+            y_emb = self.y_embedder(y).to(dtype)
             c_spatial = c_spatial + y_emb.repeat_interleave(F, dim=0)
             c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
 
         temp_embed = self._temp_embed(F, dtype)
-        # the relayouts copy: the kernels take contiguous activations (at B = 1
-        # a reshape of the transposed view would otherwise stay strided)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for i in range(0, self.depth, 2):
-            x = self.blocks[i](x, c_spatial)
-            # (b f) t d -> (b t) f d
-            x = x.reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
-            if i == 0:
-                x = x + temp_embed
-            x = self.blocks[i + 1](x, c_temp)
-            # (b t) f d -> (b f) t d
-            x = x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
+            args = (x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F)
+            x = checkpoint(self._pair, *args, use_reentrant=False) if remat else self._pair(*args)
 
         c_final = c_spatial if self.extras == 2 else t_emb.repeat_interleave(F, dim=0)
         x = self.final_layer(x, c_final)

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from latte_tpu_torch.models.layers import Linear
+
 __all__ = [
     "get_1d_sincos_pos_embed",
     "get_2d_sincos_pos_embed",
@@ -72,14 +74,16 @@ class TimestepEmbedder(nn.Module):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
         self.mlp = nn.Sequential(
-            nn.Linear(frequency_embedding_size, hidden_size),
+            Linear(frequency_embedding_size, hidden_size),
             nn.SiLU(),
-            nn.Linear(hidden_size, hidden_size),
+            Linear(hidden_size, hidden_size),
         )
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(N,) timesteps -> (N, hidden), computed in ``dtype`` (default: the
+        weights')."""
         x = timestep_embedding(t, self.frequency_embedding_size)
-        return self.mlp(x.to(self.mlp[0].weight.dtype))
+        return self.mlp(x.to(dtype or self.mlp[0].weight.dtype))
 
 
 class LabelEmbedder(nn.Module):

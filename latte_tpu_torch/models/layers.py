@@ -8,9 +8,15 @@ fused qkv projection keeps the reference's ``[q|k|v]`` row layout.
 Attention and the block's LayerNorm/modulate/residual glue always go through
 the hand-written kernels' wrappers (:mod:`latte_tpu_torch.kernels`), which
 launch the CUDA kernels for CUDA tensors and run the plain versions for CPU
-tensors. ``plain=True`` calls the plain versions directly on any device; it
-exists so a run on the card can hold the kernel path against the plain one.
+tensors. ``plain=True`` runs the plain versions on any device (for attention
+both its forward and its backward); it exists so a run on the card can hold
+the kernel path against the plain one.
 The int8, ring-attention and MoE branches of the JAX blocks are not ported.
+
+Every projection is a :class:`Linear` that computes in the type of its
+input: its weights are cast per call, so a model with fp32 parameters and
+bf16 activations computes in bf16 and its gradients reach the fp32
+parameters (the JAX modules' ``dtype`` against ``param_dtype``).
 """
 
 from __future__ import annotations
@@ -20,8 +26,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from latte_tpu_torch.kernels import (
-    attention_reference,
-    flash_attention,
+    attention_qkv,
     ln_modulate,
     ln_modulate_reference,
     residual_ln_modulate,
@@ -29,6 +34,7 @@ from latte_tpu_torch.kernels import (
 )
 
 __all__ = [
+    "Linear",
     "modulate",
     "layer_norm",
     "Mlp",
@@ -53,20 +59,29 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's type (a no-op cast when the
+    parameters already have it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class Mlp(nn.Module):
     """Linear -> gelu(tanh) -> Linear."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention through the flash-attention kernel."""
+    """Multi-head self-attention through the flash-attention kernels."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, plain: bool = False):
         super().__init__()
@@ -75,15 +90,16 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.plain = plain
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         # [q|k|v] rows: q, k, v are strided (B, N, H, hd) views of one tensor,
-        # which the kernel reads in place
-        q, k, v = self.qkv(x).view(B, N, 3, self.num_heads, self.head_dim).unbind(2)
-        out = (attention_reference if self.plain else flash_attention)(q, k, v)
+        # which the kernels read in place; the backward writes its gradient
+        # back as one (B, N, 3, H, hd) tensor
+        qkv = self.qkv(x).view(B, N, 3, self.num_heads, self.head_dim)
+        out = attention_qkv(qkv, plain=self.plain)
         return self.proj(out.reshape(B, N, C))
 
 
@@ -97,7 +113,7 @@ class AdaLNBlock(nn.Module):
         self.plain = plain
         self.attn = Attention(hidden_size, num_heads, qkv_bias=True, plain=plain)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(hidden_size, 6 * hidden_size))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -117,8 +133,8 @@ class FinalLayer(nn.Module):
 
     def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
         super().__init__()
-        self.linear = nn.Linear(hidden_size, patch_size * patch_size * out_channels)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
+        self.linear = Linear(hidden_size, patch_size * patch_size * out_channels)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(hidden_size, 2 * hidden_size))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
@@ -137,8 +153,9 @@ class PatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.proj = nn.Conv2d(in_channels, hidden_size, patch_size, stride=patch_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, C, H, W) -> (B, H/p * W/p, D)."""
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(B, C, H, W) -> (B, H/p * W/p, D), computed in ``dtype`` (default:
+        the weight's)."""
         B, C, H, W = x.shape
         p = self.patch_size
         if H % p or W % p:
@@ -146,7 +163,8 @@ class PatchEmbed(nn.Module):
         x = x.reshape(B, C, H // p, p, W // p, p).permute(0, 2, 4, 1, 3, 5)
         x = x.reshape(B, (H // p) * (W // p), C * p * p)
         w = self.proj.weight
-        return F.linear(x.to(w.dtype), w.reshape(w.shape[0], -1), self.proj.bias)
+        dtype = dtype or w.dtype
+        return F.linear(x.to(dtype), w.reshape(w.shape[0], -1).to(dtype), self.proj.bias.to(dtype))
 
 
 def unpatchify(x: torch.Tensor, patch_size: int, out_channels: int) -> torch.Tensor:

@@ -2,9 +2,11 @@
 
 Port of ``latte_tpu/models/registry.py`` for the video model. Options of
 the JAX factory that select work this port has not taken on yet (int8,
-MoE, ring attention, the image model) raise ``NotImplementedError``;
-execution hints for the JAX compiler (scan unrolling, remat, the fused-adaLN
-switch) have no counterpart here, since the port always runs its fused kernels.
+MoE, ring attention, the image model, the "dots" remat policy) raise
+``NotImplementedError``; execution hints for the JAX compiler (scan
+unrolling, the fused-adaLN switch) have no counterpart here, since the port
+always runs its fused kernels. ``gradient_checkpointing`` recomputes each
+spatial/temporal pair in the backward (the "full" remat policy).
 """
 
 from __future__ import annotations
@@ -61,6 +63,14 @@ def get_models(args) -> Latte:
     )
     if getattr(args, "num_classes", None):
         common["num_classes"] = int(args.num_classes)
+    if getattr(args, "gradient_checkpointing", False):
+        policy = getattr(args, "remat_policy", None) or "full"
+        if policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={policy!r}: the port recomputes whole pairs ('full'); "
+                "saving the matmul outputs ('dots') comes with a later training slice"
+            )
+        common["gradient_checkpointing"] = True
     if getattr(args, "model_overrides", None):
         common.update(dict(args.model_overrides))
     return get_model(args.model, **common)

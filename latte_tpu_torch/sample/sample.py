@@ -28,17 +28,7 @@ from latte_tpu_torch.convert import load_reference_checkpoint
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
 from latte_tpu_torch.models import Latte, get_models
-from latte_tpu_torch.utils import create_logger
-
-
-def resolve_device(device: Optional[str] = None) -> torch.device:
-    """``cuda`` unless the caller names another device; never a silent fallback."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' (--device cpu) to run on the CPU"
-        )
-    return dev
+from latte_tpu_torch.utils import create_logger, resolve_device
 
 
 def build_model(config: Config, device: torch.device) -> Latte:

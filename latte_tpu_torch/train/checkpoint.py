@@ -1,0 +1,101 @@
+"""Checkpoints in the reference ``.pt`` layout (port of
+``latte_tpu/train/checkpoint.py``; orbax is not reproduced).
+
+One file per step, ``<ckpt_dir>/<step:07d>.pt``, holding
+``{"model", "ema", "opt", "step", "args"}``: the model's and the EMA's state
+dicts, the optimizer's state dict, the step and the run's config. The
+port's sampler reads it through
+:func:`latte_tpu_torch.convert.load_reference_checkpoint`, preferring EMA.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import torch
+import yaml
+
+from latte_tpu_torch.convert import load_reference_checkpoint
+from latte_tpu_torch.train.state import TrainState
+
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "restore_train_state",
+    "latest_checkpoint",
+    "latest_checkpoint_under",
+    "find_model",
+]
+
+
+def save_checkpoint(path: str, state: TrainState, args: Optional[Dict[str, Any]] = None) -> str:
+    """Write the whole train state to ``path``; atomic (a reader never sees
+    a partial file)."""
+    payload = {
+        "model": state.model.state_dict(),
+        "ema": state.ema.state_dict(),
+        "opt": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "args": dict(args or {}),
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def restore_train_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
+    """Load step, model, EMA and optimizer state into ``state`` in place."""
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.ema.load_state_dict(payload["ema"], strict=True)
+    state.optimizer.load_state_dict(payload["opt"])
+    state.step = int(payload["step"])
+    return state
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The newest step-numbered checkpoint (e.g. ``0050000.pt``) in a dir."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [f[:-3] for f in os.listdir(ckpt_dir) if f.endswith(".pt") and f[:-3].isdigit()]
+    if not steps:
+        return None
+    return os.path.join(ckpt_dir, max(steps, key=int) + ".pt")
+
+
+def latest_checkpoint_under(results_dir: str, model: Optional[str] = None) -> Optional[str]:
+    """The highest-step checkpoint over every ``<results_dir>/*/checkpoints``;
+    with ``model``, experiments whose saved config names another model are
+    skipped."""
+    if not os.path.isdir(results_dir):
+        return None
+
+    def exp_model(exp: str) -> Optional[str]:
+        try:
+            with open(os.path.join(results_dir, exp, "config.yaml")) as f:
+                m = (yaml.safe_load(f) or {}).get("model")
+        except (OSError, yaml.YAMLError):
+            return None  # unreadable config: don't exclude
+        return None if m is None else str(m)
+
+    best, best_step = None, -1
+    for exp in sorted(os.listdir(results_dir)):
+        if model is not None and exp_model(exp) not in (None, str(model)):
+            continue
+        cand = latest_checkpoint(os.path.join(results_dir, exp, "checkpoints"))
+        if cand is not None:
+            step = int(os.path.basename(cand)[:-3])
+            if step > best_step:
+                best, best_step = cand, step
+    return best
+
+
+def find_model(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """Inference weights (a state dict) from a checkpoint; EMA preferred."""
+    return load_reference_checkpoint(path, prefer_ema=prefer_ema)

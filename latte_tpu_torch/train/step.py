@@ -1,0 +1,113 @@
+"""The training step (port of ``latte_tpu/train/step.py``, one device).
+
+q_sample -> model forward -> hybrid MSE + VB loss -> backward -> global
+grad norm (always reported) -> clipping once ``step >= start_clip_iter`` ->
+AdamW -> EMA every ``ema_every`` steps at ``decay**ema_every``.
+
+The step leaves its metrics on the device: it never waits for the host, so
+the loop syncs only when it logs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from latte_tpu_torch.core.diffusion import GaussianDiffusion
+from latte_tpu_torch.train.state import TrainState, update_ema
+
+__all__ = ["global_norm", "make_train_step"]
+
+Batch = Dict[str, torch.Tensor]
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, in fp32."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+def _latents(batch: Batch, generator: torch.Generator, vae_scale: float) -> torch.Tensor:
+    if "latent_mean" not in batch:
+        return batch["latents"]
+    # latent cache: a fresh posterior sample from the cached moments each
+    # step, drawn on the frame-flattened (B·F, C, h, w) layout
+    mean, std = batch["latent_mean"], batch["latent_std"]
+    flat = (mean.shape[0] * mean.shape[1],) + tuple(mean.shape[2:])
+    eps = torch.randn(flat, generator=generator, device=mean.device, dtype=mean.dtype)
+    return ((mean.reshape(flat) + std.reshape(flat) * eps) * vae_scale).reshape(mean.shape)
+
+
+def make_train_step(
+    diffusion: GaussianDiffusion,
+    *,
+    ema_decay: float = 0.9999,
+    ema_every: int = 1,
+    clip_max_norm: float = 0.1,
+    start_clip_iter: int = 0,
+    vae_scale: float = 0.18215,
+) -> Callable[[TrainState, Batch, torch.Generator], Dict[str, torch.Tensor]]:
+    """Build ``train_step(state, batch, generator) -> metrics``, which updates
+    ``state`` in place.
+
+    ``batch``: ``"latents"`` (B, F, C, H, W) fp32 (already scaled), or the
+    latent cache's ``"latent_mean"``/``"latent_std"``; optionally ``"t"``
+    (importance-sampled timesteps) with ``"t_weights"``, and ``"noise"``
+    (the diffusion noise, else drawn from ``generator``). Draw order from
+    the generator: posterior sample, t, noise.
+    """
+
+    def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
+        model = state.model
+        latents = _latents(batch, generator, vae_scale)
+        B = latents.shape[0]
+        if "t" in batch:
+            t = batch["t"].long()
+        else:
+            t = torch.randint(
+                0, diffusion.num_timesteps, (B,), generator=generator, device=latents.device
+            )
+        noise = batch.get("noise")
+        if noise is None:
+            noise = torch.randn(
+                latents.shape, generator=generator, device=latents.device, dtype=latents.dtype
+            )
+
+        terms = diffusion.training_losses(model, latents, t, noise)
+        per_sample = terms["loss"]
+        if "t_weights" in batch:
+            # importance-sampling correction: E_p[w(t) L(t)] = E_U[L]
+            per_sample = per_sample * batch["t_weights"]
+        loss = per_sample.mean()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+
+        grads = [p.grad for p in model.parameters()]
+        grad_norm = global_norm(grads)
+        with torch.no_grad():
+            if state.step >= start_clip_iter:
+                torch._foreach_mul_(grads, torch.clamp(clip_max_norm / (grad_norm + 1e-6), max=1.0))
+            for group in state.optimizer.param_groups:
+                group["lr"] = state.schedule(state.step)
+            state.optimizer.step()
+            if ema_every <= 1:
+                update_ema(state.ema, model, ema_decay)
+            elif (state.step + 1) % ema_every == 0:
+                update_ema(state.ema, model, ema_decay**ema_every)
+        state.step += 1
+
+        metrics = {
+            "loss": loss.detach(),
+            "mse": terms["mse"].detach().mean(),
+            "grad_norm": grad_norm.detach(),
+            "t_mean": t.float().mean(),
+        }
+        if "vb" in terms:
+            metrics["vb"] = terms["vb"].detach().mean()
+        if "t" in batch:
+            # per-sample feedback for the loss-aware resampler (unweighted)
+            metrics["t_sampled"] = t
+            metrics["per_sample_loss"] = terms["loss"].detach()
+        return metrics
+
+    return train_step

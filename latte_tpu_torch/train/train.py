@@ -1,0 +1,266 @@
+"""Training entry point (port of ``latte_tpu/train/train.py``, one device).
+
+Builds the model, AdamW, the EMA and the diffusion from a config, feeds a
+latent cache or, when ``data_path`` does not exist, synthetic latents, and
+runs the training step (``train/step.py``): the kernels of
+``latte_tpu_torch/kernels`` carry every attention and adaLN forward, and
+the flash-attention backward. It syncs with the host once per
+``log_every`` steps, writes a checkpoint every ``ckpt_every`` steps and at
+the end, and resumes from ``resume_from_checkpoint``.
+
+Runs on ``cuda`` unless asked for the CPU::
+
+    python -m latte_tpu_torch.train.train --config configs/ffs/ffs_train.yaml \\
+        [--device cpu] [key=value ...]
+
+Options of the JAX trainer that this port does not carry yet raise
+``NotImplementedError`` naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from latte_tpu_torch.config import Config, load_config
+from latte_tpu_torch.config.loader import save_config
+from latte_tpu_torch.core.diffusion import create_diffusion
+from latte_tpu_torch.core.timestep_samplers import LossAwareSampler, create_named_schedule_sampler
+from latte_tpu_torch.models import get_models
+from latte_tpu_torch.train.callbacks import CallbackList
+from latte_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    latest_checkpoint_under,
+    load_checkpoint,
+    restore_train_state,
+    save_checkpoint,
+)
+from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+from latte_tpu_torch.train.step import make_train_step
+from latte_tpu_torch.utils import create_experiment_dir, create_logger, resolve_device
+
+__all__ = ["check_config", "make_batch_iterator", "main", "cli"]
+
+# config options of the JAX trainer that this slice does not port, with the
+# slice that brings each: (key, is it set?, later slice)
+_NOT_PORTED = (
+    ("fixed_spatial", lambda v: bool(v), "a later training slice (temporal-only fine-tuning)"),
+    ("gradient_accumulation_steps", lambda v: int(v or 1) > 1, "a later training slice"),
+    ("adam_mu_dtype", lambda v: bool(v), "a later training slice (bf16 Adam moments)"),
+    ("pretrained", lambda v: bool(v), "a later training slice (partial pretrained load)"),
+    ("quant_train", lambda v: bool(v), "the int8 slice"),
+    ("use_image_num", lambda v: int(v or 0) > 0, "the T2V/image slice (joint image training)"),
+    ("moe_experts", lambda v: int(v or 0) > 0, "the multi-GPU slice (MoE)"),
+    ("tensor_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
+    ("sequence_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
+    ("pipeline_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
+    ("expert_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
+    ("fsdp", lambda v: bool(v), "the multi-GPU slice"),
+    ("zero1", lambda v: bool(v), "the multi-GPU slice"),
+)
+
+
+def check_config(config: Config) -> None:
+    """Raise ``NotImplementedError`` for a set option this slice does not port."""
+    for key, is_set, later in _NOT_PORTED:
+        if is_set(getattr(config, key, None)):
+            raise NotImplementedError(f"{key}={getattr(config, key)!r}: not ported yet; comes with {later}")
+    extras = int(getattr(config, "extras", 1))
+    if extras != 1:
+        raise NotImplementedError(
+            f"extras={extras}: the port trains the unconditional model only; class- and "
+            "text-conditioned training come with the T2V/image slice"
+        )
+    if str(getattr(config, "synthetic_kind", "latents") or "latents") != "latents":
+        raise NotImplementedError("synthetic_kind: pixels needs the VAE encoder (the VAE slice)")
+
+
+def make_batch_iterator(
+    config: Config, logger, batch_size: int
+) -> Tuple[Iterator[Dict[str, np.ndarray]], str]:
+    """A latent cache when ``data_path`` holds one, else synthetic latents
+    from ``global_seed``; a dataset of videos raises (it needs the VAE
+    encoder)."""
+    from latte_tpu_torch.data import DataLoader, LatentCacheDataset, is_latent_cache
+
+    data_path = str(getattr(config, "data_path", "") or "")
+    latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
+    frames = int(getattr(config, "num_frames", 16))
+    seed = int(getattr(config, "global_seed", 0))
+    if is_latent_cache(data_path):
+        dataset = LatentCacheDataset(data_path)
+        logger.info(
+            f"latent cache {data_path}: {len(dataset)} items "
+            f"({dataset.meta['frames']}f, latent {dataset.meta['latent_shape']})"
+        )
+        cache_scale = float(dataset.meta.get("vae_scale", 0.18215))
+        if abs(cache_scale - float(getattr(config, "vae_scale", cache_scale))) > 1e-9:
+            logger.warning(
+                f"latent cache was encoded with vae_scale={cache_scale} but the config says "
+                f"{config.vae_scale}; using the cache's scale"
+            )
+        config.vae_scale = cache_scale
+        loader = DataLoader(
+            dataset, batch_size=batch_size,
+            num_workers=int(getattr(config, "num_workers", 4) or 4), seed=seed,
+        )
+        return iter(loader), "latents_cached"
+    if os.path.isdir(data_path):
+        raise NotImplementedError(
+            f"data_path {data_path!r} holds videos: encoding them needs the VAE encoder, "
+            "which comes with the VAE slice (a latent cache trains now)"
+        )
+    logger.info("data_path missing — using synthetic latent batches")
+    rng = np.random.default_rng(seed)
+
+    def synthetic():
+        while True:
+            yield {
+                "latents": rng.standard_normal(
+                    (batch_size, frames, 4, latent, latent), dtype=np.float32
+                )
+            }
+
+    return synthetic(), "synthetic_latents"
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """A generator seed per (run seed, step): a resumed run draws what an
+    uninterrupted one would (the JAX step's ``fold_in(rng, step)``)."""
+    return (seed * 1_000_003 + step) % (2**63)
+
+
+def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
+    """Train; returns ``{"experiment_dir", "final_step", "loss", "grad_norm",
+    "steps_per_sec"}`` (the last three from the last log interval)."""
+    check_config(config)
+    dev = resolve_device(device)
+    cbs = CallbackList(callbacks)
+    experiment_dir = create_experiment_dir(str(getattr(config, "results_dir", "./results")), config)
+    logger = create_logger(experiment_dir)
+    save_config(config, os.path.join(experiment_dir, "config.yaml"))
+    ckpt_dir = os.path.join(experiment_dir, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    seed = int(getattr(config, "global_seed", 0))
+
+    with torch.device(dev):
+        model = get_models(config)
+    model.initialize_weights(torch.Generator(device=dev).manual_seed(seed))
+    if getattr(config, "mixed_precision", False):
+        # bf16 compute over fp32 master parameters (model.clone(dtype=bfloat16))
+        model.compute_dtype = torch.bfloat16
+    model.train()
+    max_steps = int(getattr(config, "max_train_steps", 1000))
+    schedule = make_lr_schedule(
+        float(getattr(config, "learning_rate", 1e-4)),
+        int(getattr(config, "lr_warmup_steps", 0) or 0),
+        schedule=str(getattr(config, "lr_schedule", "warmup") or "warmup"),
+        decay_steps=int(getattr(config, "lr_decay_steps", 0) or max_steps or 0),
+        lr_min=float(getattr(config, "lr_min", 0.0) or 0.0),
+    )
+    optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)))
+    state = create_train_state(model, optimizer, schedule)
+    logger.info(
+        f"{config.model} on {dev}: {sum(p.numel() for p in model.parameters()):,} parameters, "
+        f"compute {model.compute_dtype or torch.float32}, "
+        f"gradient checkpointing {model.gradient_checkpointing}"
+    )
+
+    resume = getattr(config, "resume_from_checkpoint", None)
+    start_step = 0
+    if resume:
+        if os.path.isfile(str(resume)):
+            path = str(resume)
+        elif os.path.isdir(str(resume)):
+            path = latest_checkpoint(str(resume))
+        else:  # `true`: the newest checkpoint of this model under results_dir
+            path = latest_checkpoint_under(
+                str(getattr(config, "results_dir", "./results")), model=str(config.model)
+            )
+        if path is None:
+            logger.warning(f"resume_from_checkpoint={resume!r}: no checkpoint found; starting from scratch")
+        else:
+            restore_train_state(state, load_checkpoint(path))
+            start_step = state.step
+            logger.info(f"resumed from {path} @ step {start_step}")
+
+    local_batch = int(getattr(config, "local_batch_size", 5))
+    batches, data_kind = make_batch_iterator(config, logger, local_batch)
+    if getattr(config, "vae_ckpt", None):
+        logger.info(f"{data_kind} batches: VAE encode skipped (latents direct)")
+    diffusion = create_diffusion("", diffusion_steps=1000)
+    train_step = make_train_step(
+        diffusion,
+        ema_decay=float(getattr(config, "ema_decay", 0.9999)),
+        ema_every=int(getattr(config, "ema_every", 1) or 1),
+        clip_max_norm=float(getattr(config, "clip_max_norm", 0.1)),
+        start_clip_iter=int(getattr(config, "start_clip_iter", 0) or 0),
+        vae_scale=float(getattr(config, "vae_scale", 0.18215)),
+    )
+    schedule_sampler = create_named_schedule_sampler(
+        str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion
+    )
+    loss_aware = isinstance(schedule_sampler, LossAwareSampler)
+
+    log_every = int(getattr(config, "log_every", 100))
+    ckpt_every = int(getattr(config, "ckpt_every", 10000))
+    args = config.to_dict() if isinstance(config, Config) else dict(config)
+    generator = torch.Generator(device=dev)
+    cbs.on_train_start(config, state, experiment_dir)
+    running, t_start = 0, time.perf_counter()
+    last_metrics: dict = {}
+    stop_step, last_ckpt_step = max_steps, None
+    for step_idx in range(start_step, max_steps):
+        generator.manual_seed(_step_seed(seed, step_idx))
+        batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in next(batches).items()}
+        if loss_aware:
+            batch["t"], batch["t_weights"] = schedule_sampler.sample(generator, local_batch)
+        metrics = train_step(state, batch, generator)
+        if loss_aware:
+            schedule_sampler.update_with_local_losses(metrics["t_sampled"], metrics["per_sample_loss"])
+        running += 1
+        if (step_idx + 1) % log_every == 0:
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # the host sync
+            steps_per_sec = running / (time.perf_counter() - t_start)
+            logger.info(
+                f"step {step_idx + 1}: loss={loss:.4f} grad_norm={gnorm:.3f} steps/s={steps_per_sec:.3f}"
+            )
+            last_metrics = {"loss": loss, "grad_norm": gnorm, "steps_per_sec": steps_per_sec}
+            cbs.on_log(step_idx + 1, last_metrics)
+            if cbs.should_stop(step_idx + 1, last_metrics):
+                logger.info(f"early stop requested at step {step_idx + 1}")
+                stop_step = step_idx + 1
+                break
+            running, t_start = 0, time.perf_counter()
+        if (step_idx + 1) % ckpt_every == 0:
+            path = save_checkpoint(os.path.join(ckpt_dir, f"{step_idx + 1:07d}.pt"), state, args)
+            last_ckpt_step = step_idx + 1
+            logger.info(f"saved checkpoint {path}")
+            cbs.on_checkpoint(step_idx + 1, path)
+
+    # a final checkpoint unless that step was just saved or nothing trained
+    if last_ckpt_step != stop_step and stop_step > start_step:
+        path = save_checkpoint(os.path.join(ckpt_dir, f"{stop_step:07d}.pt"), state, args)
+        logger.info(f"saved checkpoint {path}")
+        cbs.on_checkpoint(stop_step, path)
+    result = {"experiment_dir": experiment_dir, "final_step": stop_step, **last_metrics}
+    cbs.on_train_end(result)
+    return result
+
+
+def cli(argv=None) -> dict:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("overrides", nargs="*")
+    a = p.parse_args(argv)
+    return main(load_config(a.config, a.overrides), device=a.device)
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,17 +1,52 @@
-"""Logging for the port's entry points (counterpart of ``latte_tpu/utils.py``)."""
+"""Logging, experiment directories and device choice for the port's entry
+points (counterpart of ``latte_tpu/utils.py``)."""
 
 from __future__ import annotations
 
 import logging
+import os
+from typing import Optional
+
+import torch
 
 
-def create_logger() -> logging.Logger:
-    """Logger to stdout."""
+def create_logger(logging_dir: Optional[str] = None) -> logging.Logger:
+    """Logger to stdout, and to ``<logging_dir>/log.txt`` when a dir is given."""
     logger = logging.getLogger("latte_tpu_torch")
     logger.handlers.clear()
     logger.setLevel(logging.INFO)
     logger.propagate = False
+    fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
     sh = logging.StreamHandler()
-    sh.setFormatter(logging.Formatter("[%(asctime)s] %(message)s", datefmt="%Y-%m-%d %H:%M:%S"))
+    sh.setFormatter(fmt)
     logger.addHandler(sh)
+    if logging_dir is not None:
+        os.makedirs(logging_dir, exist_ok=True)
+        fh = logging.FileHandler(os.path.join(logging_dir, "log.txt"))
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
     return logger
+
+
+def create_experiment_dir(results_dir: str, config) -> str:
+    """Auto-indexed experiment dir ``NNN-<model>[-flags]`` under ``results_dir``."""
+    os.makedirs(results_dir, exist_ok=True)
+    existing = [d for d in os.listdir(results_dir) if "-" in d and d.split("-")[0].isdigit()]
+    index = max([int(d.split("-")[0]) for d in existing], default=-1) + 1
+    name = str(getattr(config, "model", "model")).replace("/", "-")
+    for flag, suffix in (("gradient_checkpointing", "gc"), ("mixed_precision", "amp")):
+        if getattr(config, flag, None):
+            name += f"-{suffix}"
+    path = os.path.join(results_dir, f"{index:03d}-{name}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def resolve_device(device: Optional[str] = None) -> torch.device:
+    """``cuda`` unless the caller names another device; never a silent fallback."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    return dev
