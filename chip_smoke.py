@@ -34,7 +34,24 @@ non-zero exit and a traceback:
    as shipped (fp32, batch 5, synthetic latents) for a few steps, with its
    launch counts, seconds per step, peak memory and a profile of the last step,
    then a resume from its checkpoint and a short DDIM run of the port's
-   sampler on the trained EMA; (c) two steps with mixed_precision: true.
+   sampler on the trained EMA; (c) two steps with mixed_precision: true;
+   (d) two steps with quant_train: true (int8 training) at batch 1;
+7. int8: (a) the int8 flash-attention kernel against its plain version in
+   bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
+   N = 2048 (two scale blocks), in both P.V modes, with the time of bf16
+   SDPA at the same shape as context (it is no int8 yardstick: no PyTorch
+   call computes int8 attention); then at the same shapes in fp32, held
+   tightly, where three deliberately wrong kernels (a P scale per K tile or
+   per row, no quantize of q/k/v) must fail the same check; (b) the full-width forward calibrated at
+   three timesteps and served in static W8A8 with int8 attention, kernel
+   path against the plain int8 path and the fp32 plain path, launch counts
+   and a profile in which the int8 products and the quantize passes are
+   kinds of their own; (c) ``sample.main`` with quantized: static,
+   int8_attention: true, attention_mode: flash at DDIM-50 from the same
+   checkpoint as phase 5: launch counts, the int8 quality guard against the
+   bf16 latents of phase 5, the plain int8 path, int8 videos/min; then a
+   few DDIM steps with quantized: true and with int8_attention: qk under
+   attention_mode: auto.
 
 Prints the kernels' JSON line and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -73,7 +90,9 @@ from latte_tpu_torch.kernels import (
     residual_ln_modulate,
     residual_ln_modulate_reference,
 )
+from latte_tpu_torch.kernels import flash_attention_int8, flash_scale_block, int8_attention
 from latte_tpu_torch.models import get_model
+from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.sample import sample
 from latte_tpu_torch.train import train
 from latte_tpu_torch.train.callbacks import Callback
@@ -81,6 +100,7 @@ from latte_tpu_torch.train.callbacks import Callback
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense tensor-core bf16
 FP32_FLOP_PER_S = 67e12     # CUDA-core fp32
+INT8_OPS_PER_S = 1979e12    # dense tensor-core int8
 # bf16 keeps 8 significant bits: a result may differ from the plain version
 # by one rounding step, 2^-7 of the largest magnitude; allow two
 BF16_TOL = 2.0**-6
@@ -88,6 +108,21 @@ BF16_TOL = 2.0**-6
 FP32_TOL = 1e-5
 # the fp32 logsumexp (values of order 5) of the kernel and the plain version
 LSE_TOL = 1e-4
+# the int8 kernel in fp32 against its plain version, by its arithmetic:
+# relative L2 of the difference, the largest difference over the largest
+# magnitude, and the share of elements more than 1e-6 of that apart. The
+# int32 sums are exact and exp is the same function on both sides, so p is
+# the same to the bit; only the fp32 sums of l and of the "qk" P.V run in
+# another order, a few ulp apart. The flash arithmetic rounds p itself, so
+# it is held at the CPU tests' limits. The fused one rounds p / l: where the
+# other l moves that across a half-integer of p·127/p_max, P rounds to the
+# neighbouring int8 value, which moves the D elements of one row by
+# |v|·p_max/127. Hence its looser L2 limit, and the share limit for both:
+# a wrong P scale or a skipped quantize moves nearly every element
+INT8_FP32_TOL = {
+    "flash": dict(rel_l2=1e-5, max_rel=2e-3, share_apart=1e-3),
+    "fused": dict(rel_l2=1e-4, max_rel=2e-3, share_apart=1e-3),
+}
 HIDDEN, HEADS, HEAD_DIM, FRAMES, TOKENS, DEPTH = 1152, 16, 72, 16, 256, 28
 TRAIN_BATCH, TRAIN_STEPS = 5, 6  # ffs_train.yaml's local_batch_size; steps of the entry-point run
 KERNELS = {
@@ -116,13 +151,32 @@ KERNELS = {
         replaces="latte_tpu/kernels/attention.py:184",
         fn=flash_attention_bwd_dkv,
     ),
+    "flash_attention_int8": dict(
+        source="latte_tpu_torch/csrc/flash_attention_int8.cu",
+        replaces="latte_tpu/kernels/attention.py:330",
+        fn=flash_attention_int8,
+    ),
 }
 FORWARD = ("flash_attention", "ln_modulate", "residual_ln_modulate")
 BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+INT8 = "flash_attention_int8"
 # launches of each kernel in one train step with gradient checkpointing:
 # every forward kernel twice per block (forward and recompute), each
-# backward kernel once per block
-STEP_LAUNCHES = {**{k: 2 * DEPTH for k in FORWARD}, **{k: DEPTH for k in BACKWARD}}
+# backward kernel once per block; training has no int8 attention
+STEP_LAUNCHES = {**{k: 2 * DEPTH for k in FORWARD}, **{k: DEPTH for k in BACKWARD}, INT8: 0}
+# the int8 kernel's cases: (rows of the block, tokens, P-scale rule); "flash"
+# is the JAX flash wrapper's block of min(1024, N) keys (the main path's
+# attention_mode: flash), "fused" one scale per row (attention_mode: auto at
+# N < 512); t2v is the spatial attention of T2V 512^2 (1024 tokens a frame)
+INT8_SHAPES = {
+    "spatial": (FRAMES, TOKENS, "flash"),
+    "temporal": (TOKENS, FRAMES, "flash"),
+    "spatial_fused": (FRAMES, TOKENS, "fused"),
+    "temporal_fused": (TOKENS, FRAMES, "fused"),
+    "t2v": (FRAMES, 1024, "flash"),
+    "n2048": (4, 2048, "flash"),
+}
+INT8_ARCH = dict(input_size=32, num_frames=FRAMES, int8_attention=True, attention_mode="flash")
 # (rows of the block, tokens per row) on the main path at batch 1
 SHAPES = {"spatial": (FRAMES, TOKENS), "temporal": (TOKENS, FRAMES)}
 # the backward kernels' cases: (rows, tokens, dtype); the last two are the
@@ -175,8 +229,11 @@ class Timer:
         return sorted(times)[len(times) // 2]
 
 
-def bound_ms(nbytes: float, flops: float, flop_rate: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+def bound_ms(nbytes: float, flops: float, flop_rate: float, more_ops_s: float = 0.0):
+    """The least time of a call: its bytes at the memory rate against its
+    operations at their peak rate (``more_ops_s``: seconds of operations of
+    another type, added to those of ``flops``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate + more_ops_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -271,6 +328,116 @@ def backward_cases(rows: int, n: int, device, gen, dtype):
     }
 
 
+def int8_inputs(rows: int, n: int, device, gen, dtype=torch.bfloat16):
+    """q, k, v as views of one fused qkv output, as in the model, and their
+    per-head amax as a calibration gives them."""
+    qkv = torch.randn((rows, n, 3, HEADS, HEAD_DIM), generator=gen, device=device, dtype=dtype)
+    q, k, v = qkv.unbind(2)
+    return q, k, v, [t.float().abs().amax(dim=(0, 1, 3)) for t in (q, k, v)]
+
+
+def int8_cases(rows: int, n: int, rule: str, device, gen) -> dict:
+    """The int8 kernel at one shape, both P.V modes, on bf16 inputs. The
+    bound reads q, k, v and writes o in bf16; QK^T is int8 and P.V int8
+    (pv_int8) or bf16 ("qk")."""
+    q, k, v, amax = int8_inputs(rows, n, device, gen)
+    block = flash_scale_block(n) if rule == "flash" else None
+    nbytes = 4 * rows * n * HEADS * HEAD_DIM * q.element_size()
+    half_ops = 2 * rows * HEADS * n * n * HEAD_DIM  # QK^T or P.V
+    cases = {}
+    for pv_int8, mode in ((True, "pv_int8"), (False, "qk")):
+        pv_s = 0.0 if pv_int8 else half_ops / BF16_FLOP_PER_S
+        cases[mode] = dict(
+            run=lambda pv=pv_int8: flash_attention_int8(q, k, v, *amax, pv, block),
+            plain=lambda pv=pv_int8: int8_attention(q, k, v, *amax, q.dtype, pv, block),
+            library=None,
+            bound=bound_ms(nbytes, half_ops * (2 if pv_int8 else 1), INT8_OPS_PER_S, pv_s),
+            scale_block=block,
+        )
+    sdpa = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # noqa: E731
+    return cases, sdpa
+
+
+def check_int8_kernel(device, timer) -> dict:
+    """Phase 7a: the int8 kernel against its plain version at INT8_SHAPES.
+    Tolerance 2^-6 of the largest magnitude, as for the bf16 kernels: the
+    int32 sums are exact on both sides, so the kernel and its plain version
+    differ only where exp rounds an ulp apart, where p·127 then sits on the
+    other side of a half-integer (one step of P moves a row by |v|/(127·l)),
+    and in the final bf16 rounding."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    results = {}
+    for shape, (rows, n, rule) in INT8_SHAPES.items():
+        cases, sdpa = int8_cases(rows, n, rule, device, gen)
+        sdpa_ms = timer.ms(sdpa)
+        for mode, case in cases.items():
+            label = f"{shape} B*H={rows * HEADS} N={n} {mode} scale_block={case['scale_block']}"
+            r = measure(INT8, label, case, BF16_TOL, timer)
+            r["sdpa_bf16_ms"] = sdpa_ms
+            results[f"{shape}_{mode}"] = r
+        print(f"  {INT8} {shape}: bf16 SDPA at the same shape {sdpa_ms:.4f} ms (context only)", flush=True)
+        torch.cuda.empty_cache()
+    return results
+
+
+def int8_gap(got, want) -> dict:
+    """The int8 kernel's distance from its plain version, by INT8_FP32_TOL's
+    measures, and the share of elements more than 1e-6 of the largest
+    magnitude apart (the rows a rounding of P moved)."""
+    d, w = (got - want).double(), want.double()
+    scale = w.abs().max()
+    return dict(
+        rel_l2=(d.norm() / w.norm()).item(),
+        max_rel=(d.abs().max() / scale).item(),
+        share_apart=(d.abs() > 1e-6 * scale).double().mean().item(),
+    )
+
+
+def within_int8_tol(gap: dict, rule: str) -> bool:
+    return all(gap[k] <= tol for k, tol in INT8_FP32_TOL[rule].items())
+
+
+def check_int8_fp32(device) -> dict:
+    """Phase 7a, fp32: the kernel's arithmetic against its plain version at
+    INT8_SHAPES, both P.V modes, held at INT8_FP32_TOL. bf16 hides a wrong
+    P scale in its own rounding; fp32 does not. Three wrong kernels must
+    fail the same check, or it could not see the faults it is for: the
+    kernel with a P scale per 32-key K tile (its tile at N > 32) and with
+    one P scale per row at N = 2048, where the flash rule has two, and fp
+    attention (what a kernel that skipped the q/k/v quantize computes)."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    gaps, controls, failed = {}, {}, []
+    for shape, (rows, n, rule) in INT8_SHAPES.items():
+        q, k, v, amax = int8_inputs(rows, n, device, gen, torch.float32)
+        block = flash_scale_block(n) if rule == "flash" else None
+        for pv_int8, mode in ((True, "pv_int8"), (False, "qk")):
+            want = int8_attention(q, k, v, *amax, q.dtype, pv_int8, block)
+            gap = int8_gap(flash_attention_int8(q, k, v, *amax, pv_int8, block), want)
+            gaps[f"{shape}_{mode}"] = gap
+            print(f"  {INT8} fp32 {shape} N={n} {mode} scale_block={block}: {json.dumps(gap)}", flush=True)
+            if not within_int8_tol(gap, rule):
+                failed.append(f"{shape} {mode}: {gap} outside {INT8_FP32_TOL[rule]}")
+            if not pv_int8:
+                continue
+            wrong = {}
+            if shape == "spatial":
+                wrong["P scale per 32-key tile"] = flash_attention_int8(q, k, v, *amax, True, 32)
+            if shape == "n2048":
+                wrong["one P scale per row"] = flash_attention_int8(q, k, v, *amax, True, n)
+            if shape == "spatial_fused":
+                wrong["no q/k/v quantize"] = attention_reference(q, k, v)
+            for fault, got in wrong.items():
+                controls[f"{shape}: {fault}"] = gap = int8_gap(got, want)
+                print(f"  {INT8} fp32 {shape} control, {fault}: {json.dumps(gap)}", flush=True)
+                if within_int8_tol(gap, rule):
+                    failed.append(f"{shape}: the check passes a kernel with {fault}: {gap}")
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{INT8} fp32: " + "; ".join(failed))
+    return dict(cases=gaps, controls=controls)
+
+
 def measure(name: str, label: str, case: dict, tol_rel: float, timer) -> dict:
     """Check one kernel case against its plain version, then time both."""
     got, want = case["run"](), case["plain"]()
@@ -356,6 +523,7 @@ def compare(name: str, got, want) -> dict:
 def kernel_kind(name: str) -> str:
     name = name.lower()
     for key, kind in (
+        ("flash_int8_kernel", INT8),
         ("flash_fwd_kernel", "flash_attention"),
         ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
         ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
@@ -421,6 +589,217 @@ def profile_forward(model, x, t) -> None:
         model(x, t)
         torch.cuda.synchronize()
     print_profile("forward", prof)
+
+
+def profile_int8_forward(model, x, t) -> dict:
+    """Device time of one int8 forward by kind, where the int8 products
+    (``torch._int_mm``) and the passes around them (quantize, dequantize,
+    cast, bias) are kinds of their own. For the profile only, each int8
+    layer's forward runs inside a profiler range; the kernels launched
+    under a range are moved out of the kind their name gives them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from latte_tpu_torch.models.layers import QLinear
+
+    forward = QLinear.forward
+
+    def annotated(self, inp):
+        if self.quantized not in (True, "static"):
+            return forward(self, inp)
+        with record_function("int8_linear"):
+            return forward(self, inp)
+
+    QLinear.forward = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(x, t)
+            torch.cuda.synchronize()
+    finally:
+        QLinear.forward = forward
+    groups, busy, top = device_ms_by_kind(prof)
+
+    def kernels_under(ev, in_mm=False):
+        in_mm = in_mm or ev.name == "aten::_int_mm"
+        for kern in ev.kernels:
+            yield kern, in_mm
+        for child in ev.cpu_children:
+            yield from kernels_under(child, in_mm)
+
+    moved = 0
+    for ev in prof.events():
+        if ev.name != "int8_linear" or ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for kern, in_mm in kernels_under(ev):
+            ms, kind = kern.duration / 1e3, "matmul_int8" if in_mm else "int8_quantize"
+            groups[kernel_kind(kern.name)] = groups.get(kernel_kind(kern.name), 0.0) - ms
+            groups[kind] = groups.get(kind, 0.0) + ms
+            moved += 1
+    if not busy:
+        print("  int8 forward profile: the profiler saw no device time (not measured)", flush=True)
+        return {}
+    print("  int8 forward profile ms by kind: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(groups.items())}) + f"; device busy {busy:.4f}"
+          + f"; {moved} kernels found under the int8 layers", flush=True)
+    print("  int8 forward largest other kernels (ms): "
+          + json.dumps({k: round(v, 4) for k, v in top.items()}), flush=True)
+    return dict(by_kind=groups, busy_ms=busy, kernels_under_int8_layers=moved)
+
+
+def int8_forward(device, masters, x, t, out_p32, timer) -> dict:
+    """Phase 7b: full-width Latte-XL/2 from the fp32 masters of phase 4,
+    calibrated at t = 999, 500, 0 on one z in bf16, served in static W8A8
+    with int8 attention through the flash route; kernel path against the
+    plain int8 path, with the forward phase's rule against fp32."""
+    with torch.device(device):
+        calib = get_model("Latte-XL/2", quantized="calib", **INT8_ARCH)
+    calib.load_state_dict(masters, strict=True)
+    calib.to(torch.bfloat16).eval()
+    zc = torch.randn((1, FRAMES, 4, 32, 32), generator=torch.Generator(device=device).manual_seed(4),
+                     device=device)
+    amax = None
+    with torch.inference_mode():
+        for tc in sample.CALIBRATION_TIMESTEPS:
+            amax = merge_amax(amax, calibrate_act_amax(calib, zc, torch.tensor([tc], device=device)))
+    del calib
+    qsd = quantize_params(masters, act_amax=amax)
+    with torch.device(device):
+        qmodel = get_model("Latte-XL/2", quantized="static", **INT8_ARCH)
+        qplain = get_model("Latte-XL/2", quantized="static", plain=True, **INT8_ARCH)
+    for m in (qmodel, qplain):
+        m.load_state_dict(qsd, strict=True)
+        m.to(torch.bfloat16).eval()
+    scale_dtypes = {b.dtype for n, b in qmodel.named_buffers() if n.endswith("_scale")}
+    with torch.inference_mode():
+        qmodel(x, t)  # warm-up: cuBLASLt's int8 handles
+        torch.cuda.synchronize()
+        reset_counts()
+        out_q = qmodel(x, t)
+        torch.cuda.synchronize()
+        per_forward = counts()
+        out_qp = qplain(x, t)
+    expect = {k: 0 for k in KERNELS}
+    expect.update({INT8: DEPTH, "ln_modulate": DEPTH, "residual_ln_modulate": DEPTH})
+    print(f"  launches in one int8 forward: {per_forward}; scales kept in {scale_dtypes}", flush=True)
+    if per_forward != expect:
+        raise AssertionError(f"expected {expect} launches in one int8 forward, got {per_forward}")
+    if scale_dtypes != {torch.float32}:
+        raise AssertionError(f"the bf16 int8 model's scales are {scale_dtypes}, not fp32")
+    vs_plain = compare("int8 kernel vs int8 plain", out_q, out_qp)
+    vs32 = compare("int8 kernel vs plain fp32", out_q, out_p32)
+    plain_vs32 = compare("int8 plain vs plain fp32", out_qp, out_p32)
+    # the kernel may add no more error than the plain int8 arithmetic brings
+    if not (vs_plain["finite"] and vs_plain["cosine"] >= 0.999
+            and vs32["rel_l2"] <= 1.25 * plain_vs32["rel_l2"] + 1e-3):
+        raise AssertionError("the int8 kernel path disagrees with the plain int8 path")
+    with torch.inference_mode():
+        fwd_ms = timer.ms(lambda: qmodel(x, t), iters=5)
+        plain_fwd_ms = timer.ms(lambda: qplain(x, t), iters=5)
+        prof = profile_int8_forward(qmodel, x, t)
+    print(f"  int8 forward ms: kernels {fwd_ms:.3f}, plain {plain_fwd_ms:.3f}", flush=True)
+    return dict(launches=per_forward, cosine_vs_plain=vs_plain["cosine"], rel_l2_vs_fp32=vs32["rel_l2"],
+                plain_rel_l2_vs_fp32=plain_vs32["rel_l2"], ms=fwd_ms, plain_ms=plain_fwd_ms,
+                profile=prof)
+
+
+def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str) -> dict:
+    """Phase 7c: the entry point in static W8A8 with int8 attention (flash
+    route), DDIM-50 from the checkpoint of phase 5; then short runs of the
+    dynamic mode and of "qk" under attention_mode: auto."""
+    base = ["sample_method=ddim", f"ckpt={ckpt}"]
+    cfg = load_config(FFS_CONFIG, base + [
+        "num_sampling_steps=50", "quantized=static", "int8_attention=true", "attention_mode=flash",
+        f"save_video_path={tmp}/ffs_int8.mp4",
+    ])
+    reset_counts()
+    lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
+    launches = counts()
+    # the calibration runs 3 floating-point forwards (flash_attention), the
+    # 50 steps one int8 forward each
+    expect = {k: 0 for k in KERNELS}
+    expect.update({INT8: 50 * DEPTH, "flash_attention": 3 * DEPTH,
+                   "ln_modulate": 53 * DEPTH, "residual_ln_modulate": 53 * DEPTH})
+    print(f"  int8 ddim-50 latents {tuple(lat.shape)} finite={bool(torch.isfinite(lat).all())}; "
+          f"launches {launches}", flush=True)
+    if lat.shape != (1, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
+        raise AssertionError("the int8 sampler's latents are not finite (1, 16, 4, 32, 32)")
+    if launches != expect:
+        raise AssertionError(f"expected {expect} launches, got {launches}")
+    # bench.py's int8 quality guard, against the bf16 kernel path's latents
+    guard = compare("int8 ddim-50 latents vs bf16 ddim-50 latents", lat, lat_bf16)
+    if not (guard["cosine"] > 0.99 and guard["rel_l2"] < 0.1):
+        raise AssertionError("the int8 latents fail the quality guard against bf16")
+
+    qmodel = sample.build_model(cfg, device)  # the entry point's model: same calibration
+    with torch.device(device):
+        qplain = get_model("Latte-XL/2", quantized="static", plain=True, **INT8_ARCH)
+    qplain.load_state_dict(qmodel.state_dict(), strict=True)
+    qplain.to(torch.bfloat16).eval()
+    t1 = time.perf_counter()
+    ref = sample.sample_latents(qplain, cfg, device)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    vs_plain = compare("int8 ddim-50 latents, entry point vs int8 plain path", lat, ref.cpu())
+    if not vs_plain["cosine"] >= 0.99:
+        raise AssertionError("the int8 DDIM latents disagree with the plain int8 path's")
+    del qplain
+    t1 = time.perf_counter()
+    sample.sample_latents(qmodel, cfg, device)
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t1
+    del qmodel
+    print(f"  int8 ddim-50 batch 1: {int8_s:.3f} s -> {60.0 / int8_s:.3f} videos/min "
+          f"(plain int8 path {plain_s:.3f} s); bf16 in this run {bf16_s:.3f} s -> "
+          f"{60.0 / bf16_s:.3f} videos/min; on {smi}", flush=True)
+
+    short = {}
+    for name, over, per_step, calib in (
+        ("dynamic", ["quantized=true"], {"flash_attention": DEPTH}, 0),
+        ("qk_auto", ["quantized=static", "int8_attention=qk", "attention_mode=auto"], {INT8: DEPTH}, 3),
+    ):
+        steps = 5
+        cfg = load_config(FFS_CONFIG, base + [f"num_sampling_steps={steps}", *over,
+                                              f"save_video_path={tmp}/ffs_{name}.mp4"])
+        reset_counts()
+        lat_s = torch.from_numpy(np.load(sample.main(cfg))["latents"])
+        got = counts()
+        expect = {k: 0 for k in KERNELS}
+        for k, c in per_step.items():
+            expect[k] = steps * c
+        expect["flash_attention"] += calib * DEPTH
+        for k in ("ln_modulate", "residual_ln_modulate"):
+            expect[k] = (steps + calib) * DEPTH
+        print(f"  {name} ddim-{steps}: finite={bool(torch.isfinite(lat_s).all())}; launches {got}", flush=True)
+        if not torch.isfinite(lat_s).all() or got != expect:
+            raise AssertionError(f"the {name} int8 run failed: expected {expect} launches")
+        short[name] = got
+    return dict(launches=launches, guard=guard, cosine_vs_plain=vs_plain["cosine"], s=int8_s,
+                videos_per_min=60.0 / int8_s, bf16_videos_per_min=60.0 / bf16_s, plain_s=plain_s,
+                short_runs=short)
+
+
+def train_quant(tmp: str, smi: str) -> dict:
+    """Phase 6d: two steps of ffs_train.yaml with quant_train: true at batch
+    1: the block matmuls run W8A8 forwards with straight-through backwards,
+    attention and the adaLN glue run kernels 1-5."""
+    log = StepLog()
+    reset_counts()
+    out = train.main(load_config(FFS_TRAIN, [
+        f"results_dir={tmp}/results", "max_train_steps=2", "log_every=1", "local_batch_size=1",
+        "quant_train=true",
+    ]), callbacks=[log])
+    launches = counts()
+    blk = log.state.model.blocks[0]
+    modes = (blk.attn.qkv.quantized, blk.mlp.fc1.quantized, blk.adaLN_modulation[1].quantized)
+    secs = log.step_seconds()
+    log.state = None
+    print(f"  quant_train batch 1: {out}; layer modes {modes}; launches {launches}; "
+          f"step 2 {secs[-1]:.4f} s on {smi}", flush=True)
+    if out["final_step"] != 2 or not log.finite() or modes != ("train", "train", False):
+        raise AssertionError("the int8 training run failed")
+    if launches != {k: 2 * c for k, c in STEP_LAUNCHES.items()}:
+        raise AssertionError(f"expected 2 x {STEP_LAUNCHES} launches, got {launches}")
+    shutil.rmtree(out["experiment_dir"])
+    return dict(launches=launches, losses=[r[2] for r in log.records], s_step2=secs[-1])
 
 
 class StepLog(Callback):
@@ -521,7 +900,7 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     print(f"  ffs_train fp32 batch {TRAIN_BATCH}: {out}; launches {launches}", flush=True)
     if out["final_step"] != TRAIN_STEPS or not log.finite():
         raise AssertionError(f"the training run failed: {out}, {log.records}")
-    if any(launches[k] == 0 for k in KERNELS):
+    if any(launches[k] == 0 for k in FORWARD + BACKWARD):
         raise AssertionError(f"a kernel of the training path never launched: {launches}")
     if launches != {k: TRAIN_STEPS * c for k, c in STEP_LAUNCHES.items()}:
         raise AssertionError(f"expected {TRAIN_STEPS} x {STEP_LAUNCHES} launches, got {launches}")
@@ -618,6 +997,10 @@ def main() -> int:
     timer = Timer(device)
     measured = check_kernels(device, timer)
     phase("kernels", t0)
+    t0 = time.perf_counter()
+    measured[INT8] = check_int8_kernel(device, timer)
+    int8_fp32 = check_int8_fp32(device)
+    phase("int8 kernel", t0)
 
     # 4. one full-width forward: kernel path against plain paths
     t0 = time.perf_counter()
@@ -645,7 +1028,7 @@ def main() -> int:
         per_forward = counts()
         out_p16, out_p32 = plain16(x, t), plain32(x, t)
     print(f"  launches in one forward: {per_forward}", flush=True)
-    if any(per_forward[k] != DEPTH for k in FORWARD) or any(per_forward[k] for k in BACKWARD):
+    if any(per_forward[k] != DEPTH for k in FORWARD) or any(per_forward[k] for k in (*BACKWARD, INT8)):
         raise AssertionError(f"expected {DEPTH} launches of each forward kernel, got {per_forward}")
     if out_k.shape != (1, FRAMES, 8, 32, 32):
         raise AssertionError(f"forward shape {tuple(out_k.shape)}")
@@ -661,8 +1044,14 @@ def main() -> int:
         plain_fwd_ms = timer.ms(lambda: plain16(x, t), iters=5)
         profile_forward(model, x, t)
     print(f"  forward ms: kernels {fwd_ms:.3f}, plain {plain_fwd_ms:.3f}", flush=True)
-    del plain32
     phase("forward", t0)
+
+    # 7b. the same weights served in int8
+    t0 = time.perf_counter()
+    int8_fwd = int8_forward(device, plain32.state_dict(), x, t, out_p32, timer)
+    del plain32
+    torch.cuda.empty_cache()
+    phase("int8 forward", t0)
 
     # 5. the entry point, from a checkpoint of the same random weights
     t0 = time.perf_counter()
@@ -682,8 +1071,9 @@ def main() -> int:
               f"launches {main_launches}", flush=True)
         if lat.shape != (1, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
             raise AssertionError("the sampler's latents are not finite (1, 16, 4, 32, 32)")
-        if any(main_launches[k] != DEPTH * 50 for k in FORWARD):
+        if any(main_launches[k] != DEPTH * 50 for k in FORWARD) or main_launches[INT8]:
             raise AssertionError(f"expected {DEPTH * 50} launches each, got {main_launches}")
+        lat_bf16 = lat
 
         t1 = time.perf_counter()
         ref = sample.sample_latents(plain16, cfg, device)
@@ -709,9 +1099,15 @@ def main() -> int:
               f"launches {ddpm_launches}", flush=True)
         if not torch.isfinite(lat).all() or any(ddpm_launches[k] != DEPTH * 5 for k in FORWARD):
             raise AssertionError("the DDPM path failed")
-    del model, plain16
-    torch.cuda.empty_cache()
-    phase("sampler", t0)
+        del model, plain16
+        torch.cuda.empty_cache()
+        phase("sampler", t0)
+
+        # 7c. the entry point in int8, from the same checkpoint
+        t0 = time.perf_counter()
+        int8_run = int8_sampler(tmp, ckpt, lat_bf16, kernel_s, device, smi)
+        torch.cuda.empty_cache()
+        phase("int8 sampler", t0)
 
     # 6. training
     t0 = time.perf_counter()
@@ -725,13 +1121,26 @@ def main() -> int:
         phase("train entry point", t0)
         t0 = time.perf_counter()
         mixed = train_mixed_precision(tmp, smi)
-    phase("train mixed precision", t0)
-    print("train: " + json.dumps(dict(parity=parity, entry_point=entry, mixed_precision=mixed),
-                                  default=str), flush=True)
+        phase("train mixed precision", t0)
+        t0 = time.perf_counter()
+        quant = train_quant(tmp, smi)
+    phase("train int8", t0)
+    print("train: " + json.dumps(dict(parity=parity, entry_point=entry, mixed_precision=mixed,
+                                      quant_train=quant), default=str), flush=True)
+    print("int8: " + json.dumps(dict(kernel_fp32=int8_fp32, forward=int8_fwd, sampler=int8_run),
+                                default=str), flush=True)
 
     kernels = []
     for name, k in KERNELS.items():
-        if name in FORWARD:  # the sampler's path, at its shapes (bf16, batch 1)
+        if name == INT8:  # the int8 sampler's path (bf16, batch 1, flash route, pv_int8)
+            row = measured[name]["spatial_pv_int8"]
+            extra = dict(shape="spatial bf16 batch 1, pv_int8, flash scale block",
+                         sdpa_bf16_ms=row["sdpa_bf16_ms"], launches_forward=int8_fwd["launches"][name],
+                         cases={c: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "max_abs_err", "sdpa_bf16_ms")}
+                                for c, r in measured[name].items()})
+            launches = int8_run["launches"][name]
+        elif name in FORWARD:  # the sampler's path, at its shapes (bf16, batch 1)
             row, extra = measured[name]["spatial"], dict(
                 shape="spatial bf16 batch 1", launches_train=entry["launches"][name],
                 temporal=measured[name]["temporal"])

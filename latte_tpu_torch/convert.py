@@ -12,6 +12,14 @@ applied to every leaf), so it needs neither JAX nor Flax. The map is linear
 (transposes, reshapes and the qkv permutation), so it carries a tree shaped
 like the params, such as a gradient tree of ``jax.grad`` or a train state's
 EMA, onto the same parameter names.
+
+A quantized tree (``latte_tpu.quant.quantize_params``) carries over too:
+``kernel_i8`` becomes ``weight_i8`` (int8, transposed; for qkv with the same
+permutation of its output channels), ``kernel_scale`` (1, out) becomes
+``weight_scale`` (out, 1) (permuted alike), and ``act_scale`` and the
+attention's ``{q,k,v}_scale`` keep their names. :func:`flax_calib_to_amax`
+carries the ``"calib"`` collection of a JAX calibration run onto the keys of
+``latte_tpu_torch.quant.calibrate_act_amax``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 __all__ = [
     "qkv_to_reference",
     "flax_to_state_dict",
+    "flax_calib_to_amax",
     "load_flax_params",
     "load_reference_checkpoint",
 ]
@@ -55,13 +64,25 @@ def flax_to_state_dict(
     sd: Dict[str, np.ndarray] = {}
 
     def put_linear(prefix: str, p: Mapping[str, Any]) -> None:
-        sd[f"{prefix}.weight"] = _t(p["kernel"])
-        if "bias" in p:
-            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+        if "kernel_i8" in p:
+            sd[f"{prefix}.weight_i8"] = _t(p["kernel_i8"])
+            sd[f"{prefix}.weight_scale"] = np.asarray(p["kernel_scale"]).reshape(-1, 1)
+        else:
+            sd[f"{prefix}.weight"] = _t(p["kernel"])
+        for key in ("act_scale", "bias"):
+            if key in p:
+                sd[f"{prefix}.{key}"] = np.asarray(p[key])
 
     def put_qkv(prefix: str, p: Mapping[str, Any]) -> None:
-        w, b = qkv_to_reference(p["kernel"], p.get("bias"), num_heads)
-        sd[f"{prefix}.weight"] = w
+        if "kernel_i8" in p:
+            w, b = qkv_to_reference(p["kernel_i8"], p.get("bias"), num_heads)
+            _, scale = qkv_to_reference(p["kernel_i8"], np.asarray(p["kernel_scale"]).reshape(-1), num_heads)
+            sd[f"{prefix}.weight_i8"], sd[f"{prefix}.weight_scale"] = w, scale.reshape(-1, 1)
+            if "act_scale" in p:
+                sd[f"{prefix}.act_scale"] = np.asarray(p["act_scale"])
+        else:
+            w, b = qkv_to_reference(p["kernel"], p.get("bias"), num_heads)
+            sd[f"{prefix}.weight"] = w
         if b is not None:
             sd[f"{prefix}.bias"] = b
 
@@ -77,22 +98,57 @@ def flax_to_state_dict(
             params["y_embedder"]["embedding_table"]
         )
 
-    def unstack(tree, i):
-        if isinstance(tree, Mapping):
-            return {key: unstack(v, i) for key, v in tree.items()}
-        return np.asarray(tree)[i]
-
     for i in range(depth // 2):
         for kind, idx in (("spatial", 2 * i), ("temporal", 2 * i + 1)):
-            blk = unstack(params["blocks"][kind], i)
+            blk = _unstack(params["blocks"][kind], i)
             put_qkv(f"blocks.{idx}.attn.qkv", blk["attn"]["qkv"])
             put_linear(f"blocks.{idx}.attn.proj", blk["attn"]["proj"])
             put_linear(f"blocks.{idx}.mlp.fc1", blk["mlp"]["fc1"])
             put_linear(f"blocks.{idx}.mlp.fc2", blk["mlp"]["fc2"])
             put_linear(f"blocks.{idx}.adaLN_modulation.1", blk["adaLN_modulation"])
+            for name in _ATTN_SCALES:
+                if name in blk["attn"]:
+                    sd[f"blocks.{idx}.attn.{name}"] = np.asarray(blk["attn"][name])
     put_linear("final_layer.adaLN_modulation.1", params["final_layer"]["adaLN_modulation"])
     put_linear("final_layer.linear", params["final_layer"]["linear"])
-    return {key: torch.from_numpy(np.array(v, dtype=np.float32)) for key, v in sd.items()}
+    return {key: _tensor(v) for key, v in sd.items()}
+
+
+_ATTN_SCALES = ("q_scale", "k_scale", "v_scale")
+
+
+def _tensor(a) -> torch.Tensor:
+    """int8 stays int8; every other leaf becomes fp32."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32))
+
+
+def _unstack(tree, i):
+    if isinstance(tree, Mapping):
+        return {key: _unstack(v, i) for key, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def flax_calib_to_amax(calib: Mapping[str, Any], depth: int) -> Dict[str, torch.Tensor]:
+    """The ``"calib"`` collection of a JAX ``quantized="calib"`` run (amax
+    stacked over the scanned pairs) -> the port's amax dict: ``.../act_amax``
+    -> ``blocks.{i}.<layer>.act_amax`` and ``attn/{q,k,v}_amax`` ->
+    ``blocks.{i}.attn.{q,k,v}_amax``. The attention amax are per head, so
+    the qkv permutation does not touch them."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for key, v in tree.items():
+            name = "adaLN_modulation.1" if key == "adaLN_modulation" else key
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}.{name}")
+            else:
+                out[f"{prefix}.{name}"] = _tensor(v)
+
+    for i in range(depth // 2):
+        for kind, idx in (("spatial", 2 * i), ("temporal", 2 * i + 1)):
+            walk(_unstack(calib["blocks"][kind], i), f"blocks.{idx}")
+    return out
 
 
 def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:

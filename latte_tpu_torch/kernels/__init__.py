@@ -17,6 +17,11 @@ from latte_tpu_torch.kernels.attention import (
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
 )
+from latte_tpu_torch.kernels.attention_int8 import (
+    flash_attention_int8,
+    flash_scale_block,
+    int8_attention,
+)
 
 __all__ = [
     "flash_attention",
@@ -28,6 +33,9 @@ __all__ = [
     "attention_bwd_dq_reference",
     "attention_bwd_dkv_reference",
     "attention_delta",
+    "flash_attention_int8",
+    "flash_scale_block",
+    "int8_attention",
     "ln_modulate",
     "ln_modulate_reference",
     "residual_ln_modulate",

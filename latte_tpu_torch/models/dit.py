@@ -17,6 +17,11 @@ output comes back in the input's type.
 ``gradient_checkpointing`` recomputes each spatial/temporal pair in the
 backward (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` with
 the "full" policy does around the JAX model's scanned pair.
+
+``quantized`` and ``int8_attention`` select the W8A8 int8 modes of the
+blocks (see :mod:`latte_tpu_torch.models.layers`); ``attention_mode`` routes
+the int8 attention core as the JAX model does (the floating-point attention
+always runs the flash kernel).
 """
 
 from __future__ import annotations
@@ -62,6 +67,9 @@ class Latte(nn.Module):
         plain: bool = False,
         gradient_checkpointing: bool = False,
         compute_dtype: Optional[torch.dtype] = None,
+        quantized=False,
+        int8_attention=False,
+        attention_mode: str = "auto",
     ):
         super().__init__()
         if extras not in (1, 2):
@@ -82,6 +90,7 @@ class Latte(nn.Module):
         self.extras = extras
         self.gradient_checkpointing = gradient_checkpointing
         self.compute_dtype = compute_dtype
+        self.quantized = quantized
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
@@ -89,7 +98,11 @@ class Latte(nn.Module):
         if extras == 2:
             self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
         self.blocks = nn.ModuleList(
-            AdaLNBlock(hidden_size, num_heads, mlp_ratio, plain=plain) for _ in range(depth)
+            AdaLNBlock(
+                hidden_size, num_heads, mlp_ratio, plain=plain, quantized=quantized,
+                int8_attention=int8_attention, attention_mode=attention_mode,
+            )
+            for _ in range(depth)
         )
         self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
         grid = input_size // patch_size
@@ -108,7 +121,11 @@ class Latte(nn.Module):
     def initialize_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """The reference's init (as the JAX modules' initializers): xavier-uniform
         linears and patch embedding with zero biases, N(0, 0.02) timestep MLP and
-        label table, zero adaLN modulations and output layer (adaLN-Zero)."""
+        label table, zero adaLN modulations and output layer (adaLN-Zero).
+        An int8 serving model has no fp weights to draw: it loads the output
+        of ``quant.quantize_params``."""
+        if self.quantized in (True, "static"):
+            raise ValueError("an int8 model loads quantize_params' output; initialise its fp twin")
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=generator)

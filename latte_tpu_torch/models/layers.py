@@ -11,7 +11,15 @@ launch the CUDA kernels for CUDA tensors and run the plain versions for CPU
 tensors. ``plain=True`` runs the plain versions on any device (for attention
 both its forward and its backward); it exists so a run on the card can hold
 the kernel path against the plain one.
-The int8, ring-attention and MoE branches of the JAX blocks are not ported.
+The ring-attention and MoE branches of the JAX blocks are not ported.
+
+W8A8 int8 (``quantized``, the JAX ``QDense`` modes): the block's qkv, proj,
+fc1, fc2 and adaLN modulation are :class:`QLinear` layers, and with
+``int8_attention`` the attention core runs int8 too
+(:func:`latte_tpu_torch.kernels.flash_attention_int8`). The int8 weights and
+their fp32 scales are buffers, loaded from
+:func:`latte_tpu_torch.quant.quantize_params`; the scales stay fp32 when the
+model is cast to bf16, as the JAX model keeps its scale params fp32.
 
 Every projection is a :class:`Linear` that computes in the type of its
 input: its weights are cast per call, so a model with fp32 parameters and
@@ -27,14 +35,23 @@ from torch.nn import functional as F
 
 from latte_tpu_torch.kernels import (
     attention_qkv,
+    flash_attention_int8,
+    flash_scale_block,
     ln_modulate,
     ln_modulate_reference,
     residual_ln_modulate,
     residual_ln_modulate_reference,
 )
+from latte_tpu_torch.quant.int8 import (
+    int8_attention,
+    int8_matmul,
+    int8_matmul_static,
+    int8_matmul_ste,
+)
 
 __all__ = [
     "Linear",
+    "QLinear",
     "modulate",
     "layer_norm",
     "Mlp",
@@ -68,30 +85,145 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+QUANT_MODES = (False, True, "static", "calib", "train")
+INT8_ATTENTION = (False, True, "full", "qk")
+# "auto" gives the int8 core the flash arithmetic from this many tokens on,
+# as the JAX model routes N >= 512 to its flash kernel
+FLASH_MIN_N = 512
+
+
+class _Fp32Scales(nn.Module):
+    """Keeps the buffers named in ``FP32_BUFFERS`` in fp32 when the module is
+    cast (``model.to(torch.bfloat16)``); device moves apply as usual."""
+
+    FP32_BUFFERS: tuple = ()
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: self._buffers[n] for n in self.FP32_BUFFERS if self._buffers.get(n) is not None}
+        super()._apply(fn, recurse)
+        for name, buf in kept.items():
+            moved = self._buffers[name]
+            if moved.dtype != buf.dtype:
+                self._buffers[name] = buf.to(moved.device)
+        return self
+
+
+class QLinear(_Fp32Scales, Linear):
+    """:class:`Linear` with the W8A8 modes of the JAX ``QDense``
+    (``latte_tpu/models/layers.py:25-111``):
+
+    - ``False``: the fp layer (``weight``, ``bias``);
+    - ``True``: int8 ``weight_i8`` (out, in) at the fp32 per-channel
+      ``weight_scale`` (out, 1), dynamic per-token activation scales;
+    - ``"static"``: the same with a calibrated activation amax ``act_scale``;
+    - ``"calib"``: the fp layer, recording the amax of its input into
+      ``calib["act_amax"]`` (see ``quant.calibrate_act_amax``);
+    - ``"train"``: quantized training, a W8A8 forward from the fp master
+      ``weight`` with a straight-through backward (``quant.int8_matmul_ste``).
+
+    The int8 products give their result in the input's type, and the bias is
+    added after that cast, as in JAX.
+    """
+
+    FP32_BUFFERS = ("weight_scale", "act_scale")
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, quantized=False):
+        super().__init__(in_features, out_features, bias=bias)
+        if quantized not in QUANT_MODES:
+            raise ValueError(f"quantized={quantized!r}; expected one of {QUANT_MODES}")
+        self.quantized = quantized
+        self.calib = {} if quantized == "calib" else None
+        if quantized in (True, "static"):
+            self.weight = None  # the fp weight is replaced by its int8 form
+            self.register_buffer("weight_i8", torch.zeros((out_features, in_features), dtype=torch.int8))
+            self.register_buffer("weight_scale", torch.ones((out_features, 1)))
+            if quantized == "static":
+                self.register_buffer("act_scale", torch.ones(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = self.quantized
+        if mode is False or mode == "calib":
+            if mode == "calib":
+                _record_max(self.calib, "act_amax", x.detach().abs().amax().float())
+            return super().forward(x)
+        if mode == "train":
+            y = int8_matmul_ste(x, self.weight, x.dtype)
+        elif mode == "static":
+            y = int8_matmul_static(x, self.weight_i8, self.weight_scale, self.act_scale, x.dtype)
+        else:
+            y = int8_matmul(x, self.weight_i8, self.weight_scale, x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+def _record_max(record: dict, key: str, value: torch.Tensor) -> None:
+    """``record[key] = max(record[key], value)`` (the JAX ``sow`` with a max)."""
+    prev = record.get(key)
+    record[key] = value if prev is None else torch.maximum(prev, value)
+
+
 class Mlp(nn.Module):
     """Linear -> gelu(tanh) -> Linear."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int, quantized=False):
         super().__init__()
-        self.fc1 = Linear(in_features, hidden_features)
-        self.fc2 = Linear(hidden_features, out_features)
+        self.fc1 = QLinear(in_features, hidden_features, quantized=quantized)
+        self.fc2 = QLinear(hidden_features, out_features, quantized=quantized)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
-class Attention(nn.Module):
-    """Multi-head self-attention through the flash-attention kernels."""
+class Attention(_Fp32Scales):
+    """Multi-head self-attention through the flash-attention kernels.
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, plain: bool = False):
+    ``int8_attention`` (``True``/"full": QKᵀ and P·V int8; "qk": QKᵀ only)
+    runs the int8 core at calibrated per-head scales ``q_scale``, ``k_scale``,
+    ``v_scale`` (H,) under ``quantized="static"``, and records the per-head
+    amax of q, k, v under ``quantized="calib"``; with any other ``quantized``
+    but ``False`` (the fp model a serving run starts from) it raises. The
+    int8 core takes the route of the JAX model: ``attention_mode`` "flash",
+    or "auto" at N ≥ ``FLASH_MIN_N``, is the flash kernel's arithmetic, any
+    other the fused core's; both run the same CUDA kernel here.
+    """
+
+    FP32_BUFFERS = ("q_scale", "k_scale", "v_scale")
+
+    def __init__(
+        self,
+        dim: int,
+        num_heads: int,
+        qkv_bias: bool = True,
+        plain: bool = False,
+        quantized=False,
+        int8_attention=False,
+        attention_mode: str = "auto",
+    ):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
+        if int8_attention not in INT8_ATTENTION:
+            raise ValueError(
+                f"int8_attention={int8_attention!r}; expected False, True/'full' "
+                "(QKᵀ and P·V int8) or 'qk' (QKᵀ only)"
+            )
+        if int8_attention and quantized and quantized not in ("static", "calib"):
+            raise ValueError(
+                "int8_attention requires quantized='static' (serving, with params from "
+                "quantize_params(act_amax=...)) or 'calib' (the calibration pass); got "
+                f"quantized={quantized!r}"
+            )
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.plain = plain
-        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = Linear(dim, dim)
+        self.attention_mode = attention_mode
+        self.int8 = bool(int8_attention) and quantized == "static"
+        self.pv_int8 = int8_attention != "qk"
+        self.calib = {} if int8_attention and quantized == "calib" else None
+        self.qkv = QLinear(dim, dim * 3, bias=qkv_bias, quantized=quantized)
+        self.proj = QLinear(dim, dim, quantized=quantized)
+        if self.int8:
+            for name in ("q_scale", "k_scale", "v_scale"):
+                self.register_buffer(name, torch.ones(num_heads))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
@@ -99,21 +231,53 @@ class Attention(nn.Module):
         # which the kernels read in place; the backward writes its gradient
         # back as one (B, N, 3, H, hd) tensor
         qkv = self.qkv(x).view(B, N, 3, self.num_heads, self.head_dim)
-        out = attention_qkv(qkv, plain=self.plain)
+        if self.calib is not None:
+            for name, t in zip(("q_amax", "k_amax", "v_amax"), qkv.detach().unbind(2)):
+                _record_max(self.calib, name, t.float().abs().amax(dim=(0, 1, 3)))
+        out = self._int8_core(qkv) if self.int8 else attention_qkv(qkv, plain=self.plain)
         return self.proj(out.reshape(B, N, C))
+
+    def _int8_core(self, qkv: torch.Tensor) -> torch.Tensor:
+        q, k, v = qkv.unbind(2)
+        N = q.shape[1]
+        mode = self.attention_mode
+        if mode == "auto":
+            mode = "flash" if N >= FLASH_MIN_N else "xla"
+        scale_block = flash_scale_block(N) if mode == "flash" else None
+        scales = (self.q_scale, self.k_scale, self.v_scale)
+        if self.plain:
+            return int8_attention(q, k, v, *scales, q.dtype, self.pv_int8, scale_block)
+        return flash_attention_int8(q, k, v, *scales, self.pv_int8, scale_block)
 
 
 class AdaLNBlock(nn.Module):
     """DiT block with adaLN-Zero conditioning and the fused glue kernels:
     ``ln_modulate`` before attention, ``residual_ln_modulate`` after it
-    (the JAX block's ``fused_adaln=True`` path)."""
+    (the JAX block's ``fused_adaln=True`` path). The adaLN modulation is
+    quantized for int8 serving and its calibration, not for quantized
+    training (it is zero-init sensitive), as in JAX."""
 
-    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0, plain: bool = False):
+    def __init__(
+        self,
+        hidden_size: int,
+        num_heads: int,
+        mlp_ratio: float = 4.0,
+        plain: bool = False,
+        quantized=False,
+        int8_attention=False,
+        attention_mode: str = "auto",
+    ):
         super().__init__()
         self.plain = plain
-        self.attn = Attention(hidden_size, num_heads, qkv_bias=True, plain=plain)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(hidden_size, 6 * hidden_size))
+        self.attn = Attention(
+            hidden_size, num_heads, qkv_bias=True, plain=plain, quantized=quantized,
+            int8_attention=int8_attention, attention_mode=attention_mode,
+        )
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size, quantized=quantized)
+        mod_quantized = quantized if quantized in (True, "static", "calib") else False
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), QLinear(hidden_size, 6 * hidden_size, quantized=mod_quantized)
+        )
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (

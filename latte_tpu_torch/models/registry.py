@@ -1,12 +1,19 @@
 """Model registry: named Latte configurations (XL/L/B/S x patch 2/4/8).
 
 Port of ``latte_tpu/models/registry.py`` for the video model. Options of
-the JAX factory that select work this port has not taken on yet (int8,
-MoE, ring attention, the image model, the "dots" remat policy) raise
+the JAX factory that select work this port has not taken on yet (MoE, ring
+attention, the image model, the "dots" remat policy) raise
 ``NotImplementedError``; execution hints for the JAX compiler (scan
 unrolling, the fused-adaLN switch) have no counterpart here, since the port
 always runs its fused kernels. ``gradient_checkpointing`` recomputes each
 spatial/temporal pair in the backward (the "full" remat policy).
+
+``int8_attention`` is checked here, as in the JAX factory: it must be true,
+"full" or "qk", and it needs ``quantized: static`` (or ``calib``), or the
+config would serve floating-point attention under an int8 flag. The
+``quantized`` mode itself is the entry point's to set (the JAX sampler's
+and trainer's ``model.clone(quantized=...)``): ``get_models(args,
+quantized=...)``.
 """
 
 from __future__ import annotations
@@ -39,13 +46,14 @@ def get_model(name: str, **overrides) -> Latte:
     raise ValueError(f"unknown model {name!r}; known: {sorted(Latte_models)}")
 
 
-def get_models(args) -> Latte:
+def get_models(args, quantized=False) -> Latte:
     """Config-object factory: ``args`` needs ``model``, ``image_size``,
     ``num_frames``, ``learn_sigma``, ``extras``, and optionally
-    ``num_classes`` and ``model_overrides`` (explicit depth/width changes)."""
-    for key in ("quantized", "int8_attention", "moe_experts"):
-        if getattr(args, key, None):
-            raise NotImplementedError(f"{key}: not ported yet (int8 / MoE slices)")
+    ``num_classes``, ``attention_mode``, ``int8_attention`` (checked against
+    ``args.quantized``) and ``model_overrides`` (explicit depth/width
+    changes). ``quantized`` is the blocks' int8 mode (see ``models.layers``)."""
+    if getattr(args, "moe_experts", None):
+        raise NotImplementedError("moe_experts: not ported yet (the multi-GPU slice)")
     mode = str(getattr(args, "attention_mode", None) or "auto")
     if mode not in _ATTENTION_MODES:
         raise NotImplementedError(
@@ -60,7 +68,21 @@ def get_models(args) -> Latte:
         num_frames=int(getattr(args, "num_frames", 16)),
         learn_sigma=bool(getattr(args, "learn_sigma", True)),
         extras=int(getattr(args, "extras", 1)),
+        attention_mode=mode,
+        quantized=quantized,
     )
+    ia = getattr(args, "int8_attention", False)
+    if ia:
+        if ia not in (True, "full", "qk"):
+            raise ValueError(f"int8_attention: {ia!r}; expected true, 'full' or 'qk'")
+        q = getattr(args, "quantized", None)
+        if str(q) not in ("static", "calib"):
+            raise ValueError(
+                "int8_attention requires quantized: static (the calibrated-scale W8A8 "
+                f"serving path); got quantized: {q!r} — fp, dynamic int8 and QAT have "
+                "no calibrated attention scales"
+            )
+        common["int8_attention"] = ia
     if getattr(args, "num_classes", None):
         common["num_classes"] = int(args.num_classes)
     if getattr(args, "gradient_checkpointing", False):

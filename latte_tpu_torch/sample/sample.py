@@ -4,7 +4,14 @@ Builds the model from a config, loads a reference-format checkpoint (or
 initialises it from a seed when ``ckpt`` is null), runs the respaced DDPM or
 DDIM loop and saves the latents as ``<save_video_path stem>_latents.npz``.
 Decoding latents to frames (a configured VAE) comes with a later slice and
-raises ``NotImplementedError`` here.
+raises ``NotImplementedError`` here, as do the block-cache sampler
+(``block_cache_interval``) and tensor-parallel serving (``tensor_parallel``).
+
+W8A8 int8 serving, as in the JAX sampler: ``quantized: true`` quantizes the
+fp32 weights once (dynamic per-token activation scales); ``quantized:
+static`` first calibrates the activation amax over three forwards (t = 999,
+500, 0) on one seeded z, then serves with static scales, and with
+``int8_attention`` (true/"full" or "qk") runs the attention core in int8 too.
 
 Runs on ``cuda`` unless asked for the CPU::
 
@@ -28,13 +35,68 @@ from latte_tpu_torch.convert import load_reference_checkpoint
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
 from latte_tpu_torch.models import Latte, get_models
+from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.utils import create_logger, resolve_device
+
+CALIBRATION_TIMESTEPS = (999, 500, 0)
+
+
+def check_config(config: Config) -> None:
+    """Raise ``NotImplementedError`` for a sampler option this port does not
+    carry yet. (``block_cache_pairs`` does nothing without the interval, and
+    ``loop_mode`` is a JAX compile hint.)"""
+    if int(getattr(config, "block_cache_interval", 0) or 0) > 1:
+        raise NotImplementedError(
+            f"block_cache_interval={config.block_cache_interval}: not ported yet; comes "
+            "with the block-cache slice"
+        )
+    if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
+        raise NotImplementedError(
+            f"tensor_parallel={config.tensor_parallel}: not ported yet; comes with the "
+            "multi-GPU slice"
+        )
+
+
+def quantized_mode(config: Config):
+    """The serving mode of ``quantized``: False, True (dynamic) or "static"."""
+    q = getattr(config, "quantized", False) or False
+    if q not in (False, True, "static"):
+        raise ValueError(f"quantized: {q!r}; expected false, true or static")
+    return q
+
+
+def calibration_latents(config: Config, device: torch.device) -> torch.Tensor:
+    """The one z the calibration forwards run on: (1, F, C, L, L) from
+    ``torch.Generator`` seed 0 (the JAX sampler draws it from PRNGKey(0))."""
+    latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
+    shape = (1, int(getattr(config, "num_frames", 16)), int(getattr(config, "in_channels", 4)), latent, latent)
+    return torch.randn(shape, generator=torch.Generator(device=device).manual_seed(0), device=device)
+
+
+def calibrate(config: Config, masters: dict, dtype: torch.dtype, device: torch.device) -> dict:
+    """Activation amax of the configured model in its serving type over the
+    forwards at ``CALIBRATION_TIMESTEPS`` (the per-head q/k/v amax too when
+    ``int8_attention`` is set)."""
+    with torch.device(device):
+        model = get_models(config, quantized="calib")
+    model.load_state_dict(masters, strict=True)
+    model.to(device=device, dtype=dtype).eval()
+    z = calibration_latents(config, device)
+    kwargs = {}
+    if int(getattr(config, "extras", 1)) == 2:
+        kwargs["y"] = torch.full((1,), int(getattr(config, "sample_class", 0)), device=device)
+    amax = None
+    for tc in CALIBRATION_TIMESTEPS:
+        t = torch.full((1,), tc, device=device)
+        amax = merge_amax(amax, calibrate_act_amax(model, z, t, **kwargs))
+    return amax
 
 
 def build_model(config: Config, device: torch.device) -> Latte:
     """The configured model on ``device`` in the config's dtype, from ``ckpt``
     (a reference ``.pt``) or, when ``ckpt`` is null, the reference init drawn
-    from ``torch.Generator`` seed 0."""
+    from ``torch.Generator`` seed 0. With ``quantized`` the int8 model,
+    quantized from the fp32 weights (not from a bf16 cast of them)."""
     with torch.device(device):
         model = get_models(config)
     ckpt = getattr(config, "ckpt", None)
@@ -47,7 +109,15 @@ def build_model(config: Config, device: torch.device) -> Latte:
         model.initialize_weights(torch.Generator(device=device).manual_seed(0))
     # the reference's use_fp16 switch maps to bf16, as in the JAX sampler
     dtype = torch.bfloat16 if getattr(config, "use_fp16", False) else torch.float32
-    return model.to(device=device, dtype=dtype).eval()
+    qmode = quantized_mode(config)
+    if not qmode:
+        return model.to(device=device, dtype=dtype).eval()
+    masters = model.state_dict()
+    amax = calibrate(config, masters, dtype, device) if qmode == "static" else None
+    with torch.device(device):
+        qmodel = get_models(config, quantized=qmode)
+    qmodel.load_state_dict(quantize_params(masters, act_amax=amax), strict=True)
+    return qmodel.to(device=device, dtype=dtype).eval()
 
 
 def sample_latents(
@@ -83,12 +153,17 @@ def sample_latents(
 def main(config: Config, device: Optional[str] = None) -> str:
     """Sample one video's latents; return the path of the saved ``.npz``."""
     logger = create_logger()
+    check_config(config)
     if str(getattr(config, "vae", "") or "") or getattr(config, "vae_ckpt", None):
         raise NotImplementedError("VAE decode: next slice")
     dev = resolve_device(device)
     model = build_model(config, dev)
     if not getattr(config, "ckpt", None):
         logger.info("WARNING: no checkpoint given — sampling from random init")
+    logger.info(
+        f"serving with quantized={quantized_mode(config)}, int8_attention="
+        f"{getattr(config, 'int8_attention', False)}, attention_mode={getattr(config, 'attention_mode', 'auto')}"
+    )
 
     t0 = time.perf_counter()
     latents = sample_latents(model, config, dev)

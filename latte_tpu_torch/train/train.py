@@ -53,7 +53,6 @@ _NOT_PORTED = (
     ("gradient_accumulation_steps", lambda v: int(v or 1) > 1, "a later training slice"),
     ("adam_mu_dtype", lambda v: bool(v), "a later training slice (bf16 Adam moments)"),
     ("pretrained", lambda v: bool(v), "a later training slice (partial pretrained load)"),
-    ("quant_train", lambda v: bool(v), "the int8 slice"),
     ("use_image_num", lambda v: int(v or 0) > 0, "the T2V/image slice (joint image training)"),
     ("moe_experts", lambda v: int(v or 0) > 0, "the multi-GPU slice (MoE)"),
     ("tensor_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
@@ -62,6 +61,10 @@ _NOT_PORTED = (
     ("expert_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
     ("fsdp", lambda v: bool(v), "the multi-GPU slice"),
     ("zero1", lambda v: bool(v), "the multi-GPU slice"),
+    # the JAX trainer's multi-process rendezvous (initialize_distributed)
+    ("coordinator_address", lambda v: bool(v), "the multi-GPU slice"),
+    ("num_processes", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
+    ("process_id", lambda v: int(v or 0) > 0, "the multi-GPU slice"),
 )
 
 
@@ -149,7 +152,9 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     seed = int(getattr(config, "global_seed", 0))
 
     with torch.device(dev):
-        model = get_models(config)
+        # quant_train: W8A8 forward of the block matmuls from fp32 masters,
+        # straight-through backward (the JAX trainer's quantized="train")
+        model = get_models(config, quantized="train" if getattr(config, "quant_train", False) else False)
     model.initialize_weights(torch.Generator(device=dev).manual_seed(seed))
     if getattr(config, "mixed_precision", False):
         # bf16 compute over fp32 master parameters (model.clone(dtype=bfloat16))
@@ -168,7 +173,8 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     logger.info(
         f"{config.model} on {dev}: {sum(p.numel() for p in model.parameters()):,} parameters, "
         f"compute {model.compute_dtype or torch.float32}, "
-        f"gradient checkpointing {model.gradient_checkpointing}"
+        f"gradient checkpointing {model.gradient_checkpointing}, "
+        f"int8 training {model.quantized == 'train'}"
     )
 
     resume = getattr(config, "resume_from_checkpoint", None)

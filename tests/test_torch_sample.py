@@ -93,3 +93,61 @@ def test_reference_checkpoint_and_vae_guard(tmp_path):
     cfg.ckpt, cfg.vae_ckpt = None, "random"
     with pytest.raises(NotImplementedError, match="VAE decode"):
         sample.main(cfg, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override", ["block_cache_interval=2", "tensor_parallel=2"], ids=["block_cache", "tensor_parallel"]
+)
+def test_unported_sampler_options_raise(tmp_path, override):
+    """The block-cache sampler and tensor-parallel serving are later slices:
+    the entry point refuses them rather than sampling the plain way."""
+    cfg = load_config(FFS, TINY + [f"save_video_path={tmp_path}/v.mp4", override, "block_cache_pairs=1"])
+    with pytest.raises(NotImplementedError, match="block-cache|multi-GPU"):
+        sample.main(cfg, device="cpu")
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize(
+    "int8_overrides",
+    [["attention_mode=flash", "int8_attention=true"], ["attention_mode=auto", "int8_attention=qk"]],
+    ids=["flash-full", "auto-qk"],
+)
+def test_static_int8_sampler_matches_the_jax_sampler(tmp_path, int8_overrides):
+    """``quantized: static`` with the int8 attention core through the entry
+    point, DDIM-3 from a checkpoint, against the JAX sampler's own recipe
+    (calibration at t = 999, 500, 0 on one z, quantize_params, the static
+    model, build_sample_fn) on the same weights, calibration z and starting
+    z. Tolerance: that of test_torch_int8_model.py, whose reasons hold for
+    each of the three forwards (int8 rounding steps where the two sides'
+    fp32 activations sit an ulp apart across a rounding boundary)."""
+    import jax
+    import jax.numpy as jnp
+    from torch_port_util import close, randomize
+
+    from latte_tpu.core.diffusion import create_diffusion as jax_create_diffusion
+    from latte_tpu.models import get_models as jax_get_models
+    from latte_tpu.quant import merge_amax, quantize_params
+    from latte_tpu.sample.sample import build_sample_fn
+    from latte_tpu_torch.convert import flax_to_state_dict
+
+    over = TINY + ["quantized=static", *int8_overrides, f"save_video_path={tmp_path}/v.mp4"]
+    cfg, jcfg = load_config(FFS, over), jax_load_config(FFS, over)
+    jm = jax_get_models(jcfg)
+    x0, t0 = jnp.zeros((1, 2, 4, 4, 4)), jnp.zeros((1,), jnp.int32)
+    params = randomize(jm.init(jax.random.PRNGKey(0), x0, t0)["params"], seed=3, std=0.1)
+    torch.save({"ema": flax_to_state_dict(params, 2, 2, 2)}, tmp_path / "c.pt")
+    cfg.ckpt = str(tmp_path / "c.pt")
+    got = np.load(sample.main(cfg, device="cpu"))["latents"]
+
+    zc = jnp.asarray(sample.calibration_latents(cfg, torch.device("cpu")).numpy())
+    calib = jm.clone(quantized="calib")
+    amax = None
+    for tc in sample.CALIBRATION_TIMESTEPS:
+        _, var = calib.apply({"params": params}, zc, jnp.full((1,), tc, jnp.int32), mutable=["calib"])
+        amax = merge_amax(amax, var["calib"])
+    qparams = {"params": quantize_params(params, act_amax=amax)}
+    fn, _ = build_sample_fn(jm.clone(quantized="static"), qparams, jcfg, jax_create_diffusion("3"))
+    z = torch.randn((1, 2, 4, 4, 4), generator=torch.Generator().manual_seed(0))
+    want = fn(jnp.asarray(z.numpy()), None, jax.random.PRNGKey(1))
+    assert got.shape == (1, 2, 4, 4, 4) and np.isfinite(got).all()
+    close(got, want, 2e-2, 5e-2)

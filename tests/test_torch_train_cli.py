@@ -150,7 +150,6 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
         "gradient_accumulation_steps=2",
         "adam_mu_dtype=bfloat16",
         "pretrained=/some/checkpoint.pt",
-        "quant_train=true",
         "use_image_num=8",
         "moe_experts=4",
         "tensor_parallel=2",
@@ -158,6 +157,9 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
         "pipeline_parallel=2",
         "fsdp=true",
         "zero1=true",
+        "coordinator_address=localhost:1234",
+        "num_processes=2",
+        "process_id=1",
         "extras=2",
         "synthetic_kind=pixels",
         "remat_policy=dots",
@@ -170,3 +172,65 @@ def test_unported_options_raise(tmp_path, override):
         override = f"data_path={tmp_path}/videos"
     with pytest.raises(NotImplementedError):
         train.main(_cfg(tmp_path, "max_train_steps=1", override), device="cpu")
+
+
+def test_quant_train_step_matches_jax_and_the_cli_trains(tmp_path):
+    """``quant_train: true``: the blocks' qkv, proj, fc1 and fc2 run the W8A8
+    forward from fp32 masters with a straight-through backward, the adaLN
+    modulation stays fp (JAX ``quantized="train"``). One AdamW step against
+    the JAX step on the same weights, t and noise: the loss within 1e-3 and
+    the grad norm within 1e-3 relative (measured 8.8e-5 and 1.5e-4 here,
+    ≤ 7.9e-4 and ≤ 2.4e-4 over seeds 1-8). Each int8 product is held bit
+    for bit in test_torch_quant.py; here the fp32 activations it quantizes
+    come out of layers the two sides sum in another order, and a value an
+    ulp from a rounding boundary of round(x / s) becomes the neighbouring
+    int8 value on one side: nudging every weight of the JAX int8 model by
+    one ulp moves its own output by 0.8% (its fp model's by 1e-6). The loss
+    cannot tell a step that quantized nothing from a sound one at this
+    width: the fp model's step reads 1.4e-4 here (1.4e-4 to 3.9e-3 over
+    seeds 1-8). Its grad norm reads 1.5e-3 here (≥ 5.1e-4 over seeds 1-8),
+    so the test asserts that the fp twin fails the grad-norm limit. Then the
+    CLI trains a step."""
+    import jax
+    import jax.numpy as jnp
+    from test_torch_train import _batch, _jax_model_and_params, _port_model
+    from test_torch_train_step import _jax_noise
+
+    from latte_tpu.core.diffusion import create_diffusion as jax_create_diffusion
+    from latte_tpu.train.state import create_train_state as jax_create_train_state
+    from latte_tpu.train.state import make_optimizer as jax_make_optimizer
+    from latte_tpu.train.step import make_train_step as jax_make_train_step
+    from latte_tpu_torch.core.diffusion import create_diffusion
+    from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+    from latte_tpu_torch.train.step import make_train_step
+
+    jm, params = _jax_model_and_params(seed=1)
+    jm = jm.clone(quantized="train")
+    x0, _ = _batch(seed=2)
+    t = np.array([3, 700])
+    jopt = jax_make_optimizer(lr=1e-3)
+    jstep = jax.jit(jax_make_train_step(jm, jax_create_diffusion(""), jopt))
+    rng = jax.random.PRNGKey(7)
+    _, want = jstep(jax_create_train_state(params, jopt), {"latents": jnp.asarray(x0), "t": jnp.asarray(t)}, rng)
+    noise = torch.from_numpy(_jax_noise(rng, 0, x0.shape).copy())
+
+    def step(**quantized):
+        model = _port_model(params, **quantized)
+        state = create_train_state(model, make_optimizer(model), make_lr_schedule(1e-3))
+        batch = {"latents": torch.from_numpy(x0), "t": torch.from_numpy(t), "noise": noise}
+        out = make_train_step(create_diffusion(""))(state, batch, torch.Generator())
+        return abs(float(out["loss"]) / float(want["loss"]) - 1), abs(float(out["grad_norm"]) / float(want["grad_norm"]) - 1)
+
+    loss_err, norm_err = step(quantized="train")
+    assert loss_err <= 1e-3 and norm_err <= 1e-3
+    assert step()[1] > 1e-3  # the fp twin
+
+    class Modes(EarlyStopOnNaN):
+        def on_train_start(self, config, state, experiment_dir):
+            blk = state.model.blocks[0]
+            self.modes = (blk.attn.qkv.quantized, blk.mlp.fc2.quantized, blk.adaLN_modulation[1].quantized)
+
+    cb = Modes()
+    out = train.main(_cfg(tmp_path, "max_train_steps=1", "quant_train=true"), callbacks=[cb], device="cpu")
+    assert out["final_step"] == 1 and np.isfinite(out["loss"])
+    assert cb.modes == ("train", "train", False)
