@@ -10,23 +10,35 @@ non-zero exit and a traceback:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the kernel library, one nvcc process per latte_tpu_torch/csrc/*.cu
-   source, all at once, then one link;
+   source, all at once, then one link; ptxas's registers, shared memory and
+   spills of the tensor-core attention forward's kernels, and the count of
+   HMMA (tensor-core) instructions in their SASS where cuobjdump exists;
 3. kernels: each forward CUDA kernel against its plain PyTorch version in
    bf16 at the sampler's spatial and temporal shapes, with its time, the
    plain version's, the bound from its bytes and operations and, for
    attention, the time of torch's scaled_dot_product_attention as a
    yardstick; then the attention's logsumexp output, and each kernel in fp32
-   at the spatial shape. Then the two flash-attention backward kernels (dQ,
-   dK/dV) the same way, in bf16 at both shapes, in fp32 at the spatial shape
+   at the spatial shape. The bf16 attention forward must take the
+   tensor-core kernel, where it is also held against the plain mirror of
+   its tile schedule (equal to the bit on all but 1% of elements), and the
+   fp32 one the CUDA-core kernel; the bf16 one is also held and timed at
+   FLASH_SHAPES (T2V 512^2, a ragged N, the mixed-precision trainer's batch
+   5, and a misaligned layout that the bf16 CUDA-core kernel takes). Then the two
+   flash-attention backward kernels (dQ, dK/dV) the same way, in bf16 at both shapes, in fp32 at the spatial shape
    and in fp32 at the training config's batch 5 (spatial and temporal), with
    the backward of scaled_dot_product_attention as the yardstick;
 4. forward: full-width Latte-XL/2 (16 x 256^2, bf16, random weights from a
-   seed), kernel path against the plain path and an fp32 plain path, and the
-   launch counts of one forward;
+   seed), kernel path against the plain path and an fp32 plain path, the
+   launch counts of one forward (every attention call on the tensor-core
+   route), its device time by kind and the device's idle share;
 5. sampler: the entry point ``latte_tpu_torch.sample.sample.main`` on
    configs/ffs/ffs_sample.yaml with DDIM-50 at batch 1 from a random
    checkpoint, then DDPM for a few steps; finite latents, launch counts,
-   videos/min, and the DDIM latents against the plain path's;
+   videos/min (median of three DDIM-50 runs, each paired with a run that
+   forces the CUDA-core attention forward), the device's idle share in a
+   profiled DDIM-50 run, and the
+   DDIM latents against the plain path's; every bf16 attention call of
+   both runs goes through the tensor-core kernel, and none of a forced run;
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -91,6 +103,7 @@ from latte_tpu_torch.kernels import (
     residual_ln_modulate_reference,
 )
 from latte_tpu_torch.kernels import flash_attention_int8, flash_scale_block, int8_attention
+from latte_tpu_torch.kernels.attention import attention_tiled_reference, forward_route
 from latte_tpu_torch.models import get_model
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.sample import sample
@@ -108,6 +121,15 @@ BF16_TOL = 2.0**-6
 FP32_TOL = 1e-5
 # the fp32 logsumexp (values of order 5) of the kernel and the plain version
 LSE_TOL = 1e-4
+# the tensor-core attention forward against the plain mirror of its tile
+# schedule (attention_tiled_reference), which rounds q, p and the output at
+# the same points: an output element may differ only where an fp32 sum in
+# another order moves it across a bf16 rounding boundary, so at most this
+# share of them, by one step (2^-7 of the largest magnitude) at most (the
+# untiled plain version, rounding p once per row, differs on ~20%); the
+# lse, fp32 on both sides, within fp32 rounding (relative and absolute)
+TILED_SHARE_APART = 0.01
+TILED_LSE_TOL = 1e-5
 # the int8 kernel in fp32 against its plain version, by its arithmetic:
 # relative L2 of the difference, the largest difference over the largest
 # magnitude, and the share of elements more than 1e-6 of that apart. The
@@ -126,8 +148,8 @@ INT8_FP32_TOL = {
 HIDDEN, HEADS, HEAD_DIM, FRAMES, TOKENS, DEPTH = 1152, 16, 72, 16, 256, 28
 TRAIN_BATCH, TRAIN_STEPS = 5, 6  # ffs_train.yaml's local_batch_size; steps of the entry-point run
 KERNELS = {
-    "flash_attention": dict(
-        source="latte_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": dict(  # bf16; fp32 and other bf16 layouts: csrc/flash_attention.cu
+        source="latte_tpu_torch/csrc/flash_attention_tc.cu",
         replaces="latte_tpu/kernels/attention.py:56",
         fn=flash_attention,
     ),
@@ -179,6 +201,20 @@ INT8_SHAPES = {
 INT8_ARCH = dict(input_size=32, num_frames=FRAMES, int8_attention=True, attention_mode="flash")
 # (rows of the block, tokens per row) on the main path at batch 1
 SHAPES = {"spatial": (FRAMES, TOKENS), "temporal": (TOKENS, FRAMES)}
+# more bf16 cases of the attention forward: (rows, tokens, storage offset in
+# elements). t2v is T2V 512^2's spatial attention (1024 tokens a frame);
+# ragged N masks the last K/V tile (and, at N <= 64, the short route's one
+# tile); b5 is the mixed-precision trainer's batch 5; an offset of one
+# element puts q/k/v 2 bytes past a 16-byte boundary, which the tensor-core
+# kernel refuses and the CUDA-core kernel's bf16 instantiation takes
+FLASH_SHAPES = {
+    "t2v": (FRAMES, 1024, 0),
+    "ragged": (FRAMES, 200, 0),
+    "temporal_ragged": (FRAMES, 40, 0),
+    "spatial_b5": (TRAIN_BATCH * FRAMES, TOKENS, 0),
+    "temporal_b5": (TRAIN_BATCH * TOKENS, FRAMES, 0),
+    "spatial_misaligned": (FRAMES, TOKENS, 1),
+}
 # the backward kernels' cases: (rows, tokens, dtype); the last two are the
 # training config's (batch 5, fp32), the shapes of the JSON line
 BWD_SHAPES = {
@@ -200,6 +236,17 @@ def phase(name: str, t0: float) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
+    flash_attention.tc_launches = 0
+
+
+def check_tc(label: str, expect: int) -> int:
+    """The attention forward's launches on the tensor-core route since the
+    last reset_counts(): every bf16 call, no fp32 one."""
+    got = flash_attention.tc_launches
+    print(f"  {label}: {got} tensor-core attention launches (expected {expect})", flush=True)
+    if got != expect:
+        raise AssertionError(f"{label}: {got} tensor-core attention launches, expected {expect}")
+    return got
 
 
 def counts() -> dict:
@@ -208,17 +255,28 @@ def counts() -> dict:
 
 class Timer:
     """Median device time of a call, each launch after a write of 64 MB so
-    the 50 MB L2 holds none of its inputs (CUDA events around the call only)."""
+    the 50 MB L2 holds none of its inputs (CUDA events around the call only).
+
+    The events also count the host's time to reach the launch when the
+    device runs dry before it: a wrapper's Python and the launch itself,
+    tens of microseconds, which the 64 MB write does not always cover. With
+    ``pad`` a spin kernel of ~0.5 ms keeps the device busy while the host
+    records the start event and enqueues the call, so the events hold the
+    device's time alone."""
+
+    PAD_CYCLES = 1_000_000
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
-    def ms(self, fn, iters: int = 15) -> float:
+    def ms(self, fn, iters: int = 15, pad: bool = False) -> float:
         for _ in range(3):
             fn()
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            if pad:
+                torch.cuda._sleep(self.PAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -249,33 +307,48 @@ def max_abs(a) -> float:
     return a.float().abs().max().item()
 
 
+def flash_case(rows: int, n: int, device, gen, dtype=torch.bfloat16, offset: int = 0) -> dict:
+    """The attention forward at one shape; q/k/v are views of one fused qkv
+    output, as the model hands them over, ``offset`` elements into its
+    storage."""
+    shape = (rows, n, 3, HEADS, HEAD_DIM)
+    numel = rows * n * 3 * HEADS * HEAD_DIM
+    qkv = torch.randn(offset + numel, generator=gen, device=device, dtype=dtype)[offset:].view(shape)
+    q, k, v = qkv.unbind(2)
+    nbytes = 4 * rows * n * HEADS * HEAD_DIM * qkv.element_size()
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return dict(
+        run=lambda: flash_attention(q, k, v),
+        plain=lambda: attention_reference(q, k, v),
+        tiled=(
+            lambda: flash_attention(q, k, v, return_lse=True),
+            lambda: attention_tiled_reference(q, k, v, return_lse=True),
+        ),
+        library=lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ),
+        bound=bound_ms(nbytes, 4 * rows * HEADS * n * n * HEAD_DIM, rate),
+        lse=(
+            lambda: flash_attention(q, k, v, return_lse=True)[1],
+            lambda: attention_reference(q, k, v, return_lse=True)[1],
+        ),
+        route=forward_route(q, k, v),
+    )
+
+
 def kernel_cases(rows: int, n: int, device, gen, dtype=torch.bfloat16):
     """Inputs at one main-path shape, laid out as the model hands them over:
     q/k/v are views of one fused qkv output, the adaLN vectors column chunks
     of one modulation output."""
     kw = dict(device=device, dtype=dtype)
-    qkv = torch.randn((rows, n, 3, HEADS, HEAD_DIM), generator=gen, **kw)
-    q, k, v = qkv.unbind(2)
+    flash = flash_case(rows, n, device, gen, dtype)
     x = torch.randn((rows, n, HIDDEN), generator=gen, **kw)
     delta = torch.randn((rows, n, HIDDEN), generator=gen, **kw)
     mod = torch.randn((rows, 6 * HIDDEN), generator=gen, **kw)
     shift, scale, gate = mod[:, :HIDDEN], mod[:, HIDDEN:2 * HIDDEN], mod[:, 2 * HIDDEN:3 * HIDDEN]
     e, el = x.element_size(), rows * n * HIDDEN  # bytes per element, elements of one activation
-    att_bytes = 4 * rows * n * HEADS * HEAD_DIM * e
-    att_flops = 4 * rows * HEADS * n * n * HEAD_DIM
     return {
-        "flash_attention": dict(
-            run=lambda: flash_attention(q, k, v),
-            plain=lambda: attention_reference(q, k, v),
-            library=lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            ),
-            bound=bound_ms(att_bytes, att_flops, BF16_FLOP_PER_S),
-            lse=(
-                lambda: flash_attention(q, k, v, return_lse=True)[1],
-                lambda: attention_reference(q, k, v, return_lse=True)[1],
-            ),
-        ),
+        "flash_attention": flash,
         "ln_modulate": dict(
             run=lambda: ln_modulate(x, shift, scale),
             plain=lambda: ln_modulate_reference(x, shift, scale),
@@ -449,6 +522,8 @@ def measure(name: str, label: str, case: dict, tol_rel: float, timer) -> dict:
         ms=timer.ms(case["run"]),
         plain_ms=timer.ms(case["plain"]),
         library_ms=timer.ms(case["library"]) if case["library"] else None,
+        device_ms=timer.ms(case["run"], pad=True),
+        library_device_ms=timer.ms(case["library"], pad=True) if case["library"] else None,
         bound_ms=case["bound"][0],
         bound_by=case["bound"][1],
     )
@@ -458,28 +533,84 @@ def measure(name: str, label: str, case: dict, tol_rel: float, timer) -> dict:
     return r
 
 
+def check_route(label: str, case: dict, tc_before: int, want: str) -> None:
+    """The attention forward took the kernel ``want`` names: the route
+    function says so, and the tensor-core count moved only for that route."""
+    moved = flash_attention.tc_launches - tc_before
+    print(f"  flash_attention {label}: route {case['route']}, {moved} tensor-core launches", flush=True)
+    if case["route"] != want or (moved > 0) != (want == "tensor_core"):
+        raise AssertionError(f"flash_attention {label}: route {case['route']} with {moved} "
+                             f"tensor-core launches; expected {want}")
+
+
+def check_tiled(label: str, case: dict) -> dict:
+    """The tensor-core forward against the plain mirror of its tile schedule
+    on the same inputs: all but TILED_SHARE_APART of the output equal to the
+    bit, the rest one bf16 step apart at most, the lse within TILED_LSE_TOL."""
+    (out, lse), (want, want_lse) = (f() for f in case["tiled"])
+    diff = (out.float() - want.float()).abs()
+    r = dict(
+        share_apart=(diff > 0).float().mean().item(),
+        max_abs_err=diff.max().item(),
+        lse_err=(lse - want_lse).abs().max().item(),
+    )
+    step, lse_tol = 2.0**-7 * max_abs(want), TILED_LSE_TOL * (1.0 + max_abs(want_lse))
+    print(f"  flash_attention {label} vs its tiled mirror: {json.dumps(r)} (limits: share "
+          f"{TILED_SHARE_APART}, err {step}, lse {lse_tol})", flush=True)
+    if not (r["share_apart"] <= TILED_SHARE_APART and r["max_abs_err"] <= step
+            and r["lse_err"] <= lse_tol):
+        raise AssertionError(f"flash_attention {label}: the kernel departs from its tiled mirror: {r}")
+    return r
+
+
+def measure_flash(label: str, case: dict, timer, want: str = "tensor_core") -> dict:
+    """The bf16 attention forward at one case: output and lse against the
+    plain version, its route (``want``), and on the tensor-core route the
+    output and lse against the mirror of its tile schedule."""
+    tc_before = flash_attention.tc_launches
+    r = measure("flash_attention", label, case, BF16_TOL, timer)
+    r["lse_err"] = lse_err = max_err(case["lse"][0](), case["lse"][1]())
+    print(f"  flash_attention {label} lse: max abs err {lse_err} (tolerance {LSE_TOL})")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention {label}: lse err {lse_err} > {LSE_TOL}")
+    check_route(label, case, tc_before, want)
+    if want == "tensor_core":
+        r["vs_tiled"] = check_tiled(label, case)
+    return r
+
+
 def check_kernels(device, timer) -> dict:
     """Each forward kernel against its plain version in bf16 at both shapes
-    (and the attention's lse), then in fp32; then the backward kernels at
-    BWD_SHAPES. Returns the measurements by kernel and shape."""
+    (and the attention's lse and route), the attention forward at
+    FLASH_SHAPES, then each forward kernel in fp32; then the backward
+    kernels at BWD_SHAPES. Returns the measurements by kernel and shape."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {} for name in KERNELS}
     for shape, (rows, n) in SHAPES.items():
         for name, case in kernel_cases(rows, n, device, gen).items():
-            results[name][shape] = measure(name, f"{shape} rows={rows} N={n}", case, BF16_TOL, timer)
-            if "lse" in case:
-                lse_err = max_err(case["lse"][0](), case["lse"][1]())
-                print(f"  {name} {shape} lse: max abs err {lse_err} (tolerance {LSE_TOL})")
-                if not lse_err <= LSE_TOL:
-                    raise AssertionError(f"{name} {shape}: lse err {lse_err} > {LSE_TOL}")
+            label = f"{shape} rows={rows} N={n}"
+            if name == "flash_attention":
+                results[name][shape] = measure_flash(label, case, timer)
+            else:
+                results[name][shape] = measure(name, label, case, BF16_TOL, timer)
+    for shape, (rows, n, offset) in FLASH_SHAPES.items():
+        case = flash_case(rows, n, device, gen, offset=offset)
+        label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
+        want = "cuda_core" if offset % 8 else "tensor_core"
+        results["flash_attention"][shape] = measure_flash(label, case, timer, want)
+        del case
+        torch.cuda.empty_cache()
     # the fp32 instantiations (the sampler with use_fp16: false)
     rows, n = SHAPES["spatial"]
     for name, case in kernel_cases(rows, n, device, gen, torch.float32).items():
+        tc_before = flash_attention.tc_launches
         got, want = case["run"](), case["plain"]()
         err, tol = max_err(got, want), FP32_TOL * max_abs(want)
         print(f"  {name} spatial fp32: max abs err {err} (tolerance {tol})", flush=True)
         if not err <= tol:
             raise AssertionError(f"{name} fp32: max abs err {err} > {tol}")
+        if name == "flash_attention":
+            check_route("spatial fp32", case, tc_before, "cuda_core")
     for shape, (rows, n, dtype) in BWD_SHAPES.items():
         tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
         for name, case in backward_cases(rows, n, device, gen, dtype).items():
@@ -487,6 +618,34 @@ def check_kernels(device, timer) -> dict:
             results[name][shape] = measure(name, label, case, tol, timer)
         torch.cuda.empty_cache()
     return results
+
+
+def report_tc_build(path) -> dict:
+    """Print ptxas's registers, shared memory and spills for each kernel of
+    csrc/flash_attention_tc.cu, and count the HMMA instructions in their SASS
+    where cuobjdump sits beside nvcc: each must have some."""
+    section = build.compile_log().split("== flash_attention_tc.cu\n")[1].split("\n== ")[0]
+    for line in section.splitlines():
+        if "entry function" in line or "spill" in line or "Used" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("  cuobjdump not found beside nvcc: HMMA count not measured", flush=True)
+        return {}
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "flash_fwd_tc" in fn:
+                hmma[fn] = 0
+        elif fn in hmma and "HMMA" in line:
+            hmma[fn] += 1
+    print(f"  HMMA instructions in the SASS of the tensor-core forward: {json.dumps(hmma)}", flush=True)
+    if not hmma or min(hmma.values()) == 0:
+        raise AssertionError(f"the tensor-core forward's kernels lack HMMA instructions: {hmma}")
+    return hmma
 
 
 def randomize_(model, seed: int) -> None:
@@ -525,6 +684,7 @@ def kernel_kind(name: str) -> str:
     for key, kind in (
         ("flash_int8_kernel", INT8),
         ("flash_fwd_kernel", "flash_attention"),
+        ("flash_fwd_tc", "flash_attention"),
         ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
         ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
         ("residual_ln_modulate_kernel", "residual_ln_modulate"),
@@ -581,14 +741,60 @@ def print_profile(label: str, prof, wall_ms: float = None) -> None:
           + json.dumps({k: round(v, 4) for k, v in top.items()}), flush=True)
 
 
-def profile_forward(model, x, t) -> None:
-    """Device time of one forward by kind of kernel (torch.profiler)."""
+def profile_forward(model, x, t, wall_ms: float) -> None:
+    """Device time of one forward by kind of kernel (torch.profiler), and
+    the idle share against ``wall_ms``, the forward's unprofiled time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(x, t)
         torch.cuda.synchronize()
-    print_profile("forward", prof)
+    print_profile("forward", prof, wall_ms)
+
+
+def ddim_route_runs(model, cfg, device, pairs: int = 3) -> dict:
+    """Host seconds of DDIM runs of ``sample_latents``, each ending in a
+    synchronize, in pairs: the attention forward on its tensor-core route,
+    and with the CUDA-core kernel forced (``forward_route`` patched for the
+    run), the order alternating from pair to pair, so a drift in the host's
+    speed falls on both. The sampler's host launches take about as long as
+    its device work, so one run says little. Each run must take the route
+    it names for every attention call: all on the tensor cores, or none."""
+    from latte_tpu_torch.kernels import attention
+
+    route = attention.forward_route
+    secs = {"tensor_core": [], "cuda_core": []}
+    calls = DEPTH * int(cfg.num_sampling_steps)
+    try:
+        for i in range(pairs):
+            for name in (secs if i % 2 == 0 else reversed(secs)):
+                attention.forward_route = (
+                    route if name == "tensor_core" else lambda q, k, v: route(q, k, v) and "cuda_core"
+                )
+                tc_before = flash_attention.tc_launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sample.sample_latents(model, cfg, device)
+                torch.cuda.synchronize()
+                secs[name].append(time.perf_counter() - t0)
+                moved = flash_attention.tc_launches - tc_before
+                if moved != (calls if name == "tensor_core" else 0):
+                    raise AssertionError(f"ddim run forced to {name}: {moved} tensor-core launches")
+    finally:
+        attention.forward_route = route
+    return secs
+
+
+def profile_sampler(model, cfg, device, wall_s: float) -> None:
+    """Device time of one DDIM run by kind of kernel, and the device's idle
+    share against ``wall_s``, the same run's unprofiled host time (the
+    profiler slows the host, not the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sample.sample_latents(model, cfg, device)
+        torch.cuda.synchronize()
+    print_profile(f"ddim-{cfg.num_sampling_steps} sampler", prof, wall_s * 1e3)
 
 
 def profile_int8_forward(model, x, t) -> dict:
@@ -676,6 +882,7 @@ def int8_forward(device, masters, x, t, out_p32, timer) -> dict:
         out_q = qmodel(x, t)
         torch.cuda.synchronize()
         per_forward = counts()
+        check_tc("one int8 forward", 0)
         out_qp = qplain(x, t)
     expect = {k: 0 for k in KERNELS}
     expect.update({INT8: DEPTH, "ln_modulate": DEPTH, "residual_ln_modulate": DEPTH})
@@ -713,6 +920,7 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
     reset_counts()
     lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
     launches = counts()
+    check_tc("int8 ddim-50, its 3 bf16 calibration forwards", 3 * DEPTH)
     # the calibration runs 3 floating-point forwards (flash_attention), the
     # 50 steps one int8 forward each
     expect = {k: 0 for k in KERNELS}
@@ -762,6 +970,7 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
         reset_counts()
         lat_s = torch.from_numpy(np.load(sample.main(cfg))["latents"])
         got = counts()
+        check_tc(f"{name} ddim-{steps}", (steps * per_step.get("flash_attention", 0) + calib * DEPTH))
         expect = {k: 0 for k in KERNELS}
         for k, c in per_step.items():
             expect[k] = steps * c
@@ -788,6 +997,7 @@ def train_quant(tmp: str, smi: str) -> dict:
         "quant_train=true",
     ]), callbacks=[log])
     launches = counts()
+    check_tc("quant_train fp32", 0)
     blk = log.state.model.blocks[0]
     modes = (blk.attn.qkv.quantized, blk.mlp.fc1.quantized, blk.adaLN_modulation[1].quantized)
     secs = log.step_seconds()
@@ -858,6 +1068,7 @@ def train_step_parity(device) -> dict:
     loss_k, g_k = step(model, None)
     torch.cuda.synchronize()
     step_counts = counts()
+    check_tc("fp32 train step", 0)
     loss_p, g_p = step(plain, None)
     print(f"  launches in one train step: {step_counts}", flush=True)
     if step_counts != STEP_LAUNCHES:
@@ -871,7 +1082,9 @@ def train_step_parity(device) -> dict:
     # forward phase leaves 1e-3
     if not (fp32["finite"] and fp32["cosine"] >= 0.999 and fp32["rel_l2"] <= 1e-3 and loss_rel <= 1e-4):
         raise AssertionError("the kernel path's train step disagrees with the plain path's")
+    reset_counts()
     _, g_km = step(model, torch.bfloat16)
+    check_tc("mixed-precision train step", STEP_LAUNCHES["flash_attention"])
     _, g_pm = step(plain, torch.bfloat16)
     vs32 = compare("mixed step: kernel grads vs plain fp32 grads", g_km, g_p)
     plain_vs32 = compare("mixed step: plain grads vs plain fp32 grads", g_pm, g_p)
@@ -895,6 +1108,7 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     out = train.main(load_config(FFS_TRAIN, overrides), callbacks=[log])  # on cuda by default
     torch.cuda.synchronize()
     launches = counts()
+    check_tc("ffs_train fp32", 0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     secs = log.step_seconds()
     print(f"  ffs_train fp32 batch {TRAIN_BATCH}: {out}; launches {launches}", flush=True)
@@ -952,9 +1166,14 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
     their gradients, the AdamW moments and the EMA stay fp32."""
     log = StepLog()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     out = train.main(load_config(FFS_TRAIN, [
         f"results_dir={tmp}/results", "max_train_steps=2", "log_every=1", "mixed_precision=true",
     ]), callbacks=[log])
+    launches = counts()
+    check_tc("mixed precision, 2 steps", 2 * STEP_LAUNCHES["flash_attention"])
+    if launches != {k: 2 * c for k, c in STEP_LAUNCHES.items()}:
+        raise AssertionError(f"expected 2 x {STEP_LAUNCHES} launches, got {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     state = log.state
     dtypes = {p.dtype for p in state.model.parameters()} | {p.dtype for p in state.ema.parameters()}
@@ -991,6 +1210,7 @@ def main() -> int:
     path = build.build()
     build.load_library()
     print(f"  library {path.name}, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    hmma = report_tc_build(path)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -1026,6 +1246,7 @@ def main() -> int:
         out_k = model(x, t)
         torch.cuda.synchronize()
         per_forward = counts()
+        check_tc("one bf16 forward", DEPTH)
         out_p16, out_p32 = plain16(x, t), plain32(x, t)
     print(f"  launches in one forward: {per_forward}", flush=True)
     if any(per_forward[k] != DEPTH for k in FORWARD) or any(per_forward[k] for k in (*BACKWARD, INT8)):
@@ -1042,7 +1263,7 @@ def main() -> int:
     with torch.inference_mode():
         fwd_ms = timer.ms(lambda: model(x, t), iters=5)
         plain_fwd_ms = timer.ms(lambda: plain16(x, t), iters=5)
-        profile_forward(model, x, t)
+        profile_forward(model, x, t, fwd_ms)
     print(f"  forward ms: kernels {fwd_ms:.3f}, plain {plain_fwd_ms:.3f}", flush=True)
     phase("forward", t0)
 
@@ -1066,6 +1287,7 @@ def main() -> int:
         reset_counts()
         lat_path = sample.main(cfg)  # the entry point, on cuda by default
         main_launches = counts()
+        main_tc = check_tc("bf16 ddim-50 entry point", DEPTH * 50)
         lat = torch.from_numpy(np.load(lat_path)["latents"])
         print(f"  ddim-50 latents {tuple(lat.shape)} finite={bool(torch.isfinite(lat).all())}; "
               f"launches {main_launches}", flush=True)
@@ -1081,12 +1303,13 @@ def main() -> int:
         plain_s = time.perf_counter() - t1
         if not compare("ddim-50 latents, entry point vs plain path", lat, ref.cpu())["cosine"] >= 0.99:
             raise AssertionError("the DDIM latents disagree with the plain path's")
-        t1 = time.perf_counter()
-        sample.sample_latents(model, cfg, device)
-        torch.cuda.synchronize()
-        kernel_s = time.perf_counter() - t1
+        route_s = ddim_route_runs(model, cfg, device)
+        kernel_s, core_s = (sorted(v)[len(v) // 2] for v in route_s.values())
         print(f"  ddim-50 batch 1: {kernel_s:.3f} s -> {60.0 / kernel_s:.3f} videos/min "
-              f"(plain path {plain_s:.3f} s) on {smi}", flush=True)
+              f"(median of {route_s['tensor_core']}; with the CUDA-core attention forward "
+              f"{core_s:.3f} s -> {60.0 / core_s:.3f} videos/min, median of "
+              f"{route_s['cuda_core']}; plain path {plain_s:.3f} s) on {smi}", flush=True)
+        profile_sampler(model, cfg, device, kernel_s)
 
         cfg = load_config(FFS_CONFIG, [
             "sample_method=ddpm", "num_sampling_steps=5", f"ckpt={ckpt}",
@@ -1095,6 +1318,7 @@ def main() -> int:
         reset_counts()
         lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])
         ddpm_launches = counts()
+        check_tc("ddpm-5", DEPTH * 5)
         print(f"  ddpm-5 latents finite={bool(torch.isfinite(lat).all())}; "
               f"launches {ddpm_launches}", flush=True)
         if not torch.isfinite(lat).all() or any(ddpm_launches[k] != DEPTH * 5 for k in FORWARD):
@@ -1145,6 +1369,10 @@ def main() -> int:
                 shape="spatial bf16 batch 1", launches_train=entry["launches"][name],
                 temporal=measured[name]["temporal"])
             launches = main_launches[name]
+            if name == "flash_attention":
+                extra.update(
+                    tc_launches=main_tc, fp32_source="latte_tpu_torch/csrc/flash_attention.cu",
+                    sass_hmma=hmma, cases={c: measured[name][c] for c in FLASH_SHAPES})
         else:  # the training path, at its shapes (fp32, batch 5)
             row, extra = measured[name]["spatial_b5_fp32"], dict(
                 shape="spatial fp32 batch 5", temporal=measured[name]["temporal_b5_fp32"],
@@ -1154,7 +1382,8 @@ def main() -> int:
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
             launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], **extra,
+            library_ms=row["library_ms"], device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"], **extra,
         ))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

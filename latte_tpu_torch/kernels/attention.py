@@ -4,8 +4,11 @@ plain versions, and the autograd functions that join them.
 Counterpart of ``latte_tpu/kernels/attention.py``. The kernels replace the
 Pallas kernels of that file:
 
-- ``csrc/flash_attention.cu``: ``_flash_kernel`` (``attention.py:56``,
-  launched by ``_flash_forward`` at ``:122``);
+- ``csrc/flash_attention_tc.cu`` (bf16, tensor cores) and
+  ``csrc/flash_attention.cu`` (fp32 and the bf16 layouts the first does not
+  take, CUDA cores): ``_flash_kernel`` (``attention.py:56``, launched by
+  ``_flash_forward`` at ``:122``); :func:`forward_route` picks one before
+  the launch;
 - ``csrc/flash_attention_bwd.cu``: ``_flash_bwd_dq_kernel`` (``:143``,
   launched at ``:257``) and ``_flash_bwd_dkv_kernel`` (``:184``, at ``:273``).
 
@@ -33,14 +36,20 @@ __all__ = [
     "flash_attention_bwd_dq",
     "flash_attention_bwd_dkv",
     "attention_reference",
+    "attention_tiled_reference",
     "attention_backward_reference",
     "attention_bwd_dq_reference",
     "attention_bwd_dkv_reference",
     "attention_delta",
+    "forward_route",
 ]
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core forward (csrc/flash_attention_tc.cu): its one head_dim,
+# Latte-XL/2's, and the keys of a K/V tile at N > TC_TILE
+TC_HEAD_DIM = 72
+TC_TILE = 64
 
 
 def attention_reference(
@@ -65,6 +74,38 @@ def attention_reference(
     if not return_lse:
         return out
     return out, (m + torch.log(l)).reshape(B * H, N).contiguous()
+
+
+def attention_tiled_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The tensor-core forward's tile schedule in plain PyTorch: the
+    rounding points of :func:`attention_reference`, but an online softmax
+    over K/V tiles of ``TC_TILE`` keys (one tile of N keys up to
+    ``TC_TILE``), p rounded to v's type at each tile's running maximum
+    before P·V while l sums the unrounded p, m starting at -1e30. A ragged
+    last tile's missing keys count for nothing, as the kernel's masked keys
+    do. The TPU kernel at ``block_k = TC_TILE`` rounds at the same points.
+    """
+    B, N, H, D = q.shape
+    block_k = min(N, TC_TILE)
+    qs = (q.float() * D**-0.5).to(q.dtype).float().transpose(1, 2)  # (B, H, N, D)
+    kt, vt = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    acc = torch.zeros((B, H, N, D), device=q.device)
+    m = torch.full((B, H, N, 1), -1e30, device=q.device)
+    l = torch.zeros((B, H, N, 1), device=q.device)  # noqa: E741
+    for k0 in range(0, N, block_k):
+        s = qs @ kt[:, :, k0:k0 + block_k].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)  # noqa: E741
+        acc = acc * alpha + p.to(v.dtype).float() @ vt[:, :, k0:k0 + block_k]
+        m = m_new
+    out = (acc / l).transpose(1, 2).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(B * H, N)
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -154,11 +195,28 @@ def _check_backward(q, k, v, dout, lse, delta, grads) -> None:
             raise ValueError(f"lse and delta must be contiguous fp32 ({B * H}, {N}) tensors")
 
 
+def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which forward kernel takes these operands on the card: "tensor_core"
+    (``csrc/flash_attention_tc.cu``) for bf16 at head_dim ``TC_HEAD_DIM``
+    whose base pointers and (batch, token, head) strides are all 16-byte
+    aligned (its 16-byte copies need that; a stride of a length-1 axis is
+    never used), else "cuda_core" (``csrc/flash_attention.cu``, any stride,
+    fp32 too). Raises on what neither kernel takes. Reads only
+    shapes, strides and addresses, so it runs on CPU tensors too."""
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16 or q.shape[-1] != TC_HEAD_DIM:
+        return "cuda_core"
+    for t in (q, k, v):  # 8 bf16 elements are 16 bytes
+        if t.data_ptr() % 16 or any(n > 1 and s % 8 for n, s in zip(t.shape[:3], t.stride())):
+            return "cuda_core"
+    return "tensor_core"
+
+
 def _forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward kernel (or, for CPU tensors, its plain version)."""
-    _check(q, k, v)
+    route = forward_route(q, k, v)
     if q.device.type == "cpu":
         if return_lse:
             return attention_reference(q, k, v, return_lse=True)
@@ -169,13 +227,17 @@ def _forward(
     lse: Optional[torch.Tensor] = (
         torch.empty((B * H, N), dtype=torch.float32, device=q.device) if return_lse else None
     )
-    strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
-    err = lib.latte_flash_attention_fwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, N, H, D, *strides, float(D**-0.5),
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, N, H, D,
+        *(t.stride(i) for t in (q, k, v) for i in range(3)), float(D**-0.5),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    build.check(err, "flash_attention")
+    if route == "tensor_core":
+        build.check(lib.latte_flash_attention_fwd_tc(*args), "flash_attention (tensor cores)")
+        flash_attention.tc_launches += 1
+    else:
+        build.check(lib.latte_flash_attention_fwd(_DTYPE_CODE[q.dtype], *args), "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
@@ -309,7 +371,8 @@ def flash_attention(
     kernels read them in place. Differentiable: the backward runs the dQ and
     dK/dV kernels. Without autograd only the forward kernel runs, and the
     logsumexp is computed only when asked for. ``flash_attention.launches``
-    counts the forward kernel's launches.
+    counts the forward kernels' launches, ``flash_attention.tc_launches``
+    those of the tensor-core kernel among them (see :func:`forward_route`).
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v)
@@ -336,5 +399,6 @@ def attention_qkv(qkv: torch.Tensor, plain: bool = False) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0

@@ -4,6 +4,8 @@ Each source under ``latte_tpu_torch/csrc/`` is compiled by its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects
 into one shared library with a plain C interface (no PyTorch headers, so
 the build takes seconds), which :func:`load_library` opens with ``ctypes``.
+ptxas reports each kernel's registers, shared memory and spills
+(``-Xptxas=-v``); :func:`compile_log` returns what the build printed.
 The library lands in ``build/latte_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and flags, so an unchanged tree reuses it
 and a changed one rebuilds.
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "latte_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -36,6 +38,7 @@ _SIGNATURES = {
     "latte_flash_attention_fwd": (
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_I64] * 9 + [_F, _I, _P]
     ),
+    "latte_flash_attention_fwd_tc": [_P] * 5 + [_I] * 4 + [_I64] * 9 + [_F, _I, _P],
     "latte_ln_modulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P],
     "latte_residual_ln_modulate": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
@@ -95,11 +98,20 @@ def build() -> Path:
     try:
         _run_all(jobs)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        out.with_suffix(".log").write_text("".join(
+            f"== {src.name}\n{o.with_suffix('.log').read_text()}" for src, o in zip(sources(), objs)
+        ))
     finally:
         for path in (*objs, *(o.with_suffix(".log") for o in objs), tmp.with_suffix(".log")):
             path.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def compile_log() -> str:
+    """What nvcc and ptxas printed while building the current library, one
+    section per source ("== name.cu")."""
+    return library_path().with_suffix(".log").read_text()
 
 
 def _run_all(cmds: list) -> None:

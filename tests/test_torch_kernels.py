@@ -171,7 +171,10 @@ def test_kernel_library_is_keyed_by_its_sources():
     from latte_tpu_torch.kernels import build
 
     names = {p.name for p in build.sources()}
-    assert names == {"adaln.cu", "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu"}
+    assert names == {
+        "adaln.cu", "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_int8.cu",
+        "flash_attention_tc.cu",
+    }
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.name.startswith("liblatte_kernels_")
     assert path == build.library_path()  # stable for an unchanged tree
