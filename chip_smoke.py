@@ -11,8 +11,9 @@ non-zero exit and a traceback:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the kernel library, one nvcc process per latte_tpu_torch/csrc/*.cu
    source, all at once, then one link; ptxas's registers, shared memory and
-   spills of the tensor-core attention forward's kernels, and the count of
-   HMMA (tensor-core) instructions in their SASS where cuobjdump exists;
+   spills of the tensor-core attention kernels (forward and backward), and
+   the count of HMMA (tensor-core) instructions in their SASS where
+   cuobjdump exists (none may spill, each must have HMMA);
 3. kernels: each forward CUDA kernel against its plain PyTorch version in
    bf16 at the sampler's spatial and temporal shapes, with its time, the
    plain version's, the bound from its bytes and operations and, for
@@ -24,9 +25,14 @@ non-zero exit and a traceback:
    fp32 one the CUDA-core kernel; the bf16 one is also held and timed at
    FLASH_SHAPES (T2V 512^2, a ragged N, the mixed-precision trainer's batch
    5, and a misaligned layout that the bf16 CUDA-core kernel takes). Then the two
-   flash-attention backward kernels (dQ, dK/dV) the same way, in bf16 at both shapes, in fp32 at the spatial shape
-   and in fp32 at the training config's batch 5 (spatial and temporal), with
-   the backward of scaled_dot_product_attention as the yardstick;
+   flash-attention backward kernels (dQ, dK/dV) the same way at BWD_SHAPES:
+   in bf16 at both shapes, at the mixed-precision trainer's batch 5, at a
+   ragged N and at a misaligned layout, in fp32 at the spatial shape and at
+   the training config's batch 5 (spatial and temporal), with the backward
+   of scaled_dot_product_attention as the yardstick. Each takes the route it
+   names: bf16 the tensor-core kernels, also held to the bit against the
+   plain versions (all but 1% of the outputs), the misaligned bf16 case and
+   fp32 the CUDA-core ones;
 4. forward: full-width Latte-XL/2 (16 x 256^2, bf16, random weights from a
    seed), kernel path against the plain path and an fp32 plain path, the
    launch counts of one forward (every attention call on the tensor-core
@@ -46,7 +52,11 @@ non-zero exit and a traceback:
    as shipped (fp32, batch 5, synthetic latents) for a few steps, with its
    launch counts, seconds per step, peak memory and a profile of the last step,
    then a resume from its checkpoint and a short DDIM run of the port's
-   sampler on the trained EMA; (c) two steps with mixed_precision: true;
+   sampler on the trained EMA, none of it on the tensor-core backward;
+   (c) ``train.main`` with mixed_precision: true at batch 5: six steps on
+   the tensor-core backward (the median of steps 3-5, a profile of step
+   6), then alternating pairs of steps against the CUDA-core backward
+   forced (``backward_route`` patched for the step);
    (d) two steps with quant_train: true (int8 training) at batch 1;
 7. int8: (a) the int8 flash-attention kernel against its plain version in
    bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
@@ -76,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -103,7 +114,8 @@ from latte_tpu_torch.kernels import (
     residual_ln_modulate_reference,
 )
 from latte_tpu_torch.kernels import flash_attention_int8, flash_scale_block, int8_attention
-from latte_tpu_torch.kernels.attention import attention_tiled_reference, forward_route
+from latte_tpu_torch.kernels import attention
+from latte_tpu_torch.kernels.attention import attention_tiled_reference, backward_route, forward_route
 from latte_tpu_torch.models import get_model
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.sample import sample
@@ -127,7 +139,9 @@ LSE_TOL = 1e-4
 # another order moves it across a bf16 rounding boundary, so at most this
 # share of them, by one step (2^-7 of the largest magnitude) at most (the
 # untiled plain version, rounding p once per row, differs on ~20%); the
-# lse, fp32 on both sides, within fp32 rounding (relative and absolute)
+# lse, fp32 on both sides, within fp32 rounding (relative and absolute).
+# The tensor-core backward is held to its plain versions by the same share
+# and step: its roundings are elementwise, so they mirror any tile schedule
 TILED_SHARE_APART = 0.01
 TILED_LSE_TOL = 1e-5
 # the int8 kernel in fp32 against its plain version, by its arithmetic:
@@ -163,13 +177,13 @@ KERNELS = {
         replaces="latte_tpu/kernels/adaln.py:59",
         fn=residual_ln_modulate,
     ),
-    "flash_attention_bwd_dq": dict(
-        source="latte_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": dict(  # bf16; fp32 and other layouts: csrc/flash_attention_bwd.cu
+        source="latte_tpu_torch/csrc/flash_attention_bwd_tc.cu",
         replaces="latte_tpu/kernels/attention.py:143",
         fn=flash_attention_bwd_dq,
     ),
     "flash_attention_bwd_dkv": dict(
-        source="latte_tpu_torch/csrc/flash_attention_bwd.cu",
+        source="latte_tpu_torch/csrc/flash_attention_bwd_tc.cu",
         replaces="latte_tpu/kernels/attention.py:184",
         fn=flash_attention_bwd_dkv,
     ),
@@ -215,15 +229,28 @@ FLASH_SHAPES = {
     "temporal_b5": (TRAIN_BATCH * TOKENS, FRAMES, 0),
     "spatial_misaligned": (FRAMES, TOKENS, 1),
 }
-# the backward kernels' cases: (rows, tokens, dtype); the last two are the
-# training config's (batch 5, fp32), the shapes of the JSON line
+# the backward kernels' cases: (rows, tokens, dtype, storage offset in
+# elements). b5 is the trainer's batch 5: in bf16 the mixed-precision
+# trainer's shapes (spatial_b5 is the JSON line's row), in fp32 the training
+# config's as shipped; an offset of one element puts every operand 2 bytes
+# past a 16-byte boundary, which the tensor-core kernels refuse and the
+# CUDA-core kernels' bf16 instantiations take: the bf16 CUDA-core kernels
+# stay checked, and timed beside the tensor-core ones at batch 1 and 5
 BWD_SHAPES = {
-    "spatial": (FRAMES, TOKENS, torch.bfloat16),
-    "temporal": (TOKENS, FRAMES, torch.bfloat16),
-    "spatial_fp32": (FRAMES, TOKENS, torch.float32),
-    "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS, torch.float32),
-    "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES, torch.float32),
+    "spatial": (FRAMES, TOKENS, torch.bfloat16, 0),
+    "temporal": (TOKENS, FRAMES, torch.bfloat16, 0),
+    "spatial_b5": (TRAIN_BATCH * FRAMES, TOKENS, torch.bfloat16, 0),
+    "temporal_b5": (TRAIN_BATCH * TOKENS, FRAMES, torch.bfloat16, 0),
+    "ragged": (FRAMES, 200, torch.bfloat16, 0),
+    "spatial_misaligned": (FRAMES, TOKENS, torch.bfloat16, 1),
+    "spatial_b5_misaligned": (TRAIN_BATCH * FRAMES, TOKENS, torch.bfloat16, 1),
+    "spatial_fp32": (FRAMES, TOKENS, torch.float32, 0),
+    "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS, torch.float32, 0),
+    "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES, torch.float32, 0),
 }
+# the mixed-precision run (phase 6c): pairs of steps, tensor-core backward
+# against the CUDA-core backward forced, after its TRAIN_STEPS steps
+MIXED_PAIRS = 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FFS_CONFIG = os.path.join(ROOT, "configs", "ffs", "ffs_sample.yaml")
 FFS_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_train.yaml")
@@ -236,7 +263,22 @@ def phase(name: str, t0: float) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
-    flash_attention.tc_launches = 0
+    for name in ("flash_attention", *BACKWARD):
+        KERNELS[name]["fn"].tc_launches = 0
+
+
+def bwd_tc_counts() -> dict:
+    return {name: KERNELS[name]["fn"].tc_launches for name in BACKWARD}
+
+
+def check_bwd_tc(label: str, expect: int) -> dict:
+    """Each backward kernel's launches on the tensor-core route since the
+    last reset_counts(): every bf16 call, no fp32 one."""
+    got = bwd_tc_counts()
+    print(f"  {label}: tensor-core backward launches {got} (expected {expect} each)", flush=True)
+    if any(c != expect for c in got.values()):
+        raise AssertionError(f"{label}: tensor-core backward launches {got}, expected {expect} each")
+    return got
 
 
 def check_tc(label: str, expect: int) -> int:
@@ -364,19 +406,28 @@ def kernel_cases(rows: int, n: int, device, gen, dtype=torch.bfloat16):
     }
 
 
-def backward_cases(rows: int, n: int, device, gen, dtype):
+def backward_cases(rows: int, n: int, device, gen, dtype, offset: int = 0):
     """The dQ and dK/dV kernels at one shape: q/k/v are views of one fused
-    qkv output and dq/dk/dv views of one fused gradient, as in the model;
-    lse and delta come from the forward's plain version. The yardstick is
-    the backward of torch's SDPA on the same q, k, v and dO (it computes
-    dq, dk and dv together, so both rows carry the same time)."""
+    qkv output and dq/dk/dv views of one fused gradient, as in the model,
+    each ``offset`` elements into its storage (dO too); lse and delta come
+    from the forward's plain version. The yardstick is the backward of
+    torch's SDPA on the same q, k, v and dO (it computes dq, dk and dv
+    together, so both rows carry the same time); none at an ``offset`` off
+    a 16-byte boundary, where SDPA's backward faults (misaligned address)."""
     kw = dict(device=device, dtype=dtype)
-    qkv = torch.randn((rows, n, 3, HEADS, HEAD_DIM), generator=gen, **kw)
+    shape = (rows, n, 3, HEADS, HEAD_DIM)
+
+    def fused(*dims, randn=True):
+        numel = offset + int(np.prod(dims))
+        buf = torch.randn(numel, generator=gen, **kw) if randn else torch.empty(numel, **kw)
+        return buf[offset:].view(dims)
+
+    qkv = fused(*shape)
     q, k, v = qkv.unbind(2)
-    dout = torch.randn((rows, n, HEADS, HEAD_DIM), generator=gen, **kw)
+    dout = fused(rows, n, HEADS, HEAD_DIM)
     out, lse = attention_reference(q, k, v, return_lse=True)
     delta = attention_delta(out, dout)
-    dq, dk, dv = torch.empty_like(qkv).unbind(2)
+    dq, dk, dv = fused(*shape, randn=False).unbind(2)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves))
     dout_t = dout.transpose(1, 2)
@@ -384,19 +435,22 @@ def backward_cases(rows: int, n: int, device, gen, dtype):
     el = bh * n * HEAD_DIM  # elements of one of q, k, v, dO
     reads = 4 * el * e + 2 * bh * n * 4  # q, k, v, dO and the fp32 lse, delta
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    library = lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True)  # noqa: E731
+    library = None if offset % 8 else (
+        lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True))
     return {
         "flash_attention_bwd_dq": dict(
             run=lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq),
             plain=lambda: attention_bwd_dq_reference(q, k, v, lse, dout, delta),
             library=library,
             bound=bound_ms(reads + el * e, 6 * bh * n * n * HEAD_DIM, rate),
+            route=backward_route(q, k, v, dout, dq, None, None),
         ),
         "flash_attention_bwd_dkv": dict(
             run=lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv),
             plain=lambda: attention_bwd_dkv_reference(q, k, v, lse, dout, delta),
             library=library,
             bound=bound_ms(reads + 2 * el * e, 8 * bh * n * n * HEAD_DIM, rate),
+            route=backward_route(q, k, v, dout, None, dk, dv),
         ),
     }
 
@@ -543,23 +597,60 @@ def check_route(label: str, case: dict, tc_before: int, want: str) -> None:
                              f"tensor-core launches; expected {want}")
 
 
+def bits_apart(got, want) -> tuple:
+    """The share of elements of a bf16 kernel output not equal to the bit
+    to its mirror's, the largest difference, and the limit of that
+    difference: one bf16 step, 2^-7 of the largest magnitude."""
+    diff = (got.float() - want.float()).abs()
+    return (diff > 0).float().mean().item(), diff.max().item(), 2.0**-7 * max_abs(want)
+
+
 def check_tiled(label: str, case: dict) -> dict:
     """The tensor-core forward against the plain mirror of its tile schedule
     on the same inputs: all but TILED_SHARE_APART of the output equal to the
     bit, the rest one bf16 step apart at most, the lse within TILED_LSE_TOL."""
     (out, lse), (want, want_lse) = (f() for f in case["tiled"])
-    diff = (out.float() - want.float()).abs()
-    r = dict(
-        share_apart=(diff > 0).float().mean().item(),
-        max_abs_err=diff.max().item(),
-        lse_err=(lse - want_lse).abs().max().item(),
-    )
-    step, lse_tol = 2.0**-7 * max_abs(want), TILED_LSE_TOL * (1.0 + max_abs(want_lse))
+    share, err, step = bits_apart(out, want)
+    r = dict(share_apart=share, max_abs_err=err, lse_err=(lse - want_lse).abs().max().item())
+    lse_tol = TILED_LSE_TOL * (1.0 + max_abs(want_lse))
     print(f"  flash_attention {label} vs its tiled mirror: {json.dumps(r)} (limits: share "
           f"{TILED_SHARE_APART}, err {step}, lse {lse_tol})", flush=True)
     if not (r["share_apart"] <= TILED_SHARE_APART and r["max_abs_err"] <= step
             and r["lse_err"] <= lse_tol):
         raise AssertionError(f"flash_attention {label}: the kernel departs from its tiled mirror: {r}")
+    return r
+
+
+def measure_backward(name: str, label: str, case: dict, tol_rel: float, timer, want: str) -> dict:
+    """One backward kernel at one case: against its plain version at
+    ``tol_rel``, its route (``want``: the route function says so and the
+    tensor-core count moved only for that route), and on the tensor-core
+    route each output to the bit against the plain version, which mirrors
+    the kernel's rounding points: all but TILED_SHARE_APART of the elements
+    equal, the rest one bf16 step apart at most."""
+    fn = KERNELS[name]["fn"]
+    tc_before = fn.tc_launches
+    r = measure(name, label, case, tol_rel, timer)
+    moved = fn.tc_launches - tc_before
+    print(f"  {name} {label}: route {case['route']}, {moved} tensor-core launches", flush=True)
+    if case["route"] != want or (moved > 0) != (want == "tensor_core"):
+        raise AssertionError(f"{name} {label}: route {case['route']} with {moved} tensor-core "
+                             f"launches; expected {want}")
+    if want != "tensor_core":
+        return r
+    got, plain = case["run"](), case["plain"]()
+    r["vs_plain_bits"] = bits = {}
+    for out, g, w in zip(("dk", "dv") if isinstance(got, tuple) else ("dq",),
+                         got if isinstance(got, tuple) else (got,),
+                         plain if isinstance(plain, tuple) else (plain,)):
+        share, err, step = bits_apart(g, w)
+        bits[out] = dict(share_apart=share, max_abs_err=err)
+        if not (share <= TILED_SHARE_APART and err <= step):
+            raise AssertionError(f"{name} {label}: {out} departs from the plain version: "
+                                 f"{share} of the elements apart (limit {TILED_SHARE_APART}), "
+                                 f"largest by {err} (limit {step})")
+    print(f"  {name} {label} vs the plain version, to the bit: {json.dumps(bits)} (limits: share "
+          f"{TILED_SHARE_APART}, one bf16 step)", flush=True)
     return r
 
 
@@ -611,23 +702,35 @@ def check_kernels(device, timer) -> dict:
             raise AssertionError(f"{name} fp32: max abs err {err} > {tol}")
         if name == "flash_attention":
             check_route("spatial fp32", case, tc_before, "cuda_core")
-    for shape, (rows, n, dtype) in BWD_SHAPES.items():
-        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-        for name, case in backward_cases(rows, n, device, gen, dtype).items():
-            label = f"{shape} B*H={rows * HEADS} N={n}"
-            results[name][shape] = measure(name, label, case, tol, timer)
+    for shape, (rows, n, dtype, offset) in BWD_SHAPES.items():
+        bf16 = dtype == torch.bfloat16
+        tol, want = (BF16_TOL, "cuda_core" if offset % 8 else "tensor_core") if bf16 else (FP32_TOL, "cuda_core")
+        for name, case in backward_cases(rows, n, device, gen, dtype, offset).items():
+            label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
+            results[name][shape] = measure_backward(name, label, case, tol, timer, want)
         torch.cuda.empty_cache()
     return results
 
 
+TC_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu")
+TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+
+
 def report_tc_build(path) -> dict:
     """Print ptxas's registers, shared memory and spills for each kernel of
-    csrc/flash_attention_tc.cu, and count the HMMA instructions in their SASS
-    where cuobjdump sits beside nvcc: each must have some."""
-    section = build.compile_log().split("== flash_attention_tc.cu\n")[1].split("\n== ")[0]
-    for line in section.splitlines():
-        if "entry function" in line or "spill" in line or "Used" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    the tensor-core sources (none may spill), and count the HMMA
+    instructions in their SASS where cuobjdump sits beside nvcc: each must
+    have some."""
+    spills = []
+    for src in TC_SOURCES:
+        section = build.compile_log().split(f"== {src}\n")[1].split("\n== ")[0]
+        for line in section.splitlines():
+            if "entry function" in line or "spill" in line or "Used" in line:
+                print(f"  ptxas {src}: {line.strip()}", flush=True)
+            if any(int(b) for b in re.findall(r"(\d+) bytes spill", line)):
+                spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"a tensor-core kernel spills: {spills}")
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         print("  cuobjdump not found beside nvcc: HMMA count not measured", flush=True)
@@ -638,13 +741,13 @@ def report_tc_build(path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "flash_fwd_tc" in fn:
+            if any(k in fn for k in TC_KERNELS):
                 hmma[fn] = 0
         elif fn in hmma and "HMMA" in line:
             hmma[fn] += 1
-    print(f"  HMMA instructions in the SASS of the tensor-core forward: {json.dumps(hmma)}", flush=True)
-    if not hmma or min(hmma.values()) == 0:
-        raise AssertionError(f"the tensor-core forward's kernels lack HMMA instructions: {hmma}")
+    print(f"  HMMA instructions in the SASS of the tensor-core kernels: {json.dumps(hmma)}", flush=True)
+    if any(not any(k in fn for fn in hmma) for k in TC_KERNELS) or min(hmma.values()) == 0:
+        raise AssertionError(f"a tensor-core kernel lacks HMMA instructions: {hmma}")
     return hmma
 
 
@@ -685,8 +788,8 @@ def kernel_kind(name: str) -> str:
         ("flash_int8_kernel", INT8),
         ("flash_fwd_kernel", "flash_attention"),
         ("flash_fwd_tc", "flash_attention"),
-        ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
-        ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+        ("flash_bwd_dq_", "flash_attention_bwd_dq"),
+        ("flash_bwd_dkv_", "flash_attention_bwd_dkv"),
         ("residual_ln_modulate_kernel", "residual_ln_modulate"),
         ("ln_modulate_kernel", "ln_modulate"),
     ):
@@ -998,6 +1101,7 @@ def train_quant(tmp: str, smi: str) -> dict:
     ]), callbacks=[log])
     launches = counts()
     check_tc("quant_train fp32", 0)
+    check_bwd_tc("quant_train fp32", 0)
     blk = log.state.model.blocks[0]
     modes = (blk.attn.qkv.quantized, blk.mlp.fc1.quantized, blk.adaLN_modulation[1].quantized)
     secs = log.step_seconds()
@@ -1069,6 +1173,7 @@ def train_step_parity(device) -> dict:
     torch.cuda.synchronize()
     step_counts = counts()
     check_tc("fp32 train step", 0)
+    check_bwd_tc("fp32 train step", 0)
     loss_p, g_p = step(plain, None)
     print(f"  launches in one train step: {step_counts}", flush=True)
     if step_counts != STEP_LAUNCHES:
@@ -1085,6 +1190,7 @@ def train_step_parity(device) -> dict:
     reset_counts()
     _, g_km = step(model, torch.bfloat16)
     check_tc("mixed-precision train step", STEP_LAUNCHES["flash_attention"])
+    check_bwd_tc("mixed-precision train step", DEPTH)
     _, g_pm = step(plain, torch.bfloat16)
     vs32 = compare("mixed step: kernel grads vs plain fp32 grads", g_km, g_p)
     plain_vs32 = compare("mixed step: plain grads vs plain fp32 grads", g_pm, g_p)
@@ -1109,6 +1215,7 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     check_tc("ffs_train fp32", 0)
+    check_bwd_tc("ffs_train fp32", 0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     secs = log.step_seconds()
     print(f"  ffs_train fp32 batch {TRAIN_BATCH}: {out}; launches {launches}", flush=True)
@@ -1161,32 +1268,99 @@ def train_entry_point(tmp: str, smi: str) -> dict:
                 peak_gib=peak_gib)
 
 
+class MixedLog(StepLog):
+    """StepLog of the mixed-precision run: TRAIN_STEPS steps on the
+    backward's tensor-core route (the last one profiled), one step that
+    absorbs the profiler's stop, then MIXED_PAIRS pairs of steps, one on
+    the tensor-core route and one with the CUDA-core backward forced
+    (``backward_route`` patched for the step), the order alternating from
+    pair to pair, so a drift in the host's or the card's speed falls on
+    both. Records the launch counts at each step's log."""
+
+    def __init__(self):
+        super().__init__(profile_after=TRAIN_STEPS - 1)
+        self.route, self.arms, self.counts = attention.backward_route, {}, {}
+        first = TRAIN_STEPS + 2
+        for i in range(MIXED_PAIRS):
+            pair = ("tensor_core", "cuda_core") if i % 2 == 0 else ("cuda_core", "tensor_core")
+            for j, arm in enumerate(pair):
+                self.arms[first + 2 * i + j] = arm
+        self.steps = first + 2 * MIXED_PAIRS - 1
+
+    def on_log(self, step, metrics):
+        super().on_log(step, metrics)
+        self.counts[step] = (counts(), bwd_tc_counts(), flash_attention.tc_launches)
+        route = self.route
+        attention.backward_route = (
+            route if self.arms.get(step + 1, "tensor_core") == "tensor_core"
+            else lambda *a: route(*a) and "cuda_core"
+        )
+
+    def moved(self, step) -> tuple:
+        """The backward's launches and tensor-core launches of one step."""
+        (c1, t1, _), (c0, t0, _) = self.counts[step], self.counts[step - 1]
+        return {k: c1[k] - c0[k] for k in BACKWARD}, {k: t1[k] - t0[k] for k in BACKWARD}
+
+
 def train_mixed_precision(tmp: str, smi: str) -> dict:
-    """Phase 6c: two steps with mixed_precision: true; the fp32 masters,
-    their gradients, the AdamW moments and the EMA stay fp32."""
-    log = StepLog()
+    """Phase 6c: ``train.main`` with mixed_precision: true at batch 5 (bf16
+    compute over fp32 masters; their gradients, the AdamW moments and the
+    EMA stay fp32), the path of the tensor-core backward: TRAIN_STEPS steps
+    with all 28 backward launches of each kernel a step on the tensor cores,
+    their s/step (median of the unprofiled steps 3-5) and a profile of the
+    last by kind; then the pairs of MixedLog against the CUDA-core backward."""
+    log = MixedLog()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = train.main(load_config(FFS_TRAIN, [
-        f"results_dir={tmp}/results", "max_train_steps=2", "log_every=1", "mixed_precision=true",
-    ]), callbacks=[log])
-    launches = counts()
-    check_tc("mixed precision, 2 steps", 2 * STEP_LAUNCHES["flash_attention"])
-    if launches != {k: 2 * c for k, c in STEP_LAUNCHES.items()}:
-        raise AssertionError(f"expected 2 x {STEP_LAUNCHES} launches, got {launches}")
+    try:
+        out = train.main(load_config(FFS_TRAIN, [
+            f"results_dir={tmp}/results", f"max_train_steps={log.steps}", "log_every=1",
+            "mixed_precision=true",
+        ]), callbacks=[log])
+    finally:
+        attention.backward_route = log.route
+    main_counts, main_bwd_tc, main_fwd_tc = log.counts[TRAIN_STEPS]
+    print(f"  mixed precision, {TRAIN_STEPS} steps: launches {main_counts}, tensor-core backward "
+          f"{main_bwd_tc}, tensor-core forward {main_fwd_tc}", flush=True)
+    if main_counts != {k: TRAIN_STEPS * c for k, c in STEP_LAUNCHES.items()}:
+        raise AssertionError(f"expected {TRAIN_STEPS} x {STEP_LAUNCHES} launches, got {main_counts}")
+    if any(c != TRAIN_STEPS * DEPTH for c in main_bwd_tc.values()) or \
+            main_fwd_tc != TRAIN_STEPS * STEP_LAUNCHES["flash_attention"]:
+        raise AssertionError("a bf16 attention launch of the mixed-precision run left the tensor cores")
+    arm_s = {"tensor_core": [], "cuda_core": []}
+    secs = log.step_seconds()  # secs[i]: step i + 2
+    for step, arm in sorted(log.arms.items()):
+        launches, tc = log.moved(step)
+        if any(c != DEPTH for c in launches.values()) or \
+                any(c != (DEPTH if arm == "tensor_core" else 0) for c in tc.values()):
+            raise AssertionError(f"mixed step {step} ({arm}): backward launches {launches}, "
+                                 f"tensor-core {tc}")
+        arm_s[arm].append(secs[step - 2])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     state = log.state
     dtypes = {p.dtype for p in state.model.parameters()} | {p.dtype for p in state.ema.parameters()}
     dtypes |= {v.dtype for s in state.optimizer.state.values() for k, v in s.items() if k != "step"}
-    secs = log.step_seconds()
-    print(f"  mixed precision: {out}; compute {state.model.compute_dtype}, state dtypes {dtypes}; "
-          f"step 2 {secs[-1]:.4f} s; peak memory {peak_gib:.3f} GiB on {smi}", flush=True)
-    if out["final_step"] != 2 or not log.finite() or dtypes != {torch.float32}:
+    compute = state.model.compute_dtype
+    log.state = state = None
+    if out["final_step"] != log.steps or not log.finite() or dtypes != {torch.float32}:
         raise AssertionError("the mixed-precision run failed or its state left fp32")
-    if state.model.compute_dtype != torch.bfloat16:
+    if compute != torch.bfloat16:
         raise AssertionError("mixed_precision did not switch the compute to bf16")
+    warm = secs[1:TRAIN_STEPS - 2]  # steps 3-5
+    s_step = sorted(warm)[len(warm) // 2]
+    tc_s, cc_s = (sorted(v)[len(v) // 2] for v in arm_s.values())
+    wins = sum(a < b for a, b in zip(arm_s["tensor_core"], arm_s["cuda_core"]))
+    print(f"  mixed precision batch {TRAIN_BATCH}: {out}; compute {compute}, state dtypes {dtypes}; "
+          f"step gaps (s) {secs}; median of steps 3-5 {s_step:.4f} s/step = {1 / s_step:.4f} steps/s; "
+          f"pairs: tensor-core backward {tc_s:.4f} s/step (median of {arm_s['tensor_core']}), "
+          f"CUDA-core backward forced {cc_s:.4f} s/step (median of {arm_s['cuda_core']}), "
+          f"tensor-core faster in {wins} of {MIXED_PAIRS}; peak memory {peak_gib:.3f} GiB on {smi}",
+          flush=True)
+    print_profile("mixed-precision train step", log.prof, secs[TRAIN_STEPS - 2] * 1e3)
     shutil.rmtree(out["experiment_dir"])
-    return dict(s_step2=secs[-1], peak_gib=peak_gib)
+    return dict(launches=main_counts, tc_launches=main_bwd_tc, s_per_step=s_step,
+                steps_per_s=1 / s_step, step_seconds=secs, pairs=arm_s, pair_median_s=dict(
+                    tensor_core=tc_s, cuda_core=cc_s), pairs_won=wins, peak_gib=peak_gib)
 
 
 def main() -> int:
@@ -1373,11 +1547,13 @@ def main() -> int:
                 extra.update(
                     tc_launches=main_tc, fp32_source="latte_tpu_torch/csrc/flash_attention.cu",
                     sass_hmma=hmma, cases={c: measured[name][c] for c in FLASH_SHAPES})
-        else:  # the training path, at its shapes (fp32, batch 5)
-            row, extra = measured[name]["spatial_b5_fp32"], dict(
-                shape="spatial fp32 batch 5", temporal=measured[name]["temporal_b5_fp32"],
-                bf16_spatial=measured[name]["spatial"], bf16_temporal=measured[name]["temporal"])
-            launches = entry["launches"][name]
+        else:  # the mixed-precision trainer's path, at its shapes (bf16, batch 5)
+            row, extra = measured[name]["spatial_b5"], dict(
+                shape="spatial bf16 batch 5", tc_launches=mixed["tc_launches"][name],
+                cuda_core_source="latte_tpu_torch/csrc/flash_attention_bwd.cu", sass_hmma=hmma,
+                launches_fp32_train=entry["launches"][name],
+                cases={c: measured[name][c] for c in BWD_SHAPES if c != "spatial_b5"})
+            launches = mixed["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
             launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -65,26 +65,17 @@
 // -inf; m starts at -1e30 so a padded query row never computes
 // exp(-inf - -inf); queries past N are not stored. The output tile is
 // staged in the warp's own Q rows of shared memory and written with 16-byte
-// stores.
+// stores. The fragment helpers, loads and products it shares with the
+// backward (flash_attention_bwd_tc.cu) are in mma_bf16.cuh.
 
-#include <cstdint>
-
-#include <math_constants.h>
-
-#include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace latte {
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 72;           // head_dim, also the bf16 pitch of a shared-memory row
-constexpr int kChunks = kD / 8;  // 16-byte chunks of a row: 9
-constexpr int kSteps = kD / 16;  // k16 steps of QK^T (then one k8 step on columns 64-71)
 constexpr int kWarps = 4;        // warps of a block, on both routes
 constexpr int kTile = 64;        // spatial: queries of a block, keys of a K/V tile
 constexpr int kMaxShortN = 64;   // the temporal route takes N <= 64
-static_assert(kChunks == 9, "the fragment loads are written for 9 chunks: 4 + 4 + 1");
 
 struct Args {
   const bf16* q;
@@ -96,146 +87,6 @@ struct Args {
   long long sq[3], sk[3], sv[3];  // element strides (batch, token, head)
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x1(uint32_t& r0, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
-               : "=r"(r0) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(smem_u32(p)) : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// c += a (16x8, row) * b (8x8, col)
-__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b0) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// round(x * scale) of both bf16 halves, the product in fp32
-__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float scale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  return pack_bf16(f.x * scale, f.y * scale);
-}
-
-// Copy rows n0 .. n0+ROWS-1 of one (batch, head) sequence into shared
-// memory, 16 bytes a thread at a time; rows past N become zeros.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride, int n0,
-                                          int N, int t) {
-#pragma unroll 2
-  for (int i = t; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool valid = n0 + r < N;
-    cp_async_16(dst + r * kD + c * 8, src + (valid ? n0 + r : 0) * stride + c * 8,
-                valid ? 16 : 0);
-  }
-}
-
-// Q fragments of a warp's 16 rows: A operands of the QK^T steps, scaled and
-// rounded. a[s] covers columns 16s..16s+15, tail columns 64-71.
-struct QFrags {
-  uint32_t a[kSteps][4];
-  uint32_t tail[2];
-};
-
-__device__ __forceinline__ void load_q(const bf16* sq, QFrags& f, float scale, int lane) {
-  const int r = lane & 7, mi = lane >> 3;
-  // matrix mi of an x4: rows (mi & 1) * 8 + r, columns (mi >> 1) * 8 of the step
-  const bf16* row = sq + ((mi & 1) * 8 + r) * kD;
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    ldsm_x4(f.a[s], row + s * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) f.a[s][j] = scale_pair(f.a[s][j], scale);
-  }
-  ldsm_x2(f.tail[0], f.tail[1], row + (kD - 8));  // lanes 0-15: rows 0-7, 8-15
-  f.tail[0] = scale_pair(f.tail[0], scale);
-  f.tail[1] = scale_pair(f.tail[1], scale);
-}
-
-// s[j] = the warp's 16 query rows against keys 8j..8j+7 of sk:
-// c0, c1 of row g = lane / 4, keys 2t, 2t+1 (t = lane % 4); c2, c3 row g+8.
-template <int NT8>
-__device__ __forceinline__ void qk_scores(const QFrags& q, const bf16* sk, float (&s)[NT8][4],
-                                          int lane) {
-  const int r = lane & 7, mi = lane >> 3;
-#pragma unroll
-  for (int j = 0; j < NT8; ++j) {
-    const bf16* row = sk + (j * 8 + r) * kD;
-    uint32_t kb[kChunks];  // kb[c]: the B fragment of columns 8c..8c+7
-#pragma unroll
-    for (int c = 0; c < 8; c += 4) {
-      uint32_t x[4];
-      ldsm_x4(x, row + (c + mi) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kb[c + i] = x[i];
-    }
-    ldsm_x1(kb[8], row + 64);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) mma_k16(s[j], q.a[st], kb[2 * st], kb[2 * st + 1]);
-    mma_k8(s[j], q.tail, kb[8]);
-  }
-}
-
-// Scores of keys at or past N (the zero-filled rows of the last tile) -> -inf.
-template <int NT8>
-__device__ __forceinline__ void mask_keys(float (&s)[NT8][4], int key0, int N, int lane) {
-  const int t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < NT8; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (key0 + j * 8 + t2 + (i & 1) >= N) s[j][i] = -CUDART_INF_F;
-    }
-  }
-}
 
 // Online-softmax update of rows g (index 0) and g+8 (index 1) over one key
 // tile of NT8 n8 score tiles: rescales acc by exp(m - m'), adds the tile's
@@ -289,28 +140,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT8][4], float (&m)[2], 
   }
 }
 
-// acc += P (16 x 16*KS) . V (keys of sv)
-template <int KS>
-__device__ __forceinline__ void pv_product(const uint32_t (&pa)[KS][4], const bf16* sv,
-                                           float (&acc)[kChunks][4], int lane) {
-  const int r = lane & 7, mi = lane >> 3;
-#pragma unroll
-  for (int j = 0; j < KS; ++j) {
-    // matrix mi of an x4.trans: keys 16j + (mi & 1) * 8 + r, columns of tile n + (mi >> 1)
-    const bf16* row = sv + (j * 16 + (mi & 1) * 8 + r) * kD;
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, row + (n + (mi >> 1)) * 8);
-      mma_k16(acc[n], pa[j], b[0], b[1]);
-      mma_k16(acc[n + 1], pa[j], b[2], b[3]);
-    }
-    uint32_t b0, b1;
-    ldsm_x2_t(b0, b1, row + 64);  // columns 64-71; lanes 0-15: keys 16j..16j+15
-    mma_k16(acc[8], pa[j], b0, b1);
-  }
-}
-
 // Write the warp's 16 rows acc / l (rows q0.. of sequence bh) through its
 // staging rows so (free once its Q fragments are in registers), and their
 // lse.
@@ -340,12 +169,6 @@ __device__ __forceinline__ void store_rows(const Args& a, int bh, int q0, bf16* 
     if (q0 + g < a.N) row[g] = m[0] + logf(l[0]);
     if (q0 + g + 8 < a.N) row[g + 8] = m[1] + logf(l[1]);
   }
-}
-
-__device__ __forceinline__ const bf16* seq_base(const bf16* x, const long long (&st)[3], int bh,
-                                                int H) {
-  const int b = bh / H, h = bh - b * H;
-  return x + b * st[0] + h * st[2];
 }
 
 // Spatial route (N > 64): block = (batch*head, 64-query tile), 4 warps of

@@ -9,8 +9,11 @@ Pallas kernels of that file:
   take, CUDA cores): ``_flash_kernel`` (``attention.py:56``, launched by
   ``_flash_forward`` at ``:122``); :func:`forward_route` picks one before
   the launch;
-- ``csrc/flash_attention_bwd.cu``: ``_flash_bwd_dq_kernel`` (``:143``,
-  launched at ``:257``) and ``_flash_bwd_dkv_kernel`` (``:184``, at ``:273``).
+- ``csrc/flash_attention_bwd_tc.cu`` (bf16, tensor cores) and
+  ``csrc/flash_attention_bwd.cu`` (fp32 and the bf16 layouts the first does
+  not take, CUDA cores): ``_flash_bwd_dq_kernel`` (``:143``, launched at
+  ``:257``) and ``_flash_bwd_dkv_kernel`` (``:184``, at ``:273``);
+  :func:`backward_route` picks one before the launch.
 
 :func:`flash_attention` and :func:`attention_qkv` are differentiable through
 ``torch.autograd.Function``\\ s, the counterpart of the ``custom_vjp`` at
@@ -42,12 +45,14 @@ __all__ = [
     "attention_bwd_dkv_reference",
     "attention_delta",
     "forward_route",
+    "backward_route",
 ]
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core forward (csrc/flash_attention_tc.cu): its one head_dim,
-# Latte-XL/2's, and the keys of a K/V tile at N > TC_TILE
+# the tensor-core kernels (csrc/flash_attention_tc.cu, flash_attention_bwd_tc.cu):
+# their one head_dim, Latte-XL/2's, and the forward's keys of a K/V tile at
+# N > TC_TILE
 TC_HEAD_DIM = 72
 TC_TILE = 64
 
@@ -182,13 +187,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
 
 
-def _check_backward(q, k, v, dout, lse, delta, grads) -> None:
+def _check_grads(q, k, v, dout, grads) -> None:
     _check(q, k, v)
     for t in (dout, *grads):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("dout and the gradients must match q's shape, dtype and device")
         if t.stride(-1) != 1:
             raise ValueError("dout and the gradients need a contiguous last (head_dim) axis")
+
+
+def _check_backward(q, k, v, dout, lse, delta, grads) -> None:
+    _check_grads(q, k, v, dout, grads)
     B, N, H, _ = q.shape
     for t in (lse, delta):
         if t.shape != (B * H, N) or t.dtype != torch.float32 or not t.is_contiguous():
@@ -204,12 +213,41 @@ def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     fp32 too). Raises on what neither kernel takes. Reads only
     shapes, strides and addresses, so it runs on CPU tensors too."""
     _check(q, k, v)
+    return _tc_route(q, (q, k, v))
+
+
+def _tc_route(q: torch.Tensor, operands) -> str:
+    """"tensor_core" for bf16 at ``TC_HEAD_DIM`` with every operand's base
+    pointer and (batch, token, head) strides 16-byte aligned, else
+    "cuda_core"."""
     if q.dtype != torch.bfloat16 or q.shape[-1] != TC_HEAD_DIM:
         return "cuda_core"
-    for t in (q, k, v):  # 8 bf16 elements are 16 bytes
+    for t in operands:  # 8 bf16 elements are 16 bytes
         if t.data_ptr() % 16 or any(n > 1 and s % 8 for n, s in zip(t.shape[:3], t.stride())):
             return "cuda_core"
     return "tensor_core"
+
+
+def backward_route(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    dq: Optional[torch.Tensor],
+    dk: Optional[torch.Tensor],
+    dv: Optional[torch.Tensor],
+) -> str:
+    """Which backward kernels take these operands on the card: "tensor_core"
+    (``csrc/flash_attention_bwd_tc.cu``) for bf16 at head_dim
+    ``TC_HEAD_DIM`` whose q, k, v, dout and gradients all have 16-byte
+    aligned base pointers and (batch, token, head) strides, else
+    "cuda_core" (``csrc/flash_attention_bwd.cu``: any stride, fp32 too). A
+    gradient the kernel does not write is None (the dQ kernel writes dq
+    alone, the dK/dV kernel dk and dv). Raises on what neither kernel takes;
+    reads only shapes, strides and addresses, so it runs on CPU tensors too."""
+    grads = [t for t in (dq, dk, dv) if t is not None]
+    _check_grads(q, k, v, dout, grads)
+    return _tc_route(q, (q, k, v, dout, *grads))
 
 
 def _forward(
@@ -243,7 +281,9 @@ def _forward(
 
 
 def _launch_backward(entry: str, q, k, v, dout, lse, delta, dq, dk, dv) -> None:
-    """Call one backward entry point; unused gradient slots are None."""
+    """Call one backward entry point (the CUDA-core kernel's, or with the
+    suffix "_tc" the tensor-core kernel's: both take the same arguments);
+    unused gradient slots are None."""
     B, N, H, D = q.shape
     ops = (q, k, v, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 21)(
@@ -270,11 +310,17 @@ def flash_attention_bwd_dq(
     """dQ of attention over (B, N, H, D), written into ``dq`` (which may be a
     strided view, e.g. of a fused (B, N, 3, H, D) gradient). ``lse`` and
     ``delta`` are fp32 (B·H, N). ``flash_attention_bwd_dq.launches`` counts
-    the kernel launches."""
+    the kernel launches, ``.tc_launches`` those of the tensor-core kernel
+    among them (see :func:`backward_route`)."""
     _check_backward(q, k, v, dout, lse, delta, (dq,))
+    route = backward_route(q, k, v, dout, dq, None, None)
     if q.device.type == "cpu":
         return dq.copy_(attention_bwd_dq_reference(q, k, v, lse, dout, delta))
-    _launch_backward("latte_flash_attention_bwd_dq", q, k, v, dout, lse, delta, dq, None, None)
+    if route == "tensor_core":
+        _launch_backward("latte_flash_attention_bwd_dq_tc", q, k, v, dout, lse, delta, dq, None, None)
+        flash_attention_bwd_dq.tc_launches += 1
+    else:
+        _launch_backward("latte_flash_attention_bwd_dq", q, k, v, dout, lse, delta, dq, None, None)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -291,12 +337,18 @@ def flash_attention_bwd_dkv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV of attention over (B, N, H, D), written into ``dk`` and
     ``dv`` (strided views allowed). ``flash_attention_bwd_dkv.launches``
-    counts the kernel launches."""
+    counts the kernel launches, ``.tc_launches`` those of the tensor-core
+    kernel among them."""
     _check_backward(q, k, v, dout, lse, delta, (dk, dv))
+    route = backward_route(q, k, v, dout, None, dk, dv)
     if q.device.type == "cpu":
         want_k, want_v = attention_bwd_dkv_reference(q, k, v, lse, dout, delta)
         return dk.copy_(want_k), dv.copy_(want_v)
-    _launch_backward("latte_flash_attention_bwd_dkv", q, k, v, dout, lse, delta, None, dk, dv)
+    if route == "tensor_core":
+        _launch_backward("latte_flash_attention_bwd_dkv_tc", q, k, v, dout, lse, delta, None, dk, dv)
+        flash_attention_bwd_dkv.tc_launches += 1
+    else:
+        _launch_backward("latte_flash_attention_bwd_dkv", q, k, v, dout, lse, delta, None, dk, dv)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -401,4 +453,6 @@ def attention_qkv(qkv: torch.Tensor, plain: bool = False) -> torch.Tensor:
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tc_launches = 0
