@@ -11,9 +11,10 @@ non-zero exit and a traceback:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the kernel library, one nvcc process per latte_tpu_torch/csrc/*.cu
    source, all at once, then one link; ptxas's registers, shared memory and
-   spills of the tensor-core attention kernels (forward and backward), and
-   the count of HMMA (tensor-core) instructions in their SASS where
-   cuobjdump exists (none may spill, each must have HMMA);
+   spills of the tensor-core attention kernels (forward and backward) and of
+   the register-tiled fp32 backward, and the count of HMMA (tensor-core)
+   instructions in the tensor-core kernels' SASS where cuobjdump exists
+   (none may spill, each tensor-core kernel must have HMMA);
 3. kernels: each forward CUDA kernel against its plain PyTorch version in
    bf16 at the sampler's spatial and temporal shapes, with its time, the
    plain version's, the bound from its bytes and operations and, for
@@ -24,15 +25,18 @@ non-zero exit and a traceback:
    its tile schedule (equal to the bit on all but 1% of elements), and the
    fp32 one the CUDA-core kernel; the bf16 one is also held and timed at
    FLASH_SHAPES (T2V 512^2, a ragged N, the mixed-precision trainer's batch
-   5, and a misaligned layout that the bf16 CUDA-core kernel takes). Then the two
+   5, and a misaligned layout that the bf16 CUDA-core kernel takes), and in
+   fp32 at the training config's batch 5 (spatial and temporal; the
+   CUDA-core kernel, SDPA's fp32 forward beside it). Then the two
    flash-attention backward kernels (dQ, dK/dV) the same way at BWD_SHAPES:
    in bf16 at both shapes, at the mixed-precision trainer's batch 5, at a
-   ragged N and at a misaligned layout, in fp32 at the spatial shape and at
-   the training config's batch 5 (spatial and temporal), with the backward
-   of scaled_dot_product_attention as the yardstick. Each takes the route it
+   ragged N and at a misaligned layout, in fp32 at the spatial shape, at
+   the training config's batch 5 (spatial and temporal), at a ragged N, at
+   a temporal N = 40 and at a misaligned layout, with the backward of
+   scaled_dot_product_attention as the yardstick. Each takes the route it
    names: bf16 the tensor-core kernels, also held to the bit against the
-   plain versions (all but 1% of the outputs), the misaligned bf16 case and
-   fp32 the CUDA-core ones;
+   plain versions (all but 1% of the outputs), fp32 the register-tiled fp32
+   kernels (within FP32_TOL), the misaligned cases the CUDA-core ones;
 4. forward: full-width Latte-XL/2 (16 x 256^2, bf16, random weights from a
    seed), kernel path against the plain path and an fp32 plain path, the
    launch counts of one forward (every attention call on the tensor-core
@@ -50,9 +54,12 @@ non-zero exit and a traceback:
    weights, t and noise, and the same in mixed precision; (b) the entry
    point ``latte_tpu_torch.train.train.main`` on configs/ffs/ffs_train.yaml
    as shipped (fp32, batch 5, synthetic latents) for a few steps, with its
-   launch counts, seconds per step, peak memory and a profile of the last step,
-   then a resume from its checkpoint and a short DDIM run of the port's
-   sampler on the trained EMA, none of it on the tensor-core backward;
+   launch counts (every backward launch on the fp32 route), seconds per
+   step, peak memory and a profile of the last step, then a resume from its
+   checkpoint that runs alternating pairs of steps against the CUDA-core
+   backward forced (``backward_route`` patched for the step), and a short
+   DDIM run of the port's sampler on the trained EMA, none of it on the
+   tensor-core backward;
    (c) ``train.main`` with mixed_precision: true at batch 5: six steps on
    the tensor-core backward (the median of steps 3-5, a profile of step
    6), then alternating pairs of steps against the CUDA-core backward
@@ -177,7 +184,9 @@ KERNELS = {
         replaces="latte_tpu/kernels/adaln.py:59",
         fn=residual_ln_modulate,
     ),
-    "flash_attention_bwd_dq": dict(  # bf16; fp32 and other layouts: csrc/flash_attention_bwd.cu
+    # bf16; fp32: csrc/flash_attention_bwd_f32.cu (its own row in the JSON
+    # line); misaligned views and other head dims: csrc/flash_attention_bwd.cu
+    "flash_attention_bwd_dq": dict(
         source="latte_tpu_torch/csrc/flash_attention_bwd_tc.cu",
         replaces="latte_tpu/kernels/attention.py:143",
         fn=flash_attention_bwd_dq,
@@ -232,10 +241,10 @@ FLASH_SHAPES = {
 # the backward kernels' cases: (rows, tokens, dtype, storage offset in
 # elements). b5 is the trainer's batch 5: in bf16 the mixed-precision
 # trainer's shapes (spatial_b5 is the JSON line's row), in fp32 the training
-# config's as shipped; an offset of one element puts every operand 2 bytes
-# past a 16-byte boundary, which the tensor-core kernels refuse and the
-# CUDA-core kernels' bf16 instantiations take: the bf16 CUDA-core kernels
-# stay checked, and timed beside the tensor-core ones at batch 1 and 5
+# config's as shipped (spatial_b5_fp32 the fp32 rows'); an offset of one
+# element puts every operand 2 (bf16) or 4 (fp32) bytes past a 16-byte
+# boundary, which the tensor-core and fp32 kernels refuse and the CUDA-core
+# kernels take: they stay checked, and timed beside the others
 BWD_SHAPES = {
     "spatial": (FRAMES, TOKENS, torch.bfloat16, 0),
     "temporal": (TOKENS, FRAMES, torch.bfloat16, 0),
@@ -247,10 +256,20 @@ BWD_SHAPES = {
     "spatial_fp32": (FRAMES, TOKENS, torch.float32, 0),
     "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS, torch.float32, 0),
     "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES, torch.float32, 0),
+    "ragged_fp32": (FRAMES, 200, torch.float32, 0),
+    "temporal_ragged_fp32": (FRAMES, 40, torch.float32, 0),
+    "spatial_b5_fp32_misaligned": (TRAIN_BATCH * FRAMES, TOKENS, torch.float32, 1),
 }
-# the mixed-precision run (phase 6c): pairs of steps, tensor-core backward
-# against the CUDA-core backward forced, after its TRAIN_STEPS steps
-MIXED_PAIRS = 3
+# the attention forward in fp32 at the training config's batch 5 (the
+# CUDA-core kernel): (rows, tokens)
+FLASH_FP32_SHAPES = {
+    "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS),
+    "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES),
+}
+# pairs of steps in one process, the backward's own route against the
+# CUDA-core backward forced: in fp32 after the resume (phase 6b), in mixed
+# precision after its TRAIN_STEPS steps (6c)
+ROUTE_PAIRS = 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FFS_CONFIG = os.path.join(ROOT, "configs", "ffs", "ffs_sample.yaml")
 FFS_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_train.yaml")
@@ -265,19 +284,26 @@ def reset_counts() -> None:
         k["fn"].launches = 0
     for name in ("flash_attention", *BACKWARD):
         KERNELS[name]["fn"].tc_launches = 0
+    for name in BACKWARD:
+        KERNELS[name]["fn"].f32_launches = 0
 
 
-def bwd_tc_counts() -> dict:
-    return {name: KERNELS[name]["fn"].tc_launches for name in BACKWARD}
+def bwd_counts(attr: str) -> dict:
+    """Each backward kernel's counter ``attr``: "tc_launches" (tensor-core
+    route) or "f32_launches" (fp32 route)."""
+    return {name: getattr(KERNELS[name]["fn"], attr) for name in BACKWARD}
 
 
-def check_bwd_tc(label: str, expect: int) -> dict:
-    """Each backward kernel's launches on the tensor-core route since the
-    last reset_counts(): every bf16 call, no fp32 one."""
-    got = bwd_tc_counts()
-    print(f"  {label}: tensor-core backward launches {got} (expected {expect} each)", flush=True)
-    if any(c != expect for c in got.values()):
-        raise AssertionError(f"{label}: tensor-core backward launches {got}, expected {expect} each")
+def check_bwd_routes(label: str, tc: int, f32: int) -> dict:
+    """Each backward kernel's launches on the tensor-core and on the fp32
+    route since the last reset_counts(): every bf16 call on the first, every
+    fp32 one on the second."""
+    got = dict(tensor_core=bwd_counts("tc_launches"), fp32_tiled=bwd_counts("f32_launches"))
+    print(f"  {label}: backward launches by route {got} (expected {tc} and {f32} each)", flush=True)
+    if any(c != tc for c in got["tensor_core"].values()) or \
+            any(c != f32 for c in got["fp32_tiled"].values()):
+        raise AssertionError(f"{label}: backward launches by route {got}, expected {tc} "
+                             f"(tensor cores) and {f32} (fp32 route) each")
     return got
 
 
@@ -413,7 +439,7 @@ def backward_cases(rows: int, n: int, device, gen, dtype, offset: int = 0):
     from the forward's plain version. The yardstick is the backward of
     torch's SDPA on the same q, k, v and dO (it computes dq, dk and dv
     together, so both rows carry the same time); none at an ``offset`` off
-    a 16-byte boundary, where SDPA's backward faults (misaligned address)."""
+    a 16-byte boundary, where SDPA faults (misaligned address)."""
     kw = dict(device=device, dtype=dtype)
     shape = (rows, n, 3, HEADS, HEAD_DIM)
 
@@ -428,15 +454,16 @@ def backward_cases(rows: int, n: int, device, gen, dtype, offset: int = 0):
     out, lse = attention_reference(q, k, v, return_lse=True)
     delta = attention_delta(out, dout)
     dq, dk, dv = fused(*shape, randn=False).unbind(2)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves))
-    dout_t = dout.transpose(1, 2)
     e, bh = qkv.element_size(), rows * HEADS
+    library = None
+    if offset * e % 16 == 0:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves))
+        dout_t = dout.transpose(1, 2)
+        library = lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True)  # noqa: E731
     el = bh * n * HEAD_DIM  # elements of one of q, k, v, dO
     reads = 4 * el * e + 2 * bh * n * 4  # q, k, v, dO and the fp32 lse, delta
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    library = None if offset % 8 else (
-        lambda: torch.autograd.grad(sdpa_out, leaves, dout_t, retain_graph=True))
     return {
         "flash_attention_bwd_dq": dict(
             run=lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, dq),
@@ -623,19 +650,20 @@ def check_tiled(label: str, case: dict) -> dict:
 
 def measure_backward(name: str, label: str, case: dict, tol_rel: float, timer, want: str) -> dict:
     """One backward kernel at one case: against its plain version at
-    ``tol_rel``, its route (``want``: the route function says so and the
-    tensor-core count moved only for that route), and on the tensor-core
-    route each output to the bit against the plain version, which mirrors
-    the kernel's rounding points: all but TILED_SHARE_APART of the elements
-    equal, the rest one bf16 step apart at most."""
+    ``tol_rel``, its route (``want``: the route function says so, and of the
+    tensor-core and fp32 counts only that route's moved), and on the
+    tensor-core route each output to the bit against the plain version,
+    which mirrors the kernel's rounding points: all but TILED_SHARE_APART of
+    the elements equal, the rest one bf16 step apart at most."""
     fn = KERNELS[name]["fn"]
-    tc_before = fn.tc_launches
+    before = dict(tensor_core=fn.tc_launches, fp32_tiled=fn.f32_launches)
     r = measure(name, label, case, tol_rel, timer)
-    moved = fn.tc_launches - tc_before
-    print(f"  {name} {label}: route {case['route']}, {moved} tensor-core launches", flush=True)
-    if case["route"] != want or (moved > 0) != (want == "tensor_core"):
-        raise AssertionError(f"{name} {label}: route {case['route']} with {moved} tensor-core "
-                             f"launches; expected {want}")
+    moved = dict(tensor_core=fn.tc_launches - before["tensor_core"],
+                 fp32_tiled=fn.f32_launches - before["fp32_tiled"])
+    print(f"  {name} {label}: route {case['route']}, launches moved by route {moved}", flush=True)
+    if case["route"] != want or any((m > 0) != (route == want) for route, m in moved.items()):
+        raise AssertionError(f"{name} {label}: route {case['route']} with launches {moved}; "
+                             f"expected {want}")
     if want != "tensor_core":
         return r
     got, plain = case["run"](), case["plain"]()
@@ -654,12 +682,13 @@ def measure_backward(name: str, label: str, case: dict, tol_rel: float, timer, w
     return r
 
 
-def measure_flash(label: str, case: dict, timer, want: str = "tensor_core") -> dict:
-    """The bf16 attention forward at one case: output and lse against the
-    plain version, its route (``want``), and on the tensor-core route the
-    output and lse against the mirror of its tile schedule."""
+def measure_flash(label: str, case: dict, timer, want: str = "tensor_core", tol: float = BF16_TOL) -> dict:
+    """The attention forward at one case: output (within ``tol`` of the
+    largest magnitude) and lse against the plain version, its route
+    (``want``), and on the tensor-core route the output and lse against the
+    mirror of its tile schedule."""
     tc_before = flash_attention.tc_launches
-    r = measure("flash_attention", label, case, BF16_TOL, timer)
+    r = measure("flash_attention", label, case, tol, timer)
     r["lse_err"] = lse_err = max_err(case["lse"][0](), case["lse"][1]())
     print(f"  flash_attention {label} lse: max abs err {lse_err} (tolerance {LSE_TOL})")
     if not lse_err <= LSE_TOL:
@@ -674,7 +703,8 @@ def check_kernels(device, timer) -> dict:
     """Each forward kernel against its plain version in bf16 at both shapes
     (and the attention's lse and route), the attention forward at
     FLASH_SHAPES, then each forward kernel in fp32; then the backward
-    kernels at BWD_SHAPES. Returns the measurements by kernel and shape."""
+    kernels at BWD_SHAPES. Returns the measurements by kernel and shape
+    (the fp32 forward at FLASH_FP32_SHAPES among the attention forward's)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {} for name in KERNELS}
     for shape, (rows, n) in SHAPES.items():
@@ -702,9 +732,16 @@ def check_kernels(device, timer) -> dict:
             raise AssertionError(f"{name} fp32: max abs err {err} > {tol}")
         if name == "flash_attention":
             check_route("spatial fp32", case, tc_before, "cuda_core")
+    for shape, (rows, n) in FLASH_FP32_SHAPES.items():
+        case = flash_case(rows, n, device, gen, torch.float32)
+        label = f"{shape} B*H={rows * HEADS} N={n}"
+        results["flash_attention"][shape] = measure_flash(label, case, timer, "cuda_core", FP32_TOL)
+        del case
+        torch.cuda.empty_cache()
     for shape, (rows, n, dtype, offset) in BWD_SHAPES.items():
         bf16 = dtype == torch.bfloat16
-        tol, want = (BF16_TOL, "cuda_core" if offset % 8 else "tensor_core") if bf16 else (FP32_TOL, "cuda_core")
+        tol, route = (BF16_TOL, "tensor_core") if bf16 else (FP32_TOL, "fp32_tiled")
+        want = "cuda_core" if offset * dtype.itemsize % 16 else route
         for name, case in backward_cases(rows, n, device, gen, dtype, offset).items():
             label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
             results[name][shape] = measure_backward(name, label, case, tol, timer, want)
@@ -714,15 +751,16 @@ def check_kernels(device, timer) -> dict:
 
 TC_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu")
 TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+F32_SOURCE = "latte_tpu_torch/csrc/flash_attention_bwd_f32.cu"
 
 
-def report_tc_build(path) -> dict:
+def report_build(path) -> dict:
     """Print ptxas's registers, shared memory and spills for each kernel of
-    the tensor-core sources (none may spill), and count the HMMA
-    instructions in their SASS where cuobjdump sits beside nvcc: each must
-    have some."""
+    the tensor-core and register-tiled fp32 sources (none may spill), and
+    count the HMMA instructions in the tensor-core kernels' SASS where
+    cuobjdump sits beside nvcc: each must have some."""
     spills = []
-    for src in TC_SOURCES:
+    for src in (*TC_SOURCES, os.path.basename(F32_SOURCE)):
         section = build.compile_log().split(f"== {src}\n")[1].split("\n== ")[0]
         for line in section.splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
@@ -730,7 +768,7 @@ def report_tc_build(path) -> dict:
             if any(int(b) for b in re.findall(r"(\d+) bytes spill", line)):
                 spills.append(line.strip())
     if spills:
-        raise AssertionError(f"a tensor-core kernel spills: {spills}")
+        raise AssertionError(f"a tensor-core or fp32 kernel spills: {spills}")
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         print("  cuobjdump not found beside nvcc: HMMA count not measured", flush=True)
@@ -1101,7 +1139,7 @@ def train_quant(tmp: str, smi: str) -> dict:
     ]), callbacks=[log])
     launches = counts()
     check_tc("quant_train fp32", 0)
-    check_bwd_tc("quant_train fp32", 0)
+    check_bwd_routes("quant_train fp32", tc=0, f32=2 * DEPTH)
     blk = log.state.model.blocks[0]
     modes = (blk.attn.qkv.quantized, blk.mlp.fc1.quantized, blk.adaLN_modulation[1].quantized)
     secs = log.step_seconds()
@@ -1173,7 +1211,7 @@ def train_step_parity(device) -> dict:
     torch.cuda.synchronize()
     step_counts = counts()
     check_tc("fp32 train step", 0)
-    check_bwd_tc("fp32 train step", 0)
+    check_bwd_routes("fp32 train step", tc=0, f32=DEPTH)
     loss_p, g_p = step(plain, None)
     print(f"  launches in one train step: {step_counts}", flush=True)
     if step_counts != STEP_LAUNCHES:
@@ -1190,7 +1228,7 @@ def train_step_parity(device) -> dict:
     reset_counts()
     _, g_km = step(model, torch.bfloat16)
     check_tc("mixed-precision train step", STEP_LAUNCHES["flash_attention"])
-    check_bwd_tc("mixed-precision train step", DEPTH)
+    check_bwd_routes("mixed-precision train step", tc=DEPTH, f32=0)
     _, g_pm = step(plain, torch.bfloat16)
     vs32 = compare("mixed step: kernel grads vs plain fp32 grads", g_km, g_p)
     plain_vs32 = compare("mixed step: plain grads vs plain fp32 grads", g_pm, g_p)
@@ -1205,7 +1243,9 @@ def train_step_parity(device) -> dict:
 
 def train_entry_point(tmp: str, smi: str) -> dict:
     """Phase 6b: ``train.main`` on ffs_train.yaml as shipped, then a resume
-    and the sampler on the trained EMA."""
+    that runs the pairs of PairLog against the CUDA-core backward (the
+    fp32 backward's own route is "fp32_tiled"), and the sampler on the
+    trained EMA."""
     overrides = [f"results_dir={tmp}/results", f"max_train_steps={TRAIN_STEPS}", "log_every=1",
                  f"ckpt_every={TRAIN_STEPS}"]
     log = StepLog(profile_after=TRAIN_STEPS - 1)
@@ -1215,7 +1255,7 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     check_tc("ffs_train fp32", 0)
-    check_bwd_tc("ffs_train fp32", 0)
+    routes = check_bwd_routes("ffs_train fp32", tc=0, f32=TRAIN_STEPS * DEPTH)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     secs = log.step_seconds()
     print(f"  ffs_train fp32 batch {TRAIN_BATCH}: {out}; launches {launches}", flush=True)
@@ -1238,23 +1278,30 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     ckpt = os.path.join(out["experiment_dir"], "checkpoints", f"{TRAIN_STEPS:07d}.pt")
     print(f"  checkpoint {os.path.getsize(ckpt) / 2**30:.3f} GiB; "
           f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free in {tmp}", flush=True)
-    class Resumed(StepLog):
+
+    class Resumed(PairLog):
         def on_train_start(self, config, state, experiment_dir):
             super().on_train_start(config, state, experiment_dir)
             shutil.rmtree(out["experiment_dir"])  # restored: keep one checkpoint on disk
 
-    resumed_log = Resumed()
-    resumed = train.main(load_config(FFS_TRAIN, [
-        f"results_dir={tmp}/results", f"max_train_steps={TRAIN_STEPS + 1}", "log_every=1",
-        f"resume_from_checkpoint={ckpt}",
-    ]), callbacks=[resumed_log])
+    resumed_log = Resumed("fp32_tiled", first=TRAIN_STEPS + 2)
+    try:
+        resumed = train.main(load_config(FFS_TRAIN, [
+            f"results_dir={tmp}/results", f"max_train_steps={resumed_log.steps}", "log_every=1",
+            f"resume_from_checkpoint={ckpt}",
+        ]), callbacks=[resumed_log])
+    finally:
+        attention.backward_route = resumed_log.route
     print(f"  resumed from step {TRAIN_STEPS}: {resumed}", flush=True)
-    if resumed["final_step"] != TRAIN_STEPS + 1 or [r[0] for r in resumed_log.records] != [TRAIN_STEPS + 1]:
+    steps = list(range(TRAIN_STEPS + 1, resumed_log.steps + 1))
+    if resumed["final_step"] != resumed_log.steps or [r[0] for r in resumed_log.records] != steps:
         raise AssertionError("the resumed run did not carry the step counter on")
-    if resumed_log.state.step != TRAIN_STEPS + 1 or not resumed_log.finite():
+    if resumed_log.state.step != resumed_log.steps or not resumed_log.finite():
         raise AssertionError("the resumed run failed")
     resumed_log.state = None
-    trained = os.path.join(resumed["experiment_dir"], "checkpoints", f"{TRAIN_STEPS + 1:07d}.pt")
+    pairs = resumed_log.pair_summary()
+    print(f"  fp32 pairs, batch {TRAIN_BATCH}: " + pairs.pop("line") + f" on {smi}", flush=True)
+    trained = os.path.join(resumed["experiment_dir"], "checkpoints", f"{resumed_log.steps:07d}.pt")
     lat = torch.from_numpy(np.load(sample.main(load_config(FFS_CONFIG, [
         "sample_method=ddim", "num_sampling_steps=5", f"ckpt={trained}",
         f"save_video_path={tmp}/trained.mp4",
@@ -1264,42 +1311,58 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     if lat.shape != (1, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
         raise AssertionError("the sampler on the trained EMA gave no finite latents")
     shutil.rmtree(resumed["experiment_dir"])
-    return dict(launches=launches, s_per_step=s_step, steps_per_s=1 / s_step, step_seconds=secs,
-                peak_gib=peak_gib)
+    return dict(launches=launches, f32_launches=routes["fp32_tiled"], s_per_step=s_step,
+                steps_per_s=1 / s_step, step_seconds=secs, peak_gib=peak_gib, **pairs)
 
 
-class MixedLog(StepLog):
-    """StepLog of the mixed-precision run: TRAIN_STEPS steps on the
-    backward's tensor-core route (the last one profiled), one step that
-    absorbs the profiler's stop, then MIXED_PAIRS pairs of steps, one on
-    the tensor-core route and one with the CUDA-core backward forced
-    (``backward_route`` patched for the step), the order alternating from
-    pair to pair, so a drift in the host's or the card's speed falls on
-    both. Records the launch counts at each step's log."""
+class PairLog(StepLog):
+    """StepLog of a run that ends in ROUTE_PAIRS pairs of steps from step
+    ``first``: one on the backward's own route (``own``: "tensor_core" in
+    mixed precision, "fp32_tiled" in fp32) and one with the CUDA-core
+    backward forced (``backward_route`` patched for the step), the order
+    alternating from pair to pair, so a drift in the host's or the card's
+    speed falls on both. Records the launch counts at each step's log."""
 
-    def __init__(self):
-        super().__init__(profile_after=TRAIN_STEPS - 1)
-        self.route, self.arms, self.counts = attention.backward_route, {}, {}
-        first = TRAIN_STEPS + 2
-        for i in range(MIXED_PAIRS):
-            pair = ("tensor_core", "cuda_core") if i % 2 == 0 else ("cuda_core", "tensor_core")
+    def __init__(self, own: str, first: int, profile_after: int = 0):
+        super().__init__(profile_after=profile_after)
+        self.own, self.route, self.arms, self.counts = own, attention.backward_route, {}, {}
+        for i in range(ROUTE_PAIRS):
+            pair = (own, "cuda_core") if i % 2 == 0 else ("cuda_core", own)
             for j, arm in enumerate(pair):
                 self.arms[first + 2 * i + j] = arm
-        self.steps = first + 2 * MIXED_PAIRS - 1
+        self.steps = first + 2 * ROUTE_PAIRS - 1
 
     def on_log(self, step, metrics):
         super().on_log(step, metrics)
-        self.counts[step] = (counts(), bwd_tc_counts(), flash_attention.tc_launches)
+        self.counts[step] = (counts(), bwd_counts("tc_launches"), bwd_counts("f32_launches"),
+                             flash_attention.tc_launches)
         route = self.route
         attention.backward_route = (
-            route if self.arms.get(step + 1, "tensor_core") == "tensor_core"
+            route if self.arms.get(step + 1, self.own) == self.own
             else lambda *a: route(*a) and "cuda_core"
         )
 
-    def moved(self, step) -> tuple:
-        """The backward's launches and tensor-core launches of one step."""
-        (c1, t1, _), (c0, t0, _) = self.counts[step], self.counts[step - 1]
-        return {k: c1[k] - c0[k] for k in BACKWARD}, {k: t1[k] - t0[k] for k in BACKWARD}
+    def pair_summary(self) -> dict:
+        """Each arm's step seconds, their medians and the pairs the own
+        route won, after checking that every pair step made DEPTH launches
+        of each backward kernel, all on its arm's route."""
+        times = {r[0]: r[1] for r in self.records}
+        arm_s = {self.own: [], "cuda_core": []}
+        for step, arm in sorted(self.arms.items()):
+            (c1, t1, f1, _), (c0, t0, f0, _) = self.counts[step], self.counts[step - 1]
+            moved = {k: (c1[k] - c0[k], t1[k] - t0[k], f1[k] - f0[k]) for k in BACKWARD}
+            want = (DEPTH, DEPTH if arm == "tensor_core" else 0, DEPTH if arm == "fp32_tiled" else 0)
+            if any(m != want for m in moved.values()):
+                raise AssertionError(f"step {step} ({arm}): backward launches, tensor-core and "
+                                     f"fp32-route launches {moved}, expected {want} each")
+            arm_s[arm].append(times[step] - times[step - 1])
+        own_s, cc_s = (sorted(v)[len(v) // 2] for v in arm_s.values())
+        wins = sum(a < b for a, b in zip(arm_s[self.own], arm_s["cuda_core"]))
+        line = (f"pairs: {self.own} backward {own_s:.4f} s/step (median of {arm_s[self.own]}), "
+                f"CUDA-core backward forced {cc_s:.4f} s/step (median of {arm_s['cuda_core']}), "
+                f"{self.own} faster in {wins} of {ROUTE_PAIRS}")
+        return dict(pairs=arm_s, pair_median_s={self.own: own_s, "cuda_core": cc_s},
+                    pairs_won=wins, line=line)
 
 
 def train_mixed_precision(tmp: str, smi: str) -> dict:
@@ -1308,8 +1371,9 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
     EMA stay fp32), the path of the tensor-core backward: TRAIN_STEPS steps
     with all 28 backward launches of each kernel a step on the tensor cores,
     their s/step (median of the unprofiled steps 3-5) and a profile of the
-    last by kind; then the pairs of MixedLog against the CUDA-core backward."""
-    log = MixedLog()
+    last by kind; then, after one step that absorbs the profiler's stop, the
+    pairs of PairLog against the CUDA-core backward."""
+    log = PairLog("tensor_core", first=TRAIN_STEPS + 2, profile_after=TRAIN_STEPS - 1)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
@@ -1319,23 +1383,17 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
         ]), callbacks=[log])
     finally:
         attention.backward_route = log.route
-    main_counts, main_bwd_tc, main_fwd_tc = log.counts[TRAIN_STEPS]
+    main_counts, main_bwd_tc, main_f32, main_fwd_tc = log.counts[TRAIN_STEPS]
     print(f"  mixed precision, {TRAIN_STEPS} steps: launches {main_counts}, tensor-core backward "
-          f"{main_bwd_tc}, tensor-core forward {main_fwd_tc}", flush=True)
+          f"{main_bwd_tc}, fp32-route backward {main_f32}, tensor-core forward {main_fwd_tc}",
+          flush=True)
     if main_counts != {k: TRAIN_STEPS * c for k, c in STEP_LAUNCHES.items()}:
         raise AssertionError(f"expected {TRAIN_STEPS} x {STEP_LAUNCHES} launches, got {main_counts}")
-    if any(c != TRAIN_STEPS * DEPTH for c in main_bwd_tc.values()) or \
+    if any(c != TRAIN_STEPS * DEPTH for c in main_bwd_tc.values()) or any(main_f32.values()) or \
             main_fwd_tc != TRAIN_STEPS * STEP_LAUNCHES["flash_attention"]:
         raise AssertionError("a bf16 attention launch of the mixed-precision run left the tensor cores")
-    arm_s = {"tensor_core": [], "cuda_core": []}
     secs = log.step_seconds()  # secs[i]: step i + 2
-    for step, arm in sorted(log.arms.items()):
-        launches, tc = log.moved(step)
-        if any(c != DEPTH for c in launches.values()) or \
-                any(c != (DEPTH if arm == "tensor_core" else 0) for c in tc.values()):
-            raise AssertionError(f"mixed step {step} ({arm}): backward launches {launches}, "
-                                 f"tensor-core {tc}")
-        arm_s[arm].append(secs[step - 2])
+    pairs = log.pair_summary()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     state = log.state
     dtypes = {p.dtype for p in state.model.parameters()} | {p.dtype for p in state.ema.parameters()}
@@ -1348,19 +1406,25 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
         raise AssertionError("mixed_precision did not switch the compute to bf16")
     warm = secs[1:TRAIN_STEPS - 2]  # steps 3-5
     s_step = sorted(warm)[len(warm) // 2]
-    tc_s, cc_s = (sorted(v)[len(v) // 2] for v in arm_s.values())
-    wins = sum(a < b for a, b in zip(arm_s["tensor_core"], arm_s["cuda_core"]))
     print(f"  mixed precision batch {TRAIN_BATCH}: {out}; compute {compute}, state dtypes {dtypes}; "
           f"step gaps (s) {secs}; median of steps 3-5 {s_step:.4f} s/step = {1 / s_step:.4f} steps/s; "
-          f"pairs: tensor-core backward {tc_s:.4f} s/step (median of {arm_s['tensor_core']}), "
-          f"CUDA-core backward forced {cc_s:.4f} s/step (median of {arm_s['cuda_core']}), "
-          f"tensor-core faster in {wins} of {MIXED_PAIRS}; peak memory {peak_gib:.3f} GiB on {smi}",
-          flush=True)
+          + pairs.pop("line") + f"; peak memory {peak_gib:.3f} GiB on {smi}", flush=True)
     print_profile("mixed-precision train step", log.prof, secs[TRAIN_STEPS - 2] * 1e3)
     shutil.rmtree(out["experiment_dir"])
     return dict(launches=main_counts, tc_launches=main_bwd_tc, s_per_step=s_step,
-                steps_per_s=1 / s_step, step_seconds=secs, pairs=arm_s, pair_median_s=dict(
-                    tensor_core=tc_s, cuda_core=cc_s), pairs_won=wins, peak_gib=peak_gib)
+                steps_per_s=1 / s_step, step_seconds=secs, peak_gib=peak_gib, **pairs)
+
+
+def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
+    """One kernel's entry of the JSON line: its main-path launches and its
+    measurements at the main path's shape (``row``)."""
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=row["library_ms"], device_ms=row["device_ms"],
+        library_device_ms=row["library_device_ms"], **extra,
+    )
 
 
 def main() -> int:
@@ -1384,7 +1448,7 @@ def main() -> int:
     path = build.build()
     build.load_library()
     print(f"  library {path.name}, built in {time.perf_counter() - t0:.2f} s", flush=True)
-    hmma = report_tc_build(path)
+    hmma = report_build(path)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -1534,8 +1598,8 @@ def main() -> int:
             row = measured[name]["spatial_pv_int8"]
             extra = dict(shape="spatial bf16 batch 1, pv_int8, flash scale block",
                          sdpa_bf16_ms=row["sdpa_bf16_ms"], launches_forward=int8_fwd["launches"][name],
-                         cases={c: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                      "max_abs_err", "sdpa_bf16_ms")}
+                         cases={c: {f: r[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "max_abs_err", "sdpa_bf16_ms")}
                                 for c, r in measured[name].items()})
             launches = int8_run["launches"][name]
         elif name in FORWARD:  # the sampler's path, at its shapes (bf16, batch 1)
@@ -1546,21 +1610,24 @@ def main() -> int:
             if name == "flash_attention":
                 extra.update(
                     tc_launches=main_tc, fp32_source="latte_tpu_torch/csrc/flash_attention.cu",
-                    sass_hmma=hmma, cases={c: measured[name][c] for c in FLASH_SHAPES})
+                    sass_hmma=hmma,
+                    cases={c: measured[name][c] for c in (*FLASH_SHAPES, *FLASH_FP32_SHAPES)})
         else:  # the mixed-precision trainer's path, at its shapes (bf16, batch 5)
             row, extra = measured[name]["spatial_b5"], dict(
                 shape="spatial bf16 batch 5", tc_launches=mixed["tc_launches"][name],
-                cuda_core_source="latte_tpu_torch/csrc/flash_attention_bwd.cu", sass_hmma=hmma,
-                launches_fp32_train=entry["launches"][name],
+                fp32_source=F32_SOURCE, cuda_core_source="latte_tpu_torch/csrc/flash_attention_bwd.cu",
+                sass_hmma=hmma, launches_fp32_train=entry["launches"][name],
                 cases={c: measured[name][c] for c in BWD_SHAPES if c != "spatial_b5"})
             launches = mixed["launches"][name]
-        kernels.append(dict(
-            name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], device_ms=row["device_ms"],
-            library_device_ms=row["library_device_ms"], **extra,
-        ))
+        kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row, **extra))
+    for name in BACKWARD:  # the fp32 trainer's path, at its shapes (fp32, batch 5)
+        kernels.append(kernel_row(
+            f"{name}_f32", F32_SOURCE, KERNELS[name]["replaces"], entry["f32_launches"][name],
+            measured[name]["spatial_b5_fp32"], shape="spatial fp32 batch 5",
+            temporal=measured[name]["temporal_b5_fp32"],
+            cases={c: measured[name][c] for c in BWD_SHAPES if BWD_SHAPES[c][2] == torch.float32},
+            train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
+                             pairs_won=entry["pairs_won"])))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

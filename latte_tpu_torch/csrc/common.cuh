@@ -3,8 +3,12 @@
 // Every kernel is templated on its storage type T (float or __nv_bfloat16)
 // and does its arithmetic in fp32. The C entry points take a dtype code
 // (DType below) and return cudaGetLastError() after the launch, so the
-// Python wrapper can raise on a refused launch.
+// Python wrapper can raise on a refused launch. The 16-byte cp.async
+// copies at the end stage tiles for the tensor-core and fp32 attention
+// kernels.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,6 +38,28 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4 bytes global -> shared (any 4-byte aligned address); src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
 }
 
 }  // namespace latte

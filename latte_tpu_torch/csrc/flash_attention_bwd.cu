@@ -1,8 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV.
+// Flash-attention backward for Hopper (sm_90a) on the CUDA cores, any
+// layout: dQ and dK/dV.
 //
 // Replaces the Pallas kernels `_flash_bwd_dq_kernel` and
 // `_flash_bwd_dkv_kernel` of latte_tpu/kernels/attention.py (launched by
-// `_flash_backward`). Both recompute the probabilities block by block from
+// `_flash_backward`) for the operands that flash_attention_bwd_tc.cu (bf16)
+// and flash_attention_bwd_f32.cu (fp32) do not take: head dims other than
+// 72 (Latte-XL/2's), or a base pointer or (batch, token, head) stride off a
+// 16-byte boundary, in either dtype. `backward_route`
+// (latte_tpu_torch/kernels/attention.py) chooses before the launch. Both
+// kernels recompute the probabilities block by block from
 // the forward's fp32 logsumexp, so the N x N matrices never reach device
 // memory:
 //   p  = exp(qs k^T - lse),  qs = round(q * scale) (the forward's rounding)
@@ -17,8 +23,9 @@
 // D = 72) reads q, k, v, dO (4 x 23.6 MB in fp32) and writes 1 (dQ) or 2
 // (dK/dV) such arrays; it does 6 (dQ) and 8 (dK/dV) * B*H*N^2*D FLOP = 36
 // and 48 GFLOP. On CUDA cores (67 TFLOP/s fp32) that is 0.5-0.7 ms against
-// 0.04 ms of memory traffic: this first version is bound by operations, and
-// in practice by shared-memory reads, about one per FMA.
+// 0.04 ms of memory traffic: this simple version is bound by operations,
+// and in practice by shared-memory reads, about one per FMA (the fp32
+// kernels of flash_attention_bwd_f32.cu tile registers against that).
 //
 // Design (first, simple version: CUDA cores, fp32 FMAs, no tensor cores;
 // two kernels and no atomics, as in the TPU design):

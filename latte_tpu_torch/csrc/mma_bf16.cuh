@@ -38,28 +38,6 @@ constexpr int kChunks = kD / 8;  // 16-byte chunks of a row: 9
 constexpr int kSteps = kD / 16;  // k16 steps of a contraction over head_dim (then one k8 step)
 static_assert(kChunks == 9, "the fragment loads are written for 9 chunks: 4 + 4 + 1");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-// 4 bytes global -> shared (any 4-byte aligned address); src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");

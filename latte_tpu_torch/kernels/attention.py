@@ -9,10 +9,11 @@ Pallas kernels of that file:
   take, CUDA cores): ``_flash_kernel`` (``attention.py:56``, launched by
   ``_flash_forward`` at ``:122``); :func:`forward_route` picks one before
   the launch;
-- ``csrc/flash_attention_bwd_tc.cu`` (bf16, tensor cores) and
-  ``csrc/flash_attention_bwd.cu`` (fp32 and the bf16 layouts the first does
-  not take, CUDA cores): ``_flash_bwd_dq_kernel`` (``:143``, launched at
-  ``:257``) and ``_flash_bwd_dkv_kernel`` (``:184``, at ``:273``);
+- ``csrc/flash_attention_bwd_tc.cu`` (bf16, tensor cores),
+  ``csrc/flash_attention_bwd_f32.cu`` (fp32, register-tiled on the CUDA
+  cores) and ``csrc/flash_attention_bwd.cu`` (the layouts neither takes,
+  CUDA cores): ``_flash_bwd_dq_kernel`` (``:143``, launched at ``:257``)
+  and ``_flash_bwd_dkv_kernel`` (``:184``, at ``:273``);
   :func:`backward_route` picks one before the launch.
 
 :func:`flash_attention` and :func:`attention_qkv` are differentiable through
@@ -50,9 +51,9 @@ __all__ = [
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core kernels (csrc/flash_attention_tc.cu, flash_attention_bwd_tc.cu):
-# their one head_dim, Latte-XL/2's, and the forward's keys of a K/V tile at
-# N > TC_TILE
+# the tensor-core kernels (csrc/flash_attention_tc.cu, flash_attention_bwd_tc.cu)
+# and the fp32 backward (flash_attention_bwd_f32.cu): their one head_dim,
+# Latte-XL/2's; and the forward's keys of a K/V tile at N > TC_TILE
 TC_HEAD_DIM = 72
 TC_TILE = 64
 
@@ -213,19 +214,20 @@ def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     fp32 too). Raises on what neither kernel takes. Reads only
     shapes, strides and addresses, so it runs on CPU tensors too."""
     _check(q, k, v)
-    return _tc_route(q, (q, k, v))
+    if q.dtype == torch.bfloat16 and q.shape[-1] == TC_HEAD_DIM and _aligned((q, k, v)):
+        return "tensor_core"
+    return "cuda_core"
 
 
-def _tc_route(q: torch.Tensor, operands) -> str:
-    """"tensor_core" for bf16 at ``TC_HEAD_DIM`` with every operand's base
-    pointer and (batch, token, head) strides 16-byte aligned, else
-    "cuda_core"."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] != TC_HEAD_DIM:
-        return "cuda_core"
-    for t in operands:  # 8 bf16 elements are 16 bytes
-        if t.data_ptr() % 16 or any(n > 1 and s % 8 for n, s in zip(t.shape[:3], t.stride())):
-            return "cuda_core"
-    return "tensor_core"
+def _aligned(operands) -> bool:
+    """Every operand's base pointer and (batch, token, head) strides are
+    16-byte aligned, as 16-byte copies need; a stride of a length-1 axis is
+    never used."""
+    for t in operands:
+        per = 16 // t.element_size()  # elements in 16 bytes
+        if t.data_ptr() % 16 or any(n > 1 and s % per for n, s in zip(t.shape[:3], t.stride())):
+            return False
+    return True
 
 
 def backward_route(
@@ -237,17 +239,21 @@ def backward_route(
     dk: Optional[torch.Tensor],
     dv: Optional[torch.Tensor],
 ) -> str:
-    """Which backward kernels take these operands on the card: "tensor_core"
-    (``csrc/flash_attention_bwd_tc.cu``) for bf16 at head_dim
-    ``TC_HEAD_DIM`` whose q, k, v, dout and gradients all have 16-byte
-    aligned base pointers and (batch, token, head) strides, else
-    "cuda_core" (``csrc/flash_attention_bwd.cu``: any stride, fp32 too). A
-    gradient the kernel does not write is None (the dQ kernel writes dq
-    alone, the dK/dV kernel dk and dv). Raises on what neither kernel takes;
-    reads only shapes, strides and addresses, so it runs on CPU tensors too."""
+    """Which backward kernels take these operands on the card. At head_dim
+    ``TC_HEAD_DIM`` with q, k, v, dout and the gradients all at 16-byte
+    aligned base pointers and (batch, token, head) strides: "tensor_core"
+    (``csrc/flash_attention_bwd_tc.cu``) for bf16, "fp32_tiled"
+    (``csrc/flash_attention_bwd_f32.cu``) for fp32. Everything else, in
+    either dtype (other head dims, a misaligned view), is "cuda_core"
+    (``csrc/flash_attention_bwd.cu``, any stride). A gradient the kernel
+    does not write is None (the dQ kernel writes dq alone, the dK/dV kernel
+    dk and dv). Raises on what no kernel takes; reads only shapes, strides
+    and addresses, so it runs on CPU tensors too."""
     grads = [t for t in (dq, dk, dv) if t is not None]
     _check_grads(q, k, v, dout, grads)
-    return _tc_route(q, (q, k, v, dout, *grads))
+    if q.shape[-1] != TC_HEAD_DIM or not _aligned((q, k, v, dout, *grads)):
+        return "cuda_core"
+    return "tensor_core" if q.dtype == torch.bfloat16 else "fp32_tiled"
 
 
 def _forward(
@@ -282,8 +288,9 @@ def _forward(
 
 def _launch_backward(entry: str, q, k, v, dout, lse, delta, dq, dk, dv) -> None:
     """Call one backward entry point (the CUDA-core kernel's, or with the
-    suffix "_tc" the tensor-core kernel's: both take the same arguments);
-    unused gradient slots are None."""
+    suffix "_tc" the tensor-core kernel's, "_f32" the register-tiled fp32
+    kernel's: all take the same arguments); unused gradient slots are
+    None."""
     B, N, H, D = q.shape
     ops = (q, k, v, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 21)(
@@ -311,7 +318,8 @@ def flash_attention_bwd_dq(
     strided view, e.g. of a fused (B, N, 3, H, D) gradient). ``lse`` and
     ``delta`` are fp32 (B·H, N). ``flash_attention_bwd_dq.launches`` counts
     the kernel launches, ``.tc_launches`` those of the tensor-core kernel
-    among them (see :func:`backward_route`)."""
+    and ``.f32_launches`` those of the register-tiled fp32 kernel among them
+    (see :func:`backward_route`)."""
     _check_backward(q, k, v, dout, lse, delta, (dq,))
     route = backward_route(q, k, v, dout, dq, None, None)
     if q.device.type == "cpu":
@@ -319,6 +327,9 @@ def flash_attention_bwd_dq(
     if route == "tensor_core":
         _launch_backward("latte_flash_attention_bwd_dq_tc", q, k, v, dout, lse, delta, dq, None, None)
         flash_attention_bwd_dq.tc_launches += 1
+    elif route == "fp32_tiled":
+        _launch_backward("latte_flash_attention_bwd_dq_f32", q, k, v, dout, lse, delta, dq, None, None)
+        flash_attention_bwd_dq.f32_launches += 1
     else:
         _launch_backward("latte_flash_attention_bwd_dq", q, k, v, dout, lse, delta, dq, None, None)
     flash_attention_bwd_dq.launches += 1
@@ -338,7 +349,8 @@ def flash_attention_bwd_dkv(
     """dK and dV of attention over (B, N, H, D), written into ``dk`` and
     ``dv`` (strided views allowed). ``flash_attention_bwd_dkv.launches``
     counts the kernel launches, ``.tc_launches`` those of the tensor-core
-    kernel among them."""
+    kernel and ``.f32_launches`` those of the register-tiled fp32 kernel
+    among them."""
     _check_backward(q, k, v, dout, lse, delta, (dk, dv))
     route = backward_route(q, k, v, dout, None, dk, dv)
     if q.device.type == "cpu":
@@ -347,6 +359,9 @@ def flash_attention_bwd_dkv(
     if route == "tensor_core":
         _launch_backward("latte_flash_attention_bwd_dkv_tc", q, k, v, dout, lse, delta, None, dk, dv)
         flash_attention_bwd_dkv.tc_launches += 1
+    elif route == "fp32_tiled":
+        _launch_backward("latte_flash_attention_bwd_dkv_f32", q, k, v, dout, lse, delta, None, dk, dv)
+        flash_attention_bwd_dkv.f32_launches += 1
     else:
         _launch_backward("latte_flash_attention_bwd_dkv", q, k, v, dout, lse, delta, None, dk, dv)
     flash_attention_bwd_dkv.launches += 1
@@ -454,5 +469,7 @@ flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.tc_launches = 0
+flash_attention_bwd_dq.f32_launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
+flash_attention_bwd_dkv.f32_launches = 0

@@ -50,13 +50,14 @@ _SIGNATURES = {
     "latte_flash_attention_bwd_dkv": (
         [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]
     ),
-    # the bf16 tensor-core backward: the same arguments
-    "latte_flash_attention_bwd_dq_tc": (
-        [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]
-    ),
-    "latte_flash_attention_bwd_dkv_tc": (
-        [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]
-    ),
+    # the bf16 tensor-core backward and the register-tiled fp32 one: the same arguments
+    **{
+        f"latte_flash_attention_bwd_{kind}_{route}": (
+            [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]
+        )
+        for kind in ("dq", "dkv")
+        for route in ("tc", "f32")
+    },
     # dtype, pv_int8, q, k, v, scales, o, B, N, H, D, scale_block, strides[9], ...
     "latte_flash_attention_int8": (
         [_I, _I] + [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I64), _I, _P]

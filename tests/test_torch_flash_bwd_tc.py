@@ -79,7 +79,7 @@ def _operands(case):
         ("bf16 N=16 (temporal)", "tensor_core"),
         ("bf16 N=200 (ragged)", "tensor_core"),
         ("bf16 N=40 (ragged temporal)", "tensor_core"),
-        ("fp32", "cuda_core"),
+        ("fp32", "fp32_tiled"),
         ("bf16 D=64", "cuda_core"),
         ("bf16 q one element off", "cuda_core"),
         ("bf16 dout one element off", "cuda_core"),
