@@ -11,10 +11,11 @@ non-zero exit and a traceback:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the kernel library, one nvcc process per latte_tpu_torch/csrc/*.cu
    source, all at once, then one link; ptxas's registers, shared memory and
-   spills of the tensor-core attention kernels (forward and backward) and of
-   the register-tiled fp32 backward, and the count of HMMA (tensor-core)
-   instructions in the tensor-core kernels' SASS where cuobjdump exists
-   (none may spill, each tensor-core kernel must have HMMA);
+   spills of the tensor-core attention kernels (bf16 forward and backward,
+   int8) and of the register-tiled fp32 forward and backward, and the count
+   of HMMA (bf16) and IMMA (int8) tensor-core instructions in the
+   tensor-core kernels' SASS where cuobjdump exists (none may spill, each
+   tensor-core kernel must have its instructions);
 3. kernels: each forward CUDA kernel against its plain PyTorch version in
    bf16 at the sampler's spatial and temporal shapes, with its time, the
    plain version's, the bound from its bytes and operations and, for
@@ -23,11 +24,13 @@ non-zero exit and a traceback:
    at the spatial shape. The bf16 attention forward must take the
    tensor-core kernel, where it is also held against the plain mirror of
    its tile schedule (equal to the bit on all but 1% of elements), and the
-   fp32 one the CUDA-core kernel; the bf16 one is also held and timed at
-   FLASH_SHAPES (T2V 512^2, a ragged N, the mixed-precision trainer's batch
-   5, and a misaligned layout that the bf16 CUDA-core kernel takes), and in
-   fp32 at the training config's batch 5 (spatial and temporal; the
-   CUDA-core kernel, SDPA's fp32 forward beside it). Then the two
+   fp32 one the register-tiled fp32 kernel; the bf16 one is also held and
+   timed at FLASH_SHAPES (T2V 512^2, a ragged N, the mixed-precision
+   trainer's batch 5, and a misaligned layout that the bf16 CUDA-core
+   kernel takes), the fp32 one at FLASH_FP32_SHAPES (batch 1 and the
+   training config's batch 5, spatial and temporal, at batch 5 with SDPA's
+   fp32 forward and the CUDA-core kernel forced beside it; ragged N = 200
+   and 40; a misaligned layout that the CUDA-core kernel takes). Then the two
    flash-attention backward kernels (dQ, dK/dV) the same way at BWD_SHAPES:
    in bf16 at both shapes, at the mixed-precision trainer's batch 5, at a
    ragged N and at a misaligned layout, in fp32 at the spatial shape, at
@@ -54,32 +57,39 @@ non-zero exit and a traceback:
    weights, t and noise, and the same in mixed precision; (b) the entry
    point ``latte_tpu_torch.train.train.main`` on configs/ffs/ffs_train.yaml
    as shipped (fp32, batch 5, synthetic latents) for a few steps, with its
-   launch counts (every backward launch on the fp32 route), seconds per
-   step, peak memory and a profile of the last step, then a resume from its
-   checkpoint that runs alternating pairs of steps against the CUDA-core
-   backward forced (``backward_route`` patched for the step), and a short
-   DDIM run of the port's sampler on the trained EMA, none of it on the
-   tensor-core backward;
+   launch counts (every attention launch, forward and backward, on the
+   fp32 route), seconds per step, peak memory and a profile of the last
+   step, then a resume from its checkpoint that runs alternating pairs of
+   steps against the CUDA-core backward forced (``backward_route`` patched
+   for the step), then pairs against the CUDA-core forward forced
+   (``forward_route`` patched), and a short DDIM run of the port's sampler
+   on the trained EMA, none of it on the tensor-core kernels;
    (c) ``train.main`` with mixed_precision: true at batch 5: six steps on
    the tensor-core backward (the median of steps 3-5, a profile of step
    6), then alternating pairs of steps against the CUDA-core backward
    forced (``backward_route`` patched for the step);
    (d) two steps with quant_train: true (int8 training) at batch 1;
-7. int8: (a) the int8 flash-attention kernel against its plain version in
-   bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
-   N = 2048 (two scale blocks), in both P.V modes, with the time of bf16
-   SDPA at the same shape as context (it is no int8 yardstick: no PyTorch
-   call computes int8 attention); then at the same shapes in fp32, held
-   tightly, where three deliberately wrong kernels (a P scale per K tile or
-   per row, no quantize of q/k/v) must fail the same check; (b) the full-width forward calibrated at
+7. int8: (a) the int8 flash-attention kernels against their plain version
+   in bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
+   N = 2048 (two scale blocks), in both P.V modes (pv_int8 on the
+   tensor-core kernel, timed beside the dp4a kernel forced; "qk" on the
+   dp4a kernel), with the time of bf16 SDPA at the same shape as context
+   (it is no int8 yardstick: no PyTorch call computes int8 attention); then
+   at the same shapes in fp32, held tightly, where three deliberately wrong
+   kernels (a P scale per K tile or per row, no quantize of q/k/v) must
+   fail the same check, the two kernels held to each other, and, on inputs
+   where l has at most two terms, to each other and to the plain version to
+   the bit; (b) the full-width forward calibrated at
    three timesteps and served in static W8A8 with int8 attention, kernel
    path against the plain int8 path and the fp32 plain path, launch counts
    and a profile in which the int8 products and the quantize passes are
    kinds of their own; (c) ``sample.main`` with quantized: static,
    int8_attention: true, attention_mode: flash at DDIM-50 from the same
-   checkpoint as phase 5: launch counts, the int8 quality guard against the
-   bf16 latents of phase 5, the plain int8 path, int8 videos/min; then a
-   few DDIM steps with quantized: true and with int8_attention: qk under
+   checkpoint as phase 5: launch counts (every int8 attention on the
+   tensor cores), the int8 quality guard against the bf16 latents of phase
+   5, the plain int8 path, int8 videos/min, alternating pairs against the
+   dp4a kernel forced (``int8_route`` patched for the run); then a few DDIM
+   steps with quantized: true and with int8_attention: qk under
    attention_mode: auto.
 
 Prints the kernels' JSON line and ends with
@@ -121,8 +131,9 @@ from latte_tpu_torch.kernels import (
     residual_ln_modulate_reference,
 )
 from latte_tpu_torch.kernels import flash_attention_int8, flash_scale_block, int8_attention
-from latte_tpu_torch.kernels import attention
+from latte_tpu_torch.kernels import attention, attention_int8
 from latte_tpu_torch.kernels.attention import attention_tiled_reference, backward_route, forward_route
+from latte_tpu_torch.kernels.attention_int8 import int8_route
 from latte_tpu_torch.models import get_model
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.sample import sample
@@ -196,8 +207,10 @@ KERNELS = {
         replaces="latte_tpu/kernels/attention.py:184",
         fn=flash_attention_bwd_dkv,
     ),
+    # pv_int8 at head_dim 72; the "qk" mode and other layouts:
+    # csrc/flash_attention_int8.cu (its own row in the JSON line)
     "flash_attention_int8": dict(
-        source="latte_tpu_torch/csrc/flash_attention_int8.cu",
+        source="latte_tpu_torch/csrc/flash_attention_int8_tc.cu",
         replaces="latte_tpu/kernels/attention.py:330",
         fn=flash_attention_int8,
     ),
@@ -221,6 +234,8 @@ INT8_SHAPES = {
     "t2v": (FRAMES, 1024, "flash"),
     "n2048": (4, 2048, "flash"),
 }
+# the route each P.V mode takes at head_dim 72 (int8_route)
+INT8_ROUTE = {"pv_int8": "tensor_core", "qk": "cuda_core"}
 INT8_ARCH = dict(input_size=32, num_frames=FRAMES, int8_attention=True, attention_mode="flash")
 # (rows of the block, tokens per row) on the main path at batch 1
 SHAPES = {"spatial": (FRAMES, TOKENS), "temporal": (TOKENS, FRAMES)}
@@ -260,11 +275,21 @@ BWD_SHAPES = {
     "temporal_ragged_fp32": (FRAMES, 40, torch.float32, 0),
     "spatial_b5_fp32_misaligned": (TRAIN_BATCH * FRAMES, TOKENS, torch.float32, 1),
 }
-# the attention forward in fp32 at the training config's batch 5 (the
-# CUDA-core kernel): (rows, tokens)
+# the attention forward in fp32: (rows, tokens, storage offset in elements).
+# batch 1 (the sampler with use_fp16: false) and the training config's batch
+# 5 (spatial_b5_fp32 is the fp32 row of the JSON line, timed beside
+# csrc/flash_attention.cu forced); ragged N masks the last K/V tile (N = 40:
+# the temporal route's one tile); an offset of one element puts q/k/v 4
+# bytes past a 16-byte boundary, which the fp32 kernel refuses and the
+# CUDA-core kernel takes
 FLASH_FP32_SHAPES = {
-    "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS),
-    "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES),
+    "spatial_fp32": (FRAMES, TOKENS, 0),
+    "temporal_fp32": (TOKENS, FRAMES, 0),
+    "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS, 0),
+    "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES, 0),
+    "ragged_fp32": (FRAMES, 200, 0),
+    "temporal_ragged_fp32": (FRAMES, 40, 0),
+    "spatial_b5_fp32_misaligned": (TRAIN_BATCH * FRAMES, TOKENS, 1),
 }
 # pairs of steps in one process, the backward's own route against the
 # CUDA-core backward forced: in fp32 after the resume (phase 6b), in mixed
@@ -282,9 +307,9 @@ def phase(name: str, t0: float) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
-    for name in ("flash_attention", *BACKWARD):
+    for name in ("flash_attention", *BACKWARD, INT8):
         KERNELS[name]["fn"].tc_launches = 0
-    for name in BACKWARD:
+    for name in ("flash_attention", *BACKWARD):
         KERNELS[name]["fn"].f32_launches = 0
 
 
@@ -307,13 +332,26 @@ def check_bwd_routes(label: str, tc: int, f32: int) -> dict:
     return got
 
 
-def check_tc(label: str, expect: int) -> int:
-    """The attention forward's launches on the tensor-core route since the
-    last reset_counts(): every bf16 call, no fp32 one."""
-    got = flash_attention.tc_launches
-    print(f"  {label}: {got} tensor-core attention launches (expected {expect})", flush=True)
+def check_tc(label: str, expect: int, f32: int = 0) -> int:
+    """The attention forward's launches on the tensor-core route (every
+    bf16 call) and on the fp32 route (every fp32 one) since the last
+    reset_counts()."""
+    got = (flash_attention.tc_launches, flash_attention.f32_launches)
+    print(f"  {label}: {got[0]} tensor-core and {got[1]} fp32-route attention launches "
+          f"(expected {expect} and {f32})", flush=True)
+    if got != (expect, f32):
+        raise AssertionError(f"{label}: {got} tensor-core and fp32-route attention launches, "
+                             f"expected {(expect, f32)}")
+    return got[0]
+
+
+def check_int8_tc(label: str, expect: int) -> int:
+    """The int8 attention's launches on the tensor-core route since the last
+    reset_counts(): every pv_int8 call, no "qk" one."""
+    got = flash_attention_int8.tc_launches
+    print(f"  {label}: {got} tensor-core int8 attention launches (expected {expect})", flush=True)
     if got != expect:
-        raise AssertionError(f"{label}: {got} tensor-core attention launches, expected {expect}")
+        raise AssertionError(f"{label}: {got} tensor-core int8 attention launches, expected {expect}")
     return got
 
 
@@ -378,7 +416,8 @@ def max_abs(a) -> float:
 def flash_case(rows: int, n: int, device, gen, dtype=torch.bfloat16, offset: int = 0) -> dict:
     """The attention forward at one shape; q/k/v are views of one fused qkv
     output, as the model hands them over, ``offset`` elements into its
-    storage."""
+    storage. SDPA is the yardstick, but none for fp32 views off a 16-byte
+    boundary, where SDPA's fp32 forward faults (misaligned address)."""
     shape = (rows, n, 3, HEADS, HEAD_DIM)
     numel = rows * n * 3 * HEADS * HEAD_DIM
     qkv = torch.randn(offset + numel, generator=gen, device=device, dtype=dtype)[offset:].view(shape)
@@ -392,7 +431,7 @@ def flash_case(rows: int, n: int, device, gen, dtype=torch.bfloat16, offset: int
             lambda: flash_attention(q, k, v, return_lse=True),
             lambda: attention_tiled_reference(q, k, v, return_lse=True),
         ),
-        library=lambda: F.scaled_dot_product_attention(
+        library=None if dtype == torch.float32 and offset % 4 else lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         ),
         bound=bound_ms(nbytes, 4 * rows * HEADS * n * n * HEAD_DIM, rate),
@@ -401,7 +440,20 @@ def flash_case(rows: int, n: int, device, gen, dtype=torch.bfloat16, offset: int
             lambda: attention_reference(q, k, v, return_lse=True)[1],
         ),
         route=forward_route(q, k, v),
+        cuda_core=lambda: forced(attention, "forward_route", flash_attention, q, k, v),
     )
+
+
+def forced(module, name: str, fn, *args):
+    """``fn(*args)`` with the route function ``module.name`` patched to send
+    every call to the CUDA-core kernel (csrc/flash_attention.cu,
+    flash_attention_int8.cu): the earlier kernel, timed beside the new one."""
+    route = getattr(module, name)
+    setattr(module, name, lambda *a: route(*a) and "cuda_core")
+    try:
+        return fn(*args)
+    finally:
+        setattr(module, name, route)
 
 
 def kernel_cases(rows: int, n: int, device, gen, dtype=torch.bfloat16):
@@ -507,6 +559,9 @@ def int8_cases(rows: int, n: int, rule: str, device, gen) -> dict:
             library=None,
             bound=bound_ms(nbytes, half_ops * (2 if pv_int8 else 1), INT8_OPS_PER_S, pv_s),
             scale_block=block,
+            route=int8_route(q, k, v, pv_int8, block),
+            cuda_core=lambda pv=pv_int8: forced(attention_int8, "int8_route", flash_attention_int8,
+                                                q, k, v, *amax, pv, block),
         )
     sdpa = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # noqa: E731
     return cases, sdpa
@@ -526,8 +581,19 @@ def check_int8_kernel(device, timer) -> dict:
         sdpa_ms = timer.ms(sdpa)
         for mode, case in cases.items():
             label = f"{shape} B*H={rows * HEADS} N={n} {mode} scale_block={case['scale_block']}"
+            tc_before = flash_attention_int8.tc_launches
             r = measure(INT8, label, case, BF16_TOL, timer)
-            r["sdpa_bf16_ms"] = sdpa_ms
+            r["sdpa_bf16_ms"], r["route"] = sdpa_ms, case["route"]
+            moved, want = flash_attention_int8.tc_launches - tc_before, INT8_ROUTE[mode]
+            print(f"  {INT8} {label}: route {case['route']}, {moved} tensor-core launches", flush=True)
+            if case["route"] != want or (moved > 0) != (want == "tensor_core"):
+                raise AssertionError(f"{INT8} {label}: route {case['route']} with {moved} "
+                                     f"tensor-core launches; expected {want}")
+            if want == "tensor_core":  # beside csrc/flash_attention_int8.cu
+                r["cuda_core_ms"] = timer.ms(case["cuda_core"])
+                r["cuda_core_device_ms"] = timer.ms(case["cuda_core"], pad=True)
+                print(f"  {INT8} {label}: csrc/flash_attention_int8.cu forced {r['cuda_core_ms']:.4f} "
+                      f"ms, device {r['cuda_core_device_ms']:.4f} ms", flush=True)
             results[f"{shape}_{mode}"] = r
         print(f"  {INT8} {shape}: bf16 SDPA at the same shape {sdpa_ms:.4f} ms (context only)", flush=True)
         torch.cuda.empty_cache()
@@ -560,19 +626,29 @@ def check_int8_fp32(device) -> dict:
     one P scale per row at N = 2048, where the flash rule has two, and fp
     attention (what a kernel that skipped the q/k/v quantize computes)."""
     gen = torch.Generator(device=device).manual_seed(6)
-    gaps, controls, failed = {}, {}, []
+    gaps, controls, vs_dp4a, failed = {}, {}, {}, []
     for shape, (rows, n, rule) in INT8_SHAPES.items():
         q, k, v, amax = int8_inputs(rows, n, device, gen, torch.float32)
         block = flash_scale_block(n) if rule == "flash" else None
         for pv_int8, mode in ((True, "pv_int8"), (False, "qk")):
             want = int8_attention(q, k, v, *amax, q.dtype, pv_int8, block)
-            gap = int8_gap(flash_attention_int8(q, k, v, *amax, pv_int8, block), want)
+            got = flash_attention_int8(q, k, v, *amax, pv_int8, block)
+            gap = int8_gap(got, want)
+            gap["route"] = int8_route(q, k, v, pv_int8, block)
             gaps[f"{shape}_{mode}"] = gap
             print(f"  {INT8} fp32 {shape} N={n} {mode} scale_block={block}: {json.dumps(gap)}", flush=True)
+            if gap["route"] != INT8_ROUTE[mode]:
+                failed.append(f"{shape} {mode}: route {gap['route']}, expected {INT8_ROUTE[mode]}")
             if not within_int8_tol(gap, rule):
                 failed.append(f"{shape} {mode}: {gap} outside {INT8_FP32_TOL[rule]}")
             if not pv_int8:
                 continue
+            # against the dp4a kernel: the same arithmetic, l summed in another order
+            old = forced(attention_int8, "int8_route", flash_attention_int8, q, k, v, *amax, True, block)
+            vs_dp4a[shape] = d = dict(int8_gap(got, old), equal_bits=(got == old).double().mean().item())
+            print(f"  {INT8} fp32 {shape} against csrc/flash_attention_int8.cu: {json.dumps(d)}", flush=True)
+            if not within_int8_tol(d, rule):
+                failed.append(f"{shape}: the two int8 kernels differ by {d}")
             wrong = {}
             if shape == "spatial":
                 wrong["P scale per 32-key tile"] = flash_attention_int8(q, k, v, *amax, True, 32)
@@ -587,9 +663,46 @@ def check_int8_fp32(device) -> dict:
                     failed.append(f"{shape}: the check passes a kernel with {fault}: {gap}")
         del q, k, v, want
         torch.cuda.empty_cache()
+    sharp = check_int8_sharp(device, failed)
     if failed:
         raise AssertionError(f"{INT8} fp32: " + "; ".join(failed))
-    return dict(cases=gaps, controls=controls)
+    return dict(cases=gaps, controls=controls, vs_dp4a=vs_dp4a, sharp=sharp)
+
+
+def check_int8_sharp(device, failed: list) -> dict:
+    """Phase 7a, the int32 path alone: fp32 inputs scaled by 40, so that in
+    nearly every row at most two keys keep a p above fp32's underflow. On
+    such rows l has one value in any order of its sum, and the int32 sums
+    are exact, so the tensor-core kernel, the dp4a kernel and the plain
+    version must agree to the bit there (at least 90% of the rows qualify)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    out = {}
+    for shape in ("spatial", "temporal", "spatial_fused"):
+        rows, n, rule = INT8_SHAPES[shape]
+        q, k, v, amax = int8_inputs(rows, n, device, gen, torch.float32)
+        q, k = 40 * q, 40 * k
+        amax = [40 * amax[0], 40 * amax[1], amax[2]]
+        block = flash_scale_block(n) if rule == "flash" else None
+        qs, ks, _, ls = attention_int8._scales(*amax, HEAD_DIM)
+        head = lambda t, sc: attention_int8.quantize_int8(t, sc.view(1, 1, HEADS, 1))  # noqa: E731
+        s = torch.einsum("bnhd,bmhd->bhnm", head(q, qs).double(), head(k, ks).double()).float()
+        s = s * ls.view(1, HEADS, 1, 1)
+        terms = (torch.exp(s - s.amax(-1, keepdim=True)) > 0).sum(-1).transpose(1, 2)  # (B, N, H)
+        one_order = terms <= 2
+        del s
+        got = flash_attention_int8(q, k, v, *amax, True, block)
+        old = forced(attention_int8, "int8_route", flash_attention_int8, q, k, v, *amax, True, block)
+        want = int8_attention(q, k, v, *amax, q.dtype, True, block)
+        sel = one_order.unsqueeze(-1).expand_as(got)
+        out[shape] = r = dict(
+            rows_one_order=one_order.double().mean().item(),
+            equal_dp4a=(got[sel] == old[sel]).double().mean().item(),
+            equal_plain=(got[sel] == want[sel]).double().mean().item(),
+        )
+        print(f"  {INT8} fp32 {shape}, rows of at most two terms of l: {json.dumps(r)}", flush=True)
+        if r["rows_one_order"] < 0.9 or r["equal_dp4a"] < 1 or r["equal_plain"] < 1:
+            failed.append(f"{shape}: not equal to the bit where l has one term order: {r}")
+    return out
 
 
 def measure(name: str, label: str, case: dict, tol_rel: float, timer) -> dict:
@@ -614,14 +727,19 @@ def measure(name: str, label: str, case: dict, tol_rel: float, timer) -> dict:
     return r
 
 
-def check_route(label: str, case: dict, tc_before: int, want: str) -> None:
+def fwd_routes() -> dict:
+    return dict(tensor_core=flash_attention.tc_launches, fp32_tiled=flash_attention.f32_launches)
+
+
+def check_route(label: str, case: dict, before: dict, want: str) -> None:
     """The attention forward took the kernel ``want`` names: the route
-    function says so, and the tensor-core count moved only for that route."""
-    moved = flash_attention.tc_launches - tc_before
-    print(f"  flash_attention {label}: route {case['route']}, {moved} tensor-core launches", flush=True)
-    if case["route"] != want or (moved > 0) != (want == "tensor_core"):
-        raise AssertionError(f"flash_attention {label}: route {case['route']} with {moved} "
-                             f"tensor-core launches; expected {want}")
+    function says so, and of the tensor-core and fp32 counts (``before``:
+    fwd_routes() before the calls) only that route's moved."""
+    moved = {k: c - before[k] for k, c in fwd_routes().items()}
+    print(f"  flash_attention {label}: route {case['route']}, launches moved by route {moved}", flush=True)
+    if case["route"] != want or any((m > 0) != (route == want) for route, m in moved.items()):
+        raise AssertionError(f"flash_attention {label}: route {case['route']} with launches "
+                             f"{moved}; expected {want}")
 
 
 def bits_apart(got, want) -> tuple:
@@ -687,13 +805,13 @@ def measure_flash(label: str, case: dict, timer, want: str = "tensor_core", tol:
     largest magnitude) and lse against the plain version, its route
     (``want``), and on the tensor-core route the output and lse against the
     mirror of its tile schedule."""
-    tc_before = flash_attention.tc_launches
+    before = fwd_routes()
     r = measure("flash_attention", label, case, tol, timer)
     r["lse_err"] = lse_err = max_err(case["lse"][0](), case["lse"][1]())
     print(f"  flash_attention {label} lse: max abs err {lse_err} (tolerance {LSE_TOL})")
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"flash_attention {label}: lse err {lse_err} > {LSE_TOL}")
-    check_route(label, case, tc_before, want)
+    check_route(label, case, before, want)
     if want == "tensor_core":
         r["vs_tiled"] = check_tiled(label, case)
     return r
@@ -724,18 +842,24 @@ def check_kernels(device, timer) -> dict:
     # the fp32 instantiations (the sampler with use_fp16: false)
     rows, n = SHAPES["spatial"]
     for name, case in kernel_cases(rows, n, device, gen, torch.float32).items():
-        tc_before = flash_attention.tc_launches
+        before = fwd_routes()
         got, want = case["run"](), case["plain"]()
         err, tol = max_err(got, want), FP32_TOL * max_abs(want)
         print(f"  {name} spatial fp32: max abs err {err} (tolerance {tol})", flush=True)
         if not err <= tol:
             raise AssertionError(f"{name} fp32: max abs err {err} > {tol}")
         if name == "flash_attention":
-            check_route("spatial fp32", case, tc_before, "cuda_core")
-    for shape, (rows, n) in FLASH_FP32_SHAPES.items():
-        case = flash_case(rows, n, device, gen, torch.float32)
-        label = f"{shape} B*H={rows * HEADS} N={n}"
-        results["flash_attention"][shape] = measure_flash(label, case, timer, "cuda_core", FP32_TOL)
+            check_route("spatial fp32", case, before, "fp32_tiled")
+    for shape, (rows, n, offset) in FLASH_FP32_SHAPES.items():
+        case = flash_case(rows, n, device, gen, torch.float32, offset)
+        label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
+        want = "cuda_core" if offset % 4 else "fp32_tiled"
+        r = results["flash_attention"][shape] = measure_flash(label, case, timer, want, FP32_TOL)
+        if shape in ("spatial_b5_fp32", "temporal_b5_fp32"):  # beside csrc/flash_attention.cu
+            r["cuda_core_ms"] = timer.ms(case["cuda_core"])
+            r["cuda_core_device_ms"] = timer.ms(case["cuda_core"], pad=True)
+            print(f"  flash_attention {label}: csrc/flash_attention.cu forced {r['cuda_core_ms']:.4f} "
+                  f"ms, device {r['cuda_core_device_ms']:.4f} ms", flush=True)
         del case
         torch.cuda.empty_cache()
     for shape, (rows, n, dtype, offset) in BWD_SHAPES.items():
@@ -749,18 +873,22 @@ def check_kernels(device, timer) -> dict:
     return results
 
 
-TC_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu")
-TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+TC_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu", "flash_attention_int8_tc.cu")
+# kernels that must hold tensor-core instructions in their SASS: HMMA (bf16)
+# or IMMA (int8)
+TC_KERNELS = {"flash_fwd_tc": "HMMA", "flash_bwd_dq_tc": "HMMA", "flash_bwd_dkv_tc": "HMMA",
+              "flash_int8_tc": "IMMA"}
 F32_SOURCE = "latte_tpu_torch/csrc/flash_attention_bwd_f32.cu"
+F32_FWD_SOURCE = "latte_tpu_torch/csrc/flash_attention_f32.cu"
 
 
 def report_build(path) -> dict:
     """Print ptxas's registers, shared memory and spills for each kernel of
     the tensor-core and register-tiled fp32 sources (none may spill), and
-    count the HMMA instructions in the tensor-core kernels' SASS where
-    cuobjdump sits beside nvcc: each must have some."""
+    count the HMMA / IMMA instructions in the tensor-core kernels' SASS
+    where cuobjdump sits beside nvcc: each must have some."""
     spills = []
-    for src in (*TC_SOURCES, os.path.basename(F32_SOURCE)):
+    for src in (*TC_SOURCES, os.path.basename(F32_SOURCE), os.path.basename(F32_FWD_SOURCE)):
         section = build.compile_log().split(f"== {src}\n")[1].split("\n== ")[0]
         for line in section.splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
@@ -771,22 +899,23 @@ def report_build(path) -> dict:
         raise AssertionError(f"a tensor-core or fp32 kernel spills: {spills}")
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
-        print("  cuobjdump not found beside nvcc: HMMA count not measured", flush=True)
+        print("  cuobjdump not found beside nvcc: HMMA / IMMA counts not measured", flush=True)
         return {}
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
-    hmma, fn = {}, None
+    mma, fn, op = {}, None, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if any(k in fn for k in TC_KERNELS):
-                hmma[fn] = 0
-        elif fn in hmma and "HMMA" in line:
-            hmma[fn] += 1
-    print(f"  HMMA instructions in the SASS of the tensor-core kernels: {json.dumps(hmma)}", flush=True)
-    if any(not any(k in fn for fn in hmma) for k in TC_KERNELS) or min(hmma.values()) == 0:
-        raise AssertionError(f"a tensor-core kernel lacks HMMA instructions: {hmma}")
-    return hmma
+            op = next((o for k, o in TC_KERNELS.items() if k in fn), None)
+            if op:
+                mma[fn] = 0
+        elif op and op in line:
+            mma[fn] += 1
+    print(f"  HMMA / IMMA instructions in the SASS of the tensor-core kernels: {json.dumps(mma)}", flush=True)
+    if any(not any(k in fn for fn in mma) for k in TC_KERNELS) or min(mma.values()) == 0:
+        raise AssertionError(f"a tensor-core kernel lacks its tensor-core instructions: {mma}")
+    return mma
 
 
 def randomize_(model, seed: int) -> None:
@@ -824,7 +953,9 @@ def kernel_kind(name: str) -> str:
     name = name.lower()
     for key, kind in (
         ("flash_int8_kernel", INT8),
+        ("flash_int8_tc", INT8),
         ("flash_fwd_kernel", "flash_attention"),
+        ("flash_fwd_f32", "flash_attention"),
         ("flash_fwd_tc", "flash_attention"),
         ("flash_bwd_dq_", "flash_attention_bwd_dq"),
         ("flash_bwd_dkv_", "flash_attention_bwd_dkv"),
@@ -893,36 +1024,36 @@ def profile_forward(model, x, t, wall_ms: float) -> None:
     print_profile("forward", prof, wall_ms)
 
 
-def ddim_route_runs(model, cfg, device, pairs: int = 3) -> dict:
+def route_runs(model, cfg, device, module, route_name: str, fn) -> dict:
     """Host seconds of DDIM runs of ``sample_latents``, each ending in a
-    synchronize, in pairs: the attention forward on its tensor-core route,
-    and with the CUDA-core kernel forced (``forward_route`` patched for the
-    run), the order alternating from pair to pair, so a drift in the host's
-    speed falls on both. The sampler's host launches take about as long as
-    its device work, so one run says little. Each run must take the route
-    it names for every attention call: all on the tensor cores, or none."""
-    from latte_tpu_torch.kernels import attention
-
-    route = attention.forward_route
+    synchronize, in ROUTE_PAIRS pairs: the attention (``fn``: the bf16
+    forward, or the int8 attention) on its tensor-core route, and with its
+    CUDA-core kernel forced (``module.route_name`` patched for the run), the
+    order alternating from pair to pair, so a drift in the host's speed
+    falls on both. The sampler's host launches take about as long as its
+    device work, so one run says little. Each run must launch ``fn`` for
+    every attention call, all on the tensor cores or none."""
+    route = getattr(module, route_name)
     secs = {"tensor_core": [], "cuda_core": []}
     calls = DEPTH * int(cfg.num_sampling_steps)
     try:
-        for i in range(pairs):
+        for i in range(ROUTE_PAIRS):
             for name in (secs if i % 2 == 0 else reversed(secs)):
-                attention.forward_route = (
-                    route if name == "tensor_core" else lambda q, k, v: route(q, k, v) and "cuda_core"
-                )
-                tc_before = flash_attention.tc_launches
+                setattr(module, route_name,
+                        route if name == "tensor_core" else lambda *a: route(*a) and "cuda_core")
+                before = (fn.launches, fn.tc_launches)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 sample.sample_latents(model, cfg, device)
                 torch.cuda.synchronize()
                 secs[name].append(time.perf_counter() - t0)
-                moved = flash_attention.tc_launches - tc_before
-                if moved != (calls if name == "tensor_core" else 0):
-                    raise AssertionError(f"ddim run forced to {name}: {moved} tensor-core launches")
+                moved = (fn.launches - before[0], fn.tc_launches - before[1])
+                if moved != (calls, calls if name == "tensor_core" else 0):
+                    raise AssertionError(f"ddim run forced to {name}: attention launches and "
+                                         f"tensor-core ones {moved}, expected {calls} and "
+                                         f"{calls if name == 'tensor_core' else 0}")
     finally:
-        attention.forward_route = route
+        setattr(module, route_name, route)
     return secs
 
 
@@ -1024,6 +1155,7 @@ def int8_forward(device, masters, x, t, out_p32, timer) -> dict:
         torch.cuda.synchronize()
         per_forward = counts()
         check_tc("one int8 forward", 0)
+        check_int8_tc("one int8 forward", DEPTH)
         out_qp = qplain(x, t)
     expect = {k: 0 for k in KERNELS}
     expect.update({INT8: DEPTH, "ln_modulate": DEPTH, "residual_ln_modulate": DEPTH})
@@ -1062,6 +1194,7 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
     lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
     launches = counts()
     check_tc("int8 ddim-50, its 3 bf16 calibration forwards", 3 * DEPTH)
+    int8_tc = check_int8_tc("int8 ddim-50", 50 * DEPTH)
     # the calibration runs 3 floating-point forwards (flash_attention), the
     # 50 steps one int8 forward each
     expect = {k: 0 for k in KERNELS}
@@ -1095,10 +1228,17 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
     sample.sample_latents(qmodel, cfg, device)
     torch.cuda.synchronize()
     int8_s = time.perf_counter() - t1
+    route_s = route_runs(qmodel, cfg, device, attention_int8, "int8_route", flash_attention_int8)
+    tc_s, dp4a_s = (sorted(v)[len(v) // 2] for v in route_s.values())
+    wins = sum(a < b for a, b in zip(route_s["tensor_core"], route_s["cuda_core"]))
     del qmodel
     print(f"  int8 ddim-50 batch 1: {int8_s:.3f} s -> {60.0 / int8_s:.3f} videos/min "
           f"(plain int8 path {plain_s:.3f} s); bf16 in this run {bf16_s:.3f} s -> "
           f"{60.0 / bf16_s:.3f} videos/min; on {smi}", flush=True)
+    print(f"  int8 ddim-50 pairs: tensor-core int8 attention {tc_s:.3f} s -> {60.0 / tc_s:.3f} "
+          f"videos/min (median of {route_s['tensor_core']}), csrc/flash_attention_int8.cu forced "
+          f"{dp4a_s:.3f} s -> {60.0 / dp4a_s:.3f} videos/min (median of {route_s['cuda_core']}); "
+          f"tensor cores faster in {wins} of {ROUTE_PAIRS}", flush=True)
 
     short = {}
     for name, over, per_step, calib in (
@@ -1112,6 +1252,7 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
         lat_s = torch.from_numpy(np.load(sample.main(cfg))["latents"])
         got = counts()
         check_tc(f"{name} ddim-{steps}", (steps * per_step.get("flash_attention", 0) + calib * DEPTH))
+        check_int8_tc(f"{name} ddim-{steps}", 0)
         expect = {k: 0 for k in KERNELS}
         for k, c in per_step.items():
             expect[k] = steps * c
@@ -1122,8 +1263,10 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
         if not torch.isfinite(lat_s).all() or got != expect:
             raise AssertionError(f"the {name} int8 run failed: expected {expect} launches")
         short[name] = got
-    return dict(launches=launches, guard=guard, cosine_vs_plain=vs_plain["cosine"], s=int8_s,
-                videos_per_min=60.0 / int8_s, bf16_videos_per_min=60.0 / bf16_s, plain_s=plain_s,
+    return dict(launches=launches, tc_launches=int8_tc, guard=guard, cosine_vs_plain=vs_plain["cosine"],
+                s=int8_s, videos_per_min=60.0 / int8_s, bf16_videos_per_min=60.0 / bf16_s,
+                plain_s=plain_s, pairs=route_s, pair_videos_per_min={
+                    "tensor_core": 60.0 / tc_s, "cuda_core": 60.0 / dp4a_s}, pairs_won=wins,
                 short_runs=short)
 
 
@@ -1138,7 +1281,7 @@ def train_quant(tmp: str, smi: str) -> dict:
         "quant_train=true",
     ]), callbacks=[log])
     launches = counts()
-    check_tc("quant_train fp32", 0)
+    check_tc("quant_train fp32", 0, f32=2 * STEP_LAUNCHES["flash_attention"])
     check_bwd_routes("quant_train fp32", tc=0, f32=2 * DEPTH)
     blk = log.state.model.blocks[0]
     modes = (blk.attn.qkv.quantized, blk.mlp.fc1.quantized, blk.adaLN_modulation[1].quantized)
@@ -1210,7 +1353,7 @@ def train_step_parity(device) -> dict:
     loss_k, g_k = step(model, None)
     torch.cuda.synchronize()
     step_counts = counts()
-    check_tc("fp32 train step", 0)
+    check_tc("fp32 train step", 0, f32=STEP_LAUNCHES["flash_attention"])
     check_bwd_routes("fp32 train step", tc=0, f32=DEPTH)
     loss_p, g_p = step(plain, None)
     print(f"  launches in one train step: {step_counts}", flush=True)
@@ -1254,7 +1397,8 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     out = train.main(load_config(FFS_TRAIN, overrides), callbacks=[log])  # on cuda by default
     torch.cuda.synchronize()
     launches = counts()
-    check_tc("ffs_train fp32", 0)
+    flash_f32 = flash_attention.f32_launches
+    check_tc("ffs_train fp32", 0, f32=TRAIN_STEPS * STEP_LAUNCHES["flash_attention"])
     routes = check_bwd_routes("ffs_train fp32", tc=0, f32=TRAIN_STEPS * DEPTH)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     secs = log.step_seconds()
@@ -1284,24 +1428,29 @@ def train_entry_point(tmp: str, smi: str) -> dict:
             super().on_train_start(config, state, experiment_dir)
             shutil.rmtree(out["experiment_dir"])  # restored: keep one checkpoint on disk
 
+    # the backward's pairs, then the forward's (csrc/flash_attention.cu forced)
     resumed_log = Resumed("fp32_tiled", first=TRAIN_STEPS + 2)
+    fwd_log = PairLog("fp32_tiled", first=resumed_log.steps + 2, forward=True)
     try:
         resumed = train.main(load_config(FFS_TRAIN, [
-            f"results_dir={tmp}/results", f"max_train_steps={resumed_log.steps}", "log_every=1",
+            f"results_dir={tmp}/results", f"max_train_steps={fwd_log.steps}", "log_every=1",
             f"resume_from_checkpoint={ckpt}",
-        ]), callbacks=[resumed_log])
+        ]), callbacks=[resumed_log, fwd_log])
     finally:
-        attention.backward_route = resumed_log.route
+        resumed_log.restore()
+        fwd_log.restore()
     print(f"  resumed from step {TRAIN_STEPS}: {resumed}", flush=True)
-    steps = list(range(TRAIN_STEPS + 1, resumed_log.steps + 1))
-    if resumed["final_step"] != resumed_log.steps or [r[0] for r in resumed_log.records] != steps:
+    steps = list(range(TRAIN_STEPS + 1, fwd_log.steps + 1))
+    if resumed["final_step"] != fwd_log.steps or [r[0] for r in fwd_log.records] != steps:
         raise AssertionError("the resumed run did not carry the step counter on")
-    if resumed_log.state.step != resumed_log.steps or not resumed_log.finite():
+    if resumed_log.state.step != fwd_log.steps or not fwd_log.finite():
         raise AssertionError("the resumed run failed")
-    resumed_log.state = None
+    resumed_log.state = fwd_log.state = None
     pairs = resumed_log.pair_summary()
     print(f"  fp32 pairs, batch {TRAIN_BATCH}: " + pairs.pop("line") + f" on {smi}", flush=True)
-    trained = os.path.join(resumed["experiment_dir"], "checkpoints", f"{resumed_log.steps:07d}.pt")
+    fwd_pairs = fwd_log.pair_summary()
+    print(f"  fp32 pairs, batch {TRAIN_BATCH}: " + fwd_pairs.pop("line") + f" on {smi}", flush=True)
+    trained = os.path.join(resumed["experiment_dir"], "checkpoints", f"{fwd_log.steps:07d}.pt")
     lat = torch.from_numpy(np.load(sample.main(load_config(FFS_CONFIG, [
         "sample_method=ddim", "num_sampling_steps=5", f"ckpt={trained}",
         f"save_video_path={tmp}/trained.mp4",
@@ -1312,20 +1461,25 @@ def train_entry_point(tmp: str, smi: str) -> dict:
         raise AssertionError("the sampler on the trained EMA gave no finite latents")
     shutil.rmtree(resumed["experiment_dir"])
     return dict(launches=launches, f32_launches=routes["fp32_tiled"], s_per_step=s_step,
-                steps_per_s=1 / s_step, step_seconds=secs, peak_gib=peak_gib, **pairs)
+                fwd_f32_launches=flash_f32, steps_per_s=1 / s_step, step_seconds=secs,
+                peak_gib=peak_gib, forward_pairs=fwd_pairs, **pairs)
 
 
 class PairLog(StepLog):
     """StepLog of a run that ends in ROUTE_PAIRS pairs of steps from step
-    ``first``: one on the backward's own route (``own``: "tensor_core" in
-    mixed precision, "fp32_tiled" in fp32) and one with the CUDA-core
-    backward forced (``backward_route`` patched for the step), the order
-    alternating from pair to pair, so a drift in the host's or the card's
-    speed falls on both. Records the launch counts at each step's log."""
+    ``first``: one on an attention kernel's own route (``own``: the
+    backward's "tensor_core" in mixed precision or "fp32_tiled" in fp32,
+    the fp32 forward's "fp32_tiled" with ``forward``) and one with its
+    CUDA-core kernel forced (``backward_route`` or ``forward_route``
+    patched for the step), the order alternating from pair to pair, so a
+    drift in the host's or the card's speed falls on both. Records the
+    launch counts at each step's log."""
 
-    def __init__(self, own: str, first: int, profile_after: int = 0):
+    def __init__(self, own: str, first: int, profile_after: int = 0, forward: bool = False):
         super().__init__(profile_after=profile_after)
-        self.own, self.route, self.arms, self.counts = own, attention.backward_route, {}, {}
+        self.own, self.forward, self.arms, self.counts = own, forward, {}, {}
+        self.patch = "forward_route" if forward else "backward_route"
+        self.route = getattr(attention, self.patch)
         for i in range(ROUTE_PAIRS):
             pair = (own, "cuda_core") if i % 2 == 0 else ("cuda_core", own)
             for j, arm in enumerate(pair):
@@ -1334,32 +1488,50 @@ class PairLog(StepLog):
 
     def on_log(self, step, metrics):
         super().on_log(step, metrics)
-        self.counts[step] = (counts(), bwd_counts("tc_launches"), bwd_counts("f32_launches"),
-                             flash_attention.tc_launches)
+        self.counts[step] = dict(counts(), **{
+            f"{name} {route}": c for name, by_route in (
+                ("backward", dict(tensor_core=bwd_counts("tc_launches"),
+                                  fp32_tiled=bwd_counts("f32_launches"))),
+                ("forward", fwd_routes())) for route, c in by_route.items()})
         route = self.route
-        attention.backward_route = (
+        setattr(attention, self.patch, (
             route if self.arms.get(step + 1, self.own) == self.own
             else lambda *a: route(*a) and "cuda_core"
-        )
+        ))
+
+    def restore(self) -> None:
+        setattr(attention, self.patch, self.route)
 
     def pair_summary(self) -> dict:
         """Each arm's step seconds, their medians and the pairs the own
-        route won, after checking that every pair step made DEPTH launches
-        of each backward kernel, all on its arm's route."""
+        route won, after checking that every pair step made its launches of
+        the patched kernels (DEPTH of each backward kernel, 2 DEPTH forward
+        attentions), all on its arm's route."""
         times = {r[0]: r[1] for r in self.records}
         arm_s = {self.own: [], "cuda_core": []}
+        kind = "forward" if self.forward else "backward"
         for step, arm in sorted(self.arms.items()):
-            (c1, t1, f1, _), (c0, t0, f0, _) = self.counts[step], self.counts[step - 1]
-            moved = {k: (c1[k] - c0[k], t1[k] - t0[k], f1[k] - f0[k]) for k in BACKWARD}
-            want = (DEPTH, DEPTH if arm == "tensor_core" else 0, DEPTH if arm == "fp32_tiled" else 0)
-            if any(m != want for m in moved.values()):
-                raise AssertionError(f"step {step} ({arm}): backward launches, tensor-core and "
-                                     f"fp32-route launches {moved}, expected {want} each")
+            c1, c0 = self.counts[step], self.counts[step - 1]
+            moved = {k: (c1[k] - c0[k]) if isinstance(c1[k], int)
+                     else {n: c1[k][n] - c0[k][n] for n in c1[k]} for k in c1}
+            if self.forward:
+                calls = STEP_LAUNCHES["flash_attention"]
+                got = (moved["flash_attention"], moved["forward fp32_tiled"], moved["forward tensor_core"])
+                want = (calls, calls if arm == "fp32_tiled" else 0, 0)
+            else:
+                got = tuple(tuple(m.values()) for m in (
+                    {n: moved[n] for n in BACKWARD}, moved["backward tensor_core"],
+                    moved["backward fp32_tiled"]))
+                want = tuple((c,) * len(BACKWARD) for c in (
+                    DEPTH, DEPTH if arm == "tensor_core" else 0, DEPTH if arm == "fp32_tiled" else 0))
+            if got != want:
+                raise AssertionError(f"step {step} ({arm}): {kind} launches, on the tensor-core "
+                                     f"and fp32 routes {got}, expected {want}")
             arm_s[arm].append(times[step] - times[step - 1])
         own_s, cc_s = (sorted(v)[len(v) // 2] for v in arm_s.values())
         wins = sum(a < b for a, b in zip(arm_s[self.own], arm_s["cuda_core"]))
-        line = (f"pairs: {self.own} backward {own_s:.4f} s/step (median of {arm_s[self.own]}), "
-                f"CUDA-core backward forced {cc_s:.4f} s/step (median of {arm_s['cuda_core']}), "
+        line = (f"pairs: {self.own} {kind} {own_s:.4f} s/step (median of {arm_s[self.own]}), "
+                f"CUDA-core {kind} forced {cc_s:.4f} s/step (median of {arm_s['cuda_core']}), "
                 f"{self.own} faster in {wins} of {ROUTE_PAIRS}")
         return dict(pairs=arm_s, pair_median_s={self.own: own_s, "cuda_core": cc_s},
                     pairs_won=wins, line=line)
@@ -1382,8 +1554,11 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
             "mixed_precision=true",
         ]), callbacks=[log])
     finally:
-        attention.backward_route = log.route
-    main_counts, main_bwd_tc, main_f32, main_fwd_tc = log.counts[TRAIN_STEPS]
+        log.restore()
+    c = log.counts[TRAIN_STEPS]
+    main_counts = {k: c[k] for k in KERNELS}
+    main_bwd_tc, main_f32 = c["backward tensor_core"], c["backward fp32_tiled"]
+    main_fwd_tc = c["forward tensor_core"]
     print(f"  mixed precision, {TRAIN_STEPS} steps: launches {main_counts}, tensor-core backward "
           f"{main_bwd_tc}, fp32-route backward {main_f32}, tensor-core forward {main_fwd_tc}",
           flush=True)
@@ -1448,7 +1623,7 @@ def main() -> int:
     path = build.build()
     build.load_library()
     print(f"  library {path.name}, built in {time.perf_counter() - t0:.2f} s", flush=True)
-    hmma = report_build(path)
+    mma = report_build(path)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -1541,7 +1716,7 @@ def main() -> int:
         plain_s = time.perf_counter() - t1
         if not compare("ddim-50 latents, entry point vs plain path", lat, ref.cpu())["cosine"] >= 0.99:
             raise AssertionError("the DDIM latents disagree with the plain path's")
-        route_s = ddim_route_runs(model, cfg, device)
+        route_s = route_runs(model, cfg, device, attention, "forward_route", flash_attention)
         kernel_s, core_s = (sorted(v)[len(v) // 2] for v in route_s.values())
         print(f"  ddim-50 batch 1: {kernel_s:.3f} s -> {60.0 / kernel_s:.3f} videos/min "
               f"(median of {route_s['tensor_core']}; with the CUDA-core attention forward "
@@ -1597,10 +1772,15 @@ def main() -> int:
         if name == INT8:  # the int8 sampler's path (bf16, batch 1, flash route, pv_int8)
             row = measured[name]["spatial_pv_int8"]
             extra = dict(shape="spatial bf16 batch 1, pv_int8, flash scale block",
-                         sdpa_bf16_ms=row["sdpa_bf16_ms"], launches_forward=int8_fwd["launches"][name],
-                         cases={c: {f: r[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                      "bound_by", "max_abs_err", "sdpa_bf16_ms")}
-                                for c, r in measured[name].items()})
+                         sdpa_bf16_ms=row["sdpa_bf16_ms"], tc_launches=int8_run["tc_launches"],
+                         launches_forward=int8_fwd["launches"][name], sass_mma=mma,
+                         cuda_core_ms=row["cuda_core_ms"], cuda_core_device_ms=row["cuda_core_device_ms"],
+                         cases={c: {f: r.get(f) for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                          "bound_by", "max_abs_err", "sdpa_bf16_ms",
+                                                          "route", "cuda_core_device_ms")}
+                                for c, r in measured[name].items()},
+                         ddim_pairs=dict(pairs=int8_run["pairs"], pairs_won=int8_run["pairs_won"],
+                                         videos_per_min=int8_run["pair_videos_per_min"]))
             launches = int8_run["launches"][name]
         elif name in FORWARD:  # the sampler's path, at its shapes (bf16, batch 1)
             row, extra = measured[name]["spatial"], dict(
@@ -1609,18 +1789,25 @@ def main() -> int:
             launches = main_launches[name]
             if name == "flash_attention":
                 extra.update(
-                    tc_launches=main_tc, fp32_source="latte_tpu_torch/csrc/flash_attention.cu",
-                    sass_hmma=hmma,
-                    cases={c: measured[name][c] for c in (*FLASH_SHAPES, *FLASH_FP32_SHAPES)})
+                    tc_launches=main_tc, fp32_source=F32_FWD_SOURCE,
+                    cuda_core_source="latte_tpu_torch/csrc/flash_attention.cu", sass_mma=mma,
+                    cases={c: measured[name][c] for c in FLASH_SHAPES})
         else:  # the mixed-precision trainer's path, at its shapes (bf16, batch 5)
             row, extra = measured[name]["spatial_b5"], dict(
                 shape="spatial bf16 batch 5", tc_launches=mixed["tc_launches"][name],
                 fp32_source=F32_SOURCE, cuda_core_source="latte_tpu_torch/csrc/flash_attention_bwd.cu",
-                sass_hmma=hmma, launches_fp32_train=entry["launches"][name],
+                sass_mma=mma, launches_fp32_train=entry["launches"][name],
                 cases={c: measured[name][c] for c in BWD_SHAPES if c != "spatial_b5"})
             launches = mixed["launches"][name]
         kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row, **extra))
-    for name in BACKWARD:  # the fp32 trainer's path, at its shapes (fp32, batch 5)
+    # the fp32 trainer's path, at its shapes (fp32, batch 5)
+    fwd32 = measured["flash_attention"]
+    kernels.append(kernel_row(
+        "flash_attention_f32", F32_FWD_SOURCE, KERNELS["flash_attention"]["replaces"],
+        entry["fwd_f32_launches"], fwd32["spatial_b5_fp32"], shape="spatial fp32 batch 5",
+        temporal=fwd32["temporal_b5_fp32"], cases={c: fwd32[c] for c in FLASH_FP32_SHAPES},
+        train_pairs=entry["forward_pairs"]))
+    for name in BACKWARD:
         kernels.append(kernel_row(
             f"{name}_f32", F32_SOURCE, KERNELS[name]["replaces"], entry["f32_launches"][name],
             measured[name]["spatial_b5_fp32"], shape="spatial fp32 batch 5",
@@ -1628,6 +1815,11 @@ def main() -> int:
             cases={c: measured[name][c] for c in BWD_SHAPES if BWD_SHAPES[c][2] == torch.float32},
             train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
                              pairs_won=entry["pairs_won"])))
+    # the "qk" mode's kernel: int8_attention: qk under attention_mode: auto
+    kernels.append(kernel_row(
+        f"{INT8}_dp4a", "latte_tpu_torch/csrc/flash_attention_int8.cu", KERNELS[INT8]["replaces"],
+        int8_run["short_runs"]["qk_auto"][INT8], measured[INT8]["spatial_qk"],
+        shape="spatial bf16 batch 1, qk mode, flash scale block"))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

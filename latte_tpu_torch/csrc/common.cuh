@@ -4,8 +4,9 @@
 // and does its arithmetic in fp32. The C entry points take a dtype code
 // (DType below) and return cudaGetLastError() after the launch, so the
 // Python wrapper can raise on a refused launch. The 16-byte cp.async
-// copies at the end stage tiles for the tensor-core and fp32 attention
-// kernels.
+// copies stage tiles for the tensor-core and fp32 attention kernels,
+// ldmatrix loads the tensor-core kernels' fragments, and quantize_i8 is the
+// int8 kernels' quantize.
 #pragma once
 
 #include <cstdint>
@@ -60,6 +61,28 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
+}
+
+// ldmatrix without .trans: 8x8 matrices of 16-byte rows (8 bf16 or 16 int8
+// values), each thread receiving the 4 bytes at row lane / 4, bytes
+// 4 (lane % 4) ..; threads 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x1(uint32_t& r0, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r0) : "r"(smem_u32(p)) : "memory");
+}
+
+// clip(rint(x / s), -127, 127): jnp.round and torch.round round half to even.
+__device__ __forceinline__ int quantize_i8(float x, float s) {
+  const float r = rintf(__fdiv_rn(x, s));
+  return (int)fminf(fmaxf(r, -127.f), 127.f);
 }
 
 }  // namespace latte

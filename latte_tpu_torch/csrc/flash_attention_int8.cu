@@ -72,12 +72,6 @@ struct Int8Args {
   long long st[3][3];
 };
 
-// clip(rint(x / s), -127, 127): jnp.round and torch.round round half to even.
-__device__ __forceinline__ int quantize_i8(float x, float s) {
-  const float r = rintf(__fdiv_rn(x, s));
-  return (int)fminf(fmaxf(r, -127.f), 127.f);
-}
-
 template <typename T, int BQ, int BK, int COLS, bool PV8>
 __global__ void __launch_bounds__(BQ * kInt8ThreadsPerRow) flash_int8_kernel(Int8Args a) {
   constexpr int TPR = kInt8ThreadsPerRow;

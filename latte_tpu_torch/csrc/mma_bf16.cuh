@@ -38,18 +38,6 @@ constexpr int kChunks = kD / 8;  // 16-byte chunks of a row: 9
 constexpr int kSteps = kD / 16;  // k16 steps of a contraction over head_dim (then one k8 step)
 static_assert(kChunks == 9, "the fragment loads are written for 9 chunks: 4 + 4 + 1");
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x1(uint32_t& r0, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
-               : "=r"(r0) : "r"(smem_u32(p)) : "memory");
-}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");

@@ -4,11 +4,11 @@ plain versions, and the autograd functions that join them.
 Counterpart of ``latte_tpu/kernels/attention.py``. The kernels replace the
 Pallas kernels of that file:
 
-- ``csrc/flash_attention_tc.cu`` (bf16, tensor cores) and
-  ``csrc/flash_attention.cu`` (fp32 and the bf16 layouts the first does not
-  take, CUDA cores): ``_flash_kernel`` (``attention.py:56``, launched by
-  ``_flash_forward`` at ``:122``); :func:`forward_route` picks one before
-  the launch;
+- ``csrc/flash_attention_tc.cu`` (bf16, tensor cores),
+  ``csrc/flash_attention_f32.cu`` (fp32, register-tiled on the CUDA cores)
+  and ``csrc/flash_attention.cu`` (the layouts neither takes, CUDA cores):
+  ``_flash_kernel`` (``attention.py:56``, launched by ``_flash_forward`` at
+  ``:122``); :func:`forward_route` picks one before the launch;
 - ``csrc/flash_attention_bwd_tc.cu`` (bf16, tensor cores),
   ``csrc/flash_attention_bwd_f32.cu`` (fp32, register-tiled on the CUDA
   cores) and ``csrc/flash_attention_bwd.cu`` (the layouts neither takes,
@@ -52,8 +52,9 @@ __all__ = [
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the tensor-core kernels (csrc/flash_attention_tc.cu, flash_attention_bwd_tc.cu)
-# and the fp32 backward (flash_attention_bwd_f32.cu): their one head_dim,
-# Latte-XL/2's; and the forward's keys of a K/V tile at N > TC_TILE
+# and the register-tiled fp32 ones (flash_attention_f32.cu,
+# flash_attention_bwd_f32.cu): their one head_dim, Latte-XL/2's; and the
+# tensor-core forward's keys of a K/V tile at N > TC_TILE
 TC_HEAD_DIM = 72
 TC_TILE = 64
 
@@ -206,17 +207,19 @@ def _check_backward(q, k, v, dout, lse, delta, grads) -> None:
 
 
 def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """Which forward kernel takes these operands on the card: "tensor_core"
-    (``csrc/flash_attention_tc.cu``) for bf16 at head_dim ``TC_HEAD_DIM``
-    whose base pointers and (batch, token, head) strides are all 16-byte
-    aligned (its 16-byte copies need that; a stride of a length-1 axis is
-    never used), else "cuda_core" (``csrc/flash_attention.cu``, any stride,
-    fp32 too). Raises on what neither kernel takes. Reads only
-    shapes, strides and addresses, so it runs on CPU tensors too."""
+    """Which forward kernel takes these operands on the card. At head_dim
+    ``TC_HEAD_DIM`` with base pointers and (batch, token, head) strides all
+    16-byte aligned (the kernels' 16-byte copies need that; a stride of a
+    length-1 axis is never used): "tensor_core"
+    (``csrc/flash_attention_tc.cu``) for bf16, "fp32_tiled"
+    (``csrc/flash_attention_f32.cu``) for fp32. Everything else, in either
+    dtype, is "cuda_core" (``csrc/flash_attention.cu``, any stride). Raises
+    on what no kernel takes. Reads only shapes, strides and addresses, so it
+    runs on CPU tensors too."""
     _check(q, k, v)
-    if q.dtype == torch.bfloat16 and q.shape[-1] == TC_HEAD_DIM and _aligned((q, k, v)):
-        return "tensor_core"
-    return "cuda_core"
+    if q.shape[-1] != TC_HEAD_DIM or not _aligned((q, k, v)):
+        return "cuda_core"
+    return "tensor_core" if q.dtype == torch.bfloat16 else "fp32_tiled"
 
 
 def _aligned(operands) -> bool:
@@ -280,6 +283,9 @@ def _forward(
     if route == "tensor_core":
         build.check(lib.latte_flash_attention_fwd_tc(*args), "flash_attention (tensor cores)")
         flash_attention.tc_launches += 1
+    elif route == "fp32_tiled":
+        build.check(lib.latte_flash_attention_fwd_f32(*args), "flash_attention (fp32 tiles)")
+        flash_attention.f32_launches += 1
     else:
         build.check(lib.latte_flash_attention_fwd(_DTYPE_CODE[q.dtype], *args), "flash_attention")
     flash_attention.launches += 1
@@ -439,7 +445,9 @@ def flash_attention(
     dK/dV kernels. Without autograd only the forward kernel runs, and the
     logsumexp is computed only when asked for. ``flash_attention.launches``
     counts the forward kernels' launches, ``flash_attention.tc_launches``
-    those of the tensor-core kernel among them (see :func:`forward_route`).
+    those of the tensor-core kernel and ``flash_attention.f32_launches``
+    those of the register-tiled fp32 kernel among them (see
+    :func:`forward_route`).
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = _FlashAttention.apply(q, k, v)
@@ -467,6 +475,7 @@ def attention_qkv(qkv: torch.Tensor, plain: bool = False) -> torch.Tensor:
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
+flash_attention.f32_launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.tc_launches = 0
 flash_attention_bwd_dq.f32_launches = 0

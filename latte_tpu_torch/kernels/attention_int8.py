@@ -1,13 +1,17 @@
-"""int8 flash attention for W8A8 serving: the CUDA kernel's wrapper and its
-plain version.
+"""int8 flash attention for W8A8 serving: the CUDA kernels' wrapper and
+their plain version.
 
-The kernel (``csrc/flash_attention_int8.cu``) replaces the Pallas kernel
-``_flash_int8_kernel`` of ``latte_tpu/kernels/attention.py`` (``:330``,
-launched at ``:462`` by ``flash_attention_int8``, ``:406``) and serves the
-fused int8 core ``int8_attention`` of ``latte_tpu/quant/int8.py`` (``:116``)
-too, which the JAX wrapper falls back to and the model's short-sequence
-route runs. Both quantize q, k, v per head at calibrated scales
-(``max(amax, 1e-8) / 127``, round half to even, clip ±127), run QKᵀ as
+The kernels replace the Pallas kernel ``_flash_int8_kernel`` of
+``latte_tpu/kernels/attention.py`` (``:330``, launched at ``:462`` by
+``flash_attention_int8``, ``:406``) and serve the fused int8 core
+``int8_attention`` of ``latte_tpu/quant/int8.py`` (``:116``) too, which the
+JAX wrapper falls back to and the model's short-sequence route runs:
+``csrc/flash_attention_int8_tc.cu`` (int8 ``mma.sync`` on the tensor cores)
+takes P·V in int8 at head_dim 72 with 16-byte aligned operands,
+``csrc/flash_attention_int8.cu`` (dp4a on the CUDA cores) everything else;
+:func:`int8_route` picks one before the launch. Both quantize q, k, v per
+head at calibrated scales (``max(amax, 1e-8) / 127``, round half to even,
+clip ±127), run QKᵀ as
 int8×int8→int32 and, with ``pv_int8``, P·V as well, P rounded to int8 at a
 per-row (fused) or per-scale-block (flash) maximum.
 
@@ -26,8 +30,9 @@ Up to N = 1024 both arithmetics see one scale per row and agree to fp32
 rounding (1.3e-7 relative with ``pv_int8``); in bf16 "qk" mode they differ
 by ~3e-3, since one rounds bf16(p / l) and the other bf16(p) / l.
 
-The wrapper launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors; there is no fallback from one to the other.
+The wrapper launches the kernel :func:`int8_route` names for CUDA tensors
+and runs the plain version for CPU tensors; there is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ from typing import Optional
 import torch
 
 from latte_tpu_torch.kernels import build
+from latte_tpu_torch.kernels.attention import TC_HEAD_DIM, _aligned
 
 __all__ = [
     "flash_attention_int8",
+    "int8_route",
     "int8_attention",
     "flash_scale_block",
     "quant_scale",
@@ -168,8 +175,9 @@ def _flash_blocks(s: torch.Tensor, v: torch.Tensor, pv_int8: bool, block: int) -
     return acc / l
 
 
-def _check(q, k, v, amaxes, scale_block) -> None:
-    """Validate the operands as the kernel takes them, on either device."""
+def _check_qkv(q, k, v, scale_block) -> None:
+    """Validate q, k, v and the scale block as the kernels take them, on
+    either device."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"q, k, v must share one (B, N, H, D) shape; got "
@@ -177,11 +185,17 @@ def _check(q, k, v, amaxes, scale_block) -> None:
         )
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    _, _, H, D = q.shape
-    if D > MAX_HEAD_DIM or min(q.shape) < 1:
+    if q.shape[-1] > MAX_HEAD_DIM or min(q.shape) < 1:
         raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}]; got shape {tuple(q.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a contiguous last (head_dim) axis")
+    if scale_block is not None and scale_block < 1:
+        raise ValueError(f"scale_block must be None or positive; got {scale_block}")
+
+
+def _check_amax(q, k, v, amaxes) -> None:
+    """Validate the amax and the devices as the kernels take them."""
+    H = q.shape[2]
     for a in amaxes:
         if a.shape != (H,) or not a.is_floating_point():
             raise ValueError(f"the amax of q, k and v must be float ({H},) tensors; got {tuple(a.shape)}")
@@ -189,8 +203,22 @@ def _check(q, k, v, amaxes, scale_block) -> None:
         raise ValueError("q, k, v and their amax must be on one device")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention_int8 runs on cuda or cpu tensors, not {q.device}")
-    if scale_block is not None and scale_block < 1:
-        raise ValueError(f"scale_block must be None or positive; got {scale_block}")
+
+
+def int8_route(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: bool, scale_block: Optional[int]
+) -> str:
+    """Which kernel takes these operands on the card: "tensor_core"
+    (``csrc/flash_attention_int8_tc.cu``) for P·V in int8 at head_dim
+    ``TC_HEAD_DIM``, bf16 or fp32, whose base pointers and (batch, token,
+    head) strides are all 16-byte aligned, at any ``scale_block``; else
+    "cuda_core" (``csrc/flash_attention_int8.cu``: the "qk" mode, other head
+    dims, any stride). Raises on what neither kernel takes; reads only
+    shapes, strides and addresses, so it runs on CPU tensors too."""
+    _check_qkv(q, k, v, scale_block)
+    if pv_int8 and q.shape[-1] == TC_HEAD_DIM and _aligned((q, k, v)):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def flash_attention_int8(
@@ -207,26 +235,41 @@ def flash_attention_int8(
     per-head amax (H,) of a calibration run; forward only (serving).
 
     q, k, v may be strided views with a contiguous head-dim axis (the model
-    passes the column views of its fused qkv projection); the kernel
-    quantizes them as it loads them. ``scale_block``: see the module
-    docstring. ``flash_attention_int8.launches`` counts the kernel launches.
+    passes the column views of its fused qkv projection); the kernels
+    quantize them as they load them. ``scale_block``: see the module
+    docstring. ``flash_attention_int8.launches`` counts the kernel launches,
+    ``.tc_launches`` those of the tensor-core kernel among them (see
+    :func:`int8_route`).
     """
-    _check(q, k, v, (q_amax, k_amax, v_amax), scale_block)
+    route = int8_route(q, k, v, pv_int8, scale_block)
+    _check_amax(q, k, v, (q_amax, k_amax, v_amax))
     if q.device.type == "cpu":
         return int8_attention(q, k, v, q_amax, k_amax, v_amax, q.dtype, pv_int8, scale_block)
     lib = build.load_library()
     B, N, H, D = q.shape
-    sc = torch.stack(_scales(q_amax, k_amax, v_amax, D), dim=-1).contiguous()  # (H, 4)
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
-    err = lib.latte_flash_attention_int8(
-        _DTYPE_CODE[q.dtype], int(bool(pv_int8)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        sc.data_ptr(), out.data_ptr(), B, N, H, D, scale_block or 0, strides,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(err, "flash_attention_int8")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tensor_core":  # the kernel computes each head's scales from its amax
+        amax = [a.float().contiguous() for a in (q_amax, k_amax, v_amax)]
+        err = lib.latte_flash_attention_int8_tc(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(a.data_ptr() for a in amax), out.data_ptr(), B, N, H, D, scale_block or 0, strides,
+            float(D**-0.5), q.device.index, stream,
+        )
+        build.check(err, "flash_attention_int8 (tensor cores)")
+        flash_attention_int8.tc_launches += 1
+    else:
+        sc = torch.stack(_scales(q_amax, k_amax, v_amax, D), dim=-1).contiguous()  # (H, 4)
+        err = lib.latte_flash_attention_int8(
+            _DTYPE_CODE[q.dtype], int(bool(pv_int8)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            sc.data_ptr(), out.data_ptr(), B, N, H, D, scale_block or 0, strides,
+            q.device.index, stream,
+        )
+        build.check(err, "flash_attention_int8")
     flash_attention_int8.launches += 1
     return out
 
 
 flash_attention_int8.launches = 0
+flash_attention_int8.tc_launches = 0

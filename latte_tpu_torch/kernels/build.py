@@ -38,7 +38,11 @@ _SIGNATURES = {
     "latte_flash_attention_fwd": (
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I] + [_I64] * 9 + [_F, _I, _P]
     ),
-    "latte_flash_attention_fwd_tc": [_P] * 5 + [_I] * 4 + [_I64] * 9 + [_F, _I, _P],
+    # the bf16 tensor-core forward and the register-tiled fp32 one: the same arguments
+    **{
+        f"latte_flash_attention_fwd_{route}": [_P] * 5 + [_I] * 4 + [_I64] * 9 + [_F, _I, _P]
+        for route in ("tc", "f32")
+    },
     "latte_ln_modulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P],
     "latte_residual_ln_modulate": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
@@ -61,6 +65,10 @@ _SIGNATURES = {
     # dtype, pv_int8, q, k, v, scales, o, B, N, H, D, scale_block, strides[9], ...
     "latte_flash_attention_int8": (
         [_I, _I] + [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I64), _I, _P]
+    ),
+    # dtype, q, k, v, q_amax, k_amax, v_amax, o, B, N, H, D, scale_block, strides[9], D^-1/2, ...
+    "latte_flash_attention_int8_tc": (
+        [_I] + [_P] * 7 + [_I] * 5 + [ctypes.POINTER(_I64), _F, _I, _P]
     ),
 }
 

@@ -71,7 +71,7 @@ def _misaligned_head_stride(B, N, H, D):
         ("bf16 N=256 (spatial)", "tensor_core"),
         ("bf16 N=1024 (T2V spatial)", "tensor_core"),
         ("bf16 D=64 (not built)", "cuda_core"),
-        ("fp32 N=256", "cuda_core"),
+        ("fp32 N=256", "fp32_tiled"),
         ("bf16 D=36", "cuda_core"),
         ("bf16 D=80 (not built)", "cuda_core"),
         ("bf16 misaligned storage offset", "cuda_core"),

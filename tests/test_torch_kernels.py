@@ -173,7 +173,8 @@ def test_kernel_library_is_keyed_by_its_sources():
     names = {p.name for p in build.sources()}
     assert names == {
         "adaln.cu", "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_f32.cu",
-        "flash_attention_bwd_tc.cu", "flash_attention_int8.cu", "flash_attention_tc.cu",
+        "flash_attention_bwd_tc.cu", "flash_attention_f32.cu", "flash_attention_int8.cu",
+        "flash_attention_int8_tc.cu", "flash_attention_tc.cu",
     }
     path = build.library_path()
     assert path.parent == build.BUILD_DIR and path.name.startswith("liblatte_kernels_")
