@@ -12,7 +12,8 @@ non-zero exit and a traceback:
 2. build: the kernel library, one nvcc process per latte_tpu_torch/csrc/*.cu
    source, all at once, then one link; ptxas's registers, shared memory and
    spills of the tensor-core attention kernels (bf16 forward and backward,
-   int8) and of the register-tiled fp32 forward and backward, and the count
+   int8), of the register-tiled fp32 forward and backward and of the adaLN
+   kernels (csrc/adaln.cu), and the count
    of HMMA (bf16) and IMMA (int8) tensor-core instructions in the
    tensor-core kernels' SASS where cuobjdump exists (none may spill, each
    tensor-core kernel must have its instructions);
@@ -21,7 +22,14 @@ non-zero exit and a traceback:
    plain version's, the bound from its bytes and operations and, for
    attention, the time of torch's scaled_dot_product_attention as a
    yardstick; then the attention's logsumexp output, and each kernel in fp32
-   at the spatial shape. The bf16 attention forward must take the
+   at the spatial shape. The adaLN kernels must take their vector route
+   (csrc/adaln.cu's *_vec_kernel), equal in bf16 to the plain version to the
+   bit (y, and out on all but 1% of its elements), each timed beside the
+   generic kernels (the first versions) forced, with F.layer_norm as
+   ln_modulate's yardstick; also at ADALN_SHAPES: the trainers' batch 5 in
+   bf16 and fp32, the registry's other widths in both dtypes, and D = 1000
+   and a misaligned view, which must take the generic kernels. The bf16
+   attention forward must take the
    tensor-core kernel, where it is also held against the plain mirror of
    its tile schedule (equal to the bit on all but 1% of elements), and the
    fp32 one the register-tiled fp32 kernel; the bf16 one is also held and
@@ -43,7 +51,9 @@ non-zero exit and a traceback:
 4. forward: full-width Latte-XL/2 (16 x 256^2, bf16, random weights from a
    seed), kernel path against the plain path and an fp32 plain path, the
    launch counts of one forward (every attention call on the tensor-core
-   route), its device time by kind and the device's idle share;
+   route), its device time by kind and the device's idle share, and the
+   same profile with the generic adaLN kernels forced. In this and every
+   later phase each adaLN launch takes the vector route;
 5. sampler: the entry point ``latte_tpu_torch.sample.sample.main`` on
    configs/ffs/ffs_sample.yaml with DDIM-50 at batch 1 from a random
    checkpoint, then DDPM for a few steps; finite latents, launch counts,
@@ -131,7 +141,8 @@ from latte_tpu_torch.kernels import (
     residual_ln_modulate_reference,
 )
 from latte_tpu_torch.kernels import flash_attention_int8, flash_scale_block, int8_attention
-from latte_tpu_torch.kernels import attention, attention_int8
+from latte_tpu_torch.kernels import adaln, attention, attention_int8
+from latte_tpu_torch.kernels.adaln import EPS as ADALN_EPS, adaln_route
 from latte_tpu_torch.kernels.attention import attention_tiled_reference, backward_route, forward_route
 from latte_tpu_torch.kernels.attention_int8 import int8_route
 from latte_tpu_torch.models import get_model
@@ -216,6 +227,7 @@ KERNELS = {
     ),
 }
 FORWARD = ("flash_attention", "ln_modulate", "residual_ln_modulate")
+ADALN = ("ln_modulate", "residual_ln_modulate")
 BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 INT8 = "flash_attention_int8"
 # launches of each kernel in one train step with gradient checkpointing:
@@ -239,6 +251,22 @@ INT8_ROUTE = {"pv_int8": "tensor_core", "qk": "cuda_core"}
 INT8_ARCH = dict(input_size=32, num_frames=FRAMES, int8_attention=True, attention_mode="flash")
 # (rows of the block, tokens per row) on the main path at batch 1
 SHAPES = {"spatial": (FRAMES, TOKENS), "temporal": (TOKENS, FRAMES)}
+# more cases of the adaLN kernels: (rows, tokens, width, dtype, storage offset
+# of x in elements). b5 is the trainers' batch 5 (bf16: mixed precision,
+# fp32: the training config as shipped); the other widths of the registry
+# run every instantiation of the vector kernels; D = 1000 and x one element
+# off a vector boundary must take the generic kernels, which stay checked
+ADALN_SHAPES = {
+    "spatial_b5": (TRAIN_BATCH * FRAMES, TOKENS, HIDDEN, torch.bfloat16, 0),
+    "temporal_b5": (TRAIN_BATCH * TOKENS, FRAMES, HIDDEN, torch.bfloat16, 0),
+    "spatial_b5_fp32": (TRAIN_BATCH * FRAMES, TOKENS, HIDDEN, torch.float32, 0),
+    "temporal_b5_fp32": (TRAIN_BATCH * TOKENS, FRAMES, HIDDEN, torch.float32, 0),
+    **{f"d{d}{sfx}": (FRAMES, TOKENS, d, dt, 0) for d in (384, 768, 1024)
+       for sfx, dt in (("", torch.bfloat16), ("_fp32", torch.float32))},
+    "d1000": (FRAMES, TOKENS, 1000, torch.bfloat16, 0),
+    "misaligned": (FRAMES, TOKENS, HIDDEN, torch.bfloat16, 1),
+    "misaligned_fp32": (FRAMES, TOKENS, HIDDEN, torch.float32, 1),
+}
 # more bf16 cases of the attention forward: (rows, tokens, storage offset in
 # elements). t2v is T2V 512^2's spatial attention (1024 tokens a frame);
 # ragged N masks the last K/V tile (and, at N <= 64, the short route's one
@@ -307,6 +335,8 @@ def phase(name: str, t0: float) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
+    for name in ADALN:
+        KERNELS[name]["fn"].vec_launches = 0
     for name in ("flash_attention", *BACKWARD, INT8):
         KERNELS[name]["fn"].tc_launches = 0
     for name in ("flash_attention", *BACKWARD):
@@ -343,6 +373,16 @@ def check_tc(label: str, expect: int, f32: int = 0) -> int:
         raise AssertionError(f"{label}: {got} tensor-core and fp32-route attention launches, "
                              f"expected {(expect, f32)}")
     return got[0]
+
+
+def check_vec(label: str) -> dict:
+    """Every adaLN launch since the last reset_counts() took the vector
+    route (csrc/adaln.cu's *_vec_kernel), and there was one."""
+    got = {name: (KERNELS[name]["fn"].vec_launches, KERNELS[name]["fn"].launches) for name in ADALN}
+    print(f"  {label}: adaLN launches on the vector route, of all: {got}", flush=True)
+    if any(vec != n or n == 0 for vec, n in got.values()):
+        raise AssertionError(f"{label}: an adaLN launch left the vector route: {got}")
+    return {name: vec for name, (vec, _) in got.items()}
 
 
 def check_int8_tc(label: str, expect: int) -> int:
@@ -444,12 +484,13 @@ def flash_case(rows: int, n: int, device, gen, dtype=torch.bfloat16, offset: int
     )
 
 
-def forced(module, name: str, fn, *args):
+def forced(module, name: str, fn, *args, to: str = "cuda_core"):
     """``fn(*args)`` with the route function ``module.name`` patched to send
-    every call to the CUDA-core kernel (csrc/flash_attention.cu,
-    flash_attention_int8.cu): the earlier kernel, timed beside the new one."""
+    every call to the route ``to``: the CUDA-core kernel
+    (csrc/flash_attention.cu, flash_attention_int8.cu) or the generic adaLN
+    kernels, the earlier kernel, timed beside the new one."""
     route = getattr(module, name)
-    setattr(module, name, lambda *a: route(*a) and "cuda_core")
+    setattr(module, name, lambda *a: route(*a) and to)
     try:
         return fn(*args)
     finally:
@@ -460,28 +501,91 @@ def kernel_cases(rows: int, n: int, device, gen, dtype=torch.bfloat16):
     """Inputs at one main-path shape, laid out as the model hands them over:
     q/k/v are views of one fused qkv output, the adaLN vectors column chunks
     of one modulation output."""
+    return {"flash_attention": flash_case(rows, n, device, gen, dtype),
+            **adaln_cases(rows, n, HIDDEN, device, gen, dtype)}
+
+
+def adaln_cases(rows: int, n: int, d: int, device, gen, dtype=torch.bfloat16, offset: int = 0):
+    """The two adaLN kernels at one shape: x and delta (rows, n, d), x
+    ``offset`` elements into its storage; shift, scale and gate column chunks
+    of one (rows, 6 d) modulation output, as the model passes them. Each
+    case carries its route and the generic kernels forced. The yardstick of
+    ln_modulate is F.layer_norm with 1 + scale[0] and shift[0] as its affine
+    terms: at batch 1 every row of shift and scale is the same
+    (latte_tpu_torch/models/dit.py:188-189), so on the sampler's shapes that
+    one call computes the kernel's function; residual_ln_modulate has none.
+    ``copy`` is a PyTorch copy of the activation bytes the kernel streams
+    (x to a fresh tensor; x and delta for residual_ln_modulate): what the
+    memory system gives those bytes under the same timer."""
     kw = dict(device=device, dtype=dtype)
-    flash = flash_case(rows, n, device, gen, dtype)
-    x = torch.randn((rows, n, HIDDEN), generator=gen, **kw)
-    delta = torch.randn((rows, n, HIDDEN), generator=gen, **kw)
-    mod = torch.randn((rows, 6 * HIDDEN), generator=gen, **kw)
-    shift, scale, gate = mod[:, :HIDDEN], mod[:, HIDDEN:2 * HIDDEN], mod[:, 2 * HIDDEN:3 * HIDDEN]
-    e, el = x.element_size(), rows * n * HIDDEN  # bytes per element, elements of one activation
+    x = torch.randn(offset + rows * n * d, generator=gen, **kw)[offset:].view(rows, n, d)
+    delta = torch.randn((rows, n, d), generator=gen, **kw)
+    mod = torch.randn((rows, 6 * d), generator=gen, **kw)
+    shift, scale, gate = mod[:, :d], mod[:, d:2 * d], mod[:, 2 * d:3 * d]
+    weight, bias = 1.0 + scale[0], shift[0]
+    e, el = x.element_size(), rows * n * d  # bytes per element, elements of one activation
+    ln = (x, shift, scale)
+    res = (x, delta, gate, shift, scale)
+    src = torch.empty(2 * el, **kw)
+    dst = torch.empty_like(src)
     return {
-        "flash_attention": flash,
         "ln_modulate": dict(
-            run=lambda: ln_modulate(x, shift, scale),
-            plain=lambda: ln_modulate_reference(x, shift, scale),
-            library=None,
-            bound=bound_ms((2 * el + 2 * rows * HIDDEN) * e, 8 * el, FP32_FLOP_PER_S),
+            run=lambda: ln_modulate(*ln),
+            plain=lambda: ln_modulate_reference(*ln),
+            library=lambda: F.layer_norm(x, (d,), weight, bias, ADALN_EPS),
+            bound=bound_ms((2 * el + 2 * rows * d) * e, 8 * el, FP32_FLOP_PER_S),
+            route=adaln_route(x, (), (shift, scale)), dtype=dtype,
+            generic=lambda: forced(adaln, "adaln_route", ln_modulate, *ln, to="generic"),
+            copy=lambda: dst[:el].copy_(src[:el]),
         ),
         "residual_ln_modulate": dict(
-            run=lambda: residual_ln_modulate(x, delta, gate, shift, scale),
-            plain=lambda: residual_ln_modulate_reference(x, delta, gate, shift, scale),
+            run=lambda: residual_ln_modulate(*res),
+            plain=lambda: residual_ln_modulate_reference(*res),
             library=None,
-            bound=bound_ms((4 * el + 3 * rows * HIDDEN) * e, 11 * el, FP32_FLOP_PER_S),
+            bound=bound_ms((4 * el + 3 * rows * d) * e, 11 * el, FP32_FLOP_PER_S),
+            route=adaln_route(x, (delta,), (gate, shift, scale)), dtype=dtype,
+            generic=lambda: forced(adaln, "adaln_route", residual_ln_modulate, *res, to="generic"),
+            copy=lambda: dst.copy_(src),
         ),
     }
+
+
+def measure_adaln(name: str, label: str, case: dict, timer, want: str) -> dict:
+    """One adaLN kernel at one case: against its plain version (BF16_TOL or
+    FP32_TOL of the largest magnitude), its route (``want``: the route
+    function says so, and the vector count moved exactly when it is
+    "vector"); in bf16 also to the bit: y equal, out equal on all but
+    TILED_SHARE_APART of its elements. On the vector route it is timed
+    beside the generic kernel forced and a copy of its activation bytes."""
+    fn, bf16 = KERNELS[name]["fn"], case["dtype"] == torch.bfloat16
+    before = fn.vec_launches, fn.launches
+    r = measure(name, label, case, BF16_TOL if bf16 else FP32_TOL, timer)
+    moved = fn.vec_launches - before[0], fn.launches - before[1]
+    r["route"] = case["route"]
+    print(f"  {name} {label}: route {case['route']}, vector launches {moved[0]} of {moved[1]}",
+          flush=True)
+    if case["route"] != want or moved[1] == 0 or moved[0] != (moved[1] if want == "vector" else 0):
+        raise AssertionError(f"{name} {label}: route {case['route']} with {moved[0]} of "
+                             f"{moved[1]} launches on the vector route; expected {want}")
+    if bf16:
+        got, plain = case["run"](), case["plain"]()
+        if name == "residual_ln_modulate":
+            r["y_share_apart"] = bits_apart(got[0], plain[0])[0]
+            got, plain = got[1], plain[1]
+        r["out_share_apart"] = bits_apart(got, plain)[0]
+        print(f"  {name} {label} vs the plain version, to the bit: y {r.get('y_share_apart')}, "
+              f"out {r['out_share_apart']} of the elements apart (limits: 0, {TILED_SHARE_APART})",
+              flush=True)
+        if r.get("y_share_apart", 0) > 0 or r["out_share_apart"] > TILED_SHARE_APART:
+            raise AssertionError(f"{name} {label}: departs from the plain version: {r}")
+    if want == "vector":
+        r["generic_ms"] = timer.ms(case["generic"])
+        r["generic_device_ms"] = timer.ms(case["generic"], pad=True)
+        r["copy_device_ms"] = timer.ms(case["copy"], pad=True)
+        print(f"  {name} {label}: generic kernel forced {r['generic_ms']:.4f} ms, device "
+              f"{r['generic_device_ms']:.4f} ms; a copy of its activation bytes, device "
+              f"{r['copy_device_ms']:.4f} ms", flush=True)
+    return r
 
 
 def backward_cases(rows: int, n: int, device, gen, dtype, offset: int = 0):
@@ -819,19 +923,32 @@ def measure_flash(label: str, case: dict, timer, want: str = "tensor_core", tol:
 
 def check_kernels(device, timer) -> dict:
     """Each forward kernel against its plain version in bf16 at both shapes
-    (and the attention's lse and route), the attention forward at
-    FLASH_SHAPES, then each forward kernel in fp32; then the backward
-    kernels at BWD_SHAPES. Returns the measurements by kernel and shape
-    (the fp32 forward at FLASH_FP32_SHAPES among the attention forward's)."""
+    (and the attention's lse and route), the adaLN kernels at ADALN_SHAPES,
+    the attention forward at FLASH_SHAPES, then each forward kernel in fp32;
+    then the backward kernels at BWD_SHAPES. Returns the measurements by
+    kernel and shape (the fp32 forward at FLASH_FP32_SHAPES among the
+    attention forward's)."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {name: {} for name in KERNELS}
+    # the timer's own floor: the device time of a kernel that does nothing
+    # to speak of (one element zeroed)
+    one = torch.zeros(1, device=device)
+    results["floor_device_ms"] = timer.ms(one.zero_, pad=True)
+    print(f"  timer floor: a one-element zero_ takes {results['floor_device_ms']:.4f} ms on the "
+          f"device", flush=True)
     for shape, (rows, n) in SHAPES.items():
         for name, case in kernel_cases(rows, n, device, gen).items():
             label = f"{shape} rows={rows} N={n}"
             if name == "flash_attention":
                 results[name][shape] = measure_flash(label, case, timer)
             else:
-                results[name][shape] = measure(name, label, case, BF16_TOL, timer)
+                results[name][shape] = measure_adaln(name, label, case, timer, "vector")
+    for shape, (rows, n, d, dtype, offset) in ADALN_SHAPES.items():
+        want = "vector" if d in adaln.VEC_DIMS and not offset else "generic"
+        for name, case in adaln_cases(rows, n, d, device, gen, dtype, offset).items():
+            label = f"{shape} rows={rows} N={n} D={d} offset={offset}"
+            results[name][shape] = measure_adaln(name, label, case, timer, want)
+        torch.cuda.empty_cache()
     for shape, (rows, n, offset) in FLASH_SHAPES.items():
         case = flash_case(rows, n, device, gen, offset=offset)
         label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
@@ -850,6 +967,8 @@ def check_kernels(device, timer) -> dict:
             raise AssertionError(f"{name} fp32: max abs err {err} > {tol}")
         if name == "flash_attention":
             check_route("spatial fp32", case, before, "fp32_tiled")
+        elif case["route"] != "vector":
+            raise AssertionError(f"{name} spatial fp32: route {case['route']}, expected vector")
     for shape, (rows, n, offset) in FLASH_FP32_SHAPES.items():
         case = flash_case(rows, n, device, gen, torch.float32, offset)
         label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
@@ -884,11 +1003,12 @@ F32_FWD_SOURCE = "latte_tpu_torch/csrc/flash_attention_f32.cu"
 
 def report_build(path) -> dict:
     """Print ptxas's registers, shared memory and spills for each kernel of
-    the tensor-core and register-tiled fp32 sources (none may spill), and
-    count the HMMA / IMMA instructions in the tensor-core kernels' SASS
+    the tensor-core, register-tiled fp32 and adaLN sources (none may
+    spill), and count the HMMA / IMMA instructions in the tensor-core kernels' SASS
     where cuobjdump sits beside nvcc: each must have some."""
     spills = []
-    for src in (*TC_SOURCES, os.path.basename(F32_SOURCE), os.path.basename(F32_FWD_SOURCE)):
+    f32_sources = (os.path.basename(F32_SOURCE), os.path.basename(F32_FWD_SOURCE))
+    for src in (*TC_SOURCES, *f32_sources, "adaln.cu"):
         section = build.compile_log().split(f"== {src}\n")[1].split("\n== ")[0]
         for line in section.splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
@@ -896,7 +1016,7 @@ def report_build(path) -> dict:
             if any(int(b) for b in re.findall(r"(\d+) bytes spill", line)):
                 spills.append(line.strip())
     if spills:
-        raise AssertionError(f"a tensor-core or fp32 kernel spills: {spills}")
+        raise AssertionError(f"a tensor-core, fp32 or adaLN kernel spills: {spills}")
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         print("  cuobjdump not found beside nvcc: HMMA / IMMA counts not measured", flush=True)
@@ -959,8 +1079,10 @@ def kernel_kind(name: str) -> str:
         ("flash_fwd_tc", "flash_attention"),
         ("flash_bwd_dq_", "flash_attention_bwd_dq"),
         ("flash_bwd_dkv_", "flash_attention_bwd_dkv"),
-        ("residual_ln_modulate_kernel", "residual_ln_modulate"),
-        ("ln_modulate_kernel", "ln_modulate"),
+        # both routes (*_vec_kernel and the generic kernels); "residual_"
+        # first, since its name holds the other
+        ("residual_ln_modulate", "residual_ln_modulate"),
+        ("ln_modulate", "ln_modulate"),
     ):
         if key in name:
             return kind
@@ -999,11 +1121,12 @@ def device_ms_by_kind(prof) -> tuple:
     return groups, busy / 1e3, top
 
 
-def print_profile(label: str, prof, wall_ms: float = None) -> None:
+def print_profile(label: str, prof, wall_ms: float = None) -> dict:
+    """Print a profile's device time by kind; return it by kind."""
     groups, busy, top = device_ms_by_kind(prof)
     if not busy:
         print(f"  {label} profile: the profiler saw no device time (not measured)", flush=True)
-        return
+        return groups
     line = f"  {label} profile ms by kind: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(groups.items())}) + f"; device busy {busy:.4f}"
     if wall_ms:
@@ -1011,17 +1134,20 @@ def print_profile(label: str, prof, wall_ms: float = None) -> None:
     print(line, flush=True)
     print(f"  {label} largest other kernels (ms): "
           + json.dumps({k: round(v, 4) for k, v in top.items()}), flush=True)
+    return groups
 
 
-def profile_forward(model, x, t, wall_ms: float) -> None:
+def profile_forward(model, x, t, wall_ms: float, label: str = "forward") -> float:
     """Device time of one forward by kind of kernel (torch.profiler), and
-    the idle share against ``wall_ms``, the forward's unprofiled time."""
+    the idle share against ``wall_ms``, the forward's unprofiled time;
+    returns the adaLN kernels' device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model(x, t)
         torch.cuda.synchronize()
-    print_profile("forward", prof, wall_ms)
+    groups = print_profile(label, prof, wall_ms)
+    return sum(groups.get(name, 0.0) for name in ADALN)
 
 
 def route_runs(model, cfg, device, module, route_name: str, fn) -> dict:
@@ -1155,6 +1281,7 @@ def int8_forward(device, masters, x, t, out_p32, timer) -> dict:
         torch.cuda.synchronize()
         per_forward = counts()
         check_tc("one int8 forward", 0)
+        check_vec("one int8 forward")
         check_int8_tc("one int8 forward", DEPTH)
         out_qp = qplain(x, t)
     expect = {k: 0 for k in KERNELS}
@@ -1194,6 +1321,7 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
     lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
     launches = counts()
     check_tc("int8 ddim-50, its 3 bf16 calibration forwards", 3 * DEPTH)
+    check_vec("int8 ddim-50 and its calibration")
     int8_tc = check_int8_tc("int8 ddim-50", 50 * DEPTH)
     # the calibration runs 3 floating-point forwards (flash_attention), the
     # 50 steps one int8 forward each
@@ -1252,6 +1380,7 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
         lat_s = torch.from_numpy(np.load(sample.main(cfg))["latents"])
         got = counts()
         check_tc(f"{name} ddim-{steps}", (steps * per_step.get("flash_attention", 0) + calib * DEPTH))
+        check_vec(f"{name} ddim-{steps}")
         check_int8_tc(f"{name} ddim-{steps}", 0)
         expect = {k: 0 for k in KERNELS}
         for k, c in per_step.items():
@@ -1282,6 +1411,7 @@ def train_quant(tmp: str, smi: str) -> dict:
     ]), callbacks=[log])
     launches = counts()
     check_tc("quant_train fp32", 0, f32=2 * STEP_LAUNCHES["flash_attention"])
+    check_vec("quant_train fp32")
     check_bwd_routes("quant_train fp32", tc=0, f32=2 * DEPTH)
     blk = log.state.model.blocks[0]
     modes = (blk.attn.qkv.quantized, blk.mlp.fc1.quantized, blk.adaLN_modulation[1].quantized)
@@ -1354,6 +1484,7 @@ def train_step_parity(device) -> dict:
     torch.cuda.synchronize()
     step_counts = counts()
     check_tc("fp32 train step", 0, f32=STEP_LAUNCHES["flash_attention"])
+    check_vec("fp32 train step")
     check_bwd_routes("fp32 train step", tc=0, f32=DEPTH)
     loss_p, g_p = step(plain, None)
     print(f"  launches in one train step: {step_counts}", flush=True)
@@ -1371,6 +1502,7 @@ def train_step_parity(device) -> dict:
     reset_counts()
     _, g_km = step(model, torch.bfloat16)
     check_tc("mixed-precision train step", STEP_LAUNCHES["flash_attention"])
+    check_vec("mixed-precision train step")
     check_bwd_routes("mixed-precision train step", tc=DEPTH, f32=0)
     _, g_pm = step(plain, torch.bfloat16)
     vs32 = compare("mixed step: kernel grads vs plain fp32 grads", g_km, g_p)
@@ -1397,6 +1529,7 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     out = train.main(load_config(FFS_TRAIN, overrides), callbacks=[log])  # on cuda by default
     torch.cuda.synchronize()
     launches = counts()
+    vec = check_vec("ffs_train fp32")
     flash_f32 = flash_attention.f32_launches
     check_tc("ffs_train fp32", 0, f32=TRAIN_STEPS * STEP_LAUNCHES["flash_attention"])
     routes = check_bwd_routes("ffs_train fp32", tc=0, f32=TRAIN_STEPS * DEPTH)
@@ -1440,6 +1573,7 @@ def train_entry_point(tmp: str, smi: str) -> dict:
         resumed_log.restore()
         fwd_log.restore()
     print(f"  resumed from step {TRAIN_STEPS}: {resumed}", flush=True)
+    check_vec("ffs_train fp32 and its resume")
     steps = list(range(TRAIN_STEPS + 1, fwd_log.steps + 1))
     if resumed["final_step"] != fwd_log.steps or [r[0] for r in fwd_log.records] != steps:
         raise AssertionError("the resumed run did not carry the step counter on")
@@ -1460,7 +1594,8 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     if lat.shape != (1, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
         raise AssertionError("the sampler on the trained EMA gave no finite latents")
     shutil.rmtree(resumed["experiment_dir"])
-    return dict(launches=launches, f32_launches=routes["fp32_tiled"], s_per_step=s_step,
+    return dict(launches=launches, vec_launches=vec, f32_launches=routes["fp32_tiled"],
+                s_per_step=s_step,
                 fwd_f32_launches=flash_f32, steps_per_s=1 / s_step, step_seconds=secs,
                 peak_gib=peak_gib, forward_pairs=fwd_pairs, **pairs)
 
@@ -1555,6 +1690,7 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
         ]), callbacks=[log])
     finally:
         log.restore()
+    check_vec(f"mixed precision, all {log.steps} steps")
     c = log.counts[TRAIN_STEPS]
     main_counts = {k: c[k] for k in KERNELS}
     main_bwd_tc, main_f32 = c["backward tensor_core"], c["backward fp32_tiled"]
@@ -1660,6 +1796,7 @@ def main() -> int:
         torch.cuda.synchronize()
         per_forward = counts()
         check_tc("one bf16 forward", DEPTH)
+        check_vec("one bf16 forward")
         out_p16, out_p32 = plain16(x, t), plain32(x, t)
     print(f"  launches in one forward: {per_forward}", flush=True)
     if any(per_forward[k] != DEPTH for k in FORWARD) or any(per_forward[k] for k in (*BACKWARD, INT8)):
@@ -1676,8 +1813,17 @@ def main() -> int:
     with torch.inference_mode():
         fwd_ms = timer.ms(lambda: model(x, t), iters=5)
         plain_fwd_ms = timer.ms(lambda: plain16(x, t), iters=5)
-        profile_forward(model, x, t, fwd_ms)
-    print(f"  forward ms: kernels {fwd_ms:.3f}, plain {plain_fwd_ms:.3f}", flush=True)
+        adaln_ms = profile_forward(model, x, t, fwd_ms)
+        # the same forward with the adaLN kernels' first versions forced
+        reset_counts()
+        generic_adaln_ms = forced(adaln, "adaln_route", profile_forward, model, x, t, fwd_ms,
+                                  "forward, generic adaLN kernels forced", to="generic")
+        forced_vec = {name: KERNELS[name]["fn"].vec_launches for name in ADALN}
+    print(f"  forward ms: kernels {fwd_ms:.3f}, plain {plain_fwd_ms:.3f}; adaLN device ms "
+          f"{adaln_ms:.4f}, with the generic kernels forced {generic_adaln_ms:.4f} "
+          f"(vector launches there {forced_vec})", flush=True)
+    if any(forced_vec.values()):
+        raise AssertionError(f"the forced forward ran vector adaLN kernels: {forced_vec}")
     phase("forward", t0)
 
     # 7b. the same weights served in int8
@@ -1701,6 +1847,7 @@ def main() -> int:
         lat_path = sample.main(cfg)  # the entry point, on cuda by default
         main_launches = counts()
         main_tc = check_tc("bf16 ddim-50 entry point", DEPTH * 50)
+        main_vec = check_vec("bf16 ddim-50 entry point")
         lat = torch.from_numpy(np.load(lat_path)["latents"])
         print(f"  ddim-50 latents {tuple(lat.shape)} finite={bool(torch.isfinite(lat).all())}; "
               f"launches {main_launches}", flush=True)
@@ -1732,6 +1879,7 @@ def main() -> int:
         lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])
         ddpm_launches = counts()
         check_tc("ddpm-5", DEPTH * 5)
+        check_vec("ddpm-5")
         print(f"  ddpm-5 latents finite={bool(torch.isfinite(lat).all())}; "
               f"launches {ddpm_launches}", flush=True)
         if not torch.isfinite(lat).all() or any(ddpm_launches[k] != DEPTH * 5 for k in FORWARD):
@@ -1792,6 +1940,14 @@ def main() -> int:
                     tc_launches=main_tc, fp32_source=F32_FWD_SOURCE,
                     cuda_core_source="latte_tpu_torch/csrc/flash_attention.cu", sass_mma=mma,
                     cases={c: measured[name][c] for c in FLASH_SHAPES})
+            else:  # the vector route; the generic kernels (first versions) timed beside it
+                extra.update(
+                    vec_launches=main_vec[name], launches_train_vec=entry["vec_launches"][name],
+                    generic_ms=row["generic_ms"], generic_device_ms=row["generic_device_ms"],
+                    copy_device_ms=row["copy_device_ms"],
+                    timer_floor_device_ms=measured["floor_device_ms"],
+                    forward_adaln_ms=dict(vector=adaln_ms, generic=generic_adaln_ms),
+                    cases={c: measured[name][c] for c in ADALN_SHAPES})
         else:  # the mixed-precision trainer's path, at its shapes (bf16, batch 5)
             row, extra = measured[name]["spatial_b5"], dict(
                 shape="spatial bf16 batch 5", tc_launches=mixed["tc_launches"][name],

@@ -4,7 +4,11 @@ Counterpart of ``latte_tpu/kernels/adaln.py``. The kernels in
 ``csrc/adaln.cu`` replace the Pallas ``_ln_mod_kernel`` (``adaln.py:49``,
 launched by ``_ln_modulate_fwd_impl`` at ``:111``) and ``_res_ln_mod_kernel``
 (``adaln.py:59``, launched by ``_res_ln_modulate_fwd_impl`` at ``:139``).
-Both stream their rows once and are bound by bytes on the H100.
+Both stream their rows once and are bound by bytes on the H100. Each has
+two routes, chosen by :func:`adaln_route` before the launch: "vector" (a
+warp holds a row in registers, 8- or 16-byte accesses; the registry's widths
+on aligned layouts, which is every call the model makes) and "generic" (the
+first versions: any width up to ``MAX_DIM``, any layout).
 
 - :func:`ln_modulate`            out = LN(x) * (1 + scale) + shift
 - :func:`residual_ln_modulate`   y = x + gate * delta (rounded to x's type),
@@ -13,8 +17,8 @@ Both stream their rows once and are bound by bytes on the H100.
 LN has no affine terms, eps 1e-6, fp32 two-pass statistics E[(x - mu)^2].
 x and delta are (B, N, D) contiguous; shift, scale and gate are (B, D) with a
 contiguous last axis (column chunks of the modulation output are fine) and
-broadcast over N. A wrapper launches its kernel for CUDA tensors and runs the
-plain version for CPU tensors, nothing else.
+broadcast over N. A wrapper launches the kernel its route names for CUDA
+tensors and runs the plain version for CPU tensors, nothing else.
 
 Both are differentiable. As in the JAX package, whose backward is jnp and not
 Pallas, the backward is plain PyTorch in fp32 with the same saved residuals
@@ -30,6 +34,7 @@ import torch
 from latte_tpu_torch.kernels import build
 
 __all__ = [
+    "adaln_route",
     "ln_modulate",
     "residual_ln_modulate",
     "ln_modulate_reference",
@@ -37,7 +42,10 @@ __all__ = [
 ]
 
 EPS = 1e-6
-MAX_DIM = 1536  # 8 rows of fp32 in the kernel's 48 KB of shared memory
+MAX_DIM = 1536  # 8 rows of fp32 in the generic kernel's 48 KB of shared memory
+# widths the vector kernels are built for: the registry's S, B, L and XL
+VEC_DIMS = (384, 768, 1024, 1152)
+VEC_WIDTH = 4  # elements a lane reads at once: 8 bytes of bf16, 16 of fp32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -92,37 +100,61 @@ def _check(x: torch.Tensor, rows, vecs) -> int:
     return vec_strides.pop()
 
 
+def adaln_route(x: torch.Tensor, rows, vecs) -> str:
+    """Which kernel takes these operands on the card: "vector"
+    (``*_vec_kernel`` in ``csrc/adaln.cu``) when D is one of ``VEC_DIMS``,
+    every base pointer (x, the ``rows`` and the ``vecs``; the outputs are
+    fresh allocations) is aligned to ``VEC_WIDTH`` elements, 8 bytes in bf16
+    and 16 in fp32, and so is the vectors' row stride; else "generic" (the
+    first versions, any width up to ``MAX_DIM``). ``rows`` are delta for
+    residual_ln_modulate, ``vecs`` shift and scale (gate first for
+    residual_ln_modulate). Raises on what neither kernel takes. Reads only
+    shapes, strides, dtypes and addresses, so it runs on CPU tensors too."""
+    vec_stride = _check(x, rows, vecs)
+    aligned = all(t.data_ptr() % (VEC_WIDTH * t.element_size()) == 0 for t in (x, *rows, *vecs))
+    if x.shape[-1] in VEC_DIMS and aligned and vec_stride % VEC_WIDTH == 0:
+        return "vector"
+    return "generic"
+
+
 def _ln_modulate_forward(x, shift, scale) -> torch.Tensor:
     """The ln_modulate kernel (or, for CPU tensors, its plain version)."""
-    vec_stride = _check(x, (), (shift, scale))
+    route = adaln_route(x, (), (shift, scale))
     if x.device.type == "cpu":
         return ln_modulate_reference(x, shift, scale)
     B, N, D = x.shape
     out = torch.empty_like(x)
-    err = build.load_library().latte_ln_modulate(
+    lib = build.load_library()
+    entry = lib.latte_ln_modulate_vec if route == "vector" else lib.latte_ln_modulate
+    err = entry(
         _DTYPE_CODE[x.dtype], x.data_ptr(), shift.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), B, N, D, vec_stride, EPS, x.device.index,
+        out.data_ptr(), B, N, D, shift.stride(0), EPS, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(err, "ln_modulate")
+    build.check(err, f"ln_modulate ({route})")
+    ln_modulate.vec_launches += route == "vector"
     ln_modulate.launches += 1
     return out
 
 
 def _residual_ln_modulate_forward(x, delta, gate, shift, scale):
     """The residual_ln_modulate kernel (or, for CPU tensors, its plain version)."""
-    vec_stride = _check(x, (delta,), (gate, shift, scale))
+    route = adaln_route(x, (delta,), (gate, shift, scale))
     if x.device.type == "cpu":
         return residual_ln_modulate_reference(x, delta, gate, shift, scale)
     B, N, D = x.shape
     y = torch.empty_like(x)
     out = torch.empty_like(x)
-    err = build.load_library().latte_residual_ln_modulate(
+    lib = build.load_library()
+    entry = (lib.latte_residual_ln_modulate_vec if route == "vector"
+             else lib.latte_residual_ln_modulate)
+    err = entry(
         _DTYPE_CODE[x.dtype], x.data_ptr(), delta.data_ptr(), gate.data_ptr(),
         shift.data_ptr(), scale.data_ptr(), y.data_ptr(), out.data_ptr(), B, N, D,
-        vec_stride, EPS, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        gate.stride(0), EPS, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(err, "residual_ln_modulate")
+    build.check(err, f"residual_ln_modulate ({route})")
+    residual_ln_modulate.vec_launches += route == "vector"
     residual_ln_modulate.launches += 1
     return y, out
 
@@ -187,7 +219,8 @@ def _needs_grad(*tensors) -> bool:
 
 def ln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``LN(x) * (1 + scale) + shift`` in one pass over x; differentiable.
-    ``ln_modulate.launches`` counts the kernel launches."""
+    ``ln_modulate.launches`` counts the kernel launches, ``.vec_launches``
+    those on the vector route among them."""
     if _needs_grad(x, shift, scale):
         return _LnModulate.apply(x, shift, scale)
     return _ln_modulate_forward(x, shift, scale)
@@ -202,11 +235,11 @@ def residual_ln_modulate(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gated residual + LN + modulate in one pass: returns ``(y, out)``;
     differentiable. ``residual_ln_modulate.launches`` counts the kernel
-    launches."""
+    launches, ``.vec_launches`` those on the vector route among them."""
     if _needs_grad(x, delta, gate, shift, scale):
         return _ResidualLnModulate.apply(x, delta, gate, shift, scale)
     return _residual_ln_modulate_forward(x, delta, gate, shift, scale)
 
 
-ln_modulate.launches = 0
-residual_ln_modulate.launches = 0
+ln_modulate.launches = ln_modulate.vec_launches = 0
+residual_ln_modulate.launches = residual_ln_modulate.vec_launches = 0

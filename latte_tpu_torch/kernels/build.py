@@ -43,10 +43,17 @@ _SIGNATURES = {
         f"latte_flash_attention_fwd_{route}": [_P] * 5 + [_I] * 4 + [_I64] * 9 + [_F, _I, _P]
         for route in ("tc", "f32")
     },
-    "latte_ln_modulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P],
-    "latte_residual_ln_modulate": (
-        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
-    ),
+    # the generic adaLN kernels and the vector ones: the same arguments
+    **{
+        f"latte_ln_modulate{route}": [_I, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
+        for route in ("", "_vec")
+    },
+    **{
+        f"latte_residual_ln_modulate{route}": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P]
+        )
+        for route in ("", "_vec")
+    },
     # dtype, q, k, v, dout, lse, delta, dq, dk, dv, B, N, H, D, strides[21], ...
     "latte_flash_attention_bwd_dq": (
         [_I] + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I64), _F, _I, _P]

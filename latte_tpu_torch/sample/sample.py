@@ -96,13 +96,22 @@ def build_model(config: Config, device: torch.device) -> Latte:
     """The configured model on ``device`` in the config's dtype, from ``ckpt``
     (a reference ``.pt``) or, when ``ckpt`` is null, the reference init drawn
     from ``torch.Generator`` seed 0. With ``quantized`` the int8 model,
-    quantized from the fp32 weights (not from a bf16 cast of them)."""
+    quantized from the fp32 weights (not from a bf16 cast of them). A
+    ``ckpt`` directory (the JAX trainer's orbax checkpoint) raises
+    ``NotImplementedError``: the port reads no orbax format."""
     with torch.device(device):
         model = get_models(config)
     ckpt = getattr(config, "ckpt", None)
     if ckpt:
         if not os.path.exists(ckpt):
             raise FileNotFoundError(f"ckpt {ckpt!r} does not exist")
+        if os.path.isdir(ckpt):
+            raise NotImplementedError(
+                f"ckpt {ckpt!r} is a directory, as the JAX trainer's orbax checkpoints are; "
+                "the port reads a reference-format .pt. Convert the checkpoint's params in a "
+                "process that has JAX with latte_tpu_torch.convert.flax_to_state_dict and "
+                "torch.save the state dict it returns"
+            )
         sd = load_reference_checkpoint(ckpt, prefer_ema=bool(getattr(config, "prefer_ema", True)))
         model.load_state_dict(sd, strict=True)
     else:

@@ -95,6 +95,20 @@ def test_reference_checkpoint_and_vae_guard(tmp_path):
         sample.main(cfg, device="cpu")
 
 
+def test_checkpoint_directory_names_the_conversion(tmp_path):
+    """The JAX trainer writes orbax checkpoint directories, which the JAX
+    sampler loads; the port reads a reference-format .pt and says how to
+    convert, rather than failing inside torch.load."""
+    ckpt = tmp_path / "0000006"
+    (ckpt / "params").mkdir(parents=True)
+    cfg = load_config(FFS, TINY + [f"save_video_path={tmp_path}/v.mp4", f"ckpt={ckpt}"])
+    with pytest.raises(NotImplementedError, match="flax_to_state_dict"):
+        sample.build_model(cfg, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="orbax"):
+        sample.main(cfg, device="cpu")
+    assert not (tmp_path / "v_latents.npz").exists()
+
+
 @pytest.mark.parametrize(
     "override", ["block_cache_interval=2", "tensor_parallel=2"], ids=["block_cache", "tensor_parallel"]
 )
