@@ -62,6 +62,17 @@ non-zero exit and a traceback:
    profiled DDIM-50 run, and the
    DDIM latents against the plain path's; every bf16 attention call of
    both runs goes through the tensor-core kernel, and none of a forced run;
+5b. vae: ``sample.main`` with DDIM-50 and ``vae_ckpt: random`` (the full SD
+   VAE from a seed) from the same checkpoint: the mp4 read back through cv2
+   as 16 frames of 256x256x3, the DiT's launches alone (the
+   VAE launches no hand-written kernel); two DDIM latent frames decoded in
+   fp32 with TF32 off against the same VAE in fp64 (relative L2 <= 1e-4,
+   uint8 frames equal on >= 99.9%), and those frames encoded likewise; a
+   16-frame decode's seconds (median of 5), error against fp64 and peak
+   memory in fp32 with TF32 off (the sampler's), fp32 with cuDNN's TF32
+   (PyTorch's default) and bf16 with fp32 GroupNorm and softmax; the fp32
+   and bf16 decodes' device time by kind and idle share; videos/min with
+   decode;
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -102,7 +113,8 @@ non-zero exit and a traceback:
    steps with quantized: true and with int8_attention: qk under
    attention_mode: auto.
 
-Prints the kernels' JSON line and ends with
+Prints the vae phase's JSON line (``vae: {...}``), the kernels' JSON line and
+ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a GPU: without one it exits non-zero and prints no result. What
 it writes (checkpoints, latents) goes to a temporary directory, the kernel
@@ -111,6 +123,7 @@ library to the git-ignored build/.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -150,6 +163,8 @@ from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_param
 from latte_tpu_torch.sample import sample
 from latte_tpu_torch.train import train
 from latte_tpu_torch.train.callbacks import Callback
+from latte_tpu_torch.utils import to_uint8
+from latte_tpu_torch.vae import cudnn_tf32, make_decode_fn
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense tensor-core bf16
@@ -1093,24 +1108,36 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def device_ms_by_kind(prof) -> tuple:
+def device_ms_by_kind(prof, op_kinds: dict = None) -> tuple:
     """Device time (ms) of a profile by kind of kernel, the time the device
     was busy (the union of the kernels' intervals), and the largest kernels
-    outside the port's own and the matmuls. Annotation ranges are left out
-    (they span kernels counted here), and a kernel reported twice with the
-    same interval counts once."""
+    of kind "other". A kernel's kind is ``kernel_kind`` of its name or, with
+    ``op_kinds`` (aten op name -> kind), that of the aten op at the root of
+    the op that launched it. Annotation ranges are left out (they span
+    kernels counted here), and a kernel reported twice with the same
+    interval counts once."""
     kernels = {
         (ev.name, ev.time_range.start, ev.time_range.end)
         for ev in prof.events()
         if ev.device_type == torch.autograd.DeviceType.CUDA
         and not getattr(ev, "is_user_annotation", False)
     }
+    if op_kinds is None:
+        timed = [(name, kernel_kind(name), end - start) for name, start, end in kernels]
+    else:
+        timed = []
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+                continue
+            root = ev
+            while root.cpu_parent is not None and root.cpu_parent.name.startswith("aten::"):
+                root = root.cpu_parent
+            timed += [(k.name, op_kinds.get(root.name, "other"), k.duration) for k in ev.kernels]
     groups, others = {}, {}
-    for name, start, end in kernels:
-        kind, ms = kernel_kind(name), (end - start) / 1e3
-        groups[kind] = groups.get(kind, 0.0) + ms
+    for name, kind, us in timed:
+        groups[kind] = groups.get(kind, 0.0) + us / 1e3
         if kind == "other":
-            others[name[:60]] = others.get(name[:60], 0.0) + ms
+            others[name[:60]] = others.get(name[:60], 0.0) + us / 1e3
     busy, last_end = 0.0, None
     for _, start, end in sorted(kernels, key=lambda k: k[1]):
         if last_end is None or start >= last_end:
@@ -1121,9 +1148,10 @@ def device_ms_by_kind(prof) -> tuple:
     return groups, busy / 1e3, top
 
 
-def print_profile(label: str, prof, wall_ms: float = None) -> dict:
-    """Print a profile's device time by kind; return it by kind."""
-    groups, busy, top = device_ms_by_kind(prof)
+def print_profile(label: str, prof, wall_ms: float = None, op_kinds: dict = None) -> dict:
+    """Print a profile's device time by kind (``op_kinds`` as in
+    ``device_ms_by_kind``); return it by kind."""
+    groups, busy, top = device_ms_by_kind(prof, op_kinds)
     if not busy:
         print(f"  {label} profile: the profiler saw no device time (not measured)", flush=True)
         return groups
@@ -1306,6 +1334,157 @@ def int8_forward(device, masters, x, t, out_p32, timer) -> dict:
     return dict(launches=per_forward, cosine_vs_plain=vs_plain["cosine"], rel_l2_vs_fp32=vs32["rel_l2"],
                 plain_rel_l2_vs_fp32=plain_vs32["rel_l2"], ms=fwd_ms, plain_ms=plain_fwd_ms,
                 profile=prof)
+
+
+VAE_TOL = 1e-4         # fp32 decode/encode (TF32 off) against fp64: relative L2
+VAE_UINT8_SHARE = 0.999  # share of uint8 values equal to fp64's
+VAE_CHECK_FRAMES = (0, FRAMES // 2)  # the two DDIM latent frames held against fp64
+VAE_RUNS = 5           # timed decodes of a 16-frame video per setting, after a warm-up
+# the aten op at the root of the op that launched a VAE kernel -> the kernel's
+# kind (cuDNN's and the elementwise kernels' names do not say which op they serve)
+VAE_KINDS = {
+    "aten::conv2d": "convolution", "aten::group_norm": "group_norm", "aten::silu": "silu",
+    "aten::linear": "attention_matmul", "aten::bmm": "attention_matmul",
+    "aten::softmax": "softmax", "aten::add": "residual_add", "aten::mul": "attention_scale",
+    "aten::upsample_nearest2d": "upsample", "aten::to": "copies", "aten::copy_": "copies",
+    "aten::reshape": "copies", "aten::contiguous": "copies", "aten::clone": "copies",
+}
+
+
+def read_mp4(path: str) -> np.ndarray:
+    """(F, H, W, 3) uint8 frames of an mp4, read back through cv2."""
+    import cv2
+
+    cap, frames = cv2.VideoCapture(path), []
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(frame)
+    finally:
+        cap.release()
+    return np.stack(frames) if frames else np.zeros((0,), np.uint8)
+
+
+def vae_decode_runs(fn, z) -> list:
+    """Host seconds of ``fn(z)`` ending in a synchronize, VAE_RUNS times
+    after a warm-up."""
+    fn(z)
+    secs = []
+    for _ in range(VAE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(z)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def vae_phase(tmp: str, ckpt: str, lat_bf16, ddim_s: float, device, smi: str) -> dict:
+    """Phase 5b: the entry point with the full-width random VAE (DDIM-50 then
+    a 16-frame fp32 decode to an mp4), the decode and encode at fp32 with
+    TF32 off against fp64, and the decode's seconds, error, peak memory and
+    device time in three settings."""
+    cfg = load_config(FFS_CONFIG, [
+        "sample_method=ddim", "num_sampling_steps=50", f"ckpt={ckpt}", "vae_ckpt=random",
+        f"save_video_path={tmp}/ffs_vae.mp4",
+    ])
+    reset_counts()
+    frames = read_mp4(sample.main(cfg))  # the entry point, on cuda by default
+    launches = counts()
+    tc = check_tc("ddim-50 and vae decode entry point", DEPTH * 50)
+    vec = check_vec("ddim-50 and vae decode entry point")
+    print(f"  entry point mp4 read back as {frames.shape} {frames.dtype}; launches {launches}",
+          flush=True)
+    size = int(cfg.image_size)
+    if frames.shape != (FRAMES, size, size, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"expected ({FRAMES}, {size}, {size}, 3) uint8 frames, got {frames.shape}")
+    # the VAE launches no hand-written kernel: the DiT's launches alone
+    if any(launches[k] != DEPTH * 50 for k in FORWARD) or any(launches[k] for k in (*BACKWARD, INT8)):
+        raise AssertionError(f"expected {DEPTH * 50} launches of each forward kernel, got {launches}")
+
+    vae = sample.load_vae(cfg, device)  # the same seeded full-width VAE, fp32
+    decode = make_decode_fn(vae)
+    z16 = lat_bf16[0].to(device) / vae.scaling_factor  # the DDIM-50 video of phase 5
+    z2 = z16[list(VAE_CHECK_FRAMES)]
+    vae64 = copy.deepcopy(vae).double()
+    with torch.inference_mode():
+        ref = vae64.decode(z2.double())
+        x2 = decode(z2)
+        with cudnn_tf32(False):
+            post, post64 = vae.encode(x2), vae64.encode(x2.double())
+    dec = compare("vae decode of 2 frames, fp32 (TF32 off) vs fp64", x2, ref)
+    u8 = to_uint8(x2.permute(0, 2, 3, 1).cpu().numpy())
+    u8_64 = to_uint8(ref.permute(0, 2, 3, 1).cpu().numpy())
+    equal = float((u8 == u8_64).mean())
+    enc = {name: compare(f"vae encode of those frames, posterior {name}, fp32 vs fp64", a, b)
+           for name, a, b in (("mean", post.mean, post64.mean), ("logvar", post.logvar, post64.logvar))}
+    print(f"  uint8 frames equal to fp64's on {equal:.6f} of values; posterior mean "
+          f"{tuple(post.mean.shape)}", flush=True)
+    if dec["rel_l2"] > VAE_TOL or any(e["rel_l2"] > VAE_TOL for e in enc.values()) \
+            or not (dec["finite"] and enc["mean"]["finite"]):
+        raise AssertionError(f"the fp32 VAE is more than {VAE_TOL} off fp64")
+    if equal < VAE_UINT8_SHARE or tuple(post.mean.shape) != (2, 4, size // 8, size // 8):
+        raise AssertionError(f"uint8 frames equal on {equal} (< {VAE_UINT8_SHARE}) or posterior "
+                             f"mean {tuple(post.mean.shape)} is not (2, 4, {size // 8}, {size // 8})")
+    del vae64, post, post64
+    torch.cuda.empty_cache()
+
+    vae16 = copy.deepcopy(vae).to(torch.bfloat16)
+
+    def with_tf32(z):
+        with torch.inference_mode(), cudnn_tf32(True):
+            return vae.decode(z)
+
+    settings = {
+        "fp32": decode,  # the sampler's: TF32 off
+        "fp32_tf32": with_tf32,
+        "bf16": make_decode_fn(vae16),  # GroupNorm and softmax in fp32 (bench.py:538's setting)
+    }
+    timed = {}
+    for name, fn in settings.items():
+        err = dec["rel_l2"] if name == "fp32" else \
+            compare(f"vae decode of 2 frames, {name} vs fp64", fn(z2).float(), ref)["rel_l2"]
+        secs = vae_decode_runs(fn, z16)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(z16)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        s_med = sorted(secs)[len(secs) // 2]
+        timed[name] = dict(s_per_video=s_med, seconds=secs, rel_l2_vs_fp64=err,
+                           peak_gib=peak / 2**30, allocated_before_gib=before / 2**30,
+                           videos_per_min_with_decode=60.0 / (ddim_s + s_med))
+        print(f"  vae decode {name}, {FRAMES} frames: {s_med:.4f} s/video (median of {secs}); "
+              f"relative L2 vs fp64 {err:.3g}; peak memory {peak / 2**30:.3f} GiB "
+              f"({before / 2**30:.3f} before) on {smi}", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    profiles = {}
+    for name in ("fp32", "bf16"):  # the sampler's setting, and bf16 to see what holds it back
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            settings[name](z16)
+            torch.cuda.synchronize()
+        wall_ms = timed[name]["s_per_video"] * 1e3
+        kinds = print_profile(f"vae {name} decode", prof, wall_ms, VAE_KINDS)
+        _, busy, _ = device_ms_by_kind(prof)
+        profiles[name] = dict(device_ms_by_kind=kinds, busy_ms=busy, wall_ms=wall_ms,
+                              idle=1 - busy / wall_ms if busy else None)
+    vpm = 60.0 / ddim_s
+    print(f"  videos/min: {vpm:.3f} to latents (DDIM-50 {ddim_s:.4f} s, phase sampler), "
+          f"{timed['fp32']['videos_per_min_with_decode']:.3f} with the fp32 decode on {smi}", flush=True)
+    del vae, vae16
+    torch.cuda.empty_cache()
+    return dict(
+        frames=list(frames.shape), launches=launches, tc_launches=tc,
+        vec_launches=vec, decode_rel_l2=dec["rel_l2"], uint8_equal_share=equal,
+        encode_rel_l2={k: e["rel_l2"] for k, e in enc.items()}, settings=timed,
+        profiles=profiles, ddim_s=ddim_s, videos_per_min=vpm,
+        videos_per_min_with_decode=timed["fp32"]["videos_per_min_with_decode"], device=smi,
+    )
 
 
 def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str) -> dict:
@@ -1753,6 +1932,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {kind} (count {count}); torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
+    import cv2  # the sampler's mp4 writer
+
+    print(f"  cv2 {cv2.__version__}", flush=True)
     phase("device", t0)
 
     t0 = time.perf_counter()
@@ -1888,6 +2070,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("sampler", t0)
 
+        # 5b. the entry point to decoded frames, and the VAE at full width
+        t0 = time.perf_counter()
+        vae_run = vae_phase(tmp, ckpt, lat_bf16, kernel_s, device, smi)
+        phase("vae", t0)
+
         # 7c. the entry point in int8, from the same checkpoint
         t0 = time.perf_counter()
         int8_run = int8_sampler(tmp, ckpt, lat_bf16, kernel_s, device, smi)
@@ -1914,6 +2101,8 @@ def main() -> int:
                                       quant_train=quant), default=str), flush=True)
     print("int8: " + json.dumps(dict(kernel_fp32=int8_fp32, forward=int8_fwd, sampler=int8_run),
                                 default=str), flush=True)
+
+    print("vae: " + json.dumps(vae_run, default=str), flush=True)
 
     kernels = []
     for name, k in KERNELS.items():

@@ -2,7 +2,8 @@
 
 The JAX package ``latte_tpu`` stays the reference; this package mirrors its
 layout (``config``, ``models``, ``kernels``, ``core``, ``quant``,
-``sample``, ``train``, ``data``) so each module has a counterpart there.
+``sample``, ``train``, ``data``, ``vae``) so each module has a counterpart
+there.
 Every Pallas kernel of the JAX package is a CUDA C++ kernel under ``csrc/``,
 built with nvcc at first use and bound with ctypes (``kernels/build.py``).
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.

@@ -20,10 +20,17 @@ permutation of its output channels), ``kernel_scale`` (1, out) becomes
 attention's ``{q,k,v}_scale`` keep their names. :func:`flax_calib_to_amax`
 carries the ``"calib"`` collection of a JAX calibration run onto the keys of
 ``latte_tpu_torch.quant.calibrate_act_amax``.
+
+The SD VAE: :func:`flax_vae_to_state_dict` carries the JAX VAE's params onto
+the port's (diffusers') keys, the inverse of
+``latte_tpu/tools/convert_vae.py``'s ``convert_vae_state_dict``, and
+:func:`load_vae_state_dict` reads a diffusers ``AutoencoderKL`` state dict,
+the legacy attention names included.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -35,6 +42,8 @@ __all__ = [
     "flax_calib_to_amax",
     "load_flax_params",
     "load_reference_checkpoint",
+    "flax_vae_to_state_dict",
+    "load_vae_state_dict",
 ]
 
 # frozen sincos tables in reference checkpoints; the port recomputes them
@@ -168,3 +177,64 @@ def load_reference_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, t
     if isinstance(ckpt, dict) and ("ema" in ckpt or "model" in ckpt):
         ckpt = ckpt["ema"] if prefer_ema and "ema" in ckpt else ckpt["model"]
     return {k: v for k, v in ckpt.items() if k not in FROZEN_BUFFERS}
+
+
+# the JAX VAE's module names -> diffusers' (the port's), one path segment at a time
+_VAE_NAMES = (
+    (re.compile(r"^(down|up)_blocks_(\d+)_resnets_(\d+)$"), r"\1_blocks.\2.resnets.\3"),
+    (re.compile(r"^down_blocks_(\d+)_downsample$"), r"down_blocks.\1.downsamplers.0"),
+    (re.compile(r"^up_blocks_(\d+)_upsample$"), r"up_blocks.\1.upsamplers.0"),
+    (re.compile(r"^mid_resnet_(\d+)$"), r"mid_block.resnets.\1"),
+    (re.compile(r"^mid_attn$"), "mid_block.attentions.0"),
+    (re.compile(r"^to_out$"), "to_out.0"),
+)
+# Dense layers of the JAX VAE that are 1x1 convs in diffusers
+_VAE_1X1 = ("quant_conv", "post_quant_conv")
+# diffusers < 0.18 names of the attention projections, stored as 1x1 convs
+_VAE_LEGACY_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+
+
+def flax_vae_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX VAE's params (the tree under ``"params"``; a submodule's tree
+    works too) -> the port's state dict: conv kernels (kh, kw, I, O) ->
+    (O, I, kh, kw), Dense kernels (I, O) -> (O, I) (attention) or
+    (O, I, 1, 1) (quant convs), GroupNorm ``scale`` -> ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for key, v in tree.items():
+            if isinstance(v, Mapping):
+                name = key
+                for pattern, repl in _VAE_NAMES:
+                    name = pattern.sub(repl, name)
+                walk(v, path + [name])
+                continue
+            a = np.asarray(v)
+            if key == "kernel" and a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif key == "kernel":
+                a = a.T[:, :, None, None] if path[-1] in _VAE_1X1 else a.T
+            name = {"kernel": "weight", "scale": "weight"}.get(key, key)
+            sd[".".join(path + [name])] = _tensor(np.ascontiguousarray(a))
+
+    walk(params, [])
+    return sd
+
+
+def load_vae_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``torch.load``-able diffusers ``AutoencoderKL`` state dict (or one
+    under ``"state_dict"``) -> the port's keys. Legacy attention names
+    (``query``/``key``/``value``/``proj_attn``) are renamed, and attention
+    projections stored as 1x1 convs (O, I, 1, 1) become (O, I)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    out = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        if ".attentions." in key and parts[-2] in _VAE_LEGACY_ATTN:
+            key = ".".join(parts[:-2] + [_VAE_LEGACY_ATTN[parts[-2]], parts[-1]])
+        if ".attentions." in key and v.dim() == 4:
+            v = v[:, :, 0, 0]
+        out[key] = v
+    return out

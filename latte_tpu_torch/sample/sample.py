@@ -2,10 +2,15 @@
 
 Builds the model from a config, loads a reference-format checkpoint (or
 initialises it from a seed when ``ckpt`` is null), runs the respaced DDPM or
-DDIM loop and saves the latents as ``<save_video_path stem>_latents.npz``.
-Decoding latents to frames (a configured VAE) comes with a later slice and
-raises ``NotImplementedError`` here, as do the block-cache sampler
-(``block_cache_interval``) and tensor-parallel serving (``tensor_parallel``).
+DDIM loop, decodes the latents with the SD VAE and writes the frames to
+``save_video_path`` as an mp4 at 8 fps (OpenCV). The VAE comes from ``vae:
+tiny`` or ``vae_ckpt: random`` (seeded random weights: a tiny VAE or the full
+SD architecture) or from ``vae_ckpt``, a diffusers ``AutoencoderKL`` state
+dict (``diffusion_pytorch_model.bin``). With no VAE configured, or a
+``vae_ckpt`` that does not exist, it saves the latents as ``<save_video_path
+stem>_latents.npz`` instead, as the JAX sampler does. The block-cache
+sampler (``block_cache_interval``) and tensor-parallel serving
+(``tensor_parallel``) raise ``NotImplementedError``.
 
 W8A8 int8 serving, as in the JAX sampler: ``quantized: true`` quantizes the
 fp32 weights once (dynamic per-token activation scales); ``quantized:
@@ -31,12 +36,13 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.config import Config, load_config
-from latte_tpu_torch.convert import load_reference_checkpoint
+from latte_tpu_torch.convert import load_reference_checkpoint, load_vae_state_dict
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
 from latte_tpu_torch.models import Latte, get_models
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
-from latte_tpu_torch.utils import create_logger, resolve_device
+from latte_tpu_torch.utils import create_logger, resolve_device, save_video, to_uint8
+from latte_tpu_torch.vae import AutoencoderKL, make_decode_fn, tiny_vae
 
 CALIBRATION_TIMESTEPS = (999, 500, 0)
 
@@ -44,7 +50,8 @@ CALIBRATION_TIMESTEPS = (999, 500, 0)
 def check_config(config: Config) -> None:
     """Raise ``NotImplementedError`` for a sampler option this port does not
     carry yet. (``block_cache_pairs`` does nothing without the interval, and
-    ``loop_mode`` is a JAX compile hint.)"""
+    ``loop_mode`` is a JAX compile hint. A ``vae_ckpt`` directory is refused
+    by :func:`load_vae`.)"""
     if int(getattr(config, "block_cache_interval", 0) or 0) > 1:
         raise NotImplementedError(
             f"block_cache_interval={config.block_cache_interval}: not ported yet; comes "
@@ -159,13 +166,58 @@ def sample_latents(
     return latents[:n]
 
 
+def load_vae(config: Config, device: torch.device) -> Optional[AutoencoderKL]:
+    """The configured VAE, fp32, on ``device``, or ``None`` when there is none.
+
+    ``vae: tiny`` and ``vae_ckpt: random`` give seeded random weights (a tiny
+    VAE, or the full SD architecture) from ``torch.Generator`` seed 0; a
+    ``vae_ckpt`` file is a diffusers ``AutoencoderKL`` state dict, loaded with
+    ``strict=True``. A ``vae_ckpt`` that does not exist gives ``None`` with a
+    warning, as in the JAX sampler; a directory (the JAX package's orbax
+    VAE, or a diffusers model folder) raises ``NotImplementedError``."""
+    vae_ckpt = str(getattr(config, "vae_ckpt", None) or "")
+    tiny = str(getattr(config, "vae", "") or "") == "tiny"
+    if not tiny:
+        if not vae_ckpt:
+            return None
+        if vae_ckpt != "random" and not os.path.exists(vae_ckpt):
+            create_logger().info(f"WARNING: vae_ckpt {vae_ckpt!r} does not exist — saving latents")
+            return None
+        if os.path.isdir(vae_ckpt):
+            raise NotImplementedError(
+                f"vae_ckpt {vae_ckpt!r} is a directory; the port reads a diffusers AutoencoderKL "
+                "state dict file. For the JAX package's orbax VAE, convert its params in a "
+                "process that has JAX with latte_tpu_torch.convert.flax_vae_to_state_dict and "
+                "torch.save the state dict it returns; for a diffusers model folder, give its "
+                "diffusion_pytorch_model.bin"
+            )
+    with torch.device(device):
+        vae = tiny_vae() if tiny else AutoencoderKL()
+    if tiny or vae_ckpt == "random":
+        vae.initialize_weights(torch.Generator(device=device).manual_seed(0))
+    else:
+        vae.load_state_dict(load_vae_state_dict(vae_ckpt), strict=True)
+    return vae.eval()
+
+
+def decode_video(vae: AutoencoderKL, latents: torch.Tensor) -> np.ndarray:
+    """The first video of ``latents`` (B, F, 4, h, w) as uint8 frames
+    (F, H, W, 3): all B·F frames decoded in one batch at fp32 (the JAX
+    sampler's decode), after dividing by the VAE's scaling factor."""
+    b, f = latents.shape[:2]
+    flat = latents.reshape(b * f, *latents.shape[2:]).float() / vae.scaling_factor
+    video = make_decode_fn(vae)(flat)  # (b·f, 3, H, W)
+    video = video.reshape(b, f, *video.shape[1:]).permute(0, 1, 3, 4, 2)
+    return to_uint8(video[0].float().cpu().numpy())
+
+
 def main(config: Config, device: Optional[str] = None) -> str:
-    """Sample one video's latents; return the path of the saved ``.npz``."""
+    """Sample one video; return the path of the written mp4, or of the saved
+    ``_latents.npz`` when no VAE is configured."""
     logger = create_logger()
     check_config(config)
-    if str(getattr(config, "vae", "") or "") or getattr(config, "vae_ckpt", None):
-        raise NotImplementedError("VAE decode: next slice")
     dev = resolve_device(device)
+    vae = load_vae(config, dev)
     model = build_model(config, dev)
     if not getattr(config, "ckpt", None):
         logger.info("WARNING: no checkpoint given — sampling from random init")
@@ -181,6 +233,13 @@ def main(config: Config, device: Optional[str] = None) -> str:
     logger.info(f"sampled in {time.perf_counter() - t0:.2f}s on {dev}")
 
     out_path = getattr(config, "save_video_path", None) or "./sample_videos/sample.mp4"
+    if vae is not None:
+        t0 = time.perf_counter()
+        frames = decode_video(vae, latents)  # ends in a copy to the host
+        logger.info(f"decoded {len(frames)} frames in {time.perf_counter() - t0:.2f}s on {dev}")
+        save_video(out_path, frames, fps=8)
+        logger.info(f"saved video to {out_path}")
+        return out_path
     out_path = os.path.splitext(out_path)[0] + "_latents.npz"
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     np.savez(out_path, latents=latents.float().cpu().numpy())

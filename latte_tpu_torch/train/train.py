@@ -80,15 +80,18 @@ def check_config(config: Config) -> None:
             "text-conditioned training come with the T2V/image slice"
         )
     if str(getattr(config, "synthetic_kind", "latents") or "latents") != "latents":
-        raise NotImplementedError("synthetic_kind: pixels needs the VAE encoder (the VAE slice)")
+        raise NotImplementedError(
+            "synthetic_kind: pixels: not ported yet; comes with the pixel-training slice "
+            "(the VAE encoder is ported, the pixel data path is not)"
+        )
 
 
 def make_batch_iterator(
     config: Config, logger, batch_size: int
 ) -> Tuple[Iterator[Dict[str, np.ndarray]], str]:
     """A latent cache when ``data_path`` holds one, else synthetic latents
-    from ``global_seed``; a dataset of videos raises (it needs the VAE
-    encoder)."""
+    from ``global_seed``; a dataset of videos raises (the pixel data path
+    is not ported)."""
     from latte_tpu_torch.data import DataLoader, LatentCacheDataset, is_latent_cache
 
     data_path = str(getattr(config, "data_path", "") or "")
@@ -115,8 +118,8 @@ def make_batch_iterator(
         return iter(loader), "latents_cached"
     if os.path.isdir(data_path):
         raise NotImplementedError(
-            f"data_path {data_path!r} holds videos: encoding them needs the VAE encoder, "
-            "which comes with the VAE slice (a latent cache trains now)"
+            f"data_path {data_path!r} holds videos: the video dataset and its transforms come "
+            "with the pixel-training slice (a latent cache trains now)"
         )
     logger.info("data_path missing — using synthetic latent batches")
     rng = np.random.default_rng(seed)

@@ -1,5 +1,5 @@
-"""Logging, experiment directories and device choice for the port's entry
-points (counterpart of ``latte_tpu/utils.py``)."""
+"""Logging, experiment directories, device choice and video writing for the
+port's entry points (counterpart of ``latte_tpu/utils.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import logging
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -50,3 +51,24 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' (--device cpu) to run on the CPU"
         )
     return dev
+
+
+def save_video(path: str, video: np.ndarray, fps: int = 8) -> None:
+    """Write (F, H, W, 3) uint8 RGB frames to mp4 (OpenCV, ``mp4v``)."""
+    import cv2
+
+    if video.ndim != 4 or video.shape[-1] != 3:
+        raise ValueError(f"expected (F, H, W, 3) frames, got {video.shape}")
+    h, w = video.shape[1:3]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    try:
+        for frame in video:
+            writer.write(np.ascontiguousarray(frame[:, :, ::-1]))  # RGB->BGR
+    finally:
+        writer.release()
+
+
+def to_uint8(video: np.ndarray) -> np.ndarray:
+    """[-1, 1] float video -> uint8 (truncating, as the JAX package does)."""
+    return (np.clip((video + 1.0) / 2.0, 0, 1) * 255).astype(np.uint8)

@@ -1,7 +1,8 @@
 """The port's entry point and package boundary: the config loader on the
 shipped ffs config, the sampler CLI on the CPU (only when asked for it), the
-reference checkpoint path, and that neither the package nor chip_smoke.py
-imports JAX or anything of latte_tpu. Everything written goes to tmp_path.
+reference checkpoint path, the VAE decode to an mp4, and that neither the
+package nor chip_smoke.py imports JAX or anything of latte_tpu. Everything
+written goes to tmp_path.
 """
 
 import os
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from latte_tpu.config import load_config as jax_load_config
+from latte_tpu.utils import read_video
 from latte_tpu_torch.config import load_config
 from latte_tpu_torch.sample import sample
 
@@ -38,6 +40,7 @@ def test_port_imports_no_jax_and_nothing_of_latte_tpu():
         "for m in pkgutil.walk_packages(latte_tpu_torch.__path__, 'latte_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "assert 'latte_tpu_torch.vae.autoencoder_kl' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latte_tpu'))\n"
         "print(len([m for m in sys.modules if m.startswith('latte_tpu_torch')]), bad)\n"
     )
@@ -90,9 +93,11 @@ def test_reference_checkpoint_and_vae_guard(tmp_path):
     cfg.ckpt = str(tmp_path / "missing.pt")
     with pytest.raises(FileNotFoundError):
         sample.main(cfg, device="cpu")
+    # the full SD VAE from a seed decodes the 4x4 latents to 32x32 frames
     cfg.ckpt, cfg.vae_ckpt = None, "random"
-    with pytest.raises(NotImplementedError, match="VAE decode"):
-        sample.main(cfg, device="cpu")
+    path = sample.main(cfg, device="cpu")
+    assert path == str(tmp_path / "v.mp4")
+    assert read_video(path).shape == (2, 32, 32, 3)
 
 
 def test_checkpoint_directory_names_the_conversion(tmp_path):
@@ -165,3 +170,81 @@ def test_static_int8_sampler_matches_the_jax_sampler(tmp_path, int8_overrides):
     want = fn(jnp.asarray(z.numpy()), None, jax.random.PRNGKey(1))
     assert got.shape == (1, 2, 4, 4, 4) and np.isfinite(got).all()
     close(got, want, 2e-2, 5e-2)
+
+
+def test_tiny_vae_decode_matches_the_jax_decode(tmp_path):
+    """``vae: tiny``: the port's decode (make_decode_fn, then decode_video's
+    uint8 frames) against the JAX sampler's (make_decode_fn(tiny_vae(),
+    params), then to_uint8) on the same latents, the JAX params carried
+    across; then the entry point writes the mp4. Float frames within
+    test_torch_vae.py's fp32 limits; uint8 frames equal on >= 99.9% of
+    values (a float a few ulp from a multiple of 1/255 may truncate to the
+    neighbouring integer)."""
+    import jax.numpy as jnp
+    from test_torch_vae import perturbed_params
+    from torch_port_util import close
+
+    from latte_tpu.utils import to_uint8 as jax_to_uint8
+    from latte_tpu.vae import make_decode_fn as jax_make_decode_fn
+    from latte_tpu.vae.autoencoder_kl import tiny_vae as jax_tiny_vae
+    from latte_tpu_torch.convert import flax_vae_to_state_dict
+    from latte_tpu_torch.vae import make_decode_fn
+
+    cfg = load_config(FFS, TINY + ["vae=tiny", f"save_video_path={tmp_path}/v.mp4"])
+    vae = sample.load_vae(cfg, torch.device("cpu"))
+    jm = jax_tiny_vae()
+    params = perturbed_params(jm, jnp.zeros((1, 3, 16, 16)), seed=13)
+    vae.load_state_dict(flax_vae_to_state_dict(params), strict=True)
+    latents = torch.from_numpy(np.random.default_rng(13).standard_normal((1, 2, 4, 4, 4)).astype(np.float32))
+
+    flat = latents.reshape(2, 4, 4, 4) / 0.18215
+    want = np.asarray(jax_make_decode_fn(jm, {"params": params})(jnp.asarray(flat.numpy())))
+    close(make_decode_fn(vae)(flat), want)
+    frames = sample.decode_video(vae, latents)
+    want_u8 = jax_to_uint8(want.transpose(0, 2, 3, 1))
+    assert frames.dtype == np.uint8 and frames.shape == want_u8.shape == (2, 8, 8, 3)
+    assert (frames == want_u8).mean() >= 0.999
+
+    path = sample.main(cfg, device="cpu")
+    assert path == str(tmp_path / "v.mp4") and read_video(path).shape == (2, 8, 8, 3)
+
+
+def test_missing_vae_checkpoint_saves_latents_with_a_warning(tmp_path, capsys):
+    """As the JAX sampler does: a vae_ckpt that names no file gives latents."""
+    missing = tmp_path / "no_vae.bin"
+    cfg = load_config(FFS, TINY + [f"vae_ckpt={missing}", f"save_video_path={tmp_path}/v.mp4"])
+    path = sample.main(cfg, device="cpu")
+    assert path == str(tmp_path / "v_latents.npz") and np.load(path)["latents"].shape == (1, 2, 4, 4, 4)
+    err = capsys.readouterr().err
+    assert "WARNING" in err and str(missing) in err
+
+
+def test_vae_checkpoint_directory_names_the_conversion(tmp_path):
+    """A vae_ckpt directory (the JAX package's orbax VAE, or a diffusers
+    folder) is refused before sampling, naming both ways to a state dict."""
+    (tmp_path / "vae").mkdir()
+    cfg = load_config(FFS, TINY + [f"vae_ckpt={tmp_path / 'vae'}", f"save_video_path={tmp_path}/v.mp4"])
+    with pytest.raises(NotImplementedError, match="flax_vae_to_state_dict.*diffusion_pytorch_model.bin"):
+        sample.main(cfg, device="cpu")
+    assert not (tmp_path / "v.mp4").exists() and not (tmp_path / "v_latents.npz").exists()
+
+
+def test_vae_checkpoint_file_in_diffusers_keys_loads_strictly(tmp_path):
+    """A .pt state dict in diffusers' AutoencoderKL keys (the full SD
+    architecture, stored in fp16 as released VAEs often are) loads with
+    strict=True and decodes; the loaded weights are the saved ones."""
+    from latte_tpu_torch.vae import AutoencoderKL
+
+    ref = AutoencoderKL()
+    ref.initialize_weights(torch.Generator().manual_seed(14))
+    sd = {k: v.half() for k, v in ref.state_dict().items()}
+    assert "decoder.up_blocks.0.upsamplers.0.conv.weight" in sd
+    assert "encoder.mid_block.attentions.0.to_out.0.weight" in sd
+    torch.save(sd, tmp_path / "diffusion_pytorch_model.bin")
+    cfg = load_config(FFS, TINY + [f"vae_ckpt={tmp_path / 'diffusion_pytorch_model.bin'}",
+                                   f"save_video_path={tmp_path}/v.mp4"])
+    vae = sample.load_vae(cfg, torch.device("cpu"))
+    for k, v in vae.state_dict().items():
+        assert v.dtype == torch.float32 and torch.equal(v, sd[k].float()), k
+    path = sample.main(cfg, device="cpu")
+    assert read_video(path).shape == (2, 32, 32, 3)
