@@ -90,6 +90,19 @@ non-zero exit and a traceback:
    6), then alternating pairs of steps against the CUDA-core backward
    forced (``backward_route`` patched for the step);
    (d) two steps with quant_train: true (int8 training) at batch 1;
+   (e) pixel train: ``train.main`` on ffs_train.yaml (fp32, batch 5) from a
+   folder of 6 mp4s of 64 frames at 320x288 written from a numpy seed,
+   with ``vae_ckpt: random``: the uint8 clips VAE-encoded inside every step.
+   Six steps: finite losses and grad norms, 6 x STEP_LAUNCHES launches on
+   the fp32 routes (the encode adds none), s/step (median of steps 3-5),
+   the encode's share of the profiled step 6's device time (the kernels
+   under the trainer's ``vae_encode`` range), peak memory and the host time
+   the loop waited on the loader; then ``tools.cache_latents`` writes the
+   folder's latent cache, one step from five clips through the fused encode
+   is held against one from their cached moments (same weights and
+   generator seed; losses within 1e-5 relative), and two steps each run
+   from the cache and from ``synthetic_kind: pixels``. Prints a
+   ``pixel_train: {...}`` line;
 7. int8: (a) the int8 flash-attention kernels against their plain version
    in bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
    N = 2048 (two scale blocks), in both P.V modes (pv_int8 on the
@@ -113,7 +126,8 @@ non-zero exit and a traceback:
    steps with quantized: true and with int8_attention: qk under
    attention_mode: auto.
 
-Prints the vae phase's JSON line (``vae: {...}``), the kernels' JSON line and
+Prints the vae and pixel train phases' JSON lines (``vae: {...}``,
+``pixel_train: {...}``), the kernels' JSON line and
 ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a GPU: without one it exits non-zero and prints no result. What
@@ -163,7 +177,7 @@ from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_param
 from latte_tpu_torch.sample import sample
 from latte_tpu_torch.train import train
 from latte_tpu_torch.train.callbacks import Callback
-from latte_tpu_torch.utils import to_uint8
+from latte_tpu_torch.utils import save_video, to_uint8
 from latte_tpu_torch.vae import cudnn_tf32, make_decode_fn
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -1905,6 +1919,190 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
                 steps_per_s=1 / s_step, step_seconds=secs, peak_gib=peak_gib, **pairs)
 
 
+# phase 6e: the folder of mp4s the pixel trainer reads: 6 videos of 64 frames
+# at 320x288 (W x H), so the ffs stack really resizes (the shorter side 288 ->
+# 256) and the temporal crop of 16 x frame_interval 3 = 48 frames can move
+PIXEL_VIDEOS, PIXEL_VIDEO_FRAMES, PIXEL_H, PIXEL_W = 6, 64, 288, 320
+PIXEL_LOSS_REL = 1e-5  # the fused-encode step's loss against the latent-cache step's
+PIXEL_SHORT_STEPS = 2  # the runs from the cache and from synthetic pixels
+
+
+def write_pixel_videos(folder: str) -> None:
+    """PIXEL_VIDEOS mp4s from a numpy seed (``utils.save_video``): noise at
+    1/16 of the size, blown up, so the codec keeps the frames apart."""
+    rng = np.random.default_rng(11)
+    for i in range(PIXEL_VIDEOS):
+        small = rng.integers(0, 256, size=(PIXEL_VIDEO_FRAMES, PIXEL_H // 16, PIXEL_W // 16, 3), dtype=np.uint8)
+        save_video(os.path.join(folder, f"{i:03d}.mp4"), small.repeat(16, axis=1).repeat(16, axis=2))
+
+
+class TimedBatches:
+    """The trainer's batch iterator, with the host seconds that each
+    ``next`` blocked the step loop (``waits[i]``: step i + 1)."""
+
+    def __init__(self, batches):
+        self.batches, self.waits = batches, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.batches)
+        self.waits.append(time.perf_counter() - t0)
+        return batch
+
+
+def run_timed(config, callbacks) -> tuple:
+    """``train.main(config)`` with its batch iterator timed; returns its
+    result, the data kind and the TimedBatches."""
+    real, seen = train.make_batch_iterator, []
+
+    def timed(*args):
+        batches, kind = real(*args)
+        seen.append((TimedBatches(batches), kind))
+        return seen[-1]
+
+    train.make_batch_iterator = timed
+    try:
+        out = train.main(config, callbacks=callbacks)  # on cuda by default
+    finally:
+        train.make_batch_iterator = real
+    return out, seen[0][1], seen[0][0]
+
+
+def encode_device_ms(prof) -> float:
+    """Device ms of the kernels launched under the trainer's
+    ``record_function("vae_encode")`` range (the fused encode)."""
+    total = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        parent = ev
+        while parent is not None and parent.name != "vae_encode":
+            parent = parent.cpu_parent
+        if parent is not None:
+            total += sum(k.duration for k in ev.kernels) / 1e3
+    return total
+
+
+def check_pixel_launches(label: str, steps: int) -> dict:
+    """``steps`` train steps' launches, all attention on the fp32 routes and
+    every adaLN launch on the vector route; the encode adds none."""
+    launches = counts()
+    check_tc(label, 0, f32=steps * STEP_LAUNCHES["flash_attention"])
+    check_vec(label)
+    check_bwd_routes(label, tc=0, f32=steps * DEPTH)
+    if launches != {k: steps * c for k, c in STEP_LAUNCHES.items()}:
+        raise AssertionError(f"{label}: expected {steps} x {STEP_LAUNCHES} launches, got {launches}")
+    return launches
+
+
+def pixel_step_parity(cfg, cache: str, device) -> dict:
+    """One ffs_train step from the first five clips of the dataset through
+    the fused encode, and one from their moments in the cache that
+    ``tools.cache_latents`` wrote, from the same weights and generator seed:
+    the losses within PIXEL_LOSS_REL. A fresh dataset from the same seed
+    draws the clips the writer's ordered walk drew."""
+    from latte_tpu_torch.data import LatentCacheDataset, get_dataset
+    from latte_tpu_torch.models import get_models
+    from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+    from latte_tpu_torch.train.step import make_train_step
+
+    batch = int(cfg.local_batch_size)
+    dataset, cached = get_dataset(cfg), LatentCacheDataset(cache)
+    video = torch.from_numpy(np.stack([dataset[i]["video"] for i in range(batch)])).to(device)
+    moments = {k: torch.from_numpy(np.stack([cached[i][k] for i in range(batch)])).to(device)
+               for k in ("latent_mean", "latent_std")}
+    encode = train.build_encode_fn(cfg, device)
+    with torch.device(device):
+        model = get_models(cfg)
+    randomize_(model, seed=4)
+    weights = copy.deepcopy(model.state_dict())
+    diffusion = create_diffusion("", diffusion_steps=1000)
+    losses = {}
+    for name, b, fn in (("fused", {"video": video}, encode), ("cached", moments, None)):
+        model.load_state_dict(weights)
+        state = create_train_state(model, make_optimizer(model), make_lr_schedule(1e-4))
+        step = make_train_step(diffusion, vae_scale=float(cfg.vae_scale), encode_fn=fn)
+        losses[name] = step(state, b, torch.Generator(device=device).manual_seed(21))["loss"].item()
+        del state
+    rel = abs(losses["fused"] - losses["cached"]) / abs(losses["cached"])
+    print(f"  fused-encode step vs latent-cache step, batch {batch}: losses {losses}, relative "
+          f"difference {rel} (limit {PIXEL_LOSS_REL})", flush=True)
+    if not (np.isfinite(losses["fused"]) and rel <= PIXEL_LOSS_REL):
+        raise AssertionError(f"the fused-encode loss departs from the latent-cache loss: {losses}")
+    return dict(losses=losses, rel_diff=rel)
+
+
+def pixel_train(tmp: str, smi: str, device) -> dict:
+    """Phase 6e: ``train.main`` on ffs_train.yaml (fp32, batch 5) from a
+    folder of mp4s with ``vae_ckpt: random``, the fused encode in every
+    step: TRAIN_STEPS steps, their launches, s/step (median of steps 3-5),
+    the encode's share of the profiled step 6, peak memory and the loader's
+    wait; then the fused-encode step against the latent-cache step, and two
+    steps each from that cache and from synthetic pixels."""
+    from latte_tpu_torch.tools import cache_latents
+
+    videos = os.path.join(tmp, "videos")
+    write_pixel_videos(videos)
+    base = [f"results_dir={tmp}/results", "log_every=1", "vae_ckpt=random"]
+    log = StepLog(profile_after=TRAIN_STEPS - 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, kind, timed = run_timed(load_config(FFS_TRAIN, base + [
+        f"data_path={videos}", f"max_train_steps={TRAIN_STEPS}"]), [log])
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = check_pixel_launches("pixel train", TRAIN_STEPS)
+    log.state = None
+    if kind != "real" or out["final_step"] != TRAIN_STEPS or not log.finite():
+        raise AssertionError(f"the pixel training run failed: {kind}, {out}, {log.records}")
+    secs = log.step_seconds()  # secs[i]: step i + 2
+    warm = secs[1:-1]  # steps 3-5; step 6 ran under the profiler
+    s_step = sorted(warm)[len(warm) // 2]
+    wait = timed.waits[2:5]
+    groups = print_profile("pixel train step", log.prof, secs[-1] * 1e3)
+    enc_ms, total_ms = encode_device_ms(log.prof), sum(groups.values())
+    share = enc_ms / total_ms if total_ms else None
+    shutil.rmtree(out["experiment_dir"])
+    print(f"  pixel train fp32 batch {TRAIN_BATCH}: {out}; step gaps (s) {secs}; median of steps 3-5 "
+          f"{s_step:.4f} s/step; loader waits (s) {timed.waits}; encode {enc_ms:.4f} of {total_ms:.4f} "
+          f"device ms in step {TRAIN_STEPS}; peak memory {peak_gib:.3f} GiB on {smi}", flush=True)
+
+    # the latent-cache writer, and its step against the fused one
+    cfg = load_config(FFS_TRAIN, base + [f"data_path={videos}", "cache_batch_size=5"])
+    t0 = time.perf_counter()
+    cache = cache_latents.main(cfg, os.path.join(tmp, "cache"))  # on cuda by default
+    cache_s = time.perf_counter() - t0
+    parity = pixel_step_parity(cfg, cache, device)
+    torch.cuda.empty_cache()
+
+    short = {}
+    for name, extra in (("cache", [f"data_path={cache}"]),
+                        ("synthetic_pixels", [f"data_path={tmp}/none", "synthetic_kind=pixels"])):
+        slog = StepLog()
+        reset_counts()
+        sout, skind, _ = run_timed(load_config(FFS_TRAIN, base + extra + [
+            f"max_train_steps={PIXEL_SHORT_STEPS}"]), [slog])
+        slaunches = check_pixel_launches(f"pixel train from {name}", PIXEL_SHORT_STEPS)
+        slog.state = None
+        print(f"  {PIXEL_SHORT_STEPS} steps from {name} ({skind}): {sout}", flush=True)
+        if sout["final_step"] != PIXEL_SHORT_STEPS or not slog.finite() or \
+                skind != {"cache": "latents_cached", "synthetic_pixels": "synthetic_pixels"}[name]:
+            raise AssertionError(f"the run from {name} failed: {skind}, {sout}, {slog.records}")
+        shutil.rmtree(sout["experiment_dir"])
+        short[name] = dict(losses=[r[2] for r in slog.records], launches=slaunches)
+        torch.cuda.empty_cache()
+    return dict(
+        s_per_step=s_step, step_seconds=secs, loader_wait_s=timed.waits, loader_wait_steps_3_5_s=wait,
+        encode_device_ms=enc_ms, step_device_ms=total_ms, encode_share=share,
+        device_ms_by_kind=groups, peak_gib=peak_gib, launches=launches,
+        losses=[r[2] for r in log.records], grad_norms=[r[3] for r in log.records],
+        cache_write_s=cache_s, parity=parity, short_runs=short, device=smi,
+    )
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     """One kernel's entry of the JSON line: its main-path launches and its
     measurements at the main path's shape (``row``)."""
@@ -2096,9 +2294,14 @@ def main() -> int:
         phase("train mixed precision", t0)
         t0 = time.perf_counter()
         quant = train_quant(tmp, smi)
-    phase("train int8", t0)
+        torch.cuda.empty_cache()
+        phase("train int8", t0)
+        t0 = time.perf_counter()
+        pixel = pixel_train(tmp, smi, device)
+    phase("pixel train", t0)
     print("train: " + json.dumps(dict(parity=parity, entry_point=entry, mixed_precision=mixed,
                                       quant_train=quant), default=str), flush=True)
+    print("pixel_train: " + json.dumps(pixel, default=str), flush=True)
     print("int8: " + json.dumps(dict(kernel_fp32=int8_fp32, forward=int8_fwd, sampler=int8_run),
                                 default=str), flush=True)
 

@@ -1,7 +1,9 @@
 """Threaded prefetching data loader on the host (port of
 ``latte_tpu/data/loader.py``): worker threads read samples while the GPU
 computes, and batches are collated to numpy. The port trains on one
-device, so every epoch walks the whole shuffled index space.
+device, so every epoch walks the whole shuffled index space. With
+``pixel_uint8`` the workers ship videos as uint8 (``quantize_video_u8``),
+a quarter of the fp32 bytes, and the train step dequantizes on the device.
 """
 
 from __future__ import annotations
@@ -23,10 +25,24 @@ def _collate(samples) -> Dict[str, np.ndarray]:
     return out
 
 
+def quantize_video_u8(video: np.ndarray) -> np.ndarray:
+    """fp32 [-1, 1] -> uint8 by round((x + 1) * 127.5).
+
+    Lossless on transform stacks without a resize (crop, flip): a source
+    pixel v becomes v / 127.5 - 1, which rounds back to v. A resize lands
+    off the uint8 grid, and the transport then moves a pixel by at most
+    0.5 / 127.5."""
+    return np.clip(np.rint((video + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
 class DataLoader:
     """Infinite shuffled loader with worker threads and bounded prefetch."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4, seed: int = 0):
+    def __init__(
+        self, dataset, batch_size: int, num_workers: int = 4, seed: int = 0,
+        pixel_uint8: bool = False,
+    ):
+        self.pixel_uint8 = pixel_uint8
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -59,6 +75,10 @@ class DataLoader:
                 continue
             try:
                 sample = self.dataset[i]
+                if self.pixel_uint8 and "video" in sample:
+                    # quantize on the worker thread, where it overlaps the step
+                    sample = dict(sample)
+                    sample["video"] = quantize_video_u8(sample["video"])
                 failures = 0
             except Exception as e:
                 # skip bad samples like the reference retry loops — but a

@@ -36,13 +36,13 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.config import Config, load_config
-from latte_tpu_torch.convert import load_reference_checkpoint, load_vae_state_dict
+from latte_tpu_torch.convert import load_reference_checkpoint
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
 from latte_tpu_torch.models import Latte, get_models
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.utils import create_logger, resolve_device, save_video, to_uint8
-from latte_tpu_torch.vae import AutoencoderKL, make_decode_fn, tiny_vae
+from latte_tpu_torch.vae import AutoencoderKL, build_vae, make_decode_fn
 
 CALIBRATION_TIMESTEPS = (999, 500, 0)
 
@@ -183,21 +183,7 @@ def load_vae(config: Config, device: torch.device) -> Optional[AutoencoderKL]:
         if vae_ckpt != "random" and not os.path.exists(vae_ckpt):
             create_logger().info(f"WARNING: vae_ckpt {vae_ckpt!r} does not exist — saving latents")
             return None
-        if os.path.isdir(vae_ckpt):
-            raise NotImplementedError(
-                f"vae_ckpt {vae_ckpt!r} is a directory; the port reads a diffusers AutoencoderKL "
-                "state dict file. For the JAX package's orbax VAE, convert its params in a "
-                "process that has JAX with latte_tpu_torch.convert.flax_vae_to_state_dict and "
-                "torch.save the state dict it returns; for a diffusers model folder, give its "
-                "diffusion_pytorch_model.bin"
-            )
-    with torch.device(device):
-        vae = tiny_vae() if tiny else AutoencoderKL()
-    if tiny or vae_ckpt == "random":
-        vae.initialize_weights(torch.Generator(device=device).manual_seed(0))
-    else:
-        vae.load_state_dict(load_vae_state_dict(vae_ckpt), strict=True)
-    return vae.eval()
+    return build_vae(vae_ckpt, device, tiny=tiny)
 
 
 def decode_video(vae: AutoencoderKL, latents: torch.Tensor) -> np.ndarray:

@@ -1,6 +1,6 @@
 """The training step (port of ``latte_tpu/train/step.py``, one device).
 
-q_sample -> model forward -> hybrid MSE + VB loss -> backward -> global
+[VAE encode of a pixel batch ->] q_sample -> model forward -> hybrid MSE + VB loss -> backward -> global
 grad norm (always reported) -> clipping once ``step >= start_clip_iter`` ->
 AdamW -> EMA every ``ema_every`` steps at ``decay**ema_every``.
 
@@ -10,14 +10,14 @@ the loop syncs only when it logs.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from latte_tpu_torch.core.diffusion import GaussianDiffusion
 from latte_tpu_torch.train.state import TrainState, update_ema
 
-__all__ = ["global_norm", "make_train_step"]
+__all__ = ["dequantize_video", "global_norm", "make_train_step"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -27,11 +27,28 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
-def _latents(batch: Batch, generator: torch.Generator, vae_scale: float) -> torch.Tensor:
+def dequantize_video(video: torch.Tensor) -> torch.Tensor:
+    """uint8 transport -> fp32 [-1, 1] on the device (the inverse of
+    ``data.loader.quantize_video_u8``); another dtype passes through."""
+    if video.dtype == torch.uint8:
+        return video.float() / 127.5 - 1.0
+    return video
+
+
+def _latents(
+    batch: Batch, generator: torch.Generator, vae_scale: float, encode_fn: Optional[Callable] = None
+) -> torch.Tensor:
+    if "video" in batch:
+        # pixels: the frozen VAE's encode and a posterior sample, scaled
+        if encode_fn is None:
+            raise ValueError("the batch holds pixels (\"video\") but the step has no encode_fn")
+        return encode_fn(dequantize_video(batch["video"]), generator)
     if "latent_mean" not in batch:
         return batch["latents"]
     # latent cache: a fresh posterior sample from the cached moments each
-    # step, drawn on the frame-flattened (B·F, C, h, w) layout
+    # step, drawn on the frame-flattened (B·F, C, h, w) layout, as the
+    # encode's posterior draws it: the same moments and generator give the
+    # same latents as the encode path
     mean, std = batch["latent_mean"], batch["latent_std"]
     flat = (mean.shape[0] * mean.shape[1],) + tuple(mean.shape[2:])
     eps = torch.randn(flat, generator=generator, device=mean.device, dtype=mean.dtype)
@@ -46,12 +63,16 @@ def make_train_step(
     clip_max_norm: float = 0.1,
     start_clip_iter: int = 0,
     vae_scale: float = 0.18215,
+    encode_fn: Optional[Callable] = None,
 ) -> Callable[[TrainState, Batch, torch.Generator], Dict[str, torch.Tensor]]:
     """Build ``train_step(state, batch, generator) -> metrics``, which updates
     ``state`` in place.
 
-    ``batch``: ``"latents"`` (B, F, C, H, W) fp32 (already scaled), or the
-    latent cache's ``"latent_mean"``/``"latent_std"``; optionally ``"t"``
+    ``batch``: ``"latents"`` (B, F, C, H, W) fp32 (already scaled), the
+    latent cache's ``"latent_mean"``/``"latent_std"``, or pixels,
+    ``"video"`` (B, F, 3, H, W) uint8 or fp32 in [-1, 1], which
+    ``encode_fn(video, generator) -> scaled latents`` turns into latents
+    (``train.build_encode_fn``); optionally ``"t"``
     (importance-sampled timesteps) with ``"t_weights"``, and ``"noise"``
     (the diffusion noise, else drawn from ``generator``). Draw order from
     the generator: posterior sample, t, noise.
@@ -59,7 +80,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
         model = state.model
-        latents = _latents(batch, generator, vae_scale)
+        latents = _latents(batch, generator, vae_scale, encode_fn)
         B = latents.shape[0]
         if "t" in batch:
             t = batch["t"].long()

@@ -1,8 +1,13 @@
 """Training entry point (port of ``latte_tpu/train/train.py``, one device).
 
 Builds the model, AdamW, the EMA and the diffusion from a config, feeds a
-latent cache or, when ``data_path`` does not exist, synthetic latents, and
-runs the training step (``train/step.py``): the kernels of
+latent cache, a dataset of videos or frames (``data/datasets.py``), or,
+when ``data_path`` does not exist, synthetic latents or pixels
+(``synthetic_kind``), and runs the training step (``train/step.py``).
+Pixel batches travel as uint8 and are VAE-encoded inside the step by the
+frozen VAE of ``vae_ckpt`` (``random``: the full SD VAE from a seed; else a
+diffusers state dict file), which is in neither the optimizer, the EMA nor
+the checkpoint. The kernels of
 ``latte_tpu_torch/kernels`` carry every attention and adaLN forward, and
 the flash-attention backward. It syncs with the host once per
 ``log_every`` steps, writes a checkpoint every ``ckpt_every`` steps and at
@@ -22,7 +27,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +48,9 @@ from latte_tpu_torch.train.checkpoint import (
 from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
 from latte_tpu_torch.train.step import make_train_step
 from latte_tpu_torch.utils import create_experiment_dir, create_logger, resolve_device
+from latte_tpu_torch.vae import build_vae, make_encode_fn
 
-__all__ = ["check_config", "make_batch_iterator", "main", "cli"]
+__all__ = ["build_encode_fn", "build_encode_fn_raw", "check_config", "make_batch_iterator", "main", "cli"]
 
 # config options of the JAX trainer that this slice does not port, with the
 # slice that brings each: (key, is it set?, later slice)
@@ -79,25 +85,70 @@ def check_config(config: Config) -> None:
             f"extras={extras}: the port trains the unconditional model only; class- and "
             "text-conditioned training come with the T2V/image slice"
         )
-    if str(getattr(config, "synthetic_kind", "latents") or "latents") != "latents":
-        raise NotImplementedError(
-            "synthetic_kind: pixels: not ported yet; comes with the pixel-training slice "
-            "(the VAE encoder is ported, the pixel data path is not)"
+
+
+def build_encode_fn(config: Config, device) -> Optional[Callable]:
+    """The fused VAE encode, or ``None`` when ``vae_ckpt`` is not set:
+    ``encode(video, generator) -> latents``, (B, F, 3, H, W) fp32 pixels in
+    [-1, 1] to a posterior sample (B, F, 4, H/8, W/8) times ``vae_scale``,
+    the frames encoded in one (B·F, 3, H, W) batch. ``encode.raw`` is the
+    posterior encoder on flat frames (``vae.make_encode_fn``), ``encode.vae``
+    the frozen VAE.
+
+    ``vae_ckpt: random`` is the full SD VAE with seeded random weights; a
+    file is a diffusers state dict (``vae.build_vae``). A path that does not
+    exist raises ``FileNotFoundError``, as the JAX trainer does (the sampler
+    falls back to latents instead)."""
+    vae_ckpt = str(getattr(config, "vae_ckpt", None) or "")
+    if not vae_ckpt:
+        return None
+    if vae_ckpt != "random" and not os.path.exists(vae_ckpt):
+        raise FileNotFoundError(
+            f"vae_ckpt {vae_ckpt!r} does not exist: give a diffusers AutoencoderKL state dict "
+            "file, or vae_ckpt: random for a smoke run"
         )
+    vae = build_vae(vae_ckpt, device).requires_grad_(False)
+    raw = make_encode_fn(vae)
+    scale = float(getattr(config, "vae_scale", 0.18215))
+
+    def encode(video: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        with torch.profiler.record_function("vae_encode"):
+            B, F = video.shape[:2]
+            post = raw(video.reshape(B * F, *video.shape[2:]))
+            z = post.sample(generator) * scale
+            return z.reshape(B, F, *z.shape[1:])
+
+    encode.raw, encode.vae = raw, vae
+    return encode
+
+
+def build_encode_fn_raw(config: Config, device) -> Callable:
+    """The frozen VAE of :func:`build_encode_fn` as a posterior encoder,
+    ``(N, 3, H, W) -> DiagonalGaussianDistribution``, for
+    ``tools/cache_latents.py``."""
+    encode = build_encode_fn(config, device)
+    if encode is None:
+        raise ValueError("latent caching needs vae_ckpt set in the config")
+    return encode.raw
 
 
 def make_batch_iterator(
     config: Config, logger, batch_size: int
 ) -> Tuple[Iterator[Dict[str, np.ndarray]], str]:
-    """A latent cache when ``data_path`` holds one, else synthetic latents
-    from ``global_seed``; a dataset of videos raises (the pixel data path
-    is not ported)."""
-    from latte_tpu_torch.data import DataLoader, LatentCacheDataset, is_latent_cache
+    """The batches and their kind, by what ``data_path`` holds: a latent
+    cache ("latents_cached"; a cache is a directory too, so it is tested
+    first), a dataset of videos or frames ("real", ``get_dataset``; uint8
+    pixels unless ``pixel_transport`` is not "uint8"), or nothing: synthetic
+    uint8 pixels (B, F, 3, S, S) with ``synthetic_kind: pixels``
+    ("synthetic_pixels"), else synthetic latents ("synthetic_latents"),
+    both from ``global_seed``."""
+    from latte_tpu_torch.data import DataLoader, LatentCacheDataset, get_dataset, is_latent_cache
 
     data_path = str(getattr(config, "data_path", "") or "")
     latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
     frames = int(getattr(config, "num_frames", 16))
     seed = int(getattr(config, "global_seed", 0))
+    num_workers = int(getattr(config, "num_workers", 4) or 4)
     if is_latent_cache(data_path):
         dataset = LatentCacheDataset(data_path)
         logger.info(
@@ -111,18 +162,29 @@ def make_batch_iterator(
                 f"{config.vae_scale}; using the cache's scale"
             )
         config.vae_scale = cache_scale
-        loader = DataLoader(
-            dataset, batch_size=batch_size,
-            num_workers=int(getattr(config, "num_workers", 4) or 4), seed=seed,
-        )
+        loader = DataLoader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed)
         return iter(loader), "latents_cached"
     if os.path.isdir(data_path):
-        raise NotImplementedError(
-            f"data_path {data_path!r} holds videos: the video dataset and its transforms come "
-            "with the pixel-training slice (a latent cache trains now)"
+        dataset = get_dataset(config)
+        logger.info(f"dataset {config.dataset}: {len(dataset)} videos")
+        loader = DataLoader(
+            dataset, batch_size=batch_size, num_workers=num_workers, seed=seed,
+            pixel_uint8=str(getattr(config, "pixel_transport", "uint8")) == "uint8",
         )
-    logger.info("data_path missing — using synthetic latent batches")
+        return iter(loader), "real"
     rng = np.random.default_rng(seed)
+    if str(getattr(config, "synthetic_kind", "latents")) == "pixels":
+        # the compute and transfer of the real-data path (uint8 video through
+        # the fused encode) without the host's decode and transforms
+        logger.info("data_path missing — using synthetic uint8 pixel batches")
+        size = int(config.image_size)
+
+        def synthetic_pixels():
+            while True:
+                yield {"video": rng.integers(0, 256, size=(batch_size, frames, 3, size, size), dtype=np.uint8)}
+
+        return synthetic_pixels(), "synthetic_pixels"
+    logger.info("data_path missing — using synthetic latent batches")
 
     def synthetic():
         while True:
@@ -200,7 +262,14 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
 
     local_batch = int(getattr(config, "local_batch_size", 5))
     batches, data_kind = make_batch_iterator(config, logger, local_batch)
-    if getattr(config, "vae_ckpt", None):
+    needs_encode = data_kind in ("real", "synthetic_pixels")
+    encode_fn = build_encode_fn(config, dev) if needs_encode else None
+    if needs_encode and encode_fn is None:
+        raise ValueError(
+            "the batches are raw pixels but no VAE is configured: set vae_ckpt to a diffusers "
+            "AutoencoderKL state dict file, or vae_ckpt: random for a smoke run"
+        )
+    if not needs_encode and getattr(config, "vae_ckpt", None):
         logger.info(f"{data_kind} batches: VAE encode skipped (latents direct)")
     diffusion = create_diffusion("", diffusion_steps=1000)
     train_step = make_train_step(
@@ -210,6 +279,7 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         clip_max_norm=float(getattr(config, "clip_max_norm", 0.1)),
         start_clip_iter=int(getattr(config, "start_clip_iter", 0) or 0),
         vae_scale=float(getattr(config, "vae_scale", 0.18215)),
+        encode_fn=encode_fn,
     )
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion

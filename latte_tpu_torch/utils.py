@@ -1,5 +1,5 @@
-"""Logging, experiment directories, device choice and video writing for the
-port's entry points (counterpart of ``latte_tpu/utils.py``)."""
+"""Logging, experiment directories, device choice and video reading and
+writing for the port's entry points (counterpart of ``latte_tpu/utils.py``)."""
 
 from __future__ import annotations
 
@@ -67,6 +67,26 @@ def save_video(path: str, video: np.ndarray, fps: int = 8) -> None:
             writer.write(np.ascontiguousarray(frame[:, :, ::-1]))  # RGB->BGR
     finally:
         writer.release()
+
+
+def read_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
+    """Read a video file into (F, H, W, 3) uint8 RGB frames (OpenCV); raises
+    ``IOError`` when no frame decodes."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok or (max_frames is not None and len(frames) >= max_frames):
+                break
+            frames.append(frame[:, :, ::-1])  # BGR->RGB
+    finally:
+        cap.release()
+    if not frames:
+        raise IOError(f"no frames decoded from {path}")
+    return np.stack(frames)
 
 
 def to_uint8(video: np.ndarray) -> np.ndarray:

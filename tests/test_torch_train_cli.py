@@ -161,16 +161,25 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
         "num_processes=2",
         "process_id=1",
         "extras=2",
-        "synthetic_kind=pixels",
         "remat_policy=dots",
-        "data_path=<videos>",
     ],
 )
 def test_unported_options_raise(tmp_path, override):
-    if override == "data_path=<videos>":  # a dataset of videos needs the VAE encoder
+    with pytest.raises(NotImplementedError):
+        train.main(_cfg(tmp_path, "max_train_steps=1", override), device="cpu")
+
+
+@pytest.mark.parametrize("override", ["synthetic_kind=pixels", "data_path=<videos>"])
+def test_pixel_data_without_what_it_needs_raises(tmp_path, override):
+    """Pixel data trains now (tests/test_torch_pixel_train.py): synthetic
+    pixels without a VAE raise ``ValueError``, an empty video folder
+    ``FileNotFoundError``."""
+    error, match = ValueError, "no VAE is configured"
+    if override == "data_path=<videos>":
         (tmp_path / "videos").mkdir()
         override = f"data_path={tmp_path}/videos"
-    with pytest.raises(NotImplementedError):
+        error, match = FileNotFoundError, "no videos under"
+    with pytest.raises(error, match=match):
         train.main(_cfg(tmp_path, "max_train_steps=1", override), device="cpu")
 
 
