@@ -12,11 +12,12 @@ non-zero exit and a traceback:
 2. build: the kernel library, one nvcc process per latte_tpu_torch/csrc/*.cu
    source, all at once, then one link; ptxas's registers, shared memory and
    spills of the tensor-core attention kernels (bf16 forward and backward,
-   int8), of the register-tiled fp32 forward and backward and of the adaLN
-   kernels (csrc/adaln.cu), and the count
+   int8 in both P.V modes), of the register-tiled fp32 forward and backward
+   and of the adaLN kernels (csrc/adaln.cu), and the count
    of HMMA (bf16) and IMMA (int8) tensor-core instructions in the
    tensor-core kernels' SASS where cuobjdump exists (none may spill, each
-   tensor-core kernel must have its instructions);
+   tensor-core kernel must have its instructions: the int8 "qk" kernels
+   IMMA and, in bf16 alone, HMMA);
 3. kernels: each forward CUDA kernel against its plain PyTorch version in
    bf16 at the sampler's spatial and temporal shapes, with its time, the
    plain version's, the bound from its bytes and operations and, for
@@ -103,17 +104,21 @@ non-zero exit and a traceback:
    generator seed; losses within 1e-5 relative), and two steps each run
    from the cache and from ``synthetic_kind: pixels``. Prints a
    ``pixel_train: {...}`` line;
-7. int8: (a) the int8 flash-attention kernels against their plain version
+7. int8: (a) the int8 flash-attention kernel against its plain version
    in bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
-   N = 2048 (two scale blocks), in both P.V modes (pv_int8 on the
-   tensor-core kernel, timed beside the dp4a kernel forced; "qk" on the
-   dp4a kernel), with the time of bf16 SDPA at the same shape as context
-   (it is no int8 yardstick: no PyTorch call computes int8 attention); then
-   at the same shapes in fp32, held tightly, where three deliberately wrong
-   kernels (a P scale per K tile or per row, no quantize of q/k/v) must
-   fail the same check, the two kernels held to each other, and, on inputs
-   where l has at most two terms, to each other and to the plain version to
-   the bit; (b) the full-width forward calibrated at
+   N = 2048 (two scale blocks), in both P.V modes, every case on the
+   tensor-core kernel (csrc/flash_attention_int8_tc.cu), timed beside the
+   dp4a kernel forced (held to the same limit), with the time of bf16 SDPA
+   at the same shape as context (it is no int8 yardstick: no PyTorch call
+   computes int8 attention); the "qk" mode also equal to the plain version
+   to the bit on all but 1% of the outputs, where the same kernel taking p
+   against each 32-key K tile's maximum must not be; then at the same
+   shapes in fp32, held tightly (the "qk" mode within 1e-6 of the largest
+   magnitude, and timed beside the dp4a kernel), where three deliberately
+   wrong kernels (a P scale per K tile or per row, no quantize of q/k/v)
+   must fail the same check, the two kernels held to each other, and, on
+   inputs where l has at most two terms, to each other and to the plain
+   version to the bit; (b) the full-width forward calibrated at
    three timesteps and served in static W8A8 with int8 attention, kernel
    path against the plain int8 path and the fp32 plain path, launch counts
    and a profile in which the int8 products and the quantize passes are
@@ -122,9 +127,11 @@ non-zero exit and a traceback:
    checkpoint as phase 5: launch counts (every int8 attention on the
    tensor cores), the int8 quality guard against the bf16 latents of phase
    5, the plain int8 path, int8 videos/min, alternating pairs against the
-   dp4a kernel forced (``int8_route`` patched for the run); then a few DDIM
-   steps with quantized: true and with int8_attention: qk under
-   attention_mode: auto.
+   dp4a kernel forced (``int8_route`` patched for the run); the same
+   DDIM-50 with int8_attention: qk under attention_mode: auto (the fused
+   rule, P.V in bf16): launches (every int8 attention on the tensor cores),
+   the quality guard and pairs against the dp4a kernel forced; then a few
+   DDIM steps with quantized: true.
 
 Prints the vae and pixel train phases' JSON lines (``vae: {...}``,
 ``pixel_train: {...}``), the kernels' JSON line and
@@ -275,8 +282,13 @@ INT8_SHAPES = {
     "t2v": (FRAMES, 1024, "flash"),
     "n2048": (4, 2048, "flash"),
 }
-# the route each P.V mode takes at head_dim 72 (int8_route)
-INT8_ROUTE = {"pv_int8": "tensor_core", "qk": "cuda_core"}
+# the int8 kernel's "qk" mode in fp32: within this share of the plain
+# version's largest magnitude (only the fp32 sums of l and P.V run in
+# another order)
+INT8_QK_FP32_TOL = 1e-6
+# keys of the int8 kernel's K tiles: the deliberately wrong "qk" control
+# takes p against the running maximum of each such tile
+INT8_TILE = 32
 INT8_ARCH = dict(input_size=32, num_frames=FRAMES, int8_attention=True, attention_mode="flash")
 # (rows of the block, tokens per row) on the main path at batch 1
 SHAPES = {"spatial": (FRAMES, TOKENS), "temporal": (TOKENS, FRAMES)}
@@ -416,7 +428,7 @@ def check_vec(label: str) -> dict:
 
 def check_int8_tc(label: str, expect: int) -> int:
     """The int8 attention's launches on the tensor-core route since the last
-    reset_counts(): every pv_int8 call, no "qk" one."""
+    reset_counts(): every call at head_dim 72, in both P.V modes."""
     got = flash_attention_int8.tc_launches
     print(f"  {label}: {got} tensor-core int8 attention launches (expected {expect})", flush=True)
     if got != expect:
@@ -675,17 +687,22 @@ def int8_inputs(rows: int, n: int, device, gen, dtype=torch.bfloat16):
     return q, k, v, [t.float().abs().amax(dim=(0, 1, 3)) for t in (q, k, v)]
 
 
-def int8_cases(rows: int, n: int, rule: str, device, gen) -> dict:
-    """The int8 kernel at one shape, both P.V modes, on bf16 inputs. The
-    bound reads q, k, v and writes o in bf16; QK^T is int8 and P.V int8
-    (pv_int8) or bf16 ("qk")."""
-    q, k, v, amax = int8_inputs(rows, n, device, gen)
+def int8_cases(rows: int, n: int, rule: str, device, gen, dtype=torch.bfloat16) -> dict:
+    """The int8 kernel at one shape, both P.V modes. The bound reads q, k, v
+    and writes o in ``dtype``; QK^T is int8 and P.V int8 (pv_int8) or in
+    ``dtype`` ("qk": bf16 on the tensor cores, fp32 on the CUDA cores).
+    ``tile_max`` ("qk", N > INT8_TILE): the kernel at scale blocks of one K
+    tile, p against the running maximum of each tile as a
+    FlashAttention-2-style online softmax takes it, a function the check
+    must tell apart."""
+    q, k, v, amax = int8_inputs(rows, n, device, gen, dtype)
     block = flash_scale_block(n) if rule == "flash" else None
     nbytes = 4 * rows * n * HEADS * HEAD_DIM * q.element_size()
     half_ops = 2 * rows * HEADS * n * n * HEAD_DIM  # QK^T or P.V
+    pv_rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     cases = {}
     for pv_int8, mode in ((True, "pv_int8"), (False, "qk")):
-        pv_s = 0.0 if pv_int8 else half_ops / BF16_FLOP_PER_S
+        pv_s = 0.0 if pv_int8 else half_ops / pv_rate
         cases[mode] = dict(
             run=lambda pv=pv_int8: flash_attention_int8(q, k, v, *amax, pv, block),
             plain=lambda pv=pv_int8: int8_attention(q, k, v, *amax, q.dtype, pv, block),
@@ -695,18 +712,33 @@ def int8_cases(rows: int, n: int, rule: str, device, gen) -> dict:
             route=int8_route(q, k, v, pv_int8, block),
             cuda_core=lambda pv=pv_int8: forced(attention_int8, "int8_route", flash_attention_int8,
                                                 q, k, v, *amax, pv, block),
+            tile_max=None if pv_int8 or n <= INT8_TILE else
+            lambda: flash_attention_int8(q, k, v, *amax, False, INT8_TILE),
+            inputs=(q, k, v), amax=amax,
         )
     sdpa = lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # noqa: E731
     return cases, sdpa
 
 
+def dp4a_ms(case: dict, timer) -> dict:
+    """The dp4a kernel (csrc/flash_attention_int8.cu, ``int8_route``
+    patched) at a case, timed with events and on the device."""
+    return dict(cuda_core_ms=timer.ms(case["cuda_core"]),
+                cuda_core_device_ms=timer.ms(case["cuda_core"], pad=True))
+
+
 def check_int8_kernel(device, timer) -> dict:
-    """Phase 7a: the int8 kernel against its plain version at INT8_SHAPES.
-    Tolerance 2^-6 of the largest magnitude, as for the bf16 kernels: the
-    int32 sums are exact on both sides, so the kernel and its plain version
-    differ only where exp rounds an ulp apart, where p·127 then sits on the
-    other side of a half-integer (one step of P moves a row by |v|/(127·l)),
-    and in the final bf16 rounding."""
+    """Phase 7a: the int8 kernel against its plain version at INT8_SHAPES,
+    every case on the tensor-core route and timed beside the dp4a kernel
+    forced, which is held to the same limit. Tolerance 2^-6 of the largest
+    magnitude, as for the bf16 kernels: the int32 sums are exact on both
+    sides, so the kernel and its plain version differ only where exp rounds
+    an ulp apart, where p·127 then sits on the other side of a half-integer
+    (one step of P moves a row by |v|/(127·l)), and in the final bf16
+    rounding. The "qk" mode rounds p itself to bf16, as its plain version
+    does, and sums P.V in fp32, so its output also equals the plain
+    version's to the bit on all but TILED_SHARE_APART; its tile_max control
+    (p against each K tile's running maximum) must not."""
     gen = torch.Generator(device=device).manual_seed(5)
     results = {}
     for shape, (rows, n, rule) in INT8_SHAPES.items():
@@ -717,20 +749,41 @@ def check_int8_kernel(device, timer) -> dict:
             tc_before = flash_attention_int8.tc_launches
             r = measure(INT8, label, case, BF16_TOL, timer)
             r["sdpa_bf16_ms"], r["route"] = sdpa_ms, case["route"]
-            moved, want = flash_attention_int8.tc_launches - tc_before, INT8_ROUTE[mode]
+            moved = flash_attention_int8.tc_launches - tc_before
             print(f"  {INT8} {label}: route {case['route']}, {moved} tensor-core launches", flush=True)
-            if case["route"] != want or (moved > 0) != (want == "tensor_core"):
+            if case["route"] != "tensor_core" or moved == 0:
                 raise AssertionError(f"{INT8} {label}: route {case['route']} with {moved} "
-                                     f"tensor-core launches; expected {want}")
-            if want == "tensor_core":  # beside csrc/flash_attention_int8.cu
-                r["cuda_core_ms"] = timer.ms(case["cuda_core"])
-                r["cuda_core_device_ms"] = timer.ms(case["cuda_core"], pad=True)
-                print(f"  {INT8} {label}: csrc/flash_attention_int8.cu forced {r['cuda_core_ms']:.4f} "
-                      f"ms, device {r['cuda_core_device_ms']:.4f} ms", flush=True)
+                                     f"tensor-core launches; expected tensor_core")
+            r.update(dp4a_ms(case, timer))
+            want = case["plain"]()
+            old_err = max_err(case["cuda_core"](), want)
+            print(f"  {INT8} {label}: csrc/flash_attention_int8.cu forced {r['cuda_core_ms']:.4f} "
+                  f"ms, device {r['cuda_core_device_ms']:.4f} ms, max abs err {old_err}", flush=True)
+            if not old_err <= BF16_TOL * max_abs(want):
+                raise AssertionError(f"{INT8} {label}: the dp4a kernel's max abs err {old_err}")
+            if mode == "qk":
+                r["vs_plain_bits"] = check_qk_bits(label, case["run"](), want, case["tile_max"])
             results[f"{shape}_{mode}"] = r
         print(f"  {INT8} {shape}: bf16 SDPA at the same shape {sdpa_ms:.4f} ms (context only)", flush=True)
         torch.cuda.empty_cache()
     return results
+
+
+def check_qk_bits(label: str, got, want, tile_max) -> dict:
+    """The bf16 "qk" output equal to the plain version's to the bit on all
+    but TILED_SHARE_APART of the elements, and the tile-maximum control
+    (where the shape has more than one K tile) apart on more."""
+    share, err, _ = bits_apart(got, want)
+    r = dict(share_apart=share, max_abs_err=err)
+    if tile_max is not None:
+        r["tile_max_share_apart"] = bits_apart(tile_max(), want)[0]
+    print(f"  {INT8} {label} vs the plain version, to the bit: {json.dumps(r)} (limit: share "
+          f"{TILED_SHARE_APART}; the control must exceed it)", flush=True)
+    if not share <= TILED_SHARE_APART:
+        raise AssertionError(f"{INT8} {label}: {share} of the outputs apart from the plain version")
+    if tile_max is not None and r["tile_max_share_apart"] <= TILED_SHARE_APART:
+        raise AssertionError(f"{INT8} {label}: the check passes p against each K tile's maximum: {r}")
+    return r
 
 
 def int8_gap(got, want) -> dict:
@@ -750,38 +803,50 @@ def within_int8_tol(gap: dict, rule: str) -> bool:
     return all(gap[k] <= tol for k, tol in INT8_FP32_TOL[rule].items())
 
 
-def check_int8_fp32(device) -> dict:
+def check_int8_fp32(device, timer) -> dict:
     """Phase 7a, fp32: the kernel's arithmetic against its plain version at
-    INT8_SHAPES, both P.V modes, held at INT8_FP32_TOL. bf16 hides a wrong
-    P scale in its own rounding; fp32 does not. Three wrong kernels must
-    fail the same check, or it could not see the faults it is for: the
-    kernel with a P scale per 32-key K tile (its tile at N > 32) and with
-    one P scale per row at N = 2048, where the flash rule has two, and fp
-    attention (what a kernel that skipped the q/k/v quantize computes)."""
+    INT8_SHAPES, both P.V modes, held at INT8_FP32_TOL, the "qk" mode also
+    within INT8_QK_FP32_TOL of the largest magnitude and timed beside the
+    dp4a kernel forced (held to the same limits). bf16 hides a wrong P scale
+    in its own rounding; fp32 does not. Three wrong kernels must fail the
+    same check, or it could not see the faults it is for: the kernel with a
+    P scale per 32-key K tile (its tile at N > 32) and with one P scale per
+    row at N = 2048, where the flash rule has two, and fp attention (what a
+    kernel that skipped the q/k/v quantize computes)."""
     gen = torch.Generator(device=device).manual_seed(6)
-    gaps, controls, vs_dp4a, failed = {}, {}, {}, []
+    gaps, controls, vs_dp4a, qk_times, failed = {}, {}, {}, {}, []
     for shape, (rows, n, rule) in INT8_SHAPES.items():
-        q, k, v, amax = int8_inputs(rows, n, device, gen, torch.float32)
-        block = flash_scale_block(n) if rule == "flash" else None
-        for pv_int8, mode in ((True, "pv_int8"), (False, "qk")):
-            want = int8_attention(q, k, v, *amax, q.dtype, pv_int8, block)
-            got = flash_attention_int8(q, k, v, *amax, pv_int8, block)
+        cases, _ = int8_cases(rows, n, rule, device, gen, torch.float32)
+        (q, k, v), amax, block = cases["qk"]["inputs"], cases["qk"]["amax"], cases["qk"]["scale_block"]
+        for mode, case in cases.items():
+            pv_int8 = mode == "pv_int8"
+            want, got = case["plain"](), case["run"]()
             gap = int8_gap(got, want)
-            gap["route"] = int8_route(q, k, v, pv_int8, block)
+            gap["route"] = case["route"]
             gaps[f"{shape}_{mode}"] = gap
             print(f"  {INT8} fp32 {shape} N={n} {mode} scale_block={block}: {json.dumps(gap)}", flush=True)
-            if gap["route"] != INT8_ROUTE[mode]:
-                failed.append(f"{shape} {mode}: route {gap['route']}, expected {INT8_ROUTE[mode]}")
+            if gap["route"] != "tensor_core":
+                failed.append(f"{shape} {mode}: route {gap['route']}, expected tensor_core")
             if not within_int8_tol(gap, rule):
                 failed.append(f"{shape} {mode}: {gap} outside {INT8_FP32_TOL[rule]}")
-            if not pv_int8:
-                continue
             # against the dp4a kernel: the same arithmetic, l summed in another order
-            old = forced(attention_int8, "int8_route", flash_attention_int8, q, k, v, *amax, True, block)
-            vs_dp4a[shape] = d = dict(int8_gap(got, old), equal_bits=(got == old).double().mean().item())
-            print(f"  {INT8} fp32 {shape} against csrc/flash_attention_int8.cu: {json.dumps(d)}", flush=True)
+            old = case["cuda_core"]()
+            d = dict(int8_gap(got, old), equal_bits=(got == old).double().mean().item())
+            print(f"  {INT8} fp32 {shape} {mode} against csrc/flash_attention_int8.cu: {json.dumps(d)}",
+                  flush=True)
             if not within_int8_tol(d, rule):
-                failed.append(f"{shape}: the two int8 kernels differ by {d}")
+                failed.append(f"{shape} {mode}: the two int8 kernels differ by {d}")
+            if not pv_int8:
+                if not gap["max_rel"] <= INT8_QK_FP32_TOL:
+                    failed.append(f"{shape} qk: {gap['max_rel']} of the largest magnitude apart "
+                                  f"(limit {INT8_QK_FP32_TOL})")
+                qk_times[shape] = t = dict(
+                    ms=timer.ms(case["run"]), device_ms=timer.ms(case["run"], pad=True),
+                    plain_ms=timer.ms(case["plain"]), **dp4a_ms(case, timer),
+                    bound_ms=case["bound"][0], bound_by=case["bound"][1], vs_dp4a=d)
+                print(f"  {INT8} fp32 {shape} N={n} qk times: {json.dumps(t)}", flush=True)
+                continue
+            vs_dp4a[shape] = d
             wrong = {}
             if shape == "spatial":
                 wrong["P scale per 32-key tile"] = flash_attention_int8(q, k, v, *amax, True, 32)
@@ -794,12 +859,12 @@ def check_int8_fp32(device) -> dict:
                 print(f"  {INT8} fp32 {shape} control, {fault}: {json.dumps(gap)}", flush=True)
                 if within_int8_tol(gap, rule):
                     failed.append(f"{shape}: the check passes a kernel with {fault}: {gap}")
-        del q, k, v, want
+        del q, k, v, want, cases
         torch.cuda.empty_cache()
     sharp = check_int8_sharp(device, failed)
     if failed:
         raise AssertionError(f"{INT8} fp32: " + "; ".join(failed))
-    return dict(cases=gaps, controls=controls, vs_dp4a=vs_dp4a, sharp=sharp)
+    return dict(cases=gaps, controls=controls, vs_dp4a=vs_dp4a, qk_times=qk_times, sharp=sharp)
 
 
 def check_int8_sharp(device, failed: list) -> dict:
@@ -1022,19 +1087,31 @@ def check_kernels(device, timer) -> dict:
 
 
 TC_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu", "flash_attention_int8_tc.cu")
-# kernels that must hold tensor-core instructions in their SASS: HMMA (bf16)
-# or IMMA (int8)
-TC_KERNELS = {"flash_fwd_tc": "HMMA", "flash_bwd_dq_tc": "HMMA", "flash_bwd_dkv_tc": "HMMA",
-              "flash_int8_tc": "IMMA"}
+TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "flash_int8_tc", "flash_int8_qk_tc")
 F32_SOURCE = "latte_tpu_torch/csrc/flash_attention_bwd_f32.cu"
 F32_FWD_SOURCE = "latte_tpu_torch/csrc/flash_attention_f32.cu"
+
+
+def mma_wanted(fn: str):
+    """The tensor-core instructions a kernel's SASS must hold (True) and
+    must not (False), by its name: HMMA for bf16 products, IMMA for int8;
+    the int8 "qk" kernels IMMA, and HMMA in bf16 alone (in fp32 their P.V
+    runs on the CUDA cores). None for kernels of no TC_KERNELS family."""
+    if "flash_int8_qk_tc" in fn:
+        return {"IMMA": True, "HMMA": "bfloat16" in fn}
+    if "flash_int8_tc" in fn:
+        return {"IMMA": True}
+    if any(k in fn for k in TC_KERNELS):
+        return {"HMMA": True}
+    return None
 
 
 def report_build(path) -> dict:
     """Print ptxas's registers, shared memory and spills for each kernel of
     the tensor-core, register-tiled fp32 and adaLN sources (none may
-    spill), and count the HMMA / IMMA instructions in the tensor-core kernels' SASS
-    where cuobjdump sits beside nvcc: each must have some."""
+    spill), and count the HMMA and IMMA instructions in the tensor-core
+    kernels' SASS where cuobjdump sits beside nvcc: each must have those
+    mma_wanted names, and no other."""
     spills = []
     f32_sources = (os.path.basename(F32_SOURCE), os.path.basename(F32_FWD_SOURCE))
     for src in (*TC_SOURCES, *f32_sources, "adaln.cu"):
@@ -1052,18 +1129,21 @@ def report_build(path) -> dict:
         return {}
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
-    mma, fn, op = {}, None, None
+    mma, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            op = next((o for k, o in TC_KERNELS.items() if k in fn), None)
-            if op:
-                mma[fn] = 0
-        elif op and op in line:
-            mma[fn] += 1
+            if mma_wanted(fn) is not None:
+                mma[fn] = {"HMMA": 0, "IMMA": 0}
+        elif fn in mma:
+            for op in ("HMMA", "IMMA"):
+                mma[fn][op] += op in line
     print(f"  HMMA / IMMA instructions in the SASS of the tensor-core kernels: {json.dumps(mma)}", flush=True)
-    if any(not any(k in fn for fn in mma) for k in TC_KERNELS) or min(mma.values()) == 0:
-        raise AssertionError(f"a tensor-core kernel lacks its tensor-core instructions: {mma}")
+    wrong = {fn: c for fn, c in mma.items()
+             if any((c[op] > 0) != want for op, want in mma_wanted(fn).items())}
+    if any(not any(k in fn for fn in mma) for k in TC_KERNELS) or wrong:
+        raise AssertionError(f"a tensor-core kernel lacks its tensor-core instructions or holds "
+                             f"others: {wrong or mma}")
     return mma
 
 
@@ -1103,6 +1183,7 @@ def kernel_kind(name: str) -> str:
     for key, kind in (
         ("flash_int8_kernel", INT8),
         ("flash_int8_tc", INT8),
+        ("flash_int8_qk_tc", INT8),
         ("flash_fwd_kernel", "flash_attention"),
         ("flash_fwd_f32", "flash_attention"),
         ("flash_fwd_tc", "flash_attention"),
@@ -1237,7 +1318,7 @@ def profile_sampler(model, cfg, device, wall_s: float) -> None:
     print_profile(f"ddim-{cfg.num_sampling_steps} sampler", prof, wall_s * 1e3)
 
 
-def profile_int8_forward(model, x, t) -> dict:
+def profile_int8_forward(model, x, t, label: str = "int8 forward") -> dict:
     """Device time of one int8 forward by kind, where the int8 products
     (``torch._int_mm``) and the passes around them (quantize, dequantize,
     cast, bias) are kinds of their own. For the profile only, each int8
@@ -1281,12 +1362,12 @@ def profile_int8_forward(model, x, t) -> dict:
             groups[kind] = groups.get(kind, 0.0) + ms
             moved += 1
     if not busy:
-        print("  int8 forward profile: the profiler saw no device time (not measured)", flush=True)
+        print(f"  {label} profile: the profiler saw no device time (not measured)", flush=True)
         return {}
-    print("  int8 forward profile ms by kind: " + json.dumps(
+    print(f"  {label} profile ms by kind: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(groups.items())}) + f"; device busy {busy:.4f}"
           + f"; {moved} kernels found under the int8 layers", flush=True)
-    print("  int8 forward largest other kernels (ms): "
+    print(f"  {label} largest other kernels (ms): "
           + json.dumps({k: round(v, 4) for k, v in top.items()}), flush=True)
     return dict(by_kind=groups, busy_ms=busy, kernels_under_int8_layers=moved)
 
@@ -1501,37 +1582,63 @@ def vae_phase(tmp: str, ckpt: str, lat_bf16, ddim_s: float, device, smi: str) ->
     )
 
 
-def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str) -> dict:
-    """Phase 7c: the entry point in static W8A8 with int8 attention (flash
-    route), DDIM-50 from the checkpoint of phase 5; then short runs of the
-    dynamic mode and of "qk" under attention_mode: auto."""
-    base = ["sample_method=ddim", f"ckpt={ckpt}"]
-    cfg = load_config(FFS_CONFIG, base + [
-        "num_sampling_steps=50", "quantized=static", "int8_attention=true", "attention_mode=flash",
-        f"save_video_path={tmp}/ffs_int8.mp4",
-    ])
+def int8_pairs(qmodel, cfg, device, label: str) -> dict:
+    """DDIM runs of the entry point's model for ``cfg`` (built by
+    ``sample.build_model``: the same calibration) in ROUTE_PAIRS
+    alternating pairs against the dp4a kernel forced (``int8_route``
+    patched for the run): seconds and videos/min of each, and ``s`` the
+    median seconds a video on the tensor cores."""
+    pairs = route_runs(qmodel, cfg, device, attention_int8, "int8_route", flash_attention_int8)
+    tc_s, dp4a_s = (sorted(v)[len(v) // 2] for v in pairs.values())
+    wins = sum(a < b for a, b in zip(pairs["tensor_core"], pairs["cuda_core"]))
+    print(f"  {label} pairs: tensor-core int8 attention {tc_s:.3f} s -> {60.0 / tc_s:.3f} "
+          f"videos/min (median of {pairs['tensor_core']}), csrc/flash_attention_int8.cu forced "
+          f"{dp4a_s:.3f} s -> {60.0 / dp4a_s:.3f} videos/min (median of {pairs['cuda_core']}); "
+          f"tensor cores faster in {wins} of {ROUTE_PAIRS}", flush=True)
+    return dict(s=tc_s, pairs=pairs, pairs_won=wins,
+                pair_videos_per_min={"tensor_core": 60.0 / tc_s, "cuda_core": 60.0 / dp4a_s})
+
+
+def int8_ddim(cfg, lat_bf16, label: str) -> tuple:
+    """``sample.main`` on ``cfg`` (static W8A8, DDIM-50, int8 attention):
+    finite latents, the launches of 3 bf16 calibration forwards and 50 int8
+    ones, every int8 attention on the tensor cores, and bench.py's int8
+    quality guard against the bf16 kernel path's latents."""
     reset_counts()
     lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
     launches = counts()
-    check_tc("int8 ddim-50, its 3 bf16 calibration forwards", 3 * DEPTH)
-    check_vec("int8 ddim-50 and its calibration")
-    int8_tc = check_int8_tc("int8 ddim-50", 50 * DEPTH)
+    check_tc(f"{label}, its 3 bf16 calibration forwards", 3 * DEPTH)
+    check_vec(f"{label} and its calibration")
+    tc = check_int8_tc(label, 50 * DEPTH)
     # the calibration runs 3 floating-point forwards (flash_attention), the
     # 50 steps one int8 forward each
     expect = {k: 0 for k in KERNELS}
     expect.update({INT8: 50 * DEPTH, "flash_attention": 3 * DEPTH,
                    "ln_modulate": 53 * DEPTH, "residual_ln_modulate": 53 * DEPTH})
-    print(f"  int8 ddim-50 latents {tuple(lat.shape)} finite={bool(torch.isfinite(lat).all())}; "
+    print(f"  {label} latents {tuple(lat.shape)} finite={bool(torch.isfinite(lat).all())}; "
           f"launches {launches}", flush=True)
     if lat.shape != (1, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
-        raise AssertionError("the int8 sampler's latents are not finite (1, 16, 4, 32, 32)")
+        raise AssertionError(f"the {label} latents are not finite (1, 16, 4, 32, 32)")
     if launches != expect:
-        raise AssertionError(f"expected {expect} launches, got {launches}")
-    # bench.py's int8 quality guard, against the bf16 kernel path's latents
-    guard = compare("int8 ddim-50 latents vs bf16 ddim-50 latents", lat, lat_bf16)
+        raise AssertionError(f"{label}: expected {expect} launches, got {launches}")
+    guard = compare(f"{label} latents vs bf16 ddim-50 latents", lat, lat_bf16)
     if not (guard["cosine"] > 0.99 and guard["rel_l2"] < 0.1):
-        raise AssertionError("the int8 latents fail the quality guard against bf16")
+        raise AssertionError(f"the {label} latents fail the quality guard against bf16")
+    return lat, launches, tc, guard
 
+
+def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str) -> dict:
+    """Phase 7c: the entry point in static W8A8 with int8 attention (flash
+    route), DDIM-50 from the checkpoint of phase 5, against the plain int8
+    path and in pairs against the dp4a kernel forced; the same for the "qk"
+    mode (P.V in bf16) under attention_mode: auto, which takes the fused
+    rule at N = 256 and 16; then a short run of the dynamic mode."""
+    base = ["sample_method=ddim", f"ckpt={ckpt}"]
+    cfg = load_config(FFS_CONFIG, base + [
+        "num_sampling_steps=50", "quantized=static", "int8_attention=true", "attention_mode=flash",
+        f"save_video_path={tmp}/ffs_int8.mp4",
+    ])
+    lat, launches, int8_tc, guard = int8_ddim(cfg, lat_bf16, "int8 ddim-50")
     qmodel = sample.build_model(cfg, device)  # the entry point's model: same calibration
     with torch.device(device):
         qplain = get_model("Latte-XL/2", quantized="static", plain=True, **INT8_ARCH)
@@ -1545,51 +1652,50 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
     if not vs_plain["cosine"] >= 0.99:
         raise AssertionError("the int8 DDIM latents disagree with the plain int8 path's")
     del qplain
-    t1 = time.perf_counter()
-    sample.sample_latents(qmodel, cfg, device)
-    torch.cuda.synchronize()
-    int8_s = time.perf_counter() - t1
-    route_s = route_runs(qmodel, cfg, device, attention_int8, "int8_route", flash_attention_int8)
-    tc_s, dp4a_s = (sorted(v)[len(v) // 2] for v in route_s.values())
-    wins = sum(a < b for a, b in zip(route_s["tensor_core"], route_s["cuda_core"]))
+    timed = int8_pairs(qmodel, cfg, device, "int8 ddim-50")
     del qmodel
-    print(f"  int8 ddim-50 batch 1: {int8_s:.3f} s -> {60.0 / int8_s:.3f} videos/min "
-          f"(plain int8 path {plain_s:.3f} s); bf16 in this run {bf16_s:.3f} s -> "
+    print(f"  int8 ddim-50 batch 1: {timed['s']:.3f} s -> {60.0 / timed['s']:.3f} videos/min "
+          f"(the pairs' median; plain int8 path {plain_s:.3f} s); bf16 in this run {bf16_s:.3f} s -> "
           f"{60.0 / bf16_s:.3f} videos/min; on {smi}", flush=True)
-    print(f"  int8 ddim-50 pairs: tensor-core int8 attention {tc_s:.3f} s -> {60.0 / tc_s:.3f} "
-          f"videos/min (median of {route_s['tensor_core']}), csrc/flash_attention_int8.cu forced "
-          f"{dp4a_s:.3f} s -> {60.0 / dp4a_s:.3f} videos/min (median of {route_s['cuda_core']}); "
-          f"tensor cores faster in {wins} of {ROUTE_PAIRS}", flush=True)
 
-    short = {}
-    for name, over, per_step, calib in (
-        ("dynamic", ["quantized=true"], {"flash_attention": DEPTH}, 0),
-        ("qk_auto", ["quantized=static", "int8_attention=qk", "attention_mode=auto"], {INT8: DEPTH}, 3),
-    ):
-        steps = 5
-        cfg = load_config(FFS_CONFIG, base + [f"num_sampling_steps={steps}", *over,
-                                              f"save_video_path={tmp}/ffs_{name}.mp4"])
-        reset_counts()
-        lat_s = torch.from_numpy(np.load(sample.main(cfg))["latents"])
-        got = counts()
-        check_tc(f"{name} ddim-{steps}", (steps * per_step.get("flash_attention", 0) + calib * DEPTH))
-        check_vec(f"{name} ddim-{steps}")
-        check_int8_tc(f"{name} ddim-{steps}", 0)
-        expect = {k: 0 for k in KERNELS}
-        for k, c in per_step.items():
-            expect[k] = steps * c
-        expect["flash_attention"] += calib * DEPTH
-        for k in ("ln_modulate", "residual_ln_modulate"):
-            expect[k] = (steps + calib) * DEPTH
-        print(f"  {name} ddim-{steps}: finite={bool(torch.isfinite(lat_s).all())}; launches {got}", flush=True)
-        if not torch.isfinite(lat_s).all() or got != expect:
-            raise AssertionError(f"the {name} int8 run failed: expected {expect} launches")
-        short[name] = got
+    # the "qk" mode: P.V in bf16, every int8 attention on the tensor cores
+    cfg = load_config(FFS_CONFIG, base + [
+        "num_sampling_steps=50", "quantized=static", "int8_attention=qk", "attention_mode=auto",
+        f"save_video_path={tmp}/ffs_qk.mp4",
+    ])
+    _, qk_launches, qk_tc, qk_guard = int8_ddim(cfg, lat_bf16, "qk ddim-50")
+    qmodel = sample.build_model(cfg, device)
+    qk = int8_pairs(qmodel, cfg, device, "qk ddim-50")
+    # the device time of one of its forwards, on each route: what the pairs'
+    # host clock may hide
+    x = torch.randn((1, FRAMES, 4, 32, 32), generator=torch.Generator(device=device).manual_seed(8),
+                    device=device)
+    t = torch.tensor([500], device=device)
+    with torch.inference_mode():
+        qk["profile"] = profile_int8_forward(qmodel, x, t, "qk forward")
+        qk["profile_dp4a"] = forced(attention_int8, "int8_route", profile_int8_forward, qmodel, x, t,
+                                    "qk forward, csrc/flash_attention_int8.cu forced")
+    del qmodel
+    qk.update(launches=qk_launches, tc_launches=qk_tc, guard=qk_guard)
+
+    # a short run of the dynamic mode: int8 products, the bf16 attention forward
+    steps = 5
+    cfg = load_config(FFS_CONFIG, base + [f"num_sampling_steps={steps}", "quantized=true",
+                                          f"save_video_path={tmp}/ffs_dynamic.mp4"])
+    reset_counts()
+    lat_s = torch.from_numpy(np.load(sample.main(cfg))["latents"])
+    got = counts()
+    check_tc(f"dynamic ddim-{steps}", steps * DEPTH)
+    check_vec(f"dynamic ddim-{steps}")
+    check_int8_tc(f"dynamic ddim-{steps}", 0)
+    expect = {k: steps * DEPTH if k in FORWARD else 0 for k in KERNELS}
+    print(f"  dynamic ddim-{steps}: finite={bool(torch.isfinite(lat_s).all())}; launches {got}", flush=True)
+    if not torch.isfinite(lat_s).all() or got != expect:
+        raise AssertionError(f"the dynamic int8 run failed: expected {expect} launches")
+    short = {"dynamic": got}
     return dict(launches=launches, tc_launches=int8_tc, guard=guard, cosine_vs_plain=vs_plain["cosine"],
-                s=int8_s, videos_per_min=60.0 / int8_s, bf16_videos_per_min=60.0 / bf16_s,
-                plain_s=plain_s, pairs=route_s, pair_videos_per_min={
-                    "tensor_core": 60.0 / tc_s, "cuda_core": 60.0 / dp4a_s}, pairs_won=wins,
-                short_runs=short)
+                videos_per_min=60.0 / timed["s"], bf16_videos_per_min=60.0 / bf16_s, plain_s=plain_s,
+                **timed, qk=qk, short_runs=short)
 
 
 def train_quant(tmp: str, smi: str) -> dict:
@@ -2148,7 +2254,7 @@ def main() -> int:
     phase("kernels", t0)
     t0 = time.perf_counter()
     measured[INT8] = check_int8_kernel(device, timer)
-    int8_fp32 = check_int8_fp32(device)
+    int8_fp32 = check_int8_fp32(device, timer)
     phase("int8 kernel", t0)
 
     # 4. one full-width forward: kernel path against plain paths
@@ -2318,7 +2424,7 @@ def main() -> int:
                          cases={c: {f: r.get(f) for f in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                           "bound_by", "max_abs_err", "sdpa_bf16_ms",
                                                           "route", "cuda_core_device_ms")}
-                                for c, r in measured[name].items()},
+                                for c, r in measured[name].items() if c.endswith("_pv_int8")},
                          ddim_pairs=dict(pairs=int8_run["pairs"], pairs_won=int8_run["pairs_won"],
                                          videos_per_min=int8_run["pair_videos_per_min"]))
             launches = int8_run["launches"][name]
@@ -2363,11 +2469,19 @@ def main() -> int:
             cases={c: measured[name][c] for c in BWD_SHAPES if BWD_SHAPES[c][2] == torch.float32},
             train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
                              pairs_won=entry["pairs_won"])))
-    # the "qk" mode's kernel: int8_attention: qk under attention_mode: auto
+    # the "qk" mode (int8_attention: qk under attention_mode: auto, the fused
+    # rule), on the same source's "qk" kernels
+    qk, qk_cases = int8_run["qk"], {c: r for c, r in measured[INT8].items() if c.endswith("_qk")}
+    row = qk_cases["spatial_fused_qk"]
     kernels.append(kernel_row(
-        f"{INT8}_dp4a", "latte_tpu_torch/csrc/flash_attention_int8.cu", KERNELS[INT8]["replaces"],
-        int8_run["short_runs"]["qk_auto"][INT8], measured[INT8]["spatial_qk"],
-        shape="spatial bf16 batch 1, qk mode, flash scale block"))
+        f"{INT8}_qk", KERNELS[INT8]["source"], KERNELS[INT8]["replaces"], qk["launches"][INT8], row,
+        shape="spatial bf16 batch 1, qk mode, fused rule", tc_launches=qk["tc_launches"],
+        temporal=qk_cases["temporal_fused_qk"], sdpa_bf16_ms=row["sdpa_bf16_ms"],
+        cuda_core_source="latte_tpu_torch/csrc/flash_attention_int8.cu",
+        cuda_core_ms=row["cuda_core_ms"], cuda_core_device_ms=row["cuda_core_device_ms"],
+        cases=qk_cases, fp32=int8_fp32["qk_times"],
+        ddim_pairs=dict(pairs=qk["pairs"], pairs_won=qk["pairs_won"],
+                        videos_per_min=qk["pair_videos_per_min"])))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

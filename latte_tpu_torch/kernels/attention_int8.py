@@ -7,13 +7,16 @@ The kernels replace the Pallas kernel ``_flash_int8_kernel`` of
 ``int8_attention`` of ``latte_tpu/quant/int8.py`` (``:116``) too, which the
 JAX wrapper falls back to and the model's short-sequence route runs:
 ``csrc/flash_attention_int8_tc.cu`` (int8 ``mma.sync`` on the tensor cores)
-takes P·V in int8 at head_dim 72 with 16-byte aligned operands,
-``csrc/flash_attention_int8.cu`` (dp4a on the CUDA cores) everything else;
-:func:`int8_route` picks one before the launch. Both quantize q, k, v per
-head at calibrated scales (``max(amax, 1e-8) / 127``, round half to even,
-clip ±127), run QKᵀ as
-int8×int8→int32 and, with ``pv_int8``, P·V as well, P rounded to int8 at a
-per-row (fused) or per-scale-block (flash) maximum.
+takes every call at head_dim 72 with 16-byte aligned operands, in both P·V
+modes (P·V in int8 on the int8 tensor cores; in the "qk" mode in bf16
+``mma.sync``, or for fp32 storage in register tiles on the CUDA cores),
+``csrc/flash_attention_int8.cu`` (dp4a on the CUDA cores) other head dims
+and misaligned views; :func:`int8_route` picks one before the launch. Both
+quantize q, k, v per head at calibrated scales (``max(amax, 1e-8) / 127``,
+round half to even, clip ±127), run QKᵀ as int8×int8→int32 and, with
+``pv_int8``, P·V as well, P rounded to int8 at a per-row (fused) or
+per-scale-block (flash) maximum; without it (the "qk" mode) P is rounded
+to v's type and P·V summed in fp32.
 
 ``scale_block`` picks the arithmetic:
 
@@ -209,14 +212,14 @@ def int8_route(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: bool, scale_block: Optional[int]
 ) -> str:
     """Which kernel takes these operands on the card: "tensor_core"
-    (``csrc/flash_attention_int8_tc.cu``) for P·V in int8 at head_dim
-    ``TC_HEAD_DIM``, bf16 or fp32, whose base pointers and (batch, token,
-    head) strides are all 16-byte aligned, at any ``scale_block``; else
-    "cuda_core" (``csrc/flash_attention_int8.cu``: the "qk" mode, other head
-    dims, any stride). Raises on what neither kernel takes; reads only
-    shapes, strides and addresses, so it runs on CPU tensors too."""
+    (``csrc/flash_attention_int8_tc.cu``) at head_dim ``TC_HEAD_DIM``, bf16
+    or fp32, whose base pointers and (batch, token, head) strides are all
+    16-byte aligned, in either P·V mode (``pv_int8``) and at any
+    ``scale_block``; else "cuda_core" (``csrc/flash_attention_int8.cu``:
+    other head dims, any stride). Raises on what neither kernel takes; reads
+    only shapes, strides and addresses, so it runs on CPU tensors too."""
     _check_qkv(q, k, v, scale_block)
-    if pv_int8 and q.shape[-1] == TC_HEAD_DIM and _aligned((q, k, v)):
+    if q.shape[-1] == TC_HEAD_DIM and _aligned((q, k, v)):
         return "tensor_core"
     return "cuda_core"
 
@@ -253,7 +256,7 @@ def flash_attention_int8(
     if route == "tensor_core":  # the kernel computes each head's scales from its amax
         amax = [a.float().contiguous() for a in (q_amax, k_amax, v_amax)]
         err = lib.latte_flash_attention_int8_tc(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _DTYPE_CODE[q.dtype], int(bool(pv_int8)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *(a.data_ptr() for a in amax), out.data_ptr(), B, N, H, D, scale_block or 0, strides,
             float(D**-0.5), q.device.index, stream,
         )

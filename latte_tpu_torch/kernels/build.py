@@ -73,9 +73,10 @@ _SIGNATURES = {
     "latte_flash_attention_int8": (
         [_I, _I] + [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_I64), _I, _P]
     ),
-    # dtype, q, k, v, q_amax, k_amax, v_amax, o, B, N, H, D, scale_block, strides[9], D^-1/2, ...
+    # dtype, pv_int8, q, k, v, q_amax, k_amax, v_amax, o, B, N, H, D, scale_block, strides[9],
+    # D^-1/2, ...
     "latte_flash_attention_int8_tc": (
-        [_I] + [_P] * 7 + [_I] * 5 + [ctypes.POINTER(_I64), _F, _I, _P]
+        [_I, _I] + [_P] * 7 + [_I] * 5 + [ctypes.POINTER(_I64), _F, _I, _P]
     ),
 }
 

@@ -1,11 +1,12 @@
 """The int8 flash-attention kernel on the tensor cores
 (csrc/flash_attention_int8_tc.cu) on the CPU: its route, the counters its
-wrapper keeps, and the evidence that its card check is sound.
+wrapper keeps, and the evidence that its card check is sound (the "qk"
+mode's, P·V in the storage type, is in tests/test_torch_int8_qk_tc.py).
 
 The kernel runs only on the card, where ``chip_smoke.py`` holds it against
 the plain version (``int8_attention``) in bf16 and, tightly, in fp32, and
-against the dp4a kernel (csrc/flash_attention_int8.cu). It takes P·V in
-int8 at head_dim 72 in both storage types and at every P-scale block: one
+against the dp4a kernel (csrc/flash_attention_int8.cu). It takes both P·V
+modes at head_dim 72 in both storage types and at every P-scale block: one
 per row (the fused core, ``scale_block=None``), one per N keys (the flash
 route's main path) and smaller blocks. Here the Pallas int8 kernel in
 interpret mode at those blocks (its ``block_k``) is held to the plain
@@ -24,25 +25,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import close
+from torch_port_util import close_int8, int8_inputs, qkv_views
 
 from latte_tpu.kernels.attention import flash_attention_int8 as jax_flash_int8
 from latte_tpu.quant.int8 import int8_attention as jax_int8_attention
 from latte_tpu_torch.kernels import attention_int8, flash_attention_int8, int8_attention
 from latte_tpu_torch.kernels.attention_int8 import int8_route
 
-TOL = {jnp.float32: (1e-5, 2e-3), jnp.bfloat16: (1e-3, 2.0**-7)}
-TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 DTYPES = [pytest.param(jnp.float32, id="fp32"), pytest.param(jnp.bfloat16, id="bf16")]
-
-
-def _fused(B, N, H, D, dtype, offset=0):
-    """(q, k, v) as views of one 16-byte aligned (B, N, 3, H, D) tensor,
-    ``offset`` elements into its storage, as the model hands them over."""
-    numel = B * N * 3 * H * D
-    buf = torch.zeros(numel + 8 + offset, dtype=dtype)
-    shift = (16 - buf.data_ptr() % 16) % 16 // buf.element_size() + offset
-    return buf[shift:shift + numel].view(B, N, 3, H, D).unbind(2)
 
 
 @pytest.mark.parametrize(
@@ -57,8 +47,12 @@ def _fused(B, N, H, D, dtype, offset=0):
         ("bf16 N=16", True, 16, "tensor_core"),
         ("bf16 N=16", True, None, "tensor_core"),
         ("bf16 N=1024", True, 1024, "tensor_core"),
-        ("bf16 N=256", False, 256, "cuda_core"),
-        ("fp32 N=16", False, None, "cuda_core"),
+        ("bf16 N=256", False, 256, "tensor_core"),
+        ("fp32 N=16", False, None, "tensor_core"),
+        ("fp32 N=2048", False, 1024, "tensor_core"),
+        ("bf16 N=1024", False, 1024, "tensor_core"),
+        ("bf16 N=256 one element off", False, 256, "cuda_core"),
+        ("bf16 N=256 D=64", False, 256, "cuda_core"),
         ("bf16 N=256 one element off", True, 256, "cuda_core"),
         ("fp32 N=256 one element off", True, None, "cuda_core"),
         ("bf16 N=256 token stride off", True, 256, "cuda_core"),
@@ -69,7 +63,7 @@ def test_int8_route(case, pv_int8, scale_block, want):
     dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
     N = int(case.split("N=")[1].split()[0])
     D = 64 if "D=64" in case else 72
-    q, k, v = _fused(1, N, 2, D, dtype, 1 if "one element off" in case else 0)
+    q, k, v = qkv_views(1, N, 2, D, dtype, 1 if "one element off" in case else 0)
     if "token stride off" in case:  # 2 H D + 4 elements: 8 bytes (bf16) off a multiple of 16
         q = torch.zeros((1, N, 2 * D + 4), dtype=dtype)[..., : 2 * D].unflatten(-1, (2, D))
     assert int8_route(q, k, v, pv_int8, scale_block) == want
@@ -120,39 +114,15 @@ def test_kernel_scales_equal_the_plain_versions(D):
         np.testing.assert_array_equal(g, w.numpy())
 
 
-def _inputs(N, dtype, seed):
-    """q, k, v (1, N, 2, 72) as JAX arrays in ``dtype`` and as torch tensors
-    of the same values, and their per-head amax shrunk by 10% so that some
-    values clip at ±127."""
-    rng = np.random.default_rng(seed)
-    jx = [jnp.asarray(rng.standard_normal((1, N, 2, 72)).astype(np.float32), dtype) for _ in range(3)]
-    tx = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(TORCH_DTYPE[dtype]) for x in jx]
-    amax = [(0.9 * np.abs(np.asarray(x, np.float32)).max(axis=(0, 1, 3))).astype(np.float32) for x in jx]
-    return jx, tx, amax
-
-
-def _close(got, want, dtype):
-    """``close`` at TOL[dtype]; in fp32 its L2 limit over the rows no
-    rounding of P moved, at most 1% of the rows moved (module docstring)."""
-    want = np.asarray(want.astype(jnp.float32), np.float64)
-    got = got.double().numpy()
-    rel, elem = TOL[dtype]
-    if dtype == jnp.float32:
-        moved = (np.abs(got - want) > 1e-5 * np.abs(want).max()).any(axis=-1)
-        assert moved.mean() <= 0.01, f"{moved.sum()} of {moved.size} rows moved"
-        close(np.where(moved[..., None], want, got), want, rel, elem)
-    close(got, want, 1.0 if dtype == jnp.float32 else rel, elem)
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N, block", [(256, 256), (256, 64), (256, 32), (16, 16), (16, 8)])
 def test_pallas_int8_at_the_routes_scale_blocks_matches_the_plain_version(N, block, dtype):
     """The flash rule at one P scale per N keys (the main path) and per
     smaller blocks, joined by the online rescale."""
-    jx, tx, amax = _inputs(N, dtype, seed=N + block)
+    jx, tx, amax = int8_inputs((1, N, 2, 72), dtype, seed=N + block)
     want = jax_flash_int8(*jx, *map(jnp.asarray, amax), dtype, pv_int8=True, block_q=N, block_k=block)
     got = int8_attention(*tx, *map(torch.from_numpy, amax), tx[0].dtype, True, block)
-    _close(got.float(), want, dtype)
+    close_int8(got.float(), want, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -160,8 +130,8 @@ def test_pallas_int8_at_the_routes_scale_blocks_matches_the_plain_version(N, blo
 def test_fused_core_at_the_routes_lengths_matches_the_plain_version(N, dtype):
     """``scale_block=None``: one P scale per row, P normalised first, at the
     temporal N = 16, a ragged N = 40 and the spatial N = 256."""
-    jx, tx, amax = _inputs(N, dtype, seed=N + 3)
+    jx, tx, amax = int8_inputs((1, N, 2, 72), dtype, seed=N + 3)
     want = jax_int8_attention(*jx, *map(jnp.asarray, amax), dtype, pv_int8=True)
     got = int8_attention(*tx, *map(torch.from_numpy, amax), tx[0].dtype, True, None)
-    _close(got.float(), want, dtype)
+    close_int8(got.float(), want, dtype)
 

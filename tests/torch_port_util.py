@@ -2,6 +2,7 @@
 Flax params from a numpy seed, and their carry-over into torch modules."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -55,3 +56,49 @@ def close(got, want, rel=1e-5, elem=1e-4):
     err = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert err <= rel, f"relative L2 error {err:.3g} > {rel:.3g}"
     np.testing.assert_allclose(got, want, rtol=0, atol=elem * np.abs(want).max())
+
+
+# The int8 attention against the Pallas int8 kernel: (relative L2, and an
+# elementwise cap over the largest magnitude); tests/test_torch_int8_kernels.py
+# says why.
+INT8_TOL = {jnp.float32: (1e-5, 2e-3), jnp.bfloat16: (1e-3, 2.0**-7)}
+TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def qkv_views(B, N, H, D, dtype, offset=0):
+    """(q, k, v) as views of one 16-byte aligned (B, N, 3, H, D) tensor of
+    zeros, ``offset`` elements into its storage, as the model hands them
+    over."""
+    numel = B * N * 3 * H * D
+    buf = torch.zeros(numel + 8 + offset, dtype=dtype)
+    shift = (16 - buf.data_ptr() % 16) % 16 // buf.element_size() + offset
+    return buf[shift:shift + numel].view(B, N, 3, H, D).unbind(2)
+
+
+def int8_inputs(shape, dtype, seed):
+    """q, k, v of ``shape`` (B, N, H, D) as JAX arrays in ``dtype`` and as
+    torch tensors of the same values, and their per-head amax (fp32 numpy)
+    shrunk by 10% so that some values clip at ±127."""
+    rng = np.random.default_rng(seed)
+    jx = [jnp.asarray(rng.standard_normal(shape).astype(np.float32), dtype) for _ in range(3)]
+    tx = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(TORCH_DTYPE[dtype]) for x in jx]
+    amax = [(0.9 * np.abs(np.asarray(x, np.float32)).max(axis=(0, 1, 3))).astype(np.float32) for x in jx]
+    return jx, tx, amax
+
+
+def close_int8(got, want, dtype):
+    """``close`` at INT8_TOL[dtype]. In fp32 the L2 limit holds over the rows
+    that no rounding of P to int8 moved (each within 1e-5 of the largest
+    magnitude), and at most 1% of the rows may be moved: where XLA's exp and
+    torch's differ by an ulp at a p·127/p_max on a half-integer, P rounds to
+    the neighbouring int8 value on one side, and one such row moves the
+    relative L2 of a small case by ~3e-5 while staying inside the
+    elementwise cap."""
+    want = np.asarray(want.astype(jnp.float32), np.float64)
+    got = got.double().numpy()
+    rel, elem = INT8_TOL[dtype]
+    if dtype == jnp.float32:
+        moved = (np.abs(got - want) > 1e-5 * np.abs(want).max()).any(axis=-1)
+        assert moved.mean() <= 0.01, f"{moved.sum()} of {moved.size} rows moved"
+        close(np.where(moved[..., None], want, got), want, rel, elem)
+    close(got, want, 1.0 if dtype == jnp.float32 else rel, elem)
