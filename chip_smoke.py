@@ -74,6 +74,26 @@ non-zero exit and a traceback:
    (PyTorch's default) and bf16 with fp32 GroupNorm and softmax; the fp32
    and bf16 decodes' device time by kind and idle share; videos/min with
    decode;
+5c. block cache: ``sample.main`` with DDIM-50, ``block_cache_pairs: 9`` and
+   ``block_cache_interval: 2`` from the same checkpoint: 950 launches of
+   each per-block kernel (0.679 of the exact run's 1400; 25 full forwards
+   and 25 of the back 5 pairs), all on the tensor-core and vector routes;
+   finite latents with their cosine (> 0.9, tests/test_block_cache.py's
+   bound) and relative L2 against phase 5's exact latents; at full width
+   ``return_front``'s forward equal to the plain forward and the partial
+   forward from its front equal to the full one, to the bit, and the cached
+   loop at interval 1 equal to phase 5's DDIM-50 latents to the bit;
+   videos/min in alternating pairs against the exact DDIM-50 and the device
+   idle share of one profiled run; then in static W8A8 with int8 attention
+   (flash, and "qk" under "auto"): 950 tensor-core int8 attention launches
+   after 3 bf16 calibration forwards, the latents against the exact int8
+   and bf16 ones, and pairs against the exact int8 DDIM-50;
+5d. sample many: ``sample_many.main`` with DDIM-50 at batch 2,
+   ``num_fvd_samples: 3`` (rounded up to 4) and ``vae_ckpt: random``: mp4s
+   0000-0003 read back as 16x256x256x3, ``create_npz_from_sample_folder``'s
+   (4, 16, 256, 256, 3), every launch on the tensor-core and vector routes,
+   s a video at batch 2 (the generator's runs, to latents) beside phase 5's
+   batch 1;
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -133,8 +153,10 @@ non-zero exit and a traceback:
    the quality guard and pairs against the dp4a kernel forced; then a few
    DDIM steps with quantized: true.
 
-Prints the vae and pixel train phases' JSON lines (``vae: {...}``,
-``pixel_train: {...}``), the kernels' JSON line and
+Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
+``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
+{...}``), the total seconds, the kernels' JSON line (rows B1, B2, B3 and both
+B6 rows with ``launches_block_cache``, the block-cache DDIM-50's) and
 ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a GPU: without one it exits non-zero and prints no result. What
@@ -159,6 +181,7 @@ import torch
 import torch.nn.functional as F
 
 from latte_tpu_torch.config import load_config
+from latte_tpu_torch.core.block_cache import cached_sample_loop
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.kernels import (
     attention_bwd_dkv_reference,
@@ -181,7 +204,7 @@ from latte_tpu_torch.kernels.attention import attention_tiled_reference, backwar
 from latte_tpu_torch.kernels.attention_int8 import int8_route
 from latte_tpu_torch.models import get_model
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
-from latte_tpu_torch.sample import sample
+from latte_tpu_torch.sample import sample, sample_many
 from latte_tpu_torch.train import train
 from latte_tpu_torch.train.callbacks import Callback
 from latte_tpu_torch.utils import save_video, to_uint8
@@ -364,6 +387,20 @@ FLASH_FP32_SHAPES = {
 # CUDA-core backward forced: in fp32 after the resume (phase 6b), in mixed
 # precision after its TRAIN_STEPS steps (6c)
 ROUTE_PAIRS = 3
+# phase "block cache": bench.py:580's setting, also the sampler's default
+# (14·2)//3 pairs. A DDIM-50 runs 25 full forwards and 25 of the back 5
+# pairs (10 blocks): 950 launches of each per-block kernel, 0.679 of 1400
+BC_PAIRS, BC_INTERVAL, BC_STEPS = 9, 2, 50
+BC_FULL = -(-BC_STEPS // BC_INTERVAL)
+BC_LAUNCHES = BC_FULL * DEPTH + (BC_STEPS - BC_FULL) * (DEPTH - 2 * BC_PAIRS)
+# the block cache's latents against the exact sampler's: cosine above
+# tests/test_block_cache.py:135's bound
+BC_COSINE = 0.9
+# pairs of DDIM-50 runs, block cache against exact: the host's speed drifts
+# by up to 2x between runs on a shared host, so more than ROUTE_PAIRS
+BC_TIMED_PAIRS = 5
+# phase "sample many": batch 2, 3 videos asked for (rounded up to 4)
+MANY_BATCH, MANY_SAMPLES = 2, 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FFS_CONFIG = os.path.join(ROOT, "configs", "ffs", "ffs_sample.yaml")
 FFS_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_train.yaml")
@@ -1306,7 +1343,7 @@ def route_runs(model, cfg, device, module, route_name: str, fn) -> dict:
     return secs
 
 
-def profile_sampler(model, cfg, device, wall_s: float) -> None:
+def profile_sampler(model, cfg, device, wall_s: float, label: str = None) -> dict:
     """Device time of one DDIM run by kind of kernel, and the device's idle
     share against ``wall_s``, the same run's unprofiled host time (the
     profiler slows the host, not the device)."""
@@ -1315,7 +1352,10 @@ def profile_sampler(model, cfg, device, wall_s: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sample.sample_latents(model, cfg, device)
         torch.cuda.synchronize()
-    print_profile(f"ddim-{cfg.num_sampling_steps} sampler", prof, wall_s * 1e3)
+    groups = print_profile(label or f"ddim-{cfg.num_sampling_steps} sampler", prof, wall_s * 1e3)
+    busy = device_ms_by_kind(prof)[1]
+    return dict(device_ms_by_kind=groups, busy_ms=busy, wall_ms=wall_s * 1e3,
+                idle=1 - busy / (wall_s * 1e3) if busy else None)
 
 
 def profile_int8_forward(model, x, t, label: str = "int8 forward") -> dict:
@@ -1696,6 +1736,203 @@ def int8_sampler(tmp: str, ckpt: str, lat_bf16, bf16_s: float, device, smi: str)
     return dict(launches=launches, tc_launches=int8_tc, guard=guard, cosine_vs_plain=vs_plain["cosine"],
                 videos_per_min=60.0 / timed["s"], bf16_videos_per_min=60.0 / bf16_s, plain_s=plain_s,
                 **timed, qk=qk, short_runs=short)
+
+
+def cache_runs(model, cfg_bc, cfg_exact, device, fn, label: str) -> tuple:
+    """Host seconds of DDIM-50 runs of ``sample_latents`` in BC_TIMED_PAIRS
+    pairs, the block cache (``cfg_bc``) against the exact sampler
+    (``cfg_exact``), the order alternating from pair to pair, so a drift in
+    the host's speed falls on both. Each run must launch the attention
+    kernel ``fn`` BC_LAUNCHES or 50 x DEPTH times, every one on the tensor
+    cores. Returns the timings and the last latents of each."""
+    cfgs = {"block_cache": cfg_bc, "exact": cfg_exact}
+    calls = {"block_cache": BC_LAUNCHES, "exact": DEPTH * BC_STEPS}
+    secs, lats = {name: [] for name in cfgs}, {}
+    for i in range(BC_TIMED_PAIRS):
+        for name in (cfgs if i % 2 == 0 else reversed(cfgs)):
+            before = (fn.launches, fn.tc_launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lats[name] = sample.sample_latents(model, cfgs[name], device)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            moved = (fn.launches - before[0], fn.tc_launches - before[1])
+            if moved != (calls[name], calls[name]):
+                raise AssertionError(f"{label} {name} run: attention launches and tensor-core ones "
+                                     f"{moved}, expected {calls[name]} each")
+    med = {name: sorted(v)[len(v) // 2] for name, v in secs.items()}
+    wins = sum(a < b for a, b in zip(secs["block_cache"], secs["exact"]))
+    r = dict(secs=secs, median_s=med, videos_per_min={k: 60.0 / v for k, v in med.items()},
+             speedup=med["exact"] / med["block_cache"], pairs_won=wins)
+    print(f"  {label} pairs: block cache {med['block_cache']:.4f} s -> {60.0 / med['block_cache']:.3f} "
+          f"videos/min (median of {secs['block_cache']}), exact {med['exact']:.4f} s -> "
+          f"{60.0 / med['exact']:.3f} videos/min (median of {secs['exact']}); {r['speedup']:.4f}x, "
+          f"block cache faster in {wins} of {BC_TIMED_PAIRS}", flush=True)
+    return r, lats
+
+
+def check_fidelity(label: str, lat, want, against: str = "bf16") -> dict:
+    """Latent cosine and relative L2 of block-cache latents against the
+    exact sampler's (``against``): finite, cosine above BC_COSINE."""
+    r = compare(f"{label} latents vs the exact {against} ddim-{BC_STEPS} latents", lat, want)
+    if lat.shape != (1, FRAMES, 4, 32, 32) or not r["finite"] or not r["cosine"] > BC_COSINE:
+        raise AssertionError(f"{label}: latents {tuple(lat.shape)} fail the block-cache guard {r} "
+                             f"(finite, cosine > {BC_COSINE})")
+    return r
+
+
+def block_cache_int8(tmp: str, base: list, over: list, label: str, lat_bf16, device) -> dict:
+    """The entry point in static W8A8 with int8 attention (``over``) and the
+    block cache: 3 bf16 calibration forwards of the full model, then 950
+    launches of each per-block kernel, every int8 attention on the tensor
+    cores; the latents against the exact int8 sampler's and bf16's, and
+    pairs against the exact int8 sampler from the entry point's model."""
+    bc = [f"block_cache_pairs={BC_PAIRS}", f"block_cache_interval={BC_INTERVAL}"]
+    cfg = load_config(FFS_CONFIG, base + over + bc + [f"save_video_path={tmp}/ffs_{label}.mp4"])
+    reset_counts()
+    lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
+    launches = counts()
+    check_tc(f"{label}, its 3 bf16 calibration forwards", 3 * DEPTH)
+    vec = check_vec(f"{label} and its calibration")
+    tc = check_int8_tc(label, BC_LAUNCHES)
+    expect = {k: 0 for k in KERNELS}
+    expect.update({INT8: BC_LAUNCHES, "flash_attention": 3 * DEPTH,
+                   **{k: BC_LAUNCHES + 3 * DEPTH for k in ADALN}})
+    print(f"  {label} latents {tuple(lat.shape)}; launches {launches}", flush=True)
+    if launches != expect:
+        raise AssertionError(f"{label}: expected {expect} launches, got {launches}")
+    qmodel = sample.build_model(cfg, device)  # the entry point's model: same calibration
+    pairs, lats = cache_runs(qmodel, cfg, load_config(FFS_CONFIG, base + over), device,
+                             flash_attention_int8, label)
+    del qmodel
+    same = torch.equal(lats["block_cache"].cpu(), lat)
+    print(f"  {label}: the pairs' block-cache latents equal the entry point's to the bit: {same}", flush=True)
+    return dict(launches=launches, tc_launches=tc, vec_launches=vec, pairs=pairs,
+                fidelity=check_fidelity(label, lat, lats["exact"].cpu(), against=label),
+                fidelity_vs_bf16=check_fidelity(label, lat, lat_bf16))
+
+
+def block_cache_phase(tmp: str, ckpt: str, lat_bf16, exact_profile: dict, device, smi: str) -> dict:
+    """Phase 5c: ``sample.main`` with the block cache (BC_PAIRS pairs, every
+    BC_INTERVAL-th step full) at DDIM-50 from phase 5's checkpoint: its
+    launches (BC_LAUNCHES of each per-block kernel, on the tensor-core and
+    vector routes) and its latents against phase 5's exact ones; at full
+    width the staging split and interval 1 equal to the bit; pairs against
+    the exact sampler and a profile; then the same launches, fidelity and
+    pairs in static W8A8 with int8 attention, flash and "qk"."""
+    base = ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}", f"ckpt={ckpt}"]
+    bc = [f"block_cache_pairs={BC_PAIRS}", f"block_cache_interval={BC_INTERVAL}"]
+    cfg = load_config(FFS_CONFIG, base + bc + [f"save_video_path={tmp}/ffs_bc.mp4"])
+    reset_counts()
+    lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])  # on cuda by default
+    launches = counts()
+    tc = check_tc("bf16 block-cache ddim-50 entry point", BC_LAUNCHES)
+    vec = check_vec("bf16 block-cache ddim-50 entry point")
+    ratio = BC_LAUNCHES / (DEPTH * BC_STEPS)
+    print(f"  block-cache ddim-50 launches {launches}: {ratio:.4f} of the exact run's "
+          f"{DEPTH * BC_STEPS}", flush=True)
+    if launches != {k: BC_LAUNCHES if k in FORWARD else 0 for k in KERNELS}:
+        raise AssertionError(f"expected {BC_LAUNCHES} launches of each forward kernel, got {launches}")
+    fidelity = check_fidelity("bf16 block-cache", lat, lat_bf16)
+
+    # exactness at full width: the staging split, and interval 1 against
+    # phase 5's exact DDIM-50 from the same z
+    model = sample.build_model(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = torch.randn((1, FRAMES, 4, 32, 32), generator=gen, device=device)
+    t = torch.tensor([500], device=device)
+    z = torch.randn(sample.latent_shape(cfg, 1), device=device,
+                    generator=torch.Generator(device=device).manual_seed(int(cfg.seed)))
+    with torch.inference_mode():
+        out = model(x, t)
+        out_full, front = model(x, t, return_front=BC_PAIRS)
+        out_part = model(x, t, front_state=front, start_pair=BC_PAIRS)
+        lat1 = cached_sample_loop(create_diffusion(str(BC_STEPS)), model, z, cache_pairs=BC_PAIRS,
+                                  cache_interval=1).cpu()
+    exact = dict(return_front_equals_forward=torch.equal(out_full, out),
+                 partial_equals_full=torch.equal(out_part, out_full),
+                 interval_1_equals_exact=torch.equal(lat1, lat_bf16))
+    print(f"  to the bit at full width (front after pair {BC_PAIRS}, {tuple(front.shape)} "
+          f"{front.dtype}): {json.dumps(exact)}", flush=True)
+    if not all(exact.values()):
+        raise AssertionError(f"the block cache's exactness checks failed: {exact}")
+
+    cfg_exact = load_config(FFS_CONFIG, base)
+    pairs, _ = cache_runs(model, cfg, cfg_exact, device, flash_attention, "bf16 ddim-50")
+    prof = profile_sampler(model, cfg, device, pairs["median_s"]["block_cache"],
+                           "block-cache ddim-50 sampler")
+    busy_ratio = prof["busy_ms"] / exact_profile["busy_ms"] if exact_profile["busy_ms"] else None
+    print(f"  block-cache device busy {prof['busy_ms']:.4f} ms against the exact run's "
+          f"{exact_profile['busy_ms']:.4f} (ratio {busy_ratio}); idle {prof['idle']} against "
+          f"{exact_profile['idle']}; on {smi}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    int8 = {}
+    for label, over in (("int8_flash", ["quantized=static", "int8_attention=true", "attention_mode=flash"]),
+                        ("int8_qk", ["quantized=static", "int8_attention=qk", "attention_mode=auto"])):
+        int8[label] = block_cache_int8(tmp, base, over, label, lat_bf16, device)
+        torch.cuda.empty_cache()
+    return dict(pairs_cached=BC_PAIRS, interval=BC_INTERVAL, steps=BC_STEPS, launch_ratio=ratio,
+                launches=launches, tc_launches=tc, vec_launches=vec, fidelity=fidelity, exact=exact,
+                bf16_pairs=pairs, profile=prof, exact_profile=exact_profile,
+                device_busy_ratio=busy_ratio, int8=int8, device=smi)
+
+
+def sample_many_phase(tmp: str, ckpt: str, ddim_s: float, device, smi: str) -> dict:
+    """Phase 5d: ``sample_many.main`` at DDIM-50, batch MANY_BATCH, with the
+    full random VAE: MANY_SAMPLES videos asked for, rounded up to a whole
+    batch, as mp4s 0000.. read back at 16x256x256x3 and bundled by
+    ``create_npz_from_sample_folder``; every launch on the tensor-core and
+    vector routes; s per video at batch 2 (the generator's own runs, to
+    latents) beside phase 5's batch 1."""
+    base = ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}", f"ckpt={ckpt}",
+            f"per_proc_batch_size={MANY_BATCH}"]
+    gen = sample_many.BatchGenerator(load_config(FFS_CONFIG, base))
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = gen.sample_latents()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if lat.shape != (MANY_BATCH, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
+        raise AssertionError(f"sample_many latents {tuple(lat.shape)} are not finite")
+    del gen, lat
+    torch.cuda.empty_cache()
+    s_video = sorted(secs)[1] / MANY_BATCH
+
+    out_dir = os.path.join(tmp, "fvd_samples")
+    cfg = load_config(FFS_CONFIG, base + [f"num_fvd_samples={MANY_SAMPLES}", "vae_ckpt=random",
+                                          f"save_video_path={out_dir}"])
+    total = -(-MANY_SAMPLES // MANY_BATCH) * MANY_BATCH
+    calls = total * BC_STEPS * DEPTH // MANY_BATCH
+    reset_counts()
+    t0 = time.perf_counter()
+    sample_many.main(cfg)  # on cuda by default
+    main_s = time.perf_counter() - t0
+    launches = counts()
+    tc = check_tc(f"sample_many, {total} videos at batch {MANY_BATCH}", calls)
+    vec = check_vec(f"sample_many, {total} videos at batch {MANY_BATCH}")
+    if launches != {k: calls if k in FORWARD else 0 for k in KERNELS}:
+        raise AssertionError(f"sample_many: expected {calls} launches of each forward kernel, got {launches}")
+    files = sorted(os.listdir(out_dir))
+    shapes = {f: read_mp4(os.path.join(out_dir, f)).shape for f in files}
+    size = int(cfg.image_size)
+    bundle = np.load(sample_many.create_npz_from_sample_folder(out_dir))["arr_0"]
+    print(f"  sample_many wrote {shapes} in {main_s:.3f} s; bundle {bundle.shape} {bundle.dtype}; "
+          f"launches {launches}", flush=True)
+    if files != [f"{i:04d}.mp4" for i in range(total)] or \
+            any(v != (FRAMES, size, size, 3) for v in shapes.values()):
+        raise AssertionError(f"expected {total} mp4s of ({FRAMES}, {size}, {size}, 3), got {shapes}")
+    if bundle.shape != (total, FRAMES, size, size, 3) or bundle.dtype != np.uint8:
+        raise AssertionError(f"the sample folder's npz is {bundle.shape} {bundle.dtype}")
+    print(f"  ddim-50 at batch {MANY_BATCH}: {s_video:.4f} s a video to latents (median of {secs}, "
+          f"halved) against {ddim_s:.4f} s at batch 1 (phase sampler); sample_many.main "
+          f"{main_s / total:.4f} s a video with the model's build, decode and mp4; on {smi}", flush=True)
+    return dict(videos=total, batch=MANY_BATCH, files=files, bundle_shape=list(bundle.shape),
+                launches=launches, tc_launches=tc, vec_launches=vec, batch_secs=secs,
+                s_per_video_batch2=s_video, s_per_video_batch1=ddim_s, main_s=main_s, device=smi)
 
 
 def train_quant(tmp: str, smi: str) -> dict:
@@ -2355,7 +2592,7 @@ def main() -> int:
               f"(median of {route_s['tensor_core']}; with the CUDA-core attention forward "
               f"{core_s:.3f} s -> {60.0 / core_s:.3f} videos/min, median of "
               f"{route_s['cuda_core']}; plain path {plain_s:.3f} s) on {smi}", flush=True)
-        profile_sampler(model, cfg, device, kernel_s)
+        exact_prof = profile_sampler(model, cfg, device, kernel_s)
 
         cfg = load_config(FFS_CONFIG, [
             "sample_method=ddpm", "num_sampling_steps=5", f"ckpt={ckpt}",
@@ -2385,6 +2622,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("int8 sampler", t0)
 
+        # 5c. block-cache sampling through the entry point, bf16 and int8
+        t0 = time.perf_counter()
+        bc_run = block_cache_phase(tmp, ckpt, lat_bf16, exact_prof, device, smi)
+        phase("block cache", t0)
+
+        # 5d. sample_many at batch 2, to mp4s
+        t0 = time.perf_counter()
+        many = sample_many_phase(tmp, ckpt, kernel_s, device, smi)
+        torch.cuda.empty_cache()
+        phase("sample many", t0)
+
     # 6. training
     t0 = time.perf_counter()
     parity = train_step_parity(device)
@@ -2412,6 +2660,8 @@ def main() -> int:
                                 default=str), flush=True)
 
     print("vae: " + json.dumps(vae_run, default=str), flush=True)
+    print("block_cache: " + json.dumps(bc_run, default=str), flush=True)
+    print("sample_many: " + json.dumps(many, default=str), flush=True)
 
     kernels = []
     for name, k in KERNELS.items():
@@ -2426,12 +2676,13 @@ def main() -> int:
                                                           "route", "cuda_core_device_ms")}
                                 for c, r in measured[name].items() if c.endswith("_pv_int8")},
                          ddim_pairs=dict(pairs=int8_run["pairs"], pairs_won=int8_run["pairs_won"],
-                                         videos_per_min=int8_run["pair_videos_per_min"]))
+                                         videos_per_min=int8_run["pair_videos_per_min"]),
+                         launches_block_cache=bc_run["int8"]["int8_flash"]["launches"][name])
             launches = int8_run["launches"][name]
         elif name in FORWARD:  # the sampler's path, at its shapes (bf16, batch 1)
             row, extra = measured[name]["spatial"], dict(
                 shape="spatial bf16 batch 1", launches_train=entry["launches"][name],
-                temporal=measured[name]["temporal"])
+                temporal=measured[name]["temporal"], launches_block_cache=bc_run["launches"][name])
             launches = main_launches[name]
             if name == "flash_attention":
                 extra.update(
@@ -2481,7 +2732,8 @@ def main() -> int:
         cuda_core_ms=row["cuda_core_ms"], cuda_core_device_ms=row["cuda_core_device_ms"],
         cases=qk_cases, fp32=int8_fp32["qk_times"],
         ddim_pairs=dict(pairs=qk["pairs"], pairs_won=qk["pairs_won"],
-                        videos_per_min=qk["pair_videos_per_min"])))
+                        videos_per_min=qk["pair_videos_per_min"]),
+        launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8]))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

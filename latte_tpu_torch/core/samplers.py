@@ -13,7 +13,7 @@ import torch
 
 from latte_tpu_torch.core.diffusion import GaussianDiffusion, ModelFn
 
-__all__ = ["p_sample_loop", "ddim_sample_loop", "cfg_model_fn"]
+__all__ = ["p_sample_loop", "ddim_sample_loop", "cfg_combine", "cfg_model_fn"]
 
 
 def _noise_for(x, t_scalar, generator, noise_schedule):
@@ -78,19 +78,26 @@ def ddim_sample_loop(
     return _sample_loop(step, diffusion, x_T, generator, noise_schedule)
 
 
+def cfg_combine(model_out: torch.Tensor, cfg_scale: float, guidance_channels: int = 4) -> torch.Tensor:
+    """Classifier-free guidance of a [cond | uncond] model output, on the
+    first ``guidance_channels`` channels only (the reference's quirk); both
+    halves get the guided eps."""
+    eps, rest = model_out[:, :, :guidance_channels], model_out[:, :, guidance_channels:]
+    cond_eps, uncond_eps = eps.chunk(2, dim=0)
+    half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+    return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=2)
+
+
 def cfg_model_fn(
     model_apply: Callable[..., torch.Tensor], cfg_scale: float, guidance_channels: int = 4
 ) -> ModelFn:
-    """Classifier-free guidance over a [cond | uncond] batch, guiding only the
-    first ``guidance_channels`` channels (the reference's quirk); both halves
-    get the guided eps."""
+    """Classifier-free guidance over a [cond | uncond] batch: the model runs
+    on the cond half twice (the labels tell the halves apart), then
+    :func:`cfg_combine`."""
 
     def fn(x, t, **kwargs):
         half = x[: x.shape[0] // 2]
-        model_out = model_apply(torch.cat([half, half], dim=0), t, **kwargs)
-        eps, rest = model_out[:, :, :guidance_channels], model_out[:, :, guidance_channels:]
-        cond_eps, uncond_eps = eps.chunk(2, dim=0)
-        half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
-        return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=2)
+        return cfg_combine(model_apply(torch.cat([half, half], dim=0), t, **kwargs), cfg_scale,
+                           guidance_channels)
 
     return fn

@@ -22,6 +22,10 @@ the "full" policy does around the JAX model's scanned pair.
 blocks (see :mod:`latte_tpu_torch.models.layers`); ``attention_mode`` routes
 the int8 attention core as the JAX model does (the floating-point attention
 always runs the flash kernel).
+
+``forward`` also carries the block-cache staging hooks of the JAX model
+(``return_front``, ``front_state``/``start_pair``), which
+:mod:`latte_tpu_torch.core.block_cache` drives.
 """
 
 from __future__ import annotations
@@ -172,16 +176,44 @@ class Latte(nn.Module):
         return x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
 
     def forward(
-        self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        y: Optional[torch.Tensor] = None,
+        *,
+        return_front: int = 0,
+        front_state: Optional[torch.Tensor] = None,
+        start_pair: int = 0,
+    ):
+        """The forward, plus the block-cache staging hooks of the JAX model:
+
+        - ``return_front=k`` (full forward): also return the (B·F, T, D)
+          activation after pair k - 1 (block 2k - 1), in the compute type,
+          as ``(out, front)``. It is a tensor of its own: no later block
+          writes into it.
+        - ``front_state=front, start_pair=k`` (partial forward): skip the
+          patch and position embeddings and pairs 0..k-1, and resume the
+          block list at block 2k from ``front``. No temporal embedding is
+          added (it belongs to pair 0). The timestep and label embedders
+          still run. The blocks are a plain list, so no view of the back
+          pairs' parameters is needed (the JAX package slices its stacked
+          pair parameters to ``[k:]``): the loop starts at pair k.
+        """
+        if return_front and front_state is not None:
+            raise ValueError("return_front and front_state are exclusive")
+        if (front_state is None) != (start_pair == 0):
+            raise ValueError("front_state and start_pair must be set together")
         B, F, C, H, W = x.shape
         in_dtype = x.dtype
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
         p = self.patch_size
 
-        x = self.x_embedder(x.reshape(B * F, C, H, W), dtype)  # (B·F, T, D)
+        if front_state is None:
+            x = self.x_embedder(x.reshape(B * F, C, H, W), dtype)  # (B·F, T, D)
+            x = x + self._pos_embed(H // p, dtype)
+        else:
+            x = front_state
         T = x.shape[1]
-        x = x + self._pos_embed(H // p, dtype)
 
         t_emb = self.t_embedder(t, dtype)
         # per-frame conditioning for spatial blocks, per-patch for temporal
@@ -194,14 +226,18 @@ class Latte(nn.Module):
 
         temp_embed = self._temp_embed(F, dtype)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
-        for i in range(0, self.depth, 2):
+        front = None
+        for i in range(2 * start_pair, self.depth, 2):
             args = (x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F)
             x = checkpoint(self._pair, *args, use_reentrant=False) if remat else self._pair(*args)
+            if i == 2 * return_front - 2:
+                front = x
 
         c_final = c_spatial if self.extras == 2 else t_emb.repeat_interleave(F, dim=0)
         x = self.final_layer(x, c_final)
         x = unpatchify(x, p, self.out_channels)
-        return x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
+        out = x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
+        return (out, front) if return_front else out
 
     def forward_with_cfg(
         self,

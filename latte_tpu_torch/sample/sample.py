@@ -8,9 +8,16 @@ tiny`` or ``vae_ckpt: random`` (seeded random weights: a tiny VAE or the full
 SD architecture) or from ``vae_ckpt``, a diffusers ``AutoencoderKL`` state
 dict (``diffusion_pytorch_model.bin``). With no VAE configured, or a
 ``vae_ckpt`` that does not exist, it saves the latents as ``<save_video_path
-stem>_latents.npz`` instead, as the JAX sampler does. The block-cache
-sampler (``block_cache_interval``) and tensor-parallel serving
-(``tensor_parallel``) raise ``NotImplementedError``.
+stem>_latents.npz`` instead, as the JAX sampler does. Tensor-parallel
+serving (``tensor_parallel``) raises ``NotImplementedError``.
+
+``block_cache_interval: N`` (> 1) samples with the block cache
+(:mod:`latte_tpu_torch.core.block_cache`): the first ``block_cache_pairs``
+pairs (default 2/3 of them, rounded down) are recomputed only every Nth
+step. It composes with CFG and with the int8 modes below (the partial
+forward uses the full model's static scales), and, as in the JAX sampler,
+needs ``loop_mode: scan``. :func:`sample_loop` is the one construction of
+the sampler, which this entry point and ``sample_many`` share.
 
 W8A8 int8 serving, as in the JAX sampler: ``quantized: true`` quantizes the
 fp32 weights once (dynamic per-token activation scales); ``quantized:
@@ -37,6 +44,7 @@ import torch
 
 from latte_tpu_torch.config import Config, load_config
 from latte_tpu_torch.convert import load_reference_checkpoint
+from latte_tpu_torch.core.block_cache import cached_sample_loop
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
 from latte_tpu_torch.models import Latte, get_models
@@ -48,20 +56,29 @@ CALIBRATION_TIMESTEPS = (999, 500, 0)
 
 
 def check_config(config: Config) -> None:
-    """Raise ``NotImplementedError`` for a sampler option this port does not
-    carry yet. (``block_cache_pairs`` does nothing without the interval, and
-    ``loop_mode`` is a JAX compile hint. A ``vae_ckpt`` directory is refused
-    by :func:`load_vae`.)"""
-    if int(getattr(config, "block_cache_interval", 0) or 0) > 1:
-        raise NotImplementedError(
-            f"block_cache_interval={config.block_cache_interval}: not ported yet; comes "
-            "with the block-cache slice"
-        )
+    """Raise for a sampler option this port does not carry yet
+    (``NotImplementedError``) or a block cache without ``loop_mode: scan``
+    (``ValueError``), before anything is built. (``block_cache_pairs`` does
+    nothing without the interval. A ``vae_ckpt`` directory is refused by
+    :func:`load_vae`.)"""
+    block_cache_interval(config)
     if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             f"tensor_parallel={config.tensor_parallel}: not ported yet; comes with the "
             "multi-GPU slice"
         )
+
+
+def block_cache_interval(config: Config) -> int:
+    """``block_cache_interval`` when it turns the block cache on (> 1), else
+    0. As in the JAX sampler it needs ``loop_mode: scan`` (which is a JAX
+    compile hint: the port's loops are Python loops either way)."""
+    interval = int(getattr(config, "block_cache_interval", 0) or 0)
+    if interval <= 1:
+        return 0
+    if str(getattr(config, "loop_mode", "scan") or "scan") != "scan":
+        raise ValueError("block_cache_interval requires loop_mode=scan")
+    return interval
 
 
 def quantized_mode(config: Config):
@@ -72,12 +89,17 @@ def quantized_mode(config: Config):
     return q
 
 
+def latent_shape(config: Config, n: int) -> tuple:
+    """(n, F, C, L, L): n videos' latents for ``config``."""
+    latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
+    return (n, int(getattr(config, "num_frames", 16)), int(getattr(config, "in_channels", 4)), latent, latent)
+
+
 def calibration_latents(config: Config, device: torch.device) -> torch.Tensor:
     """The one z the calibration forwards run on: (1, F, C, L, L) from
     ``torch.Generator`` seed 0 (the JAX sampler draws it from PRNGKey(0))."""
-    latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
-    shape = (1, int(getattr(config, "num_frames", 16)), int(getattr(config, "in_channels", 4)), latent, latent)
-    return torch.randn(shape, generator=torch.Generator(device=device).manual_seed(0), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn(latent_shape(config, 1), generator=gen, device=device)
 
 
 def calibrate(config: Config, masters: dict, dtype: torch.dtype, device: torch.device) -> dict:
@@ -136,34 +158,56 @@ def build_model(config: Config, device: torch.device) -> Latte:
     return qmodel.to(device=device, dtype=dtype).eval()
 
 
+def sample_loop(
+    model: Latte,
+    config: Config,
+    z: torch.Tensor,
+    y: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Final latents (B, F, 4, L, L), fp32, from noise ``z`` (B, F, 4, L, L)
+    and, for a class-conditional model, labels ``y`` (B,): the one
+    construction of the sampler (the CFG doubling and combine, DDPM or DDIM,
+    the standard or the block-cache loop), the counterpart of the JAX
+    package's ``build_sample_impl``. ``generator`` draws DDPM's per-step
+    noise."""
+    n = z.shape[0]
+    diffusion = create_diffusion(str(config.num_sampling_steps))
+    method = str(getattr(config, "sample_method", "ddpm")).lower()
+    cfg_scale = float(getattr(config, "cfg_scale", 1.0))
+    use_cfg = int(getattr(config, "extras", 1)) == 2 and cfg_scale > 1.0
+    if use_cfg:
+        # cond ∥ null-class halves
+        z = torch.cat([z, z], dim=0)
+        y = torch.cat([y, torch.full_like(y, model.num_classes)], dim=0)
+    interval = block_cache_interval(config)
+    with torch.inference_mode():
+        if interval:
+            n_pairs = model.depth // 2
+            k = int(getattr(config, "block_cache_pairs", 0) or (n_pairs * 2) // 3)
+            latents = cached_sample_loop(
+                diffusion, model, z, cache_pairs=k, cache_interval=interval, y=y,
+                cfg_scale=cfg_scale, sample_method=method, generator=generator,
+            )
+        else:
+            model_fn = functools.partial(model.forward_with_cfg, cfg_scale=cfg_scale) if use_cfg else model
+            loop = ddim_sample_loop if method == "ddim" else p_sample_loop
+            kwargs = {} if y is None else {"y": y}
+            latents = loop(diffusion, model_fn, z, generator=generator, model_kwargs=kwargs)
+    return latents[:n]
+
+
 def sample_latents(
     model: Latte, config: Config, device: torch.device
 ) -> torch.Tensor:
-    """One video's final latents (1, F, 4, L, L), fp32, from ``config.seed``."""
-    latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
-    frames = int(getattr(config, "num_frames", 16))
+    """One video's final latents (1, F, 4, L, L), fp32, from ``config.seed``:
+    z, then DDPM's noise, from one ``torch.Generator``."""
     generator = torch.Generator(device=device).manual_seed(int(getattr(config, "seed", 0) or 0))
-    n = 1
-    z = torch.randn((n, frames, 4, latent, latent), generator=generator, device=device)
-    diffusion = create_diffusion(str(config.num_sampling_steps))
-
-    cfg_scale = float(getattr(config, "cfg_scale", 1.0))
-    use_cfg = int(getattr(config, "extras", 1)) == 2 and cfg_scale > 1.0
-    model_fn, kwargs = model, {}
+    z = torch.randn(latent_shape(config, 1), generator=generator, device=device)
+    y = None
     if int(getattr(config, "extras", 1)) == 2:
-        y = torch.full((n,), int(getattr(config, "sample_class", 0)), device=device)
-        if use_cfg:
-            # cond ∥ null-class halves
-            z = torch.cat([z, z], dim=0)
-            y = torch.cat([y, torch.full((n,), model.num_classes, device=device)], dim=0)
-            model_fn = functools.partial(model.forward_with_cfg, cfg_scale=cfg_scale)
-        kwargs["y"] = y
-
-    method = str(getattr(config, "sample_method", "ddpm")).lower()
-    loop = ddim_sample_loop if method == "ddim" else p_sample_loop
-    with torch.inference_mode():
-        latents = loop(diffusion, model_fn, z, generator=generator, model_kwargs=kwargs)
-    return latents[:n]
+        y = torch.full((1,), int(getattr(config, "sample_class", 0)), device=device)
+    return sample_loop(model, config, z, y, generator)
 
 
 def load_vae(config: Config, device: torch.device) -> Optional[AutoencoderKL]:

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_nothing_of_latte_tpu():
         "for m in pkgutil.walk_packages(latte_tpu_torch.__path__, 'latte_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "for m in ('vae.autoencoder_kl', 'data.datasets', 'data.video_transforms', 'tools.cache_latents'):\n"
+        "for m in ('vae.autoencoder_kl', 'data.datasets', 'data.video_transforms', 'tools.cache_latents',\n"
+        "          'core.block_cache', 'sample.sample_many'):\n"
         "    assert 'latte_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latte_tpu'))\n"
         "print(len([m for m in sys.modules if m.startswith('latte_tpu_torch')]), bad)\n"
@@ -115,14 +116,12 @@ def test_checkpoint_directory_names_the_conversion(tmp_path):
     assert not (tmp_path / "v_latents.npz").exists()
 
 
-@pytest.mark.parametrize(
-    "override", ["block_cache_interval=2", "tensor_parallel=2"], ids=["block_cache", "tensor_parallel"]
-)
+@pytest.mark.parametrize("override", ["tensor_parallel=2"], ids=["tensor_parallel"])
 def test_unported_sampler_options_raise(tmp_path, override):
-    """The block-cache sampler and tensor-parallel serving are later slices:
-    the entry point refuses them rather than sampling the plain way."""
-    cfg = load_config(FFS, TINY + [f"save_video_path={tmp_path}/v.mp4", override, "block_cache_pairs=1"])
-    with pytest.raises(NotImplementedError, match="block-cache|multi-GPU"):
+    """Tensor-parallel serving is a later slice: the entry point refuses it
+    rather than sampling the plain way."""
+    cfg = load_config(FFS, TINY + [f"save_video_path={tmp_path}/v.mp4", override])
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         sample.main(cfg, device="cpu")
     assert not any(tmp_path.iterdir())
 
