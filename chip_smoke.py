@@ -124,6 +124,26 @@ non-zero exit and a traceback:
    generator seed; losses within 1e-5 relative), and two steps each run
    from the cache and from ``synthetic_kind: pixels``. Prints a
    ``pixel_train: {...}`` line;
+   (f) train more: ``train.main`` on configs/ucf101/ucf101_train.yaml as
+   shipped (Latte-XL/2 over 101 classes, fp32, batch 5, synthetic latents
+   and labels) for six steps (the median of steps 3-5, peak memory, every
+   launch on the fp32 and vector routes, 6 x STEP_LAUNCHES), one step's
+   gradients against the plain path with the same labels and drop ids
+   (cosine >= 0.999, relative L2 <= 1e-3), two steps with
+   mixed_precision: true on the tensor-core routes; the same for
+   configs/ffs/ffs_img_train.yaml (LatteIMG-XL/2, 16 frames and 8 images,
+   batch 4; its last step profiled), then two steps of
+   configs/ucf101/ucf101_img_train.yaml (``y_image``); the options on the
+   ucf101 model at full width: gradient_accumulation_steps 5 (gradients
+   within 1e-5 of one chunk's on the same rows and draws, the memory of
+   its forwards and backwards below one chunk's), remat_policy dots (gradients within 1e-6 of
+   full remat's, and whether equal to the bit; s/step and working memory
+   beside it), bf16
+   first moments (every exp_avg bf16; the state's bytes beside fp32's),
+   and ``pretrained`` from the six-step run's checkpoint with
+   ``fixed_spatial`` through ``train.main`` (only the temporal attention
+   changed, every other parameter equal to the loaded one to the bit).
+   Prints a ``train_more: {...}`` line;
 7. int8: (a) the int8 flash-attention kernel against its plain version
    in bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
    N = 2048 (two scale blocks), in both P.V modes, every case on the
@@ -154,10 +174,10 @@ non-zero exit and a traceback:
    DDIM steps with quantized: true.
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
-``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
+``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
 {...}``), the total seconds, the kernels' JSON line (rows B1, B2, B3 and both
-B6 rows with ``launches_block_cache``, the block-cache DDIM-50's) and
-ends with
+B6 rows with ``launches_block_cache``, the block-cache DDIM-50's; the
+training rows with ``launches_train_more``, phase 6f's) and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a GPU: without one it exits non-zero and prints no result. What
 it writes (checkpoints, latents) goes to a temporary directory, the kernel
@@ -167,6 +187,7 @@ library to the git-ignored build/.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import re
@@ -207,6 +228,14 @@ from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_param
 from latte_tpu_torch.sample import sample, sample_many
 from latte_tpu_torch.train import train
 from latte_tpu_torch.train.callbacks import Callback
+from latte_tpu_torch.train.checkpoint import find_model
+from latte_tpu_torch.train.state import (
+    create_train_state,
+    make_lr_schedule,
+    make_optimizer,
+    trainable_temporal_attn_mask,
+)
+from latte_tpu_torch.train.step import make_train_step
 from latte_tpu_torch.utils import save_video, to_uint8
 from latte_tpu_torch.vae import cudnn_tf32, make_decode_fn
 
@@ -249,6 +278,7 @@ INT8_FP32_TOL = {
 }
 HIDDEN, HEADS, HEAD_DIM, FRAMES, TOKENS, DEPTH = 1152, 16, 72, 16, 256, 28
 TRAIN_BATCH, TRAIN_STEPS = 5, 6  # ffs_train.yaml's local_batch_size; steps of the entry-point run
+IMG_BATCH, IMAGES = 4, 8  # the *_img_train.yaml's local_batch_size and use_image_num
 KERNELS = {
     "flash_attention": dict(  # bf16; fp32 and other bf16 layouts: csrc/flash_attention.cu
         source="latte_tpu_torch/csrc/flash_attention_tc.cu",
@@ -382,6 +412,10 @@ FLASH_FP32_SHAPES = {
     "ragged_fp32": (FRAMES, 200, 0),
     "temporal_ragged_fp32": (FRAMES, 40, 0),
     "spatial_b5_fp32_misaligned": (TRAIN_BATCH * FRAMES, TOKENS, 1),
+    # LatteIMG's (ffs_img_train.yaml): 16 video frames and 8 images at batch
+    # 4 in the spatial blocks, the video frames alone in the temporal ones
+    "spatial_img_fp32": (IMG_BATCH * (FRAMES + IMAGES), TOKENS, 0),
+    "temporal_img_fp32": (IMG_BATCH * TOKENS, FRAMES, 0),
 }
 # pairs of steps in one process, the backward's own route against the
 # CUDA-core backward forced: in fp32 after the resume (phase 6b), in mixed
@@ -404,6 +438,15 @@ MANY_BATCH, MANY_SAMPLES = 2, 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FFS_CONFIG = os.path.join(ROOT, "configs", "ffs", "ffs_sample.yaml")
 FFS_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_train.yaml")
+# phase "train more": the training configs of the class-conditional and
+# joint video-image slice, as shipped
+UCF_TRAIN = os.path.join(ROOT, "configs", "ucf101", "ucf101_train.yaml")
+FFS_IMG_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_img_train.yaml")
+UCF_IMG_TRAIN = os.path.join(ROOT, "configs", "ucf101", "ucf101_img_train.yaml")
+OPTION_STEPS = 2  # steps of each option's run, and of the short config runs
+ACCUM = 5  # gradient_accumulation_steps of the option check: a row a chunk at batch 5
+ACCUM_REL_L2 = 1e-5  # K = ACCUM against K = 1 on the same rows and draws
+DOTS_REL_L2 = 1e-6  # remat_policy: dots against full, same weights and batch
 
 
 def phase(name: str, t0: float) -> None:
@@ -2446,6 +2489,261 @@ def pixel_train(tmp: str, smi: str, device) -> dict:
     )
 
 
+def check_routes(label: str, launches: dict, expect: dict = None, mixed: bool = False) -> dict:
+    """Every attention launch since the last reset_counts() on the fp32
+    route, or with ``mixed`` on the tensor-core route (none on a first
+    version), every adaLN launch on the vector route, and, with ``expect``,
+    the launches of each kernel. Returns the launches by route."""
+    routes = dict(fwd_tc=flash_attention.tc_launches, fwd_f32=flash_attention.f32_launches,
+                  bwd_tc=bwd_counts("tc_launches"), bwd_f32=bwd_counts("f32_launches"))
+    check_vec(label)
+    print(f"  {label}: launches {launches}, by route {routes}", flush=True)
+    own, other = ("tc", "f32") if mixed else ("f32", "tc")
+    if routes[f"fwd_{own}"] != launches["flash_attention"] or routes[f"fwd_{other}"] or any(
+            routes[f"bwd_{own}"][n] != launches[n] or routes[f"bwd_{other}"][n] for n in BACKWARD):
+        raise AssertionError(f"{label}: an attention launch left the {own} route: {launches}, {routes}")
+    if expect is not None and launches != expect:
+        raise AssertionError(f"{label}: expected launches {expect}, got {launches}")
+    return routes
+
+
+def opt_state_bytes(optimizer) -> dict:
+    """The bytes of the optimizer's moments, and their types."""
+    tensors = [v for st in optimizer.state.values() for k, v in st.items() if k != "step"]
+    return dict(bytes=sum(v.numel() * v.element_size() for v in tensors),
+                exp_avg_dtypes=sorted({str(st["exp_avg"].dtype) for st in optimizer.state.values()}))
+
+
+def run_config(path: str, tmp: str, steps: int, label: str, overrides=(), mixed: bool = False,
+               profile: bool = False, keep: bool = False, launches_per_step: dict = STEP_LAUNCHES) -> dict:
+    """``train.main`` on a config as shipped for ``steps`` steps (synthetic
+    latents): finite losses, every launch on the fp32 routes (the
+    tensor-core ones with ``mixed``) and the vector route, ``steps`` x
+    ``launches_per_step`` launches, the step gaps (with ``profile`` the
+    last step profiled, its device time by kind), the median of steps 3-5
+    when there are 6, peak memory, the optimizer state's bytes, and the
+    train state (under "state"). The experiment's directory is deleted
+    unless ``keep``."""
+    log = StepLog(profile_after=steps - 1 if profile else 0)
+    gc.collect()  # an earlier stage's state, so that the peak is this run's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = train.main(load_config(path, [
+        f"results_dir={tmp}/results", f"max_train_steps={steps}", "log_every=1", f"ckpt_every={steps}",
+        *overrides,
+    ]), callbacks=[log])
+    torch.cuda.synchronize()
+    launches = counts()
+    routes = check_routes(label, launches, {k: steps * c for k, c in launches_per_step.items()}, mixed)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    secs = log.step_seconds()  # secs[i]: step i + 2
+    if out["final_step"] != steps or not log.finite():
+        raise AssertionError(f"{label}: the training run failed: {out}, {log.records}")
+    r = dict(launches=launches, routes=routes, step_seconds=secs, peak_gib=peak_gib,
+             losses=[rec[2] for rec in log.records], **opt_state_bytes(log.state.optimizer))
+    if steps >= 6:
+        warm = secs[1:4]  # steps 3-5
+        r["s_per_step"] = sorted(warm)[1]
+    line = (f"  {label}: {out}; step gaps (s) {secs}"
+            + (f"; median of steps 3-5 {r['s_per_step']:.4f} s/step" if "s_per_step" in r else "")
+            + f"; peak memory {peak_gib:.3f} GiB; optimizer state {r['bytes'] / 2**30:.3f} GiB "
+            f"({r['exp_avg_dtypes']})")
+    print(line, flush=True)
+    if profile:
+        r["profile_ms"] = print_profile(label, log.prof, secs[-1] * 1e3)
+    r["state"], log.state = log.state, None
+    r["checkpoint"] = os.path.join(out["experiment_dir"], "checkpoints", f"{steps:07d}.pt")
+    if not keep:
+        shutil.rmtree(out["experiment_dir"])
+    return r
+
+
+def step_grads(model, batch: dict, grad_accum: int = 1, mu_dtype=None, lr: float = 0.0):
+    """One train step of ``model`` on ``batch`` (its t, noise, labels and
+    drop ids fixed) through ``make_train_step``, without clipping; at lr 0
+    AdamW leaves the weights as they were. Returns the gradients (flat),
+    the step's seconds, its working memory in GiB (the peak above what was
+    allocated when it started: of the forwards and backwards, up to the
+    optimizer's update, and of the whole step, which allocates the AdamW
+    moments of its new state) and the train state."""
+    state = create_train_state(model, make_optimizer(model, mu_dtype=mu_dtype), make_lr_schedule(lr))
+    step = make_train_step(create_diffusion(""), clip_max_norm=1e30, grad_accum=grad_accum)
+    update, peaks = state.optimizer.step, []
+
+    def measured_update(*args, **kwargs):
+        peaks.append(torch.cuda.max_memory_allocated())
+        return update(*args, **kwargs)
+
+    state.optimizer.step = measured_update
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    metrics = step(state, batch, torch.Generator(device=batch["noise"].device))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    working = dict(backward_gib=(peaks[0] - held) / 2**30,
+                   step_gib=(torch.cuda.max_memory_allocated() - held) / 2**30)
+    del state.optimizer.step  # the method again, and no cycle through the wrapper
+    if not torch.isfinite(metrics["loss"]):
+        raise AssertionError("a step gave a non-finite loss")
+    return torch.cat([p.grad.flatten() for p in model.parameters()]), secs, working, state
+
+
+def full_width_batch(device, batch: int, frames: int, class_conditional: bool, seed: int) -> dict:
+    """A batch of the configs' shapes from a seed: latents, t, noise, and for
+    a class-conditional model labels over ucf101's 101 classes with every
+    third row's label dropped (the same drop ids on every path)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = dict(latents=torch.randn((batch, frames, 4, 32, 32), generator=gen, device=device),
+             t=torch.randint(0, 1000, (batch,), generator=gen, device=device))
+    b["noise"] = torch.randn(b["latents"].shape, generator=gen, device=device)
+    if class_conditional:
+        b["y"] = torch.randint(0, 101, (batch,), generator=gen, device=device)
+        b["force_drop_ids"] = (torch.arange(batch, device=device) % 3 == 2).long()
+    return b
+
+
+def kernel_vs_plain(name: str, arch: dict, batch: dict, label: str, seed: int):
+    """One step's gradients of the model on the kernel path against the
+    plain path from the same weights and batch (cosine >= 0.999, relative
+    L2 <= 1e-3, as train_step_parity); returns the kernel path's model and
+    the comparison with the step's launches."""
+    with torch.device(batch["latents"].device):
+        model = get_model(name, **arch)
+        plain = get_model(name, plain=True, **arch)
+    randomize_(model, seed=seed)
+    plain.load_state_dict(model.state_dict())
+    reset_counts()
+    g_k = step_grads(model, batch)[0]
+    launches = counts()
+    check_routes(f"{label} step", launches, STEP_LAUNCHES)
+    g_p = step_grads(plain, batch)[0]
+    del plain
+    r = compare(f"{label}: kernel grads vs plain grads", g_k, g_p)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    if not (r["finite"] and r["cosine"] >= 0.999 and r["rel_l2"] <= 1e-3):
+        raise AssertionError(f"{label}: the kernel path's gradients disagree with the plain path's")
+    return model, dict(r, launches=launches)
+
+
+def ucf101_options(model, batch: dict, smi: str) -> dict:
+    """Phase "train more" (c) on (a)'s model and batch, two steps each (the
+    first's gradients compared, the second timed with its working memory):
+    one chunk under full remat, ACCUM chunks and "dots" against it; then
+    two steps with bf16 first moments."""
+    r = {}
+    for opt, kw in (("full", {}), ("grad_accum", dict(grad_accum=ACCUM)), ("dots", {})):
+        model.remat_policy = "dots" if opt == "dots" else "full"
+        reset_counts()
+        g, _, _, state = step_grads(model, batch, **kw)
+        del state
+        _, secs, working, state = step_grads(model, batch, **kw)
+        del state
+        launches = counts()
+        # each chunk a forward, its recompute and a backward
+        chunks = OPTION_STEPS * kw.get("grad_accum", 1)
+        check_routes(f"ucf101 {opt}", launches, {k: chunks * c for k, c in STEP_LAUNCHES.items()})
+        r[opt] = dict(step_s=secs, working=working, launches=launches)
+        if opt == "full":
+            g_full = g
+        else:
+            r[opt].update(compare(f"ucf101 {opt} grads vs one chunk, full remat", g, g_full),
+                          equal_to_the_bit=bool(torch.equal(g, g_full)))
+            del g
+        torch.cuda.empty_cache()
+        print(f"  ucf101 {opt}: step {secs:.4f} s, working memory {working} (one chunk under full "
+              f"remat {r['full']['step_s']:.4f} s, {r['full']['working']}); grads equal to full "
+              f"remat's to the bit: {r[opt].get('equal_to_the_bit')} on {smi}", flush=True)
+    model.remat_policy = "full"
+    del g_full
+    # chunks hold one chunk's activations: the forwards and backwards need
+    # less; the update's peak (gradients, moments, AdamW's temporaries) is
+    # the same
+    accum, full = r["grad_accum"], r["full"]
+    if not (accum["rel_l2"] <= ACCUM_REL_L2 and accum["working"]["backward_gib"] < full["working"]["backward_gib"]):
+        raise AssertionError(f"gradient accumulation: {accum} against {full}")
+    if not r["dots"]["rel_l2"] <= DOTS_REL_L2:
+        raise AssertionError(f"remat_policy dots: {r['dots']}")
+    # two steps with the first moment in bf16 (lr 1e-4: the weights move)
+    state = None
+    for _ in range(OPTION_STEPS):
+        del state
+        _, secs, working, state = step_grads(model, batch, mu_dtype=torch.bfloat16, lr=1e-4)
+    r["adam_mu_bf16"] = dict(step_s=secs, working=working, **opt_state_bytes(state.optimizer))
+    del state
+    print(f"  ucf101 adam_mu_dtype bfloat16: {r['adam_mu_bf16']}", flush=True)
+    if r["adam_mu_bf16"]["exp_avg_dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"adam_mu_dtype: bfloat16 left a first moment in another type: {r}")
+    return r
+
+
+def train_more(tmp: str, smi: str, device) -> dict:
+    """Phase "train more": (a) ucf101_train.yaml (class-conditional over 101
+    classes, fp32, batch 5, full remat) through ``train.main``, TRAIN_STEPS
+    steps, then one step's gradients against the plain path, then
+    OPTION_STEPS steps with mixed_precision: true; (b) ffs_img_train.yaml
+    (LatteIMG-XL/2, 16 frames and 8 images, batch 4) the same with the last
+    step profiled, then OPTION_STEPS steps of ucf101_img_train.yaml
+    (y_image); (c) the options on (a)'s model: gradient accumulation, the
+    "dots" remat policy, bf16 first moments, and through ``train.main``
+    ``pretrained`` from (a)'s checkpoint with ``fixed_spatial``."""
+    res = {}
+    a = run_config(UCF_TRAIN, tmp, TRAIN_STEPS, "ucf101_train fp32", keep=True)
+    ckpt, a_state = a.pop("checkpoint"), a.pop("state")
+    a_opt = opt_state_bytes(a_state.optimizer)
+    del a_state
+    torch.cuda.empty_cache()
+    res["ucf101_train"] = a
+    batch = full_width_batch(device, TRAIN_BATCH, FRAMES, True, seed=11)
+    arch = dict(input_size=32, num_frames=FRAMES, extras=2, num_classes=101, gradient_checkpointing=True)
+    model, res["ucf101_parity"] = kernel_vs_plain("Latte-XL/2", arch, batch, "ucf101 fp32", seed=12)
+    res["options"] = ucf101_options(model, batch, smi)
+    res["options"]["adam_mu_bf16"]["fp32_state_bytes"] = a_opt["bytes"]
+    del model
+    torch.cuda.empty_cache()
+    res["ucf101_mixed"] = run_config(UCF_TRAIN, tmp, OPTION_STEPS, "ucf101_train mixed precision",
+                                     ["mixed_precision=true"], mixed=True)
+    res["ucf101_mixed"].pop("state")
+
+    b = run_config(FFS_IMG_TRAIN, tmp, TRAIN_STEPS, "ffs_img_train fp32", profile=True)
+    b.pop("state")
+    res["ffs_img_train"] = b
+    batch = full_width_batch(device, IMG_BATCH, FRAMES + IMAGES, False, seed=13)
+    arch = dict(input_size=32, num_frames=FRAMES, use_image_num=IMAGES, gradient_checkpointing=True)
+    model, res["ffs_img_parity"] = kernel_vs_plain("LatteIMG-XL/2", arch, batch, "ffs_img fp32", seed=14)
+    del model, batch
+    torch.cuda.empty_cache()
+    res["ucf101_img_train"] = run_config(UCF_IMG_TRAIN, tmp, OPTION_STEPS, "ucf101_img_train fp32")
+    res["ucf101_img_train"].pop("state")
+
+    # (c) fine-tuning: the temporal attention of (a)'s EMA, the rest frozen;
+    # block 0 is frozen and its input needs no gradient, so its backward
+    # kernels do not run
+    fine = run_config(UCF_TRAIN, tmp, OPTION_STEPS, "ucf101 pretrained fixed_spatial",
+                      [f"pretrained={ckpt}", "fixed_spatial=true"],
+                      launches_per_step={**STEP_LAUNCHES, **{k: DEPTH - 1 for k in BACKWARD}})
+    state = fine.pop("state")
+    loaded = find_model(ckpt)
+    mask = trainable_temporal_attn_mask(state.model)
+    moved = {name: not torch.equal(p.detach(), loaded[name].to(p.device))
+             for name, p in state.model.named_parameters()}
+    del state, loaded
+    fine["changed"] = sum(moved.values())
+    fine["trainable"] = sum(mask.values())
+    print(f"  pretrained + fixed_spatial: {fine['changed']} parameters changed of {len(moved)}; "
+          f"{fine['trainable']} trainable", flush=True)
+    if moved != mask:
+        wrong = sorted(n for n in mask if moved[n] != mask[n])[:8]
+        raise AssertionError(f"fixed_spatial: parameters changed other than the temporal attention: {wrong}")
+    res["options"]["pretrained_fixed_spatial"] = fine
+    shutil.rmtree(os.path.dirname(os.path.dirname(ckpt)))
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     """One kernel's entry of the JSON line: its main-path launches and its
     measurements at the main path's shape (``row``)."""
@@ -2652,10 +2950,14 @@ def main() -> int:
         phase("train int8", t0)
         t0 = time.perf_counter()
         pixel = pixel_train(tmp, smi, device)
-    phase("pixel train", t0)
+        phase("pixel train", t0)
+        t0 = time.perf_counter()
+        more = train_more(tmp, smi, device)
+    phase("train more", t0)
     print("train: " + json.dumps(dict(parity=parity, entry_point=entry, mixed_precision=mixed,
                                       quant_train=quant), default=str), flush=True)
     print("pixel_train: " + json.dumps(pixel, default=str), flush=True)
+    print("train_more: " + json.dumps(more, default=str), flush=True)
     print("int8: " + json.dumps(dict(kernel_fp32=int8_fp32, forward=int8_fwd, sampler=int8_run),
                                 default=str), flush=True)
 
@@ -2663,6 +2965,9 @@ def main() -> int:
     print("block_cache: " + json.dumps(bc_run, default=str), flush=True)
     print("sample_many: " + json.dumps(many, default=str), flush=True)
 
+    # each kernel's launches in the runs of phase "train more"
+    more_launches = {name: {run: more[run]["launches"][name] for run in (
+        "ucf101_train", "ucf101_mixed", "ffs_img_train", "ucf101_img_train")} for name in KERNELS}
     kernels = []
     for name, k in KERNELS.items():
         if name == INT8:  # the int8 sampler's path (bf16, batch 1, flash route, pv_int8)
@@ -2704,14 +3009,16 @@ def main() -> int:
                 sass_mma=mma, launches_fp32_train=entry["launches"][name],
                 cases={c: measured[name][c] for c in BWD_SHAPES if c != "spatial_b5"})
             launches = mixed["launches"][name]
-        kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row, **extra))
+        kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row,
+                                  launches_train_more=more_launches[name], **extra))
     # the fp32 trainer's path, at its shapes (fp32, batch 5)
     fwd32 = measured["flash_attention"]
     kernels.append(kernel_row(
         "flash_attention_f32", F32_FWD_SOURCE, KERNELS["flash_attention"]["replaces"],
         entry["fwd_f32_launches"], fwd32["spatial_b5_fp32"], shape="spatial fp32 batch 5",
         temporal=fwd32["temporal_b5_fp32"], cases={c: fwd32[c] for c in FLASH_FP32_SHAPES},
-        train_pairs=entry["forward_pairs"]))
+        train_pairs=entry["forward_pairs"], launches_train_more=more_launches["flash_attention"],
+        img=dict(spatial=fwd32["spatial_img_fp32"], temporal=fwd32["temporal_img_fp32"])))
     for name in BACKWARD:
         kernels.append(kernel_row(
             f"{name}_f32", F32_SOURCE, KERNELS[name]["replaces"], entry["f32_launches"][name],
@@ -2719,7 +3026,7 @@ def main() -> int:
             temporal=measured[name]["temporal_b5_fp32"],
             cases={c: measured[name][c] for c in BWD_SHAPES if BWD_SHAPES[c][2] == torch.float32},
             train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
-                             pairs_won=entry["pairs_won"])))
+                             pairs_won=entry["pairs_won"]), launches_train_more=more_launches[name]))
     # the "qk" mode (int8_attention: qk under attention_mode: auto, the fused
     # rule), on the same source's "qk" kernels
     qk, qk_cases = int8_run["qk"], {c: r for c, r in measured[INT8].items() if c.endswith("_qk")}

@@ -15,8 +15,19 @@ gradients reach the fp32 masters. Sincos tables and inputs follow; the
 output comes back in the input's type.
 
 ``gradient_checkpointing`` recomputes each spatial/temporal pair in the
-backward (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` with
-the "full" policy does around the JAX model's scanned pair.
+backward (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` does
+around the JAX model's scanned pair. ``remat_policy`` "full" recomputes the
+whole pair; "dots" (``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable``) saves the outputs of the products
+without batch dimensions, every ``Linear`` of the pair (``aten.mm`` and
+``aten.addmm``), and recomputes the rest: the glue, the adaLN kernels and
+the attention, whose kernels run again in the recompute as under "full"
+(selective activation checkpointing; the hand-written kernels are not
+dispatcher ops, so the policy never caches their outputs).
+
+Class labels (``extras: 2``) are dropped to the null class only under
+``train=True``, from the caller's ``generator`` (see
+:class:`~latte_tpu_torch.models.embeddings.LabelEmbedder`).
 
 ``quantized`` and ``int8_attention`` select the W8A8 int8 modes of the
 blocks (see :mod:`latte_tpu_torch.models.layers`); ``attention_mode`` routes
@@ -30,11 +41,12 @@ always runs the flash kernel).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from latte_tpu_torch.models.embeddings import (
     LabelEmbedder,
@@ -45,6 +57,17 @@ from latte_tpu_torch.models.embeddings import (
 from latte_tpu_torch.models.layers import AdaLNBlock, FinalLayer, PatchEmbed, unpatchify
 
 __all__ = ["Latte"]
+
+REMAT_POLICIES = ("full", "dots")
+# the products the "dots" policy saves: those without batch dimensions
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 class Latte(nn.Module):
@@ -70,6 +93,7 @@ class Latte(nn.Module):
         extras: int = 1,
         plain: bool = False,
         gradient_checkpointing: bool = False,
+        remat_policy: str = "full",
         compute_dtype: Optional[torch.dtype] = None,
         quantized=False,
         int8_attention=False,
@@ -83,6 +107,8 @@ class Latte(nn.Module):
             )
         if depth % 2:
             raise ValueError(f"depth must be even (spatial/temporal pairs); got {depth}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r} (use 'full' or 'dots')")
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -93,6 +119,7 @@ class Latte(nn.Module):
         self.num_classes = num_classes
         self.extras = extras
         self.gradient_checkpointing = gradient_checkpointing
+        self.remat_policy = remat_policy
         self.compute_dtype = compute_dtype
         self.quantized = quantized
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
@@ -175,17 +202,34 @@ class Latte(nn.Module):
         # (b t) f d -> (b f) t d
         return x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
 
+    def _run_pair(self, fn, *args) -> torch.Tensor:
+        """``fn(*args)``, under gradient checkpointing with the remat policy
+        when the graph is recorded."""
+        if not (self.gradient_checkpointing and torch.is_grad_enabled()):
+            return fn(*args)
+        if self.remat_policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_contexts)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def _embed_labels(self, y, train: bool, force_drop_ids, generator, dtype) -> torch.Tensor:
+        return self.y_embedder(y, train=train, force_drop_ids=force_drop_ids, generator=generator).to(dtype)
+
     def forward(
         self,
         x: torch.Tensor,
         t: torch.Tensor,
         y: Optional[torch.Tensor] = None,
         *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        force_drop_ids: Optional[torch.Tensor] = None,
         return_front: int = 0,
         front_state: Optional[torch.Tensor] = None,
         start_pair: int = 0,
     ):
-        """The forward, plus the block-cache staging hooks of the JAX model:
+        """The forward (``train``, ``generator`` and ``force_drop_ids``
+        reach the label embedder), plus the block-cache staging hooks of the
+        JAX model:
 
         - ``return_front=k`` (full forward): also return the (B·F, T, D)
           activation after pair k - 1 (block 2k - 1), in the compute type,
@@ -220,16 +264,14 @@ class Latte(nn.Module):
         c_spatial = t_emb.repeat_interleave(F, dim=0)
         c_temp = t_emb.repeat_interleave(T, dim=0)
         if self.extras == 2:
-            y_emb = self.y_embedder(y).to(dtype)
+            y_emb = self._embed_labels(y, train, force_drop_ids, generator, dtype)
             c_spatial = c_spatial + y_emb.repeat_interleave(F, dim=0)
             c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
 
         temp_embed = self._temp_embed(F, dtype)
-        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         front = None
         for i in range(2 * start_pair, self.depth, 2):
-            args = (x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F)
-            x = checkpoint(self._pair, *args, use_reentrant=False) if remat else self._pair(*args)
+            x = self._run_pair(self._pair, x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F)
             if i == 2 * return_front - 2:
                 front = x
 

@@ -87,7 +87,14 @@ class TimestepEmbedder(nn.Module):
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label embedding with the extra null-class row used by CFG."""
+    """Class-label embedding with the extra null-class row used by CFG.
+
+    Training drops each label to the null class with ``dropout_prob``
+    (how classifier-free guidance is learned), as the JAX module does under
+    ``train=True``. The drop is keyed on the explicit ``train`` argument,
+    never on ``nn.Module.training``: a model left in ``.train()`` mode
+    embeds every label as given unless its caller asks for training.
+    """
 
     def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.1):
         super().__init__()
@@ -95,7 +102,19 @@ class LabelEmbedder(nn.Module):
         self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels: torch.Tensor, force_drop_ids: torch.Tensor | None = None):
+    def forward(
+        self,
+        labels: torch.Tensor,
+        train: bool = False,
+        force_drop_ids: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``force_drop_ids`` (1 = drop) decides the drop when given;
+        otherwise under ``train`` one uniform draw a label from
+        ``generator`` (the JAX module's ``label_dropout`` stream)."""
         if force_drop_ids is not None:
             labels = torch.where(force_drop_ids == 1, self.num_classes, labels)
+        elif train and self.dropout_prob > 0:
+            u = torch.rand(labels.shape, generator=generator, device=labels.device)
+            labels = torch.where(u < self.dropout_prob, self.num_classes, labels)
         return self.embedding_table(labels)

@@ -1,12 +1,13 @@
-"""Model registry: named Latte configurations (XL/L/B/S x patch 2/4/8).
+"""Model registry: named Latte and LatteIMG configurations (XL/L/B/S x
+patch 2/4/8).
 
-Port of ``latte_tpu/models/registry.py`` for the video model. Options of
-the JAX factory that select work this port has not taken on yet (MoE, ring
-attention, the image model, the "dots" remat policy) raise
+Port of ``latte_tpu/models/registry.py``. Options of the JAX factory that
+select work this port has not taken on yet (MoE, ring attention) raise
 ``NotImplementedError``; execution hints for the JAX compiler (scan
 unrolling, the fused-adaLN switch) have no counterpart here, since the port
 always runs its fused kernels. ``gradient_checkpointing`` recomputes each
-spatial/temporal pair in the backward (the "full" remat policy).
+spatial/temporal pair in the backward under ``remat_policy`` ("full", the
+default, or "dots").
 
 ``int8_attention`` is checked here, as in the JAX factory: it must be true,
 "full" or "qk", and it needs ``quantized: static`` (or ``calib``), or the
@@ -21,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from latte_tpu_torch.models.dit import Latte
+from latte_tpu_torch.models.dit_img import LatteIMG
 
 _SIZES: Dict[str, Dict[str, Any]] = {
     "XL": dict(depth=28, hidden_size=1152, num_heads=16),
@@ -33,17 +35,20 @@ _PATCHES = (2, 4, 8)
 Latte_models: Dict[str, Dict[str, Any]] = {
     f"Latte-{s}/{p}": dict(patch_size=p, **cfg) for s, cfg in _SIZES.items() for p in _PATCHES
 }
+LatteIMG_models: Dict[str, Dict[str, Any]] = {
+    f"LatteIMG-{s}/{p}": dict(patch_size=p, **cfg) for s, cfg in _SIZES.items() for p in _PATCHES
+}
 
 _ATTENTION_MODES = ("auto", "xla", "flash", "math")
 
 
 def get_model(name: str, **overrides) -> Latte:
-    """Build a model by registry name, e.g. ``Latte-XL/2``."""
+    """Build a model by registry name, e.g. ``Latte-XL/2`` or ``LatteIMG-XL/2``."""
     if name in Latte_models:
         return Latte(**{**Latte_models[name], **overrides})
-    if name.startswith("LatteIMG-"):
-        raise NotImplementedError(f"{name}: the image model comes with the T2V/image slice")
-    raise ValueError(f"unknown model {name!r}; known: {sorted(Latte_models)}")
+    if name in LatteIMG_models:
+        return LatteIMG(**{**LatteIMG_models[name], **overrides})
+    raise ValueError(f"unknown model {name!r}; known: {sorted(Latte_models) + sorted(LatteIMG_models)}")
 
 
 def get_models(args, quantized=False) -> Latte:
@@ -51,9 +56,11 @@ def get_models(args, quantized=False) -> Latte:
     ``num_frames``, ``learn_sigma``, ``extras``, and optionally
     ``num_classes``, ``attention_mode``, ``int8_attention`` (checked against
     ``args.quantized``) and ``model_overrides`` (explicit depth/width
-    changes). ``quantized`` is the blocks' int8 mode (see ``models.layers``)."""
+    changes), ``gradient_checkpointing`` with ``remat_policy``, and for a
+    LatteIMG name ``use_image_num``. ``quantized`` is the blocks' int8 mode
+    (see ``models.layers``)."""
     if getattr(args, "moe_experts", None):
-        raise NotImplementedError("moe_experts: not ported yet (the multi-GPU slice)")
+        raise NotImplementedError("moe_experts: not ported yet; comes with the MoE slice")
     mode = str(getattr(args, "attention_mode", None) or "auto")
     if mode not in _ATTENTION_MODES:
         raise NotImplementedError(
@@ -86,13 +93,11 @@ def get_models(args, quantized=False) -> Latte:
     if getattr(args, "num_classes", None):
         common["num_classes"] = int(args.num_classes)
     if getattr(args, "gradient_checkpointing", False):
-        policy = getattr(args, "remat_policy", None) or "full"
-        if policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={policy!r}: the port recomputes whole pairs ('full'); "
-                "saving the matmul outputs ('dots') comes with a later training slice"
-            )
         common["gradient_checkpointing"] = True
+        if getattr(args, "remat_policy", None):
+            common["remat_policy"] = str(args.remat_policy)
     if getattr(args, "model_overrides", None):
         common.update(dict(args.model_overrides))
+    if args.model in LatteIMG_models:
+        common["use_image_num"] = int(getattr(args, "use_image_num", 0) or 0)
     return get_model(args.model, **common)

@@ -5,7 +5,8 @@ One file per step, ``<ckpt_dir>/<step:07d>.pt``, holding
 ``{"model", "ema", "opt", "step", "args"}``: the model's and the EMA's state
 dicts, the optimizer's state dict, the step and the run's config. The
 port's sampler reads it through
-:func:`latte_tpu_torch.convert.load_reference_checkpoint`, preferring EMA.
+:func:`latte_tpu_torch.convert.load_reference_checkpoint`, preferring EMA,
+and the trainer's ``pretrained`` option through :func:`load_pretrained`.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ __all__ = [
     "latest_checkpoint",
     "latest_checkpoint_under",
     "find_model",
+    "load_pretrained",
 ]
 
 
@@ -99,3 +101,30 @@ def latest_checkpoint_under(results_dir: str, model: Optional[str] = None) -> Op
 def find_model(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
     """Inference weights (a state dict) from a checkpoint; EMA preferred."""
     return load_reference_checkpoint(path, prefer_ema=prefer_ema)
+
+
+def load_pretrained(model: torch.nn.Module, path: str) -> int:
+    """The partial load of ``pretrained`` (the JAX trainer's, after the
+    reference ``train.py``): from a reference ``.pt`` or a port checkpoint
+    (EMA preferred, :func:`find_model`), every parameter whose name and shape
+    match overwrites the model's; every other keeps its value. Returns the
+    number kept. A path that does not exist raises ``FileNotFoundError``
+    (the JAX trainer ignores it), a directory (an orbax checkpoint)
+    ``NotImplementedError``."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"pretrained {path!r} does not exist")
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"pretrained {path!r} is a directory, as the JAX trainer's orbax checkpoints are; "
+            "the port reads a reference-format .pt (see latte_tpu_torch.convert.flax_to_state_dict)"
+        )
+    loaded = find_model(path)
+    kept = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            cand = loaded.get(name)
+            if cand is not None and tuple(cand.shape) == tuple(p.shape):
+                p.copy_(cand)
+            else:
+                kept += 1
+    return kept

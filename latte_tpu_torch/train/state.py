@@ -4,10 +4,16 @@ weight decay 0, EMA 0.9999, warmup-then-constant or cosine learning rate.
 
 AdamW is ``torch.optim.AdamW`` with optax's defaults (b1 0.9, b2 0.999,
 eps 1e-8, decoupled decay), as the JAX package uses ``optax.adamw``: a
-library optimizer, with no Pallas kernel behind it on either side. The
-learning rate follows optax's step semantics: the update of step ``n``
-(counting from 0) uses ``schedule(n)``, so the first update under warmup
-uses a learning rate of 0.
+library optimizer, with no Pallas kernel behind it on either side. With
+``mu_dtype`` (``adam_mu_dtype: bfloat16``) the first moment is stored in
+that type by :class:`AdamW`, the port's own, which follows
+``optax.scale_by_adam``'s order of arithmetic. The learning rate follows
+optax's step semantics: the update of step ``n`` (counting from 0) uses
+``schedule(n)``, so the first update under warmup uses a learning rate of 0.
+
+The optimizer holds the parameters that require a gradient: ``fixed_spatial``
+freezes all but :func:`trainable_temporal_attn_mask`'s, which are then the
+only ones updated and decayed (the JAX trainer's decay mask).
 """
 
 from __future__ import annotations
@@ -15,12 +21,22 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable
+import re
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["TrainState", "make_lr_schedule", "make_optimizer", "create_train_state", "update_ema"]
+__all__ = [
+    "AdamW",
+    "TrainState",
+    "make_lr_schedule",
+    "make_optimizer",
+    "create_train_state",
+    "trainable_temporal_attn_mask",
+    "update_ema",
+]
 
 Schedule = Callable[[int], float]
 
@@ -73,12 +89,96 @@ def make_lr_schedule(
     return fn
 
 
-def make_optimizer(model: nn.Module, weight_decay: float = 0.0) -> torch.optim.AdamW:
-    """AdamW over every parameter with optax's defaults; the learning rate
-    is set before each update from the schedule."""
-    return torch.optim.AdamW(
-        model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
-    )
+# the temporal blocks' attention: blocks.{odd}.attn.*
+_TEMPORAL_ATTN = re.compile(r"^blocks\.\d*[13579]\.attn\.")
+
+
+def trainable_temporal_attn_mask(model: nn.Module) -> Dict[str, bool]:
+    """``fixed_spatial``'s mask by parameter name: True only for the
+    temporal attention's parameters (the JAX mask's "temporal" and "attn" in
+    the path), the ``attn.*`` parameters of the odd blocks."""
+    return {name: bool(_TEMPORAL_ATTN.match(name)) for name, _ in model.named_parameters()}
+
+
+class AdamW(torch.optim.Optimizer):
+    """AdamW with the first moment stored in ``mu_dtype``, in the arithmetic
+    of ``optax.adamw(..., mu_dtype=...)``: the new moment is computed in
+    fp32 from the stored one (``b1·mu`` rounded to ``mu_dtype``, as a
+    weakly typed product is in JAX) and the fp32 gradient; the
+    bias-corrected update uses that fp32 moment, and only then is it stored
+    rounded to ``mu_dtype``. The second moment stays fp32: its increment,
+    (1 - b2) = 0.1% of its size, is below bf16's resolution. The state keys
+    are ``torch.optim.AdamW``'s (``step``, ``exp_avg``, ``exp_avg_sq``), and
+    ``exp_avg`` keeps its type through ``state_dict`` / ``load_state_dict``."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=torch.tensor(0.0, device="cpu"), exp_avg=torch.zeros_like(p, dtype=self.mu_dtype),
+                                         exp_avg_sq=torch.zeros_like(p))
+            b1, b2 = group["betas"]
+            grads = [p.grad for p in params]
+            mus = [self.state[p]["exp_avg"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            steps = [self.state[p]["step"] for p in params]
+            torch._foreach_add_(steps, 1.0)
+            count = np.float32(steps[0].item())
+            # mu = (1 - b1)·g + b1·mu in fp32, b1·mu in mu's type (b1 too);
+            # stored rounded, while the update goes on from the fp32 mu,
+            # which becomes the update in place (one parameter-sized
+            # temporary at a time beside it)
+            b1_mu = torch.tensor(b1, dtype=self.mu_dtype).item()
+            update = torch._foreach_mul(grads, 1 - b1)
+            torch._foreach_add_(update, torch._foreach_mul(mus, b1_mu))
+            torch._foreach_copy_(mus, update)
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, g2)
+            del g2
+            # bias corrections in fp32, as optax computes decay**count
+            bc1 = float(np.float32(1) - np.float32(b1) ** count)
+            bc2 = float(np.float32(1) - np.float32(b2) ** count)
+            torch._foreach_div_(update, bc1)
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(update, denom)
+            del denom
+            if group["weight_decay"]:
+                torch._foreach_add_(update, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_mul_(update, -group["lr"])
+            torch._foreach_add_(params, update)
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)  # casts every moment to its parameter's type
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+
+
+def make_optimizer(
+    model: nn.Module, weight_decay: float = 0.0, mu_dtype: Optional[torch.dtype] = None
+) -> torch.optim.Optimizer:
+    """AdamW with optax's defaults over the parameters that require a
+    gradient (only they are decayed); the learning rate is set before each
+    update from the schedule. ``mu_dtype`` other than fp32 stores the first
+    moment in that type (:class:`AdamW`)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    kw = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    if mu_dtype is not None and mu_dtype != torch.float32:
+        return AdamW(params, mu_dtype=mu_dtype, **kw)
+    return torch.optim.AdamW(params, **kw)
 
 
 def create_train_state(

@@ -1,8 +1,16 @@
 """The training step (port of ``latte_tpu/train/step.py``, one device).
 
-[VAE encode of a pixel batch ->] q_sample -> model forward -> hybrid MSE + VB loss -> backward -> global
-grad norm (always reported) -> clipping once ``step >= start_clip_iter`` ->
-AdamW -> EMA every ``ema_every`` steps at ``decay**ema_every``.
+[VAE encode of a pixel batch ->] q_sample -> model forward (``train=True``:
+class labels dropped to the null class at the model's dropout rate) ->
+hybrid MSE + VB loss -> backward [-> the next chunk under gradient
+accumulation] -> global grad norm (always reported) -> clipping once
+``step >= start_clip_iter`` -> AdamW -> EMA every ``ema_every`` steps at
+``decay**ema_every``.
+
+Only the parameters that require a gradient train: ``fixed_spatial`` freezes
+all but the temporal attention's (``train.state.trainable_temporal_attn_mask``),
+so the norm, the clipping and AdamW see those alone, as the JAX step's zeroed
+gradients leave the others unchanged.
 
 The step leaves its metrics on the device: it never waits for the host, so
 the loop syncs only when it logs.
@@ -10,6 +18,7 @@ the loop syncs only when it logs.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -64,6 +73,7 @@ def make_train_step(
     start_clip_iter: int = 0,
     vae_scale: float = 0.18215,
     encode_fn: Optional[Callable] = None,
+    grad_accum: int = 1,
 ) -> Callable[[TrainState, Batch, torch.Generator], Dict[str, torch.Tensor]]:
     """Build ``train_step(state, batch, generator) -> metrics``, which updates
     ``state`` in place.
@@ -72,14 +82,22 @@ def make_train_step(
     latent cache's ``"latent_mean"``/``"latent_std"``, or pixels,
     ``"video"`` (B, F, 3, H, W) uint8 or fp32 in [-1, 1], which
     ``encode_fn(video, generator) -> scaled latents`` turns into latents
-    (``train.build_encode_fn``); optionally ``"t"``
-    (importance-sampled timesteps) with ``"t_weights"``, and ``"noise"``
-    (the diffusion noise, else drawn from ``generator``). Draw order from
-    the generator: posterior sample, t, noise.
+    (``train.build_encode_fn``); for a class-conditional model (``extras:
+    2``) ``"y"`` (B,) and, for LatteIMG's still images, ``"y_image"``
+    (B, I); optionally ``"t"`` (importance-sampled timesteps) with
+    ``"t_weights"``, ``"noise"`` (the diffusion noise, else drawn from
+    ``generator``) and ``"force_drop_ids"`` / ``"force_drop_ids_image"``
+    (1 = drop the label; else drawn from ``generator``). Draw order from the
+    generator: posterior sample, t, noise, the label dropout of ``y``, then
+    of ``y_image``.
+
+    ``grad_accum`` = K > 1 splits the batch into K chunks, row r into chunk
+    r mod K (the JAX step's interleaving), each with its own draws, in
+    chunk order; the gradients are summed over the chunks and divided by K,
+    then clipped and applied once, and the loss is the mean of the chunks'.
     """
 
-    def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
-        model = state.model
+    def chunk_loss(model, batch: Batch, generator: torch.Generator):
         latents = _latents(batch, generator, vae_scale, encode_fn)
         B = latents.shape[0]
         if "t" in batch:
@@ -93,17 +111,42 @@ def make_train_step(
             noise = torch.randn(
                 latents.shape, generator=generator, device=latents.device, dtype=latents.dtype
             )
-
-        terms = diffusion.training_losses(model, latents, t, noise)
+        kwargs = {}
+        if getattr(model, "extras", 1) == 2:
+            kwargs["y"] = batch["y"]
+            if "y_image" in batch:
+                kwargs["y_image"] = batch["y_image"]
+        for key, label in (("force_drop_ids", "y"), ("force_drop_ids_image", "y_image")):
+            if key in batch and label in kwargs:
+                kwargs[key] = batch[key]
+        model_fn = functools.partial(model, train=True, generator=generator)
+        terms = diffusion.training_losses(model_fn, latents, t, noise, model_kwargs=kwargs)
         per_sample = terms["loss"]
         if "t_weights" in batch:
             # importance-sampling correction: E_p[w(t) L(t)] = E_U[L]
             per_sample = per_sample * batch["t_weights"]
-        loss = per_sample.mean()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        return per_sample.mean(), terms, t
 
-        grads = [p.grad for p in model.parameters()]
+    def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
+        model = state.model
+        params = [p for p in model.parameters() if p.requires_grad]
+        state.optimizer.zero_grad(set_to_none=True)
+        K = grad_accum
+        losses, mses, vbs, ts, per_sample = [], [], [], [], []
+        for k in range(K):
+            part = batch if K == 1 else {key: v[k::K] for key, v in batch.items()}
+            loss, terms, t = chunk_loss(model, part, generator)
+            loss.backward()
+            losses.append(loss.detach())
+            mses.append(terms["mse"].detach().mean())
+            if "vb" in terms:
+                vbs.append(terms["vb"].detach().mean())
+            ts.append(t)
+            per_sample.append(terms["loss"].detach())
+
+        grads = [p.grad for p in params]
+        if K > 1:
+            torch._foreach_div_(grads, K)
         grad_norm = global_norm(grads)
         with torch.no_grad():
             if state.step >= start_clip_iter:
@@ -117,18 +160,19 @@ def make_train_step(
                 update_ema(state.ema, model, ema_decay**ema_every)
         state.step += 1
 
+        t = torch.cat(ts)
         metrics = {
-            "loss": loss.detach(),
-            "mse": terms["mse"].detach().mean(),
+            "loss": torch.stack(losses).mean(),
+            "mse": torch.stack(mses).mean(),
             "grad_norm": grad_norm.detach(),
             "t_mean": t.float().mean(),
         }
-        if "vb" in terms:
-            metrics["vb"] = terms["vb"].detach().mean()
+        if vbs:
+            metrics["vb"] = torch.stack(vbs).mean()
         if "t" in batch:
             # per-sample feedback for the loss-aware resampler (unweighted)
             metrics["t_sampled"] = t
-            metrics["per_sample_loss"] = terms["loss"].detach()
+            metrics["per_sample_loss"] = torch.cat(per_sample)
         return metrics
 
     return train_step

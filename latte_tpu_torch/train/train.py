@@ -13,13 +13,23 @@ the flash-attention backward. It syncs with the host once per
 ``log_every`` steps, writes a checkpoint every ``ckpt_every`` steps and at
 the end, and resumes from ``resume_from_checkpoint``.
 
+It trains the video model (``Latte-*``) and the joint video-image model
+(``LatteIMG-*`` with ``use_image_num`` still images behind the video frames),
+unconditional or class-conditional (``extras: 2``; the batches carry ``y``,
+and ``y_image`` for the images). ``pretrained`` partially loads a checkpoint
+before training, ``fixed_spatial`` trains the temporal attention alone,
+``gradient_accumulation_steps`` splits each batch into chunks,
+``adam_mu_dtype: bfloat16`` stores AdamW's first moment in bf16 and
+``remat_policy: dots`` keeps the matmul outputs under gradient checkpointing.
+
 Runs on ``cuda`` unless asked for the CPU::
 
     python -m latte_tpu_torch.train.train --config configs/ffs/ffs_train.yaml \\
         [--device cpu] [key=value ...]
 
-Options of the JAX trainer that this port does not carry yet raise
-``NotImplementedError`` naming the slice that brings them.
+Options of the JAX trainer that this port does not carry yet (MoE, the
+multi-GPU keys, text conditioning) raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -42,10 +52,16 @@ from latte_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     latest_checkpoint_under,
     load_checkpoint,
+    load_pretrained,
     restore_train_state,
     save_checkpoint,
 )
-from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+from latte_tpu_torch.train.state import (
+    create_train_state,
+    make_lr_schedule,
+    make_optimizer,
+    trainable_temporal_attn_mask,
+)
 from latte_tpu_torch.train.step import make_train_step
 from latte_tpu_torch.utils import create_experiment_dir, create_logger, resolve_device
 from latte_tpu_torch.vae import build_vae, make_encode_fn
@@ -55,12 +71,7 @@ __all__ = ["build_encode_fn", "build_encode_fn_raw", "check_config", "make_batch
 # config options of the JAX trainer that this slice does not port, with the
 # slice that brings each: (key, is it set?, later slice)
 _NOT_PORTED = (
-    ("fixed_spatial", lambda v: bool(v), "a later training slice (temporal-only fine-tuning)"),
-    ("gradient_accumulation_steps", lambda v: int(v or 1) > 1, "a later training slice"),
-    ("adam_mu_dtype", lambda v: bool(v), "a later training slice (bf16 Adam moments)"),
-    ("pretrained", lambda v: bool(v), "a later training slice (partial pretrained load)"),
-    ("use_image_num", lambda v: int(v or 0) > 0, "the T2V/image slice (joint image training)"),
-    ("moe_experts", lambda v: int(v or 0) > 0, "the multi-GPU slice (MoE)"),
+    ("moe_experts", lambda v: int(v or 0) > 0, "the MoE slice (models/moe.py on one device)"),
     ("tensor_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
     ("sequence_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
     ("pipeline_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
@@ -75,16 +86,22 @@ _NOT_PORTED = (
 
 
 def check_config(config: Config) -> None:
-    """Raise ``NotImplementedError`` for a set option this slice does not port."""
+    """Raise ``NotImplementedError`` for a set option this slice does not
+    port, and ``ValueError`` for gradient accumulation that does not divide
+    the batch."""
     for key, is_set, later in _NOT_PORTED:
         if is_set(getattr(config, key, None)):
             raise NotImplementedError(f"{key}={getattr(config, key)!r}: not ported yet; comes with {later}")
     extras = int(getattr(config, "extras", 1))
-    if extras != 1:
+    if extras not in (1, 2):
         raise NotImplementedError(
-            f"extras={extras}: the port trains the unconditional model only; class- and "
-            "text-conditioned training come with the T2V/image slice"
+            f"extras={extras}: the port trains unconditional (1) and class-conditional (2) "
+            "models; text conditioning comes with the T2V slice (ROADMAP M5)"
         )
+    accum = int(getattr(config, "gradient_accumulation_steps", 1) or 1)
+    batch = int(getattr(config, "local_batch_size", 5))
+    if accum < 1 or batch % accum:
+        raise ValueError(f"gradient_accumulation_steps={accum} must divide local_batch_size={batch}")
 
 
 def build_encode_fn(config: Config, device) -> Optional[Callable]:
@@ -141,12 +158,15 @@ def make_batch_iterator(
     pixels unless ``pixel_transport`` is not "uint8"), or nothing: synthetic
     uint8 pixels (B, F, 3, S, S) with ``synthetic_kind: pixels``
     ("synthetic_pixels"), else synthetic latents ("synthetic_latents"),
-    both from ``global_seed``."""
+    both from ``global_seed``. F counts the ``use_image_num`` still images
+    too; a class-conditional config's synthetic batches draw ``y`` (B,) in
+    [0, ``num_classes``) after the data, and ``y_image`` (B, I) after it
+    under ``use_image_num``."""
     from latte_tpu_torch.data import DataLoader, LatentCacheDataset, get_dataset, is_latent_cache
 
     data_path = str(getattr(config, "data_path", "") or "")
     latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
-    frames = int(getattr(config, "num_frames", 16))
+    frames = int(getattr(config, "num_frames", 16)) + int(getattr(config, "use_image_num", 0) or 0)
     seed = int(getattr(config, "global_seed", 0))
     num_workers = int(getattr(config, "num_workers", 4) or 4)
     if is_latent_cache(data_path):
@@ -173,6 +193,15 @@ def make_batch_iterator(
         )
         return iter(loader), "real"
     rng = np.random.default_rng(seed)
+
+    def with_labels(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        if int(getattr(config, "extras", 1)) == 2:
+            nc = int(getattr(config, "num_classes", 1) or 1)
+            batch["y"] = rng.integers(0, nc, size=(batch_size,), dtype=np.int32)
+            if getattr(config, "use_image_num", 0):
+                batch["y_image"] = rng.integers(0, nc, size=(batch_size, int(config.use_image_num)), dtype=np.int32)
+        return batch
+
     if str(getattr(config, "synthetic_kind", "latents")) == "pixels":
         # the compute and transfer of the real-data path (uint8 video through
         # the fused encode) without the host's decode and transforms
@@ -181,18 +210,20 @@ def make_batch_iterator(
 
         def synthetic_pixels():
             while True:
-                yield {"video": rng.integers(0, 256, size=(batch_size, frames, 3, size, size), dtype=np.uint8)}
+                yield with_labels(
+                    {"video": rng.integers(0, 256, size=(batch_size, frames, 3, size, size), dtype=np.uint8)}
+                )
 
         return synthetic_pixels(), "synthetic_pixels"
     logger.info("data_path missing — using synthetic latent batches")
 
     def synthetic():
         while True:
-            yield {
+            yield with_labels({
                 "latents": rng.standard_normal(
                     (batch_size, frames, 4, latent, latent), dtype=np.float32
                 )
-            }
+            })
 
     return synthetic(), "synthetic_latents"
 
@@ -221,9 +252,17 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         # straight-through backward (the JAX trainer's quantized="train")
         model = get_models(config, quantized="train" if getattr(config, "quant_train", False) else False)
     model.initialize_weights(torch.Generator(device=dev).manual_seed(seed))
+    pretrained = getattr(config, "pretrained", None)
+    if pretrained:
+        kept = load_pretrained(model, str(pretrained))
+        logger.info(f"partial-loaded pretrained {pretrained} ({kept} keys kept at init)")
     if getattr(config, "mixed_precision", False):
         # bf16 compute over fp32 master parameters (model.clone(dtype=bfloat16))
         model.compute_dtype = torch.bfloat16
+    if getattr(config, "fixed_spatial", False):
+        # fine-tune the temporal attention alone; the rest is frozen
+        for name, trainable in trainable_temporal_attn_mask(model).items():
+            model.get_parameter(name).requires_grad_(trainable)
     model.train()
     max_steps = int(getattr(config, "max_train_steps", 1000))
     schedule = make_lr_schedule(
@@ -233,13 +272,16 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         decay_steps=int(getattr(config, "lr_decay_steps", 0) or max_steps or 0),
         lr_min=float(getattr(config, "lr_min", 0.0) or 0.0),
     )
-    optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)))
+    # bf16 first-moment storage; nu and the EMA stay fp32
+    mu_dtype = torch.bfloat16 if str(getattr(config, "adam_mu_dtype", "") or "") == "bfloat16" else None
+    optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)), mu_dtype=mu_dtype)
     state = create_train_state(model, optimizer, schedule)
     logger.info(
-        f"{config.model} on {dev}: {sum(p.numel() for p in model.parameters()):,} parameters, "
+        f"{config.model} on {dev}: {sum(p.numel() for p in model.parameters()):,} parameters "
+        f"({sum(p.numel() for p in model.parameters() if p.requires_grad):,} trainable), "
         f"compute {model.compute_dtype or torch.float32}, "
-        f"gradient checkpointing {model.gradient_checkpointing}, "
-        f"int8 training {model.quantized == 'train'}"
+        f"gradient checkpointing {model.gradient_checkpointing} ({model.remat_policy}), "
+        f"int8 training {model.quantized == 'train'}, Adam mu {mu_dtype or torch.float32}"
     )
 
     resume = getattr(config, "resume_from_checkpoint", None)
@@ -261,6 +303,9 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
             logger.info(f"resumed from {path} @ step {start_step}")
 
     local_batch = int(getattr(config, "local_batch_size", 5))
+    grad_accum = int(getattr(config, "gradient_accumulation_steps", 1) or 1)
+    if grad_accum > 1:
+        logger.info(f"gradient accumulation: {grad_accum} chunks/step")
     batches, data_kind = make_batch_iterator(config, logger, local_batch)
     needs_encode = data_kind in ("real", "synthetic_pixels")
     encode_fn = build_encode_fn(config, dev) if needs_encode else None
@@ -280,6 +325,7 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         start_clip_iter=int(getattr(config, "start_clip_iter", 0) or 0),
         vae_scale=float(getattr(config, "vae_scale", 0.18215)),
         encode_fn=encode_fn,
+        grad_accum=grad_accum,
     )
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion

@@ -22,7 +22,7 @@ from torch_port_util import close, randomize
 
 from latte_tpu.models import Latte as JaxLatte
 from latte_tpu_torch.convert import flax_to_state_dict, load_flax_params
-from latte_tpu_torch.models import Latte, get_model
+from latte_tpu_torch.models import Latte, LatteIMG, get_model
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "ref_latte_tiny.npz")
 GOLDEN_CFG = dict(
@@ -131,8 +131,8 @@ def test_registry_and_init():
     assert (m.hidden_size, m.num_heads, m.patch_size) == (384, 6, 4)
     with pytest.raises(ValueError):
         get_model("Latte-XXL/2")
-    with pytest.raises(NotImplementedError):
-        get_model("LatteIMG-XL/2")
+    m = get_model("LatteIMG-S/4", input_size=8, num_frames=2, depth=2, use_image_num=3)
+    assert isinstance(m, LatteIMG) and (m.hidden_size, m.patch_size, m.use_image_num) == (384, 4, 3)
     m = Latte(**TINY)
     m.initialize_weights(torch.Generator().manual_seed(0))
     # adaLN-Zero: every block starts as the identity and the output is zero
