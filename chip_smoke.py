@@ -94,6 +94,30 @@ non-zero exit and a traceback:
    (4, 16, 256, 256, 3), every launch on the tensor-core and vector routes,
    s a video at batch 2 (the generator's runs, to latents) beside phase 5's
    batch 1;
+5e. t2v: ``sample_t2x.main`` on configs/t2x/t2v_sample.yaml as shipped
+   (LatteT2V, 28 pairs, three prompts, 16 frames at 512^2, DDIM-50, CFG
+   7.5, bf16, the hash-embedding caption stub) with ``vae_ckpt: random``:
+   three mp4s read back as 16x512x512x3; 2800 B1 launches a video (all on
+   the tensor cores), 2850 B2 and 2800 B3 (all on the vector route), none
+   of another kernel; s a video to latents and with decode (median of
+   prompts 2-3), peak memory. On the same seeded weights: one CFG forward
+   against the plain bf16 and fp32 paths (cosine >= 0.999, error <= 1.25x
+   the plain bf16 path's + 1e-3) and the DDIM-50 latents of prompt 1
+   against the plain path's (cosine >= 0.99); one profiled DDIM step by
+   kind (the cross-attention, plain torch as in JAX, a kind of its own) and
+   its idle share; t2i_sample.yaml as shipped (a 512^2 png, B1 1400, B2
+   1450, B3 1400); the block cache at interval 2 (18 of 28 pairs: B1 and
+   B3 1900, B2 1950; its latent cosine against the exact run) and at
+   interval 1 equal to the exact loop to the bit; ``quantized: true`` (one
+   CFG forward against the bf16 one, cosine >= 0.99; DDIM-10 seconds beside
+   bf16's; one int8 DDIM step profiled by kind); B2 and B3 on the operands
+   one CFG forward hands them (pair 0's spatial and temporal norms, the
+   spatial norm3's unit gate, norm_out) on the vector route against their
+   plain versions to the bit; B1 at the CFG shapes (32 x 1024 and 2048 x 16) against the
+   plain version, with its bound and SDPA. Prints a ``t2v: {...}`` line.
+   To run it alone: ``import chip_smoke as c; c.build.build();
+   c.build.load_library(); c.t2v_phase(tmp, smi, torch.device("cuda", 0),
+   c.Timer(torch.device("cuda", 0)))``;
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -175,7 +199,10 @@ non-zero exit and a traceback:
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``), the total seconds, the kernels' JSON line (rows B1, B2, B3 and both
+{...}``, ``t2v: {...}``), the total seconds, the kernels' JSON line (rows
+B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
+``launches_t2v_block_cache``, phase 5e's, and B1 with its T2V shapes'
+measurements under ``t2v``; rows B1, B2, B3 and both
 B6 rows with ``launches_block_cache``, the block-cache DDIM-50's; the
 training rows with ``launches_train_more``, phase 6f's) and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -437,6 +464,17 @@ BC_TIMED_PAIRS = 5
 MANY_BATCH, MANY_SAMPLES = 2, 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FFS_CONFIG = os.path.join(ROOT, "configs", "ffs", "ffs_sample.yaml")
+# phase "t2v": the T2X sample configs as shipped (LatteT2V, 28 pairs, 16
+# frames at 512^2, DDIM-50, CFG 7.5, bf16), on seeded random weights
+T2V_CONFIG = os.path.join(ROOT, "configs", "t2x", "t2v_sample.yaml")
+T2I_CONFIG = os.path.join(ROOT, "configs", "t2x", "t2i_sample.yaml")
+T2V_INT8_STEPS = 10
+# the block cache every 2nd call, at the pipeline's default (28·2)//3 = 18
+# pairs cached: 25 full forwards and 25 of the back 10 pairs
+T2V_BC_INTERVAL = 2
+# B1 at the T2V CFG shapes: (B·F·H rows, N) spatially (2·16 frames, 1024
+# tokens) and temporally (2·1024 patches, 16 frames)
+T2V_B1_SHAPES = {"spatial": (2 * 16, 1024), "temporal": (2 * 1024, 16)}
 FFS_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_train.yaml")
 # phase "train more": the training configs of the class-conditional and
 # joint video-image slice, as shipped
@@ -1978,6 +2016,350 @@ def sample_many_phase(tmp: str, ckpt: str, ddim_s: float, device, smi: str) -> d
                 s_per_video_batch2=s_video, s_per_video_batch1=ddim_s, main_s=main_s, device=smi)
 
 
+def t2v_launches(pairs: int, forwards: int = 1, temporal: bool = True) -> dict:
+    """Launches of each kernel in ``forwards`` LatteT2V forwards over
+    ``pairs`` pairs: B1 in every block's self-attention, B2 in every block's
+    norm1 and in norm_out, B3 in every block's norm3; no other kernel."""
+    blocks = pairs * (2 if temporal else 1)
+    per = {"flash_attention": blocks, "ln_modulate": blocks + 1, "residual_ln_modulate": blocks}
+    return {k: forwards * per.get(k, 0) for k in KERNELS}
+
+
+def expect_launches(label: str, want: dict) -> dict:
+    """The launches since the last reset_counts() are ``want``, B1's all on
+    the tensor cores and B2's and B3's all on the vector route."""
+    got = counts()
+    print(f"  {label}: launches {got} (expected {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    check_tc(label, want["flash_attention"])
+    check_vec(label)
+    return got
+
+
+def profile_t2v_step(step, wall_ms: float, label: str = "t2v ddim step") -> dict:
+    """Device time of one DDIM step by kind of kernel and the idle share
+    against ``wall_ms``, the step's unprofiled time. Beside them the device
+    time of three ranges, from CUDA events around each call on the step's
+    one stream in a run without the profiler (the host keeps ahead of the
+    device there, so a range's span is its kernels' time; under the
+    profiler's host cost it is not): "cross_attention" (``models.t2v.cross_attention``, plain
+    torch: by kernel its products are matmuls and the rest glue) and, in a
+    quantized model, "int8_layers" (``QLinear``'s forward: quantize, the
+    product, dequantize, bias) and "matmul_int8" (``torch._int_mm`` in
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from latte_tpu_torch.models import t2v as t2v_model
+    from latte_tpu_torch.models.layers import QLinear
+
+    spans = {"cross_attention": [], "int8_layers": [], "matmul_int8": []}
+
+    def timed(kind, fn):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans[kind].append((start, end))
+            return out
+        return call
+
+    cross, linear, int_mm = t2v_model.cross_attention, QLinear.forward, torch._int_mm
+    timed_linear = timed("int8_layers", linear)
+
+    def annotated_linear(self, inp):
+        if self.quantized not in (True, "static"):
+            return linear(self, inp)
+        return timed_linear(self, inp)
+
+    t2v_model.cross_attention, QLinear.forward = timed("cross_attention", cross), annotated_linear
+    torch._int_mm = timed("matmul_int8", int_mm)
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        t2v_model.cross_attention, QLinear.forward, torch._int_mm = cross, linear, int_mm
+    ranges = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items() if v}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    groups, busy, top = device_ms_by_kind(prof)
+    if not busy:
+        print(f"  {label} profile: the profiler saw no device time (not measured)", flush=True)
+        return dict(by_kind=None, busy_ms=None, wall_ms=wall_ms, idle=None, ranges_ms=ranges)
+    groups["adaln"] = groups.pop("ln_modulate", 0.0) + groups.pop("residual_ln_modulate", 0.0)
+    groups["glue"] = groups.pop("other", 0.0)
+    print(f"  {label} profile ms by kind: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(groups.items())}) + f"; device busy {busy:.4f} of "
+          f"{wall_ms:.4f} ms wall (device idle {1 - busy / wall_ms:.4f}); ranges by CUDA events "
+          f"(ms): " + json.dumps({k: round(v, 4) for k, v in ranges.items()}), flush=True)
+    print(f"  {label} largest other kernels (ms): " + json.dumps({k: round(v, 4) for k, v in top.items()}),
+          flush=True)
+    return dict(by_kind=groups, busy_ms=busy, wall_ms=wall_ms, idle=1 - busy / wall_ms, ranges_ms=ranges,
+                top_other=top)
+
+
+def time_t2v_step(step) -> float:
+    """The median wall ms of ``step`` over three runs after a warm-up."""
+    import statistics
+
+    step_s = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return statistics.median(step_s[1:]) * 1e3
+
+
+def t2v_adaln_checks(model, args) -> dict:
+    """B2 and B3 on the operands one LatteT2V forward hands them: pair 0's
+    spatial block (norm1; norm3, whose gate is the seventh, unit row of its
+    (B, 7, D) vectors), pair 0's temporal block (norm1; norm3) and norm_out.
+    Each is on the vector route and equal to its plain version to the bit:
+    y equal, out equal on all but TILED_SHARE_APART of its elements."""
+    from latte_tpu_torch.models import t2v as t2v_model
+
+    plains = {"ln_modulate": ln_modulate_reference,
+              "residual_ln_modulate": residual_ln_modulate_reference}
+    real = {name: getattr(t2v_model, name) for name in plains}
+    calls = {name: [] for name in plains}
+
+    def recorder(name):
+        def call(*a):
+            kept = calls[name]
+            if len(kept) < 2:
+                kept.append(a)
+            elif name == "ln_modulate":
+                kept[2:] = [a]  # the last: norm_out
+            return real[name](*a)
+        return call
+
+    for name in plains:
+        setattr(t2v_model, name, recorder(name))
+    try:
+        with torch.inference_mode():
+            model(*args)
+    finally:
+        for name, fn in real.items():
+            setattr(t2v_model, name, fn)
+    picked = {
+        "spatial norm1": ("ln_modulate", calls["ln_modulate"][0]),
+        "temporal norm1": ("ln_modulate", calls["ln_modulate"][1]),
+        "norm_out": ("ln_modulate", calls["ln_modulate"][2]),
+        "spatial norm3, unit gate": ("residual_ln_modulate", calls["residual_ln_modulate"][0]),
+        "temporal norm3": ("residual_ln_modulate", calls["residual_ln_modulate"][1]),
+    }
+    out = {}
+    for label, (name, a) in picked.items():
+        res = name == "residual_ln_modulate"
+        route = adaln_route(a[0], a[1:2] if res else (), a[2:] if res else a[1:])
+        with torch.inference_mode():
+            got, plain = real[name](*a), plains[name](*a)
+        r = dict(x=list(a[0].shape), vec_stride=a[-1].stride(0), route=route)
+        if res:
+            r["y_share_apart"] = bits_apart(got[0], plain[0])[0]
+            got, plain = got[1], plain[1]
+        r["out_share_apart"], r["max_abs_err"] = bits_apart(got, plain)[:2]
+        print(f"  t2v {name} at {label}: x {r['x']}, vector row stride {r['vec_stride']}, route "
+              f"{route}; y {r.get('y_share_apart')}, out {r['out_share_apart']} of the elements "
+              f"apart from the plain version (limits: 0, {TILED_SHARE_APART}), largest "
+              f"{r['max_abs_err']:.4g}", flush=True)
+        if (route != "vector" or r.get("y_share_apart", 0) > 0
+                or r["out_share_apart"] > TILED_SHARE_APART):
+            raise AssertionError(f"t2v {name} at {label} departs from its plain version: {r}")
+        out[label] = r
+    return out
+
+
+def t2v_phase(tmp: str, smi: str, device, timer) -> dict:
+    """Phase "t2v": text-to-video serving at full width through
+    ``sample_t2x.main`` and ``LattePipeline`` (see the module docstring);
+    returns the ``t2v: {...}`` line's dict."""
+    import statistics
+
+    import cv2
+
+    from latte_tpu_torch.core.scheduler import get_scheduler
+    from latte_tpu_torch.models.t2v import LatteT2V
+    from latte_tpu_torch.sample import sample_t2x
+    from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
+
+    # 1. the entry point on t2v_sample.yaml as shipped, decoded with the SD VAE
+    cfg = load_config(T2V_CONFIG, ["vae_ckpt=random", f"save_video_path={tmp}/t2v"])
+    prompts = list(cfg.text_prompt)
+    kw = sample_t2x.transformer_kwargs(cfg)
+    pairs, steps, frames = kw["num_layers"], int(cfg.num_sampling_steps), int(cfg.video_length)
+    (H, W), bc_pairs = sample_t2x.image_hw(cfg), (pairs * 2) // 3
+    run = dict(video_length=frames, height=H, width=W, num_inference_steps=steps,
+               guidance_scale=float(cfg.guidance_scale))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    records = sample_t2x.main(cfg)  # on cuda by default
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = expect_launches(f"t2v_sample.yaml, {len(prompts)} videos",
+                               t2v_launches(pairs, len(prompts) * steps))
+    shapes = [read_mp4(r["path"]).shape for r in records]
+    print(f"  t2v mp4s {[os.path.basename(r['path']) for r in records]}: {shapes}", flush=True)
+    if shapes != [(frames, H, W, 3)] * len(prompts):
+        raise AssertionError(f"expected {len(prompts)} mp4s of {frames} frames of {H}x{W}x3, got {shapes}")
+    lat_s = statistics.median(r["latents_s"] for r in records[1:])
+    dec_s = statistics.median(r["decode_s"] for r in records[1:])
+    print(f"  t2v DDIM-{steps} + CFG, {frames}x{H}x{W} bf16: {lat_s:.4f} s a video to latents, decode "
+          f"{dec_s:.4f} s (median of prompts 2-3; prompt 1 {records[0]['latents_s']:.4f} + "
+          f"{records[0]['decode_s']:.4f}) -> {60 / lat_s:.4f} videos/min, {60 / (lat_s + dec_s):.4f} "
+          f"with decode; peak {peak / 2**30:.3f} GiB; main {main_s:.2f} s; on {smi}", flush=True)
+
+    # 2. one CFG forward against the plain paths, the same seeded weights as main's
+    model = sample_t2x.build_transformer(load_config(T2V_CONFIG, ["use_fp16=false"]), device)
+    with torch.device(device):
+        plain32 = LatteT2V(**kw, plain=True)
+    plain32.load_state_dict(model.state_dict())
+    plain32.eval()
+    model.to(torch.bfloat16)
+    with torch.device(device):
+        plain16 = LatteT2V(**kw, plain=True)
+    plain16.load_state_dict(model.state_dict())
+    plain16.to(torch.bfloat16).eval()
+    stub = sample_t2x.build_text_encoder(cfg)
+    pipe = LattePipeline(model, get_scheduler("DDIM"), stub)
+    ctx, mask = pipe.encode_prompt([prompts[0]])  # [uncond | cond]
+    gen = torch.Generator(device=device).manual_seed(2)
+    latent = (4, frames, H // 8, W // 8)
+    x = torch.randn((2, *latent), generator=gen, device=device)
+    t = torch.full((2,), 500.0, device=device)
+    with torch.inference_mode():
+        model(x, t, ctx, mask)
+        torch.cuda.synchronize()
+        reset_counts()
+        out_k = model(x, t, ctx, mask)
+        torch.cuda.synchronize()
+        expect_launches("one t2v CFG forward", t2v_launches(pairs))
+        out_p16, out_p32 = plain16(x, t, ctx, mask), plain32(x, t, ctx, mask)
+        fwd_ms = timer.ms(lambda: model(x, t, ctx, mask), iters=5)
+    adaln_checks = t2v_adaln_checks(model, (x, t, ctx, mask))
+    del plain32
+    torch.cuda.empty_cache()
+    vs_plain = compare("t2v forward, kernels bf16 vs plain bf16", out_k, out_p16)
+    vs32 = compare("t2v forward, kernels bf16 vs plain fp32", out_k, out_p32)
+    plain_vs32 = compare("t2v forward, plain bf16 vs plain fp32", out_p16, out_p32)
+    # the kernels may add no more error than bf16 itself brings
+    if not (vs32["finite"] and vs32["cosine"] >= 0.999
+            and vs32["rel_l2"] <= 1.25 * plain_vs32["rel_l2"] + 1e-3):
+        raise AssertionError("the t2v kernel path disagrees with the plain fp32 path")
+    del out_p16, out_p32
+    t0 = time.perf_counter()
+    ref = LattePipeline(plain16, get_scheduler("DDIM"), stub).sample_latents(prompts[0], **run)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del plain16
+    torch.cuda.empty_cache()
+    lat_vs_plain = compare(f"t2v DDIM-{steps} latents of prompt 1, entry point vs plain path",
+                           records[0]["latents"], ref.float().cpu())
+    if not lat_vs_plain["cosine"] >= 0.99:
+        raise AssertionError("the t2v DDIM-50 latents disagree with the plain path's")
+
+    # 3. one DDIM step profiled: the CFG forward and the scheduler's update
+    sched = pipe.scheduler
+    ts, state = sched.timesteps(steps), sched.init_state(steps)
+    z = torch.randn((1, *latent), generator=gen, device=device)
+
+    def one_step():
+        with torch.inference_mode():
+            return pipe._step(z, state, ctx, mask, 0, ts, run["guidance_scale"], True, None)
+
+    step_ms = time_t2v_step(one_step)
+    profile = profile_t2v_step(one_step, step_ms)
+
+    # 4. t2i_sample.yaml as shipped: one 512^2 png
+    reset_counts()
+    (rec_i,) = sample_t2x.main(load_config(T2I_CONFIG, ["vae_ckpt=random", f"save_video_path={tmp}/t2i"]))
+    t2i_launches = expect_launches("t2i_sample.yaml", t2v_launches(pairs, steps, temporal=False))
+    png = cv2.imread(rec_i["path"])
+    print(f"  t2i png {os.path.basename(rec_i['path'])}: {None if png is None else png.shape}; "
+          f"{rec_i['latents_s']:.4f} s to latents, decode {rec_i['decode_s']:.4f} s", flush=True)
+    if png is None or png.shape != (H, W, 3):
+        raise AssertionError(f"t2i_sample.yaml did not write a {H}x{W} png")
+    torch.cuda.empty_cache()
+
+    # 5. the block cache, on the bf16 model of 2 (main's weights)
+    bc = LattePipeline(model, get_scheduler("DDIM"), stub, block_cache_interval=T2V_BC_INTERVAL)
+    full = -(-steps // T2V_BC_INTERVAL)
+    want = t2v_launches(pairs, full)
+    for k, n in t2v_launches(pairs - bc_pairs, steps - full).items():
+        want[k] += n
+    reset_counts()
+    t0 = time.perf_counter()
+    lat_bc = bc.sample_latents(prompts[0], **run)
+    torch.cuda.synchronize()
+    bc_s = time.perf_counter() - t0
+    bc_launches = expect_launches(f"t2v block cache, {bc_pairs} of {pairs} pairs, interval "
+                                  f"{T2V_BC_INTERVAL}", want)
+    bc_vs_exact = compare(f"t2v block-cache latents vs the exact DDIM-{steps}", lat_bc.float().cpu(),
+                          records[0]["latents"])
+    one = LattePipeline(model, get_scheduler("DDIM"), stub, block_cache_interval=1).sample_latents(
+        prompts[0], **run)
+    interval1_exact = torch.equal(one.float().cpu(), records[0]["latents"])
+    print(f"  t2v block cache: {bc_s:.4f} s a video to latents against the exact {lat_s:.4f}; "
+          f"interval 1 equal to the exact loop to the bit: {interval1_exact}", flush=True)
+    if not interval1_exact:
+        raise AssertionError("the t2v block cache at interval 1 differs from the exact loop")
+    del lat_bc, one
+    torch.cuda.empty_cache()
+
+    # 6. quantized: true, from the same seeded fp32 weights
+    qmodel = sample_t2x.build_transformer(load_config(T2V_CONFIG, ["quantized=true"]), device)
+    with torch.inference_mode():
+        out_q = qmodel(x, t, ctx, mask)
+    int8_vs_bf16 = compare("t2v int8 forward vs the bf16 kernel forward", out_q, out_k)
+    if not (int8_vs_bf16["finite"] and int8_vs_bf16["cosine"] >= 0.99):
+        raise AssertionError("the t2v int8 forward disagrees with the bf16 forward")
+    ddim10 = {}
+    for name, m in (("bf16", model), ("int8", qmodel)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        LattePipeline(m, get_scheduler("DDIM"), stub).sample_latents(
+            prompts[1], **{**run, "num_inference_steps": T2V_INT8_STEPS})
+        torch.cuda.synchronize()
+        ddim10[name] = time.perf_counter() - t0
+    print(f"  t2v DDIM-{T2V_INT8_STEPS} s: {json.dumps(ddim10)}", flush=True)
+    qpipe = LattePipeline(qmodel, get_scheduler("DDIM"), stub)
+
+    def int8_step():
+        with torch.inference_mode():
+            return qpipe._step(z, state, ctx, mask, 0, ts, run["guidance_scale"], True, None)
+
+    int8_step_ms = time_t2v_step(int8_step)
+    int8_profile = profile_t2v_step(int8_step, int8_step_ms, "t2v int8 ddim step")
+    del qmodel, qpipe, out_q, out_k, model, pipe, bc
+    torch.cuda.empty_cache()
+
+    # 7. B1 at the T2V CFG shapes, with its bound and SDPA beside it
+    gen = torch.Generator(device=device).manual_seed(17)
+    b1 = {name: measure_flash(f"t2v {name}", flash_case(rows, n, device, gen), timer)
+          for name, (rows, n) in T2V_B1_SHAPES.items()}
+    return dict(
+        device=smi, videos=len(records), files=[os.path.basename(r["path"]) for r in records],
+        mp4_shapes=[list(sh) for sh in shapes], s_per_video_latents=lat_s, s_decode=dec_s,
+        videos_per_min=60 / lat_s, videos_per_min_with_decode=60 / (lat_s + dec_s),
+        prompt_seconds=[(r["latents_s"], r["decode_s"]) for r in records], main_s=main_s,
+        peak_gib=peak / 2**30, launches=launches, forward_ms=fwd_ms,
+        forward=dict(vs_plain_bf16=vs_plain, vs_plain_fp32=vs32, plain_bf16_vs_fp32=plain_vs32),
+        latents_vs_plain=lat_vs_plain, plain_ddim50_s=plain_s, step_ms=step_ms, step_profile=profile,
+        t2i=dict(path=os.path.basename(rec_i["path"]), launches=t2i_launches,
+                 latents_s=rec_i["latents_s"], decode_s=rec_i["decode_s"]),
+        block_cache=dict(pairs=bc_pairs, interval=T2V_BC_INTERVAL, launches=bc_launches, s=bc_s,
+                         vs_exact=bc_vs_exact, interval1_exact=interval1_exact),
+        int8=dict(vs_bf16=int8_vs_bf16, ddim10_s=ddim10, step_ms=int8_step_ms,
+                  step_profile=int8_profile),
+        adaln=adaln_checks, b1=b1,
+    )
+
+
 def train_quant(tmp: str, smi: str) -> dict:
     """Phase 6d: two steps of ffs_train.yaml with quant_train: true at batch
     1: the block matmuls run W8A8 forwards with straight-through backwards,
@@ -2931,6 +3313,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("sample many", t0)
 
+        # 5e. text-to-video and text-to-image serving, LatteT2V at full width
+        t0 = time.perf_counter()
+        t2v_run = t2v_phase(tmp, smi, device, timer)
+        torch.cuda.empty_cache()
+        phase("t2v", t0)
+
     # 6. training
     t0 = time.perf_counter()
     parity = train_step_parity(device)
@@ -2964,6 +3352,7 @@ def main() -> int:
     print("vae: " + json.dumps(vae_run, default=str), flush=True)
     print("block_cache: " + json.dumps(bc_run, default=str), flush=True)
     print("sample_many: " + json.dumps(many, default=str), flush=True)
+    print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
 
     # each kernel's launches in the runs of phase "train more"
     more_launches = {name: {run: more[run]["launches"][name] for run in (
@@ -2987,11 +3376,13 @@ def main() -> int:
         elif name in FORWARD:  # the sampler's path, at its shapes (bf16, batch 1)
             row, extra = measured[name]["spatial"], dict(
                 shape="spatial bf16 batch 1", launches_train=entry["launches"][name],
-                temporal=measured[name]["temporal"], launches_block_cache=bc_run["launches"][name])
+                temporal=measured[name]["temporal"], launches_block_cache=bc_run["launches"][name],
+                launches_t2v=t2v_run["launches"][name], launches_t2i=t2v_run["t2i"]["launches"][name],
+                launches_t2v_block_cache=t2v_run["block_cache"]["launches"][name])
             launches = main_launches[name]
             if name == "flash_attention":
                 extra.update(
-                    tc_launches=main_tc, fp32_source=F32_FWD_SOURCE,
+                    tc_launches=main_tc, fp32_source=F32_FWD_SOURCE, t2v=t2v_run["b1"],
                     cuda_core_source="latte_tpu_torch/csrc/flash_attention.cu", sass_mma=mma,
                     cases={c: measured[name][c] for c in FLASH_SHAPES})
             else:  # the vector route; the generic kernels (first versions) timed beside it

@@ -26,6 +26,14 @@ the port's (diffusers') keys, the inverse of
 ``latte_tpu/tools/convert_vae.py``'s ``convert_vae_state_dict``, and
 :func:`load_vae_state_dict` reads a diffusers ``AutoencoderKL`` state dict,
 the legacy attention names included.
+
+LatteT2V: :func:`flax_t2v_to_state_dict` carries the JAX model's params
+(pair-stacked ``blocks/spatial`` and ``blocks/temporal``, quantized leaves
+too) onto the port's diffusers names, and :func:`load_t2v_state_dict`
+reads the reference's ``.pt`` / ``.bin`` or ``.safetensors`` (through
+:func:`read_safetensors`, plain Python: the machine with the card has no
+``safetensors`` package), refusing keys that the model does not have, as
+``latte_tpu/tools/convert_t2v.py`` does.
 """
 
 from __future__ import annotations
@@ -44,6 +52,10 @@ __all__ = [
     "load_reference_checkpoint",
     "flax_vae_to_state_dict",
     "load_vae_state_dict",
+    "flax_t2v_to_state_dict",
+    "t2v_keys",
+    "load_t2v_state_dict",
+    "read_safetensors",
 ]
 
 # frozen sincos tables in reference checkpoints; the port recomputes them
@@ -73,14 +85,7 @@ def flax_to_state_dict(
     sd: Dict[str, np.ndarray] = {}
 
     def put_linear(prefix: str, p: Mapping[str, Any]) -> None:
-        if "kernel_i8" in p:
-            sd[f"{prefix}.weight_i8"] = _t(p["kernel_i8"])
-            sd[f"{prefix}.weight_scale"] = np.asarray(p["kernel_scale"]).reshape(-1, 1)
-        else:
-            sd[f"{prefix}.weight"] = _t(p["kernel"])
-        for key in ("act_scale", "bias"):
-            if key in p:
-                sd[f"{prefix}.{key}"] = np.asarray(p[key])
+        _put_linear(sd, prefix, p)
 
     def put_qkv(prefix: str, p: Mapping[str, Any]) -> None:
         if "kernel_i8" in p:
@@ -124,6 +129,20 @@ def flax_to_state_dict(
 
 
 _ATTN_SCALES = ("q_scale", "k_scale", "v_scale")
+
+
+def _put_linear(sd: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:
+    """A Flax Dense (or quantized ``QDense``) -> ``<prefix>.weight`` (out, in)
+    or ``.weight_i8`` and ``.weight_scale`` (out, 1), with its bias and
+    ``act_scale``."""
+    if "kernel_i8" in p:
+        sd[f"{prefix}.weight_i8"] = _t(p["kernel_i8"])
+        sd[f"{prefix}.weight_scale"] = np.asarray(p["kernel_scale"]).reshape(-1, 1)
+    else:
+        sd[f"{prefix}.weight"] = _t(p["kernel"])
+    for key in ("act_scale", "bias"):
+        if key in p:
+            sd[f"{prefix}.{key}"] = np.asarray(p[key])
 
 
 def _tensor(a) -> torch.Tensor:
@@ -238,3 +257,119 @@ def load_vae_state_dict(path: str) -> Dict[str, torch.Tensor]:
             v = v[:, :, 0, 0]
         out[key] = v
     return out
+
+
+# LatteT2V: the JAX module names inside a block -> the port's (diffusers')
+_T2V_ATTN = (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0"))
+_T2V_FF = (("net_0_proj", "net.0.proj"), ("net_2", "net.2"))
+# frozen buffers of the reference checkpoint that the JAX converter drops:
+# temp_pos_embed is recomputed, caption_projection.y_embedding is the unused
+# negative-prompt embedding table
+T2V_BUFFERS = ("temp_pos_embed", "caption_projection.y_embedding")
+
+
+def flax_t2v_to_state_dict(params: Mapping[str, Any], patch_size: int = 2) -> Dict[str, torch.Tensor]:
+    """The JAX LatteT2V's params (the tree under ``"params"``; a t2i model
+    has no ``blocks/temporal``), or a quantized tree, -> the port's state
+    dict."""
+    sd: Dict[str, np.ndarray] = {}
+    k = np.asarray(params["pos_embed"]["proj"]["kernel"])  # (C·p·p, D)
+    p = patch_size
+    sd["pos_embed.proj.weight"] = _t(k).reshape(k.shape[1], k.shape[0] // (p * p), p, p)
+    sd["pos_embed.proj.bias"] = np.asarray(params["pos_embed"]["proj"]["bias"])
+    ada = params["adaln_single"]
+    _put_linear(sd, "adaln_single.emb.timestep_embedder.linear_1", ada["emb"]["mlp_0"])
+    _put_linear(sd, "adaln_single.emb.timestep_embedder.linear_2", ada["emb"]["mlp_2"])
+    _put_linear(sd, "adaln_single.linear", ada["linear"])
+    for name in ("linear_1", "linear_2"):
+        _put_linear(sd, f"caption_projection.{name}", params["caption_projection"][name])
+    blocks = params["blocks"]
+    n = np.asarray(blocks["spatial"]["scale_shift_table"]).shape[0]
+    for kind, prefix, attns in (("spatial", "transformer_blocks", ("attn1", "attn2")),
+                                ("temporal", "temporal_transformer_blocks", ("attn1",))):
+        if kind not in blocks:
+            continue
+        for i in range(n):
+            blk = _unstack(blocks[kind], i)
+            sd[f"{prefix}.{i}.scale_shift_table"] = np.asarray(blk["scale_shift_table"])
+            for attn in attns:
+                for src, dst in _T2V_ATTN:
+                    _put_linear(sd, f"{prefix}.{i}.{attn}.{dst}", blk[attn][src])
+            for src, dst in _T2V_FF:
+                _put_linear(sd, f"{prefix}.{i}.ff.{dst}", blk["ff"][src])
+    sd["scale_shift_table"] = np.asarray(params["scale_shift_table"])
+    _put_linear(sd, "proj_out", params["proj_out"])
+    return {key: _tensor(v) for key, v in sd.items()}
+
+
+def t2v_keys(num_layers: int) -> set:
+    """The keys of a reference LatteT2V state dict (frozen buffers aside)."""
+    linears = [
+        "pos_embed.proj", "adaln_single.emb.timestep_embedder.linear_1",
+        "adaln_single.emb.timestep_embedder.linear_2", "adaln_single.linear",
+        "caption_projection.linear_1", "caption_projection.linear_2", "proj_out",
+    ]
+    keys = {"scale_shift_table"}
+    for prefix, attns in (("transformer_blocks", ("attn1", "attn2")),
+                          ("temporal_transformer_blocks", ("attn1",))):
+        for i in range(num_layers):
+            keys.add(f"{prefix}.{i}.scale_shift_table")
+            linears += [f"{prefix}.{i}.{a}.{dst}" for a in attns for _, dst in _T2V_ATTN]
+            linears += [f"{prefix}.{i}.ff.{dst}" for _, dst in _T2V_FF]
+    return keys | {f"{name}.{w}" for name in linears for w in ("weight", "bias")}
+
+
+# safetensors' dtype names -> torch's, for the types model weights come in
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> CPU tensors, without the package: an
+    8-byte little-endian header length, the JSON header (name -> dtype,
+    shape and [begin, end) byte offsets into the data after the header),
+    then the data, little-endian. The tensors share one buffer of the file's
+    bytes."""
+    import json
+
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}; expected one of "
+                             f"{sorted(_SAFETENSORS_DTYPES)}")
+        begin, end = info["data_offsets"]
+        count = (end - begin) // torch.empty((), dtype=dtype).element_size()
+        t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin) if count else torch.empty(0, dtype=dtype)
+        out[name] = t.view(info["shape"])
+    return out
+
+
+def load_t2v_state_dict(path: str, num_layers: int = 28) -> Dict[str, torch.Tensor]:
+    """A reference LatteT2V checkpoint (``.safetensors``, or a
+    ``torch.load``-able ``.pt`` / ``.bin`` state dict, or one under
+    ``"state_dict"``) -> the port's state dict, without the frozen buffers.
+    A key the model does not have raises ``ValueError`` (it would be
+    dropped silently); a missing key raises ``KeyError``."""
+    if path.endswith(".safetensors"):
+        sd = read_safetensors(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+    expected = t2v_keys(num_layers)
+    unmapped = set(sd) - expected - set(T2V_BUFFERS)
+    if unmapped:
+        raise ValueError(
+            "T2V checkpoint contains keys the model does not have (they would be silently "
+            f"dropped): {sorted(unmapped)[:10]}" + ("..." if len(unmapped) > 10 else "")
+        )
+    missing = expected - set(sd)
+    if missing:
+        raise KeyError(f"T2V checkpoint lacks {sorted(missing)[:10]}")
+    return {k: sd[k] for k in expected}

@@ -93,18 +93,26 @@ FLASH_MIN_N = 512
 
 
 class _Fp32Scales(nn.Module):
-    """Keeps the buffers named in ``FP32_BUFFERS`` in fp32 when the module is
-    cast (``model.to(torch.bfloat16)``); device moves apply as usual."""
+    """Keeps the buffers and parameters named in ``FP32_BUFFERS`` in fp32
+    when the module is cast (``model.to(torch.bfloat16)``); device moves
+    apply as usual."""
 
     FP32_BUFFERS: tuple = ()
 
     def _apply(self, fn, recurse=True):
-        kept = {n: self._buffers[n] for n in self.FP32_BUFFERS if self._buffers.get(n) is not None}
+        # a parameter's cast may rewrite its .data in place: keep the tensor
+        kept = {
+            n: (store, store[n].detach())
+            for n in self.FP32_BUFFERS
+            for store in (self._buffers, self._parameters)
+            if store.get(n) is not None
+        }
         super()._apply(fn, recurse)
-        for name, buf in kept.items():
-            moved = self._buffers[name]
-            if moved.dtype != buf.dtype:
-                self._buffers[name] = buf.to(moved.device)
+        for name, (store, old) in kept.items():
+            moved = store[name]
+            if moved.dtype != old.dtype:
+                old = old.to(moved.device)
+                store[name] = nn.Parameter(old, moved.requires_grad) if store is self._parameters else old
         return self
 
 

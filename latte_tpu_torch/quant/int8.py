@@ -50,16 +50,25 @@ __all__ = [
 ]
 
 # Linear layers that carry the per-token FLOPs, keyed by their parent module
-# inside a block (``blocks.{i}.<parent>.<child>.weight``); every other weight
-# stays fp. The block's adaLN modulation (``adaLN_modulation.1``, the
-# Sequential's Linear) streams as many weight bytes per step as the four
-# others together; the final layer's modulation is not inside a block and
-# stays fp, as in the JAX model.
+# inside a block (``<blocks>.{i}.<parent>.<layer>.weight``, the layer's name
+# possibly dotted); every other weight stays fp. The block's adaLN modulation
+# (``adaLN_modulation.1``, the Sequential's Linear) streams as many weight
+# bytes per step as the four others together; the final layer's modulation
+# is not inside a block and stays fp, as in the JAX model. LatteT2V's
+# diffusers-named blocks: the self- and cross-attention projections and the
+# feed-forward (the JAX package's ``to_out`` is ``to_out.0`` here, its
+# ``net_0_proj`` and ``net_2`` are ``net.0.proj`` and ``net.2``).
 QUANT_TARGETS_BY_PARENT = {
     "attn": ("qkv", "proj"),
     "mlp": ("fc1", "fc2"),
     "adaLN_modulation": ("1",),
+    "attn1": ("to_q", "to_k", "to_v", "to_out.0"),
+    "attn2": ("to_q", "to_k", "to_v", "to_out.0"),
+    "ff": ("net.0.proj", "net.2"),
 }
+# the module lists whose entries are blocks: Latte's, and LatteT2V's spatial
+# and temporal ones
+BLOCK_LISTS = ("blocks", "transformer_blocks", "temporal_transformer_blocks")
 _ATTN_AMAX_KEYS = ("q_amax", "k_amax", "v_amax")
 
 # cuBLASLt's int8 product takes more than 16 rows only (torch._int_mm's own
@@ -141,14 +150,15 @@ def int8_matmul_ste(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) ->
 
 
 def _is_target(key: str) -> bool:
-    """``blocks.{i}.attn.qkv.weight`` and the like; ``x_embedder.proj`` and
-    the final layer's modulation are not inside a block."""
+    """``blocks.{i}.attn.qkv.weight``, ``transformer_blocks.{i}.ff.net.0.proj.weight``
+    and the like; ``x_embedder.proj``, ``pos_embed.proj`` and the output
+    layers are not inside a block."""
     parts = key.split(".")
     return (
-        len(parts) >= 4
-        and parts[0] == "blocks"
+        len(parts) >= 5
+        and parts[0] in BLOCK_LISTS
         and parts[-1] == "weight"
-        and parts[-2] in QUANT_TARGETS_BY_PARENT.get(parts[-3], ())
+        and ".".join(parts[3:-1]) in QUANT_TARGETS_BY_PARENT.get(parts[2], ())
     )
 
 

@@ -1,0 +1,215 @@
+"""Text-to-video / text-to-image sampling entry point (port of
+``latte_tpu/sample/sample_t2x.py``).
+
+Builds LatteT2V (the published Latte-1 architecture unless the config says
+otherwise), the caption encoder and the VAE, picks one of the ten
+schedulers (``sample_method``), drives
+:class:`latte_tpu_torch.sample.pipeline_t2v.LattePipeline` once per prompt
+with seed ``seed + i``, and writes a png (``video_length: 1``) or an mp4 at
+8 fps per prompt under ``save_video_path``; without a VAE the latents as
+``.npz``.
+
+- ``ckpt``: LatteT2V weights in the reference's diffusers naming (``.pt``,
+  ``.bin`` or ``.safetensors``, read by ``convert.load_t2v_state_dict``);
+  null initialises the model from ``torch.Generator`` seed 0; a path that
+  does not exist raises ``FileNotFoundError`` (the JAX sampler would sample
+  from random init instead).
+- ``vae_ckpt``: as in ``sample.load_vae`` (``random``: the SD VAE from a
+  seed; null: save latents).
+- ``t5_ckpt``: the T5 encoder is not ported yet (ROADMAP M5.2): a directory
+  raises ``NotImplementedError``; otherwise the hash-embedding stub
+  (:class:`latte_tpu_torch.text.StubTextEncoder`), as the JAX sampler falls
+  back to it.
+- ``use_fp16: true`` serves in bf16; ``quantized: true`` in W8A8 int8
+  (dynamic activation scales) for the attention projections and the
+  feed-forward, quantized from the fp32 weights.
+- ``block_cache_interval`` / ``block_cache_pairs``: the pipeline's block cache.
+- ``pipeline_parallel > 1`` and ``moe_experts > 1`` raise
+  ``NotImplementedError`` (ROADMAP M6 and M4).
+
+Runs on ``cuda`` unless asked for the CPU::
+
+    python -m latte_tpu_torch.sample.sample_t2x --config configs/t2x/t2v_sample.yaml \
+        [--device cpu] [key=value ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from latte_tpu_torch.config import Config, load_config
+from latte_tpu_torch.convert import load_t2v_state_dict
+from latte_tpu_torch.core.scheduler import get_scheduler
+from latte_tpu_torch.models.t2v import LatteT2V
+from latte_tpu_torch.quant import quantize_params
+from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
+from latte_tpu_torch.sample.sample import load_vae
+from latte_tpu_torch.text import StubTextEncoder
+from latte_tpu_torch.utils import create_logger, resolve_device, save_image, save_video
+
+
+def image_hw(config: Config) -> tuple:
+    size = config.image_size
+    if isinstance(size, (list, tuple)):
+        return int(size[0]), int(size[1])
+    return int(size), int(size)
+
+
+def transformer_kwargs(config: Config) -> dict:
+    """LatteT2V's architecture from the config; the defaults are Latte-1's."""
+    def get(key, default):
+        value = getattr(config, key, None)
+        return default if value is None else value
+
+    return dict(
+        num_attention_heads=int(get("num_attention_heads", 16)),
+        attention_head_dim=int(get("attention_head_dim", 72)),
+        num_layers=int(get("num_layers", 28)),
+        caption_channels=int(get("caption_channels", 4096)),
+        cross_attention_dim=int(get("cross_attention_dim", 1152)),
+        video_length=int(get("video_length", 16)),
+        sample_size=image_hw(config)[0] // 8,
+        enable_temporal_attentions=bool(get("enable_temporal_attentions", True)),
+        attention_mode=str(get("attention_mode", "auto")),
+        moe_experts=int(get("moe_experts", 0)),
+    )
+
+
+def build_transformer(config: Config, device: torch.device) -> LatteT2V:
+    """LatteT2V on ``device`` in the config's type, from ``ckpt`` or, when
+    it is null, the JAX modules' init drawn from ``torch.Generator`` seed 0
+    on the device. A t2i model (``enable_temporal_attentions: false``) has
+    no temporal blocks and leaves a checkpoint's out. With ``quantized:
+    true`` the int8 model, quantized from the fp32 weights."""
+    kwargs = transformer_kwargs(config)
+    with torch.device(device):
+        model = LatteT2V(**kwargs)
+    ckpt = getattr(config, "ckpt", None)
+    if ckpt:
+        if not os.path.exists(str(ckpt)):
+            raise FileNotFoundError(f"ckpt {ckpt!r} does not exist")
+        sd = load_t2v_state_dict(str(ckpt), model.num_layers)
+        if not model.enable_temporal_attentions:
+            sd = {k: v for k, v in sd.items() if not k.startswith("temporal_transformer_blocks.")}
+        model.load_state_dict(sd, strict=True)
+    else:
+        model.initialize_weights(torch.Generator(device=device).manual_seed(0))
+    # the reference's use_fp16 switch maps to bf16, as in the JAX sampler
+    dtype = torch.bfloat16 if getattr(config, "use_fp16", False) else torch.float32
+    if getattr(config, "quantized", False) not in (False, None):
+        if config.quantized is not True:
+            raise ValueError(f"quantized: {config.quantized!r}; the T2X sampler serves true or false")
+        masters = model.state_dict()
+        del model
+        with torch.device(device):
+            model = LatteT2V(**kwargs, quantized=True)
+        model.load_state_dict(quantize_params(masters), strict=True)
+    return model.to(dtype=dtype).eval()
+
+
+def build_text_encoder(config: Config) -> StubTextEncoder:
+    t5_ckpt = getattr(config, "t5_ckpt", None)
+    if t5_ckpt and os.path.isdir(str(t5_ckpt)):
+        raise NotImplementedError(
+            f"t5_ckpt {t5_ckpt!r}: the T5 text encoder is not ported yet (ROADMAP M5.2); "
+            "leave t5_ckpt unset to sample with the hash-embedding stub"
+        )
+    create_logger().info("WARNING: no T5 checkpoint — using the hash-embedding stub")
+    return StubTextEncoder(dim=int(getattr(config, "caption_channels", None) or 4096))
+
+
+def check_config(config: Config) -> None:
+    """Raise for pipeline-parallel serving, which this port does not carry,
+    before anything is built (LatteT2V refuses ``moe_experts`` itself)."""
+    pp = int(getattr(config, "pipeline_parallel", 1) or 1)
+    if pp > 1:
+        raise NotImplementedError(
+            f"pipeline_parallel={pp}: pipeline-parallel serving is not ported yet "
+            "(ROADMAP M6, multi-GPU)"
+        )
+
+
+def main(config: Config, device: Optional[str] = None) -> List[dict]:
+    """One output per prompt. Returns a record per prompt: ``prompt``,
+    ``path``, ``latents`` (fp32, on the host), ``latents_s`` (host seconds
+    to the latents, ending in a synchronize) and ``decode_s`` (the decode
+    to host frames; None without a VAE)."""
+    logger = create_logger()
+    check_config(config)
+    dev = resolve_device(device)
+    text_encoder = build_text_encoder(config)
+    vae = load_vae(config, dev)
+    model = build_transformer(config, dev)
+    if not getattr(config, "ckpt", None):
+        logger.info("WARNING: no T2V checkpoint — sampling from random init")
+    scheduler = get_scheduler(
+        str(getattr(config, "sample_method", None) or "DDIM"),
+        beta_start=float(getattr(config, "beta_start", 0.0001)),
+        beta_end=float(getattr(config, "beta_end", 0.02)),
+        beta_schedule=str(getattr(config, "beta_schedule", "linear")),
+    )
+    pipeline = LattePipeline(
+        transformer=model, scheduler=scheduler, text_encoder=text_encoder, vae=vae,
+        block_cache_interval=int(getattr(config, "block_cache_interval", 0) or 0),
+        block_cache_pairs=getattr(config, "block_cache_pairs", None),
+    )
+    h, w = image_hw(config)
+    video_length = int(getattr(config, "video_length", 16))
+    prompts = getattr(config, "text_prompt", None) or ["a beautiful sunset"]
+    if isinstance(prompts, str):
+        prompts = [prompts]  # a scalar string would explode into characters
+    out_dir = str(getattr(config, "save_video_path", None) or "./sample_videos/t2v")
+    os.makedirs(out_dir, exist_ok=True)
+    records = []
+    for i, prompt in enumerate(prompts):
+        t0 = time.perf_counter()
+        latents = pipeline.sample_latents(
+            prompt, video_length=video_length, height=h, width=w,
+            num_inference_steps=int(getattr(config, "num_sampling_steps", 50)),
+            guidance_scale=float(getattr(config, "guidance_scale", 7.5)),
+            seed=int(getattr(config, "seed", 0) or 0) + i,
+            enable_temporal_attentions=bool(getattr(config, "enable_temporal_attentions", True)),
+        )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        latents_s = time.perf_counter() - t0
+        tag = prompt.replace(" ", "_")[:40]
+        decode_s = None
+        if vae is None:
+            path = os.path.join(out_dir, f"{i:02d}_{tag}.npz")
+            np.savez(path, latents=latents.cpu().numpy())
+        else:
+            t0 = time.perf_counter()
+            video = pipeline.decode_latents(latents)  # ends in a copy to the host
+            decode_s = time.perf_counter() - t0
+            frames = (video[0] * 255).astype(np.uint8)
+            if video_length == 1:
+                path = os.path.join(out_dir, f"{i:02d}_{tag}.png")
+                save_image(path, frames[0])
+            else:
+                path = os.path.join(out_dir, f"{i:02d}_{tag}.mp4")
+                save_video(path, frames, fps=8)
+        logger.info(f"[{i + 1}/{len(prompts)}] {prompt!r}: latents in {latents_s:.2f} s"
+                    + ("" if decode_s is None else f", decoded in {decode_s:.2f} s") + f" on {dev} -> {path}")
+        records.append(dict(prompt=prompt, path=path, latents=latents.float().cpu(),
+                            latents_s=latents_s, decode_s=decode_s))
+    return records
+
+
+def cli(argv=None) -> List[dict]:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("overrides", nargs="*")
+    a = p.parse_args(argv)
+    return main(load_config(a.config, a.overrides), device=a.device)
+
+
+if __name__ == "__main__":
+    cli()

@@ -69,6 +69,14 @@ def save_video(path: str, video: np.ndarray, fps: int = 8) -> None:
         writer.release()
 
 
+def save_image(path: str, image: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB image to png (OpenCV)."""
+    import cv2
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    cv2.imwrite(path, np.ascontiguousarray(image[:, :, ::-1]))
+
+
 def read_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
     """Read a video file into (F, H, W, 3) uint8 RGB frames (OpenCV); raises
     ``IOError`` when no frame decodes."""

@@ -27,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import close, t
+from torch_port_util import check_bf16, close, t
 
 from latte_tpu.tools.convert_vae import convert_vae_state_dict
 from latte_tpu.vae import autoencoder_kl as jvae
@@ -36,7 +36,6 @@ from latte_tpu_torch.vae import autoencoder_kl as tvae
 
 # (block_out_channels, layers_per_block, groups)
 CONFIGS = {"tiny": ((8, 16), 1, 4), "three_blocks": ((4, 8, 8), 2, 4)}
-BF16_REL, BF16_ELEM = 5e-2, 5e-2
 
 
 def perturbed_params(module, x, seed=0, bf16=False, init=None):
@@ -207,18 +206,6 @@ BF16_CASES = {
     "encoder": lambda: _coder("encoder", "three_blocks", jnp.bfloat16),
     "decoder": lambda: _coder("decoder", "three_blocks", jnp.bfloat16),
 }
-
-
-def rel_l2(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
-
-
-def check_bf16(got, want_bf16, want_f32):
-    """(a) and (b) of the module docstring."""
-    close(got, want_bf16, BF16_REL, BF16_ELEM)
-    got = got.numpy()
-    assert rel_l2(got, want_f32) <= 1.25 * rel_l2(want_bf16, want_f32) + 1e-3
 
 
 @pytest.mark.parametrize("name", list(BF16_CASES))

@@ -58,6 +58,24 @@ def close(got, want, rel=1e-5, elem=1e-4):
     np.testing.assert_allclose(got, want, rtol=0, atol=elem * np.abs(want).max())
 
 
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# A bf16 port against the JAX module in bf16, which rounds at other places:
+# within BF16_REL / BF16_ELEM of it (``close``), and its error against the
+# JAX module's fp32 result at most 1.25x the JAX bf16 result's own + 1e-3
+BF16_REL, BF16_ELEM = 5e-2, 5e-2
+
+
+def check_bf16(got, want_bf16, want_f32):
+    got = got.float() if isinstance(got, torch.Tensor) else got
+    close(got, want_bf16, BF16_REL, BF16_ELEM)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert rel_l2(got, want_f32) <= 1.25 * rel_l2(want_bf16, want_f32) + 1e-3
+
+
 # The int8 attention against the Pallas int8 kernel: (relative L2, and an
 # elementwise cap over the largest magnitude); tests/test_torch_int8_kernels.py
 # says why.
