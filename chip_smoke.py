@@ -195,11 +195,40 @@ non-zero exit and a traceback:
    DDIM-50 with int8_attention: qk under attention_mode: auto (the fused
    rule, P.V in bf16): launches (every int8 attention on the tensor cores),
    the quality guard and pairs against the dp4a kernel forced; then a few
-   DDIM steps with quantized: true.
+   DDIM steps with quantized: true;
+8. moe: the Mixture-of-Experts feed-forward (``models/moe.py``, 8 experts,
+   top-2) at full width. (a) One train step of Latte-XL/2 with MoE (fp32,
+   batch 1, gradient checkpointing, the Switch loss at 0.01), kernel path
+   against plain path on the same weights (``set_plain``): every gradient
+   and the routers' (cosine >= 0.999, relative L2 <= 1e-3), and how many
+   routing choices differ. (b) ``train.main`` on
+   configs/ffs/ffs_train_moe.yaml with ``expert_parallel=1`` its one
+   override (2.76 B parameters, fp32, batch 5, full remat) for six steps:
+   finite losses, ``moe_aux`` >= 1 - 1e-3 every step, block 0's router
+   moved by step 1 and its ``wi`` not before step 2 (adaLN-Zero), 6 x
+   STEP_LAUNCHES on the fp32 and vector routes, s/step (median of steps
+   3-5), peak memory, step 6 profiled by kind, the disk's free space and
+   the final checkpoint's size and seconds; one more step with the MoE
+   parts (router, dispatch, expert products, combine; forward, recompute
+   and backward) timed by CUDA events. (c) ``sample.main`` on
+   ffs_sample.yaml with ``moe_experts: 8``, DDIM-50, batch 1, bf16, from a
+   checkpoint of seeded random weights: 1400 launches of B1, B2, B3 on the
+   tensor-core and vector routes, finite latents, s a video (median of 3),
+   the idle share of a profiled DDIM-10, each MoE part timed alone at the
+   spatial and temporal shapes, the latents against the plain path's
+   (cosine >= 0.99), ``quantized: static`` refused. (d)
+   ``sample_t2x.main`` on configs/t2x/t2v_sample.yaml as shipped with
+   ``moe_experts=8`` at DDIM-10 (three prompts, CFG): launches
+   (``t2v_launches(28, 30)``), finite latents, s a step, peak memory with
+   and after the fp32 build; one CFG forward against the plain path
+   (cosine >= 0.999) with the routing choices of both, one DDIM step
+   profiled by kind and its MoE parts by CUDA events, ``quantized: true``
+   refused. Prints a ``moe: {...}`` line.
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``t2v: {...}``), the total seconds, the kernels' JSON line (rows
+{...}``, ``t2v: {...}``, ``moe: {...}``), the total seconds, the kernels' JSON line (every
+row with the MoE runs' launches, ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
 ``launches_t2v_block_cache``, phase 5e's, and B1 with its T2V shapes'
 measurements under ``t2v``; rows B1, B2, B3 and both
@@ -251,6 +280,7 @@ from latte_tpu_torch.kernels.adaln import EPS as ADALN_EPS, adaln_route
 from latte_tpu_torch.kernels.attention import attention_tiled_reference, backward_route, forward_route
 from latte_tpu_torch.kernels.attention_int8 import int8_route
 from latte_tpu_torch.models import get_model
+from latte_tpu_torch.models.moe import MoEMlp, moe_groups
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.sample import sample, sample_many
 from latte_tpu_torch.train import train
@@ -1268,30 +1298,41 @@ def report_build(path) -> dict:
 def randomize_(model, seed: int) -> None:
     """Weights ~ N(0, 1/fan_in) and biases ~ N(0, 0.1²) from a seed, so every
     block (adaLN-Zero starts as the identity) and the output layer carry
-    signal."""
+    signal. The MoE layer's weights are (in, out) a matrix: the router
+    (D, E), the experts (E, in, out); its biases (E, out)."""
     gen = torch.Generator(device=model.pos_embed.device).manual_seed(seed)
     with torch.no_grad():
-        for p in model.parameters():
-            std = (p[0].numel() ** -0.5) if p.dim() > 1 else 0.1
+        for name, p in model.named_parameters():
+            if name.endswith((".moe.bi", ".moe.bo")):
+                std = 0.1
+            elif name.endswith(".moe.router"):
+                std = p.shape[0] ** -0.5
+            elif name.endswith((".moe.wi", ".moe.wo")):
+                std = p.shape[1] ** -0.5
+            else:
+                std = (p[0].numel() ** -0.5) if p.dim() > 1 else 0.1
             p.normal_(0.0, std, generator=gen)
 
 
 def compare(name: str, got, want) -> dict:
-    """Relative L2 error and cosine of two tensors, summed in fp64 chunks
-    (a gradient vector has 675M elements: an fp32 sum would drift)."""
-    got, want = got.float().flatten(), want.float().flatten()
+    """Relative L2 error and cosine of two tensors, or of two lists of
+    tensors taken as one vector each (a model's gradients, without a copy
+    into one), summed in fp64 chunks (a gradient vector has 675M elements:
+    an fp32 sum would drift)."""
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
     dot = gg = ww = dd = 0.0
-    for a, b in zip(got.split(1 << 24), want.split(1 << 24)):
-        a, b = a.double(), b.double()
-        dot += torch.dot(a, b).item()
-        gg += torch.dot(a, a).item()
-        ww += torch.dot(b, b).item()
-        dd += torch.dot(a - b, a - b).item()
-    r = dict(
-        rel_l2=(dd / ww) ** 0.5,
-        cosine=dot / (gg * ww) ** 0.5,
-        finite=bool(torch.isfinite(got).all()),
-    )
+    finite = True
+    for x, y in zip(got, want):
+        x, y = x.float().flatten(), y.float().flatten()
+        finite = finite and bool(torch.isfinite(x).all())
+        for a, b in zip(x.split(1 << 24), y.split(1 << 24)):
+            a, b = a.double(), b.double()
+            dot += torch.dot(a, b).item()
+            gg += torch.dot(a, a).item()
+            ww += torch.dot(b, b).item()
+            dd += torch.dot(a - b, a - b).item()
+    r = dict(rel_l2=(dd / ww) ** 0.5, cosine=dot / (gg * ww) ** 0.5, finite=finite)
     print(f"  {name}: " + json.dumps(r), flush=True)
     return r
 
@@ -2897,16 +2938,18 @@ def opt_state_bytes(optimizer) -> dict:
 
 
 def run_config(path: str, tmp: str, steps: int, label: str, overrides=(), mixed: bool = False,
-               profile: bool = False, keep: bool = False, launches_per_step: dict = STEP_LAUNCHES) -> dict:
+               profile: bool = False, keep: bool = False, launches_per_step: dict = STEP_LAUNCHES,
+               log: "StepLog" = None) -> dict:
     """``train.main`` on a config as shipped for ``steps`` steps (synthetic
     latents): finite losses, every launch on the fp32 routes (the
     tensor-core ones with ``mixed``) and the vector route, ``steps`` x
     ``launches_per_step`` launches, the step gaps (with ``profile`` the
     last step profiled, its device time by kind), the median of steps 3-5
     when there are 6, peak memory, the optimizer state's bytes, and the
-    train state (under "state"). The experiment's directory is deleted
-    unless ``keep``."""
-    log = StepLog(profile_after=steps - 1 if profile else 0)
+    train state (under "state"). ``log`` is the callback (a ``StepLog``,
+    made here unless given; a given one profiles as it was made to). The
+    experiment's directory is deleted unless ``keep``."""
+    log = log or StepLog(profile_after=steps - 1 if profile else 0)
     gc.collect()  # an earlier stage's state, so that the peak is this run's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3126,6 +3169,467 @@ def train_more(tmp: str, smi: str, device) -> dict:
     return res
 
 
+# phase "moe": the Mixture-of-Experts feed-forward at full width
+MOE_TRAIN = os.path.join(ROOT, "configs", "ffs", "ffs_train_moe.yaml")
+MOE_EXPERTS = 8
+MOE_ARCH = dict(input_size=32, num_frames=FRAMES, moe_experts=MOE_EXPERTS, moe_top_k=2)
+MOE_AUX_WEIGHT = 0.01  # ffs_train_moe.yaml's moe_aux_weight
+MOE_AUX_MIN = 1 - 1e-3  # E·Σ f·P is 1 at a uniform split and more otherwise
+MOE_T2V_STEPS = 10
+MOE_PARTS = ("route", "dispatch", "experts", "combine")
+
+
+def set_plain(model, plain: bool) -> None:
+    """Every module of ``model`` with a ``plain`` switch (blocks, attention,
+    LatteT2V itself) onto the kernels' plain versions, or back: the plain
+    path on the same weights, without a second copy of them."""
+    for m in model.modules():
+        if hasattr(m, "plain"):
+            m.plain = plain
+
+
+class Routes:
+    """Context: the routing choices, (k, S) a call, of every MoE layer call
+    inside it, in call order (``MoEMlp.route`` patched)."""
+
+    def __enter__(self):
+        self.calls, self.route = [], MoEMlp.route
+        route = self.route
+
+        def recording(mod, xf):
+            out = route(mod, xf)
+            self.calls.append(torch.stack(out[1]).detach())
+            return out
+
+        MoEMlp.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        MoEMlp.route = self.route
+
+    def apart(self, other: "Routes") -> dict:
+        """How many routing choices differ between two runs of the same calls."""
+        if [c.shape for c in self.calls] != [c.shape for c in other.calls]:
+            raise AssertionError("the two runs made different MoE calls")
+        apart = sum(int((a != b).sum()) for a, b in zip(self.calls, other.calls))
+        total = sum(c.numel() for c in self.calls)
+        return dict(calls=len(self.calls), choices=total, apart=apart, share_apart=apart / total)
+
+
+def _grad_tensors(obj) -> list:
+    if isinstance(obj, torch.Tensor):
+        return [obj] if obj.requires_grad else []
+    if isinstance(obj, (list, tuple)):
+        return [t for o in obj for t in _grad_tensors(o)]
+    return []
+
+
+def _part_nodes(outputs, inputs) -> list:
+    """The autograd nodes between a part's outputs and its inputs: from the
+    outputs' nodes down to (not including) the inputs' nodes and the leaves'
+    accumulators."""
+    stop = {t.grad_fn for t in inputs if t.grad_fn is not None}
+    seen, todo = [], [t.grad_fn for t in outputs if t.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if node is None or node in stop or node in seen or type(node).__name__ == "AccumulateGrad":
+            continue
+        seen.append(node)
+        todo.extend(f for f, _ in node.next_functions)
+    return seen
+
+
+class MoESpans:
+    """Context: device ms of the MoE layer's parts (``MoEMlp.route``,
+    ``dispatch``, ``experts``, ``combine``, patched while inside), by CUDA
+    events on the stream: each call (forward, and under gradient
+    checkpointing the recompute), and, where the graph is recorded, each of
+    the part's autograd nodes in the backward (a pre-hook to a hook). Read
+    ``ms()`` after a synchronize. The host must keep ahead of the device for
+    a span to be its kernels' time, so it is taken in a run without the
+    profiler."""
+
+    def __enter__(self):
+        self.saved = {name: getattr(MoEMlp, name) for name in MOE_PARTS}
+        self.fwd = {name: [] for name in MOE_PARTS}
+        self.bwd = {name: [] for name in MOE_PARTS}
+        for name, method in self.saved.items():
+            setattr(MoEMlp, name, self._spanned(name, method))
+        return self
+
+    def __exit__(self, *exc):
+        for name, method in self.saved.items():
+            setattr(MoEMlp, name, method)
+
+    def _spanned(self, name, method):
+        def call(mod, *args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = method(mod, *args)
+            end.record()
+            self.fwd[name].append((start, end))
+            if torch.is_grad_enabled():
+                for node in _part_nodes(_grad_tensors(out), _grad_tensors(args)):
+                    self._hook(name, node)
+            return out
+        return call
+
+    def _hook(self, name, node) -> None:
+        span = []
+
+        def pre(grad_outputs):
+            span.append(torch.cuda.Event(enable_timing=True))
+            span[-1].record()
+
+        def post(grad_inputs, grad_outputs):
+            span.append(torch.cuda.Event(enable_timing=True))
+            span[-1].record()
+            self.bwd[name].append(tuple(span))
+
+        node.register_prehook(pre)
+        node.register_hook(post)
+
+    def ms(self) -> dict:
+        return dict(
+            forward={n: sum(a.elapsed_time(b) for a, b in v) for n, v in self.fwd.items()},
+            backward={n: sum(a.elapsed_time(b) for a, b in v) for n, v in self.bwd.items()},
+            calls=len(self.fwd["route"]), backward_nodes={n: len(v) for n, v in self.bwd.items()},
+        )
+
+
+class MoELog(StepLog):
+    """StepLog that also keeps each step's ``moe_aux``, block 0's router and
+    ``wi`` before the run and whether each moved by steps 1 and 2 (adaLN-Zero
+    holds the experts' gradient at 0 in step 1, so only the Switch loss moves
+    the router there), and the seconds of the final checkpoint's write."""
+
+    def on_train_start(self, config, state, experiment_dir):
+        super().on_train_start(config, state, experiment_dir)
+        moe = state.model.blocks[0].moe
+        self.aux, self.moved, self.ckpt_s, self.ckpt_bytes = [], {}, None, None
+        self.start = {name: getattr(moe, name).detach().clone() for name in ("router", "wi")}
+
+    def on_log(self, step, metrics):
+        super().on_log(step, metrics)
+        self.aux.append(metrics["moe_aux"])
+        if step in (1, 2):
+            moe = self.state.model.blocks[0].moe
+            self.moved[step] = {name: not torch.equal(getattr(moe, name).detach(), v)
+                                for name, v in self.start.items()}
+        self.logged = time.perf_counter()  # after the profiler's stop at the last step
+
+    def on_checkpoint(self, step, path):
+        self.ckpt_s = time.perf_counter() - self.logged
+        self.ckpt_bytes = os.path.getsize(path)
+
+
+def moe_train_step_parity(device) -> dict:
+    """Phase "moe" (a): one full-width step of Latte-XL/2 with 8 experts,
+    top-2 (fp32, batch 1, gradient checkpointing; the diffusion loss plus
+    the Switch loss at 0.01, as the train step adds it), kernel path against
+    plain path on the same weights, t and noise: every gradient, router
+    included, and the routing choices of the two paths."""
+    with torch.device(device):
+        model = get_model("Latte-XL/2", **MOE_ARCH, gradient_checkpointing=True)
+    randomize_(model, seed=41)
+    gen = torch.Generator(device=device).manual_seed(42)
+    x0 = torch.randn((1, FRAMES, 4, 32, 32), generator=gen, device=device)
+    noise = torch.randn(x0.shape, generator=gen, device=device)
+    t = torch.tensor([137], device=device)
+    diffusion = create_diffusion("")
+
+    def step():
+        aux = []
+
+        def fn(x, tt):
+            out, columns = model(x, tt, return_aux=True)
+            aux.append(columns)
+            return out
+
+        loss = diffusion.training_losses(fn, x0, t, noise)["loss"].mean()
+        loss = loss + MOE_AUX_WEIGHT * aux[0].mean(dim=1).sum() / aux[0].shape[0]
+        loss.backward()
+        return loss.detach()
+
+    reset_counts()
+    with Routes() as routes_k:
+        loss_k = step()
+    torch.cuda.synchronize()
+    launches = counts()
+    check_routes("moe fp32 train step", launches, STEP_LAUNCHES)
+    g_k = [p.grad for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    set_plain(model, True)
+    reset_counts()
+    with Routes() as routes_p:
+        loss_p = step()
+    set_plain(model, False)
+    if any(counts().values()):
+        raise AssertionError(f"the plain path launched kernels: {counts()}")
+    g_p = [p.grad for p in model.parameters()]
+    r = compare("moe fp32 step: kernel grads vs plain grads", g_k, g_p)
+    router = compare("moe fp32 step: routers' grads, kernel vs plain",
+                     [g for (n, _), g in zip(model.named_parameters(), g_k) if n.endswith(".router")],
+                     [g for (n, _), g in zip(model.named_parameters(), g_p) if n.endswith(".router")])
+    apart = routes_k.apart(routes_p)
+    loss_rel = abs((loss_k - loss_p) / loss_p).item()
+    print(f"  moe fp32 step: loss {loss_k.item()} vs {loss_p.item()} (rel err {loss_rel}); routing "
+          f"choices apart between the paths {apart}", flush=True)
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+    if not (r["finite"] and r["cosine"] >= 0.999 and r["rel_l2"] <= 1e-3 and router["cosine"] >= 0.999
+            and router["rel_l2"] <= 1e-3):
+        raise AssertionError("the MoE kernel path's gradients disagree with the plain path's")
+    return dict(launches=launches, grads=r, router_grads=router, routing=apart, loss_rel_err=loss_rel)
+
+
+def moe_train(tmp: str, smi: str, device) -> dict:
+    """Phase "moe" (b): ``train.main`` on ffs_train_moe.yaml with
+    expert_parallel=1 its one override (8 experts, fp32, batch 5, full remat,
+    synthetic latents) for TRAIN_STEPS steps (step 6 profiled); then one more
+    step of the same state with the MoE parts timed by CUDA events."""
+    disk = shutil.disk_usage(tmp)
+    print(f"  disk under {tmp}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB", flush=True)
+    log = MoELog(profile_after=TRAIN_STEPS - 1)
+    r = run_config(MOE_TRAIN, tmp, TRAIN_STEPS, "ffs_train_moe fp32", ["expert_parallel=1"], profile=True,
+                   log=log)
+    state = r.pop("state")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    r.update(parameters=n_params, moe_aux=log.aux, moved=log.moved, checkpoint_s=log.ckpt_s,
+             checkpoint_gb=log.ckpt_bytes / 1e9, disk_free_gb=disk.free / 1e9)
+    print(f"  ffs_train_moe: {n_params:,} parameters; moe_aux by step {log.aux}; block 0 moved by step "
+          f"{log.moved}; the final checkpoint {r['checkpoint_gb']:.2f} GB written in "
+          f"{log.ckpt_s:.2f} s on {smi}", flush=True)
+    if not (all(a >= MOE_AUX_MIN for a in log.aux) and log.moved[1] == dict(router=True, wi=False)
+            and log.moved[2]["wi"]):
+        raise AssertionError(f"ffs_train_moe: moe_aux {log.aux}, block 0 moved {log.moved}")
+
+    step = make_train_step(create_diffusion(""), clip_max_norm=0.1, moe_aux_weight=MOE_AUX_WEIGHT)
+    batch = full_width_batch(device, TRAIN_BATCH, FRAMES, False, seed=43)
+    gen = torch.Generator(device=device).manual_seed(44)
+    with MoESpans() as spans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    parts = spans.ms()
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    routing = sum(parts[d][n] for d in ("forward", "backward") for n in ("route", "dispatch", "combine"))
+    experts = parts["forward"]["experts"] + parts["backward"]["experts"]
+    r["step7"] = dict(step_ms=step_ms, parts_ms=parts, routing_ms=routing, experts_ms=experts,
+                      routing_share=routing / step_ms, experts_share=experts / step_ms,
+                      moe_aux=float(metrics["moe_aux"]))
+    print(f"  ffs_train_moe one more step: {step_ms:.2f} ms; MoE parts by CUDA events (ms) "
+          f"{json.dumps(parts)}; routing (router, dispatch, combine) {routing:.2f} ms = "
+          f"{routing / step_ms:.4f} of the step, expert products and activation {experts:.2f} ms = "
+          f"{experts / step_ms:.4f}", flush=True)
+    return r
+
+
+def moe_part_ms(moe, x, timer) -> dict:
+    """Device ms of each part of one MoE layer call on ``x`` (B, N, D),
+    each part timed alone (``Timer`` with the pad, so that the host's
+    launches stay out of the events). In the host-bound sampler, events
+    around the parts inside a run would time the host's gaps too."""
+    B, N, D = x.shape
+    g, C = moe_groups(B * N, moe.num_experts, moe.top_k, moe.capacity_factor, moe.group_size)
+    xf = x.reshape(B * N, D)
+    with torch.inference_mode():
+        _, choices, gates, _ = moe.route(xf)
+        xin, slots, weights = moe.dispatch(xf, choices, gates, g, C)
+        out = moe.experts(xin)
+        return dict(route=timer.ms(lambda: moe.route(xf), pad=True),
+                    dispatch=timer.ms(lambda: moe.dispatch(xf, choices, gates, g, C), pad=True),
+                    experts=timer.ms(lambda: moe.experts(xin), pad=True),
+                    combine=timer.ms(lambda: moe.combine(out, slots, weights), pad=True))
+
+
+def moe_sampler(tmp: str, smi: str, device, timer) -> dict:
+    """Phase "moe" (c): ``sample.main`` on ffs_sample.yaml with moe_experts: 8,
+    DDIM-50, batch 1, bf16, from a checkpoint of seeded random weights: 1400
+    launches of B1, B2, B3, finite latents, s a video (median of 3), the idle
+    share of a profiled DDIM-10 against its unprofiled run, the MoE parts
+    at the sampler's spatial and temporal shapes timed alone, the latents
+    against the plain path's (cosine >= 0.99); quantized: static with MoE
+    refused."""
+    with torch.device(device):
+        model = get_model("Latte-XL/2", **MOE_ARCH)
+    randomize_(model, seed=45)
+    ckpt = os.path.join(tmp, "latte_xl2_moe_random.pt")
+    torch.save({"ema": {k: v.to(torch.bfloat16) for k, v in model.state_dict().items()}}, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    over = ["sample_method=ddim", "num_sampling_steps=50", "per_proc_batch_size=1", f"ckpt={ckpt}",
+            f"save_video_path={tmp}/moe.mp4", f"moe_experts={MOE_EXPERTS}"]
+    cfg = load_config(FFS_CONFIG, over)
+    reset_counts()
+    lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])
+    launches = counts()
+    check_tc("moe bf16 ddim-50 entry point", DEPTH * 50)
+    check_vec("moe bf16 ddim-50 entry point")
+    print(f"  moe ddim-50 latents {tuple(lat.shape)} finite={bool(torch.isfinite(lat).all())}; launches "
+          f"{launches}", flush=True)
+    if lat.shape != (1, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
+        raise AssertionError("the MoE sampler's latents are not finite (1, 16, 4, 32, 32)")
+    if any(launches[k] != DEPTH * 50 for k in FORWARD) or any(launches[k] for k in (*BACKWARD, INT8)):
+        raise AssertionError(f"expected {DEPTH * 50} launches of each forward kernel, got {launches}")
+
+    model = sample.build_model(cfg, device)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample.sample_latents(model, cfg, device)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    video_s = sorted(secs)[1]
+    cfg10 = load_config(FFS_CONFIG, over + ["num_sampling_steps=10"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample.sample_latents(model, cfg10, device)
+    torch.cuda.synchronize()
+    prof = profile_sampler(model, cfg10, device, time.perf_counter() - t0, "moe ddim-10 sampler")
+    gen = torch.Generator(device=device).manual_seed(47)
+    parts = {}
+    for name, (blk, rows, n) in (("spatial", (0, FRAMES, TOKENS)), ("temporal", (1, TOKENS, FRAMES))):
+        x = torch.randn((rows, n, HIDDEN), generator=gen, device=device).to(torch.bfloat16)
+        parts[name] = moe_part_ms(model.blocks[blk].moe, x, timer)
+    per_video = {k: 50 * DEPTH // 2 * (parts["spatial"][k] + parts["temporal"][k]) for k in MOE_PARTS}
+    set_plain(model, True)
+    ref = sample.sample_latents(model, cfg, device)
+    set_plain(model, False)
+    vs_plain = compare("moe ddim-50 latents, entry point vs plain path", lat, ref.float().cpu())
+    print(f"  moe ddim-50 batch 1 bf16: {video_s:.4f} s a video (runs {secs}) -> {60 / video_s:.3f} "
+          f"videos/min; MoE parts of one layer call, each alone (device ms) {json.dumps(parts)}, "
+          f"so in a video {json.dumps(per_video)} on {smi}", flush=True)
+    del model, ref
+    os.remove(ckpt)
+    torch.cuda.empty_cache()
+    if not vs_plain["cosine"] >= 0.99:
+        raise AssertionError("the MoE DDIM latents disagree with the plain path's")
+    refusal = refused(lambda: sample.main(load_config(FFS_CONFIG, over + ["quantized=static"])))
+    return dict(launches=launches, s_per_video=video_s, runs_s=secs, profile_ddim10=prof, parts_ms=parts,
+                parts_ms_per_video=per_video, latents_vs_plain=vs_plain, quantized_static=refusal)
+
+
+def refused(fn) -> str:
+    """``fn()`` must raise ``NotImplementedError`` (MoE has no int8 expert
+    path); its message."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        print(f"  refused as it must be: {e}", flush=True)
+        return str(e)
+    raise AssertionError("an int8 MoE run was not refused")
+
+
+def moe_t2v(tmp: str, smi: str, device) -> dict:
+    """Phase "moe" (d): ``sample_t2x.main`` on t2v_sample.yaml as shipped
+    (three prompts, 16 frames at 512^2, CFG 7.5, bf16) with moe_experts=8 at
+    DDIM-10: launches, finite latents, s a step, peak memory (the entry
+    point's, with the fp32 build, and the serving's after it); one CFG
+    forward against the plain path (cosine >= 0.999) with the routing
+    choices of both; one DDIM step profiled by kind and the MoE parts by
+    CUDA events in another; quantized: true with MoE refused."""
+    import statistics
+
+    from latte_tpu_torch.core.scheduler import get_scheduler
+    from latte_tpu_torch.sample import sample_t2x
+    from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
+
+    over = [f"moe_experts={MOE_EXPERTS}", f"num_sampling_steps={MOE_T2V_STEPS}",
+            f"save_video_path={tmp}/t2v_moe"]
+    cfg = load_config(T2V_CONFIG, over)
+    prompts, steps = list(cfg.text_prompt), MOE_T2V_STEPS
+    kw = sample_t2x.transformer_kwargs(cfg)
+    pairs, frames, (H, W) = kw["num_layers"], int(cfg.video_length), sample_t2x.image_hw(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    records = sample_t2x.main(cfg)
+    main_peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = expect_launches(f"t2v moe, {len(prompts)} prompts", t2v_launches(pairs, len(prompts) * steps))
+    if not all(torch.isfinite(r["latents"]).all() and r["latents"].shape == (1, 4, frames, H // 8, W // 8)
+               for r in records):
+        raise AssertionError("the MoE T2V latents are not finite or not of the expected shape")
+    step_s = statistics.median(r["latents_s"] for r in records[1:]) / steps
+
+    model = sample_t2x.build_transformer(cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    stub = sample_t2x.build_text_encoder(cfg)
+    pipe = LattePipeline(model, get_scheduler("DDIM"), stub)
+    ctx, mask = pipe.encode_prompt([prompts[0]])
+    gen = torch.Generator(device=device).manual_seed(46)
+    latent = (4, frames, H // 8, W // 8)
+    x = torch.randn((2, *latent), generator=gen, device=device)
+    t = torch.full((2,), 500.0, device=device)
+    with torch.inference_mode():
+        with Routes() as routes_k:
+            out_k = model(x, t, ctx, mask)
+        set_plain(model, True)
+        with Routes() as routes_p:
+            out_p = model(x, t, ctx, mask)
+        set_plain(model, False)
+    vs_plain = compare("t2v moe CFG forward, kernels bf16 vs plain bf16", out_k, out_p)
+    apart = routes_k.apart(routes_p)
+    print(f"  t2v moe forward: routing choices apart between the paths {apart}", flush=True)
+    del out_k, out_p
+    if not (vs_plain["finite"] and vs_plain["cosine"] >= 0.999):
+        raise AssertionError("the MoE T2V kernel path disagrees with the plain path")
+
+    sched = pipe.scheduler
+    ts, state = sched.timesteps(steps), sched.init_state(steps)
+    z = torch.randn((1, *latent), generator=gen, device=device)
+
+    def one_step():
+        with torch.inference_mode():
+            return pipe._step(z, state, ctx, mask, 0, ts, float(cfg.guidance_scale), True, None)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_t2v_step(one_step)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = profile_t2v_step(one_step, step_ms, "t2v moe ddim step")
+    with MoESpans() as spans:
+        one_step()
+        torch.cuda.synchronize()
+    parts = spans.ms()
+    print(f"  t2v moe ({n_params:,} parameters) DDIM-{steps} + CFG bf16: {step_s:.4f} s a step through "
+          f"the entry point (median of prompts 2-3), {step_ms:.2f} ms a step alone; peak "
+          f"{main_peak:.3f} GiB in the entry point (fp32 build included), {serve_peak:.3f} GiB serving; "
+          f"MoE parts of a step by CUDA events (ms) {json.dumps(parts['forward'])} on {smi}", flush=True)
+    del model, pipe
+    torch.cuda.empty_cache()
+    refusal = refused(lambda: sample_t2x.main(load_config(T2V_CONFIG, over + ["quantized=true"])))
+    return dict(parameters=n_params, launches=launches, s_per_step=step_s,
+                prompt_latents_s=[r["latents_s"] for r in records], peak_gib_entry=main_peak,
+                peak_gib_serving=serve_peak, forward_vs_plain=vs_plain, routing=apart, step_ms=step_ms,
+                step_profile=profile, parts_ms=parts, quantized_true=refusal)
+
+
+def moe_phase(tmp: str, smi: str, device, timer) -> dict:
+    """Phase "moe" (a)-(d); returns the ``moe: {...}`` line's dict."""
+    out = {}
+    t0 = time.perf_counter()
+    out["grads"] = moe_train_step_parity(device)
+    phase("moe (a) gradients", t0)
+    t0 = time.perf_counter()
+    out["train"] = moe_train(tmp, smi, device)
+    phase("moe (b) train", t0)
+    t0 = time.perf_counter()
+    out["latte"] = moe_sampler(tmp, smi, device, timer)
+    phase("moe (c) latte serving", t0)
+    t0 = time.perf_counter()
+    out["t2v"] = moe_t2v(tmp, smi, device)
+    phase("moe (d) t2v serving", t0)
+    out["device"] = smi
+    return out
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     """One kernel's entry of the JSON line: its main-path launches and its
     measurements at the main path's shape (``row``)."""
@@ -3342,6 +3846,13 @@ def main() -> int:
         t0 = time.perf_counter()
         more = train_more(tmp, smi, device)
     phase("train more", t0)
+
+    # 8. Mixture-of-Experts: gradients, training, Latte and T2V serving
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        moe = moe_phase(tmp, smi, device, timer)
+    torch.cuda.empty_cache()
+    phase("moe", t0)
     print("train: " + json.dumps(dict(parity=parity, entry_point=entry, mixed_precision=mixed,
                                       quant_train=quant), default=str), flush=True)
     print("pixel_train: " + json.dumps(pixel, default=str), flush=True)
@@ -3353,10 +3864,14 @@ def main() -> int:
     print("block_cache: " + json.dumps(bc_run, default=str), flush=True)
     print("sample_many: " + json.dumps(many, default=str), flush=True)
     print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
+    print("moe: " + json.dumps(moe, default=str), flush=True)
 
     # each kernel's launches in the runs of phase "train more"
     more_launches = {name: {run: more[run]["launches"][name] for run in (
         "ucf101_train", "ucf101_mixed", "ffs_img_train", "ucf101_img_train")} for name in KERNELS}
+    # and in phase "moe": 6 ffs_train_moe steps, the MoE DDIM-50, the MoE T2V DDIM-10
+    moe_launches = {name: dict(train=moe["train"]["launches"][name], latte_ddim50=moe["latte"]["launches"][name],
+                               t2v_ddim10=moe["t2v"]["launches"][name]) for name in KERNELS}
     kernels = []
     for name, k in KERNELS.items():
         if name == INT8:  # the int8 sampler's path (bf16, batch 1, flash route, pv_int8)
@@ -3401,7 +3916,8 @@ def main() -> int:
                 cases={c: measured[name][c] for c in BWD_SHAPES if c != "spatial_b5"})
             launches = mixed["launches"][name]
         kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row,
-                                  launches_train_more=more_launches[name], **extra))
+                                  launches_train_more=more_launches[name], launches_moe=moe_launches[name],
+                                  **extra))
     # the fp32 trainer's path, at its shapes (fp32, batch 5)
     fwd32 = measured["flash_attention"]
     kernels.append(kernel_row(
@@ -3409,6 +3925,7 @@ def main() -> int:
         entry["fwd_f32_launches"], fwd32["spatial_b5_fp32"], shape="spatial fp32 batch 5",
         temporal=fwd32["temporal_b5_fp32"], cases={c: fwd32[c] for c in FLASH_FP32_SHAPES},
         train_pairs=entry["forward_pairs"], launches_train_more=more_launches["flash_attention"],
+        launches_moe_train=moe["train"]["launches"]["flash_attention"],
         img=dict(spatial=fwd32["spatial_img_fp32"], temporal=fwd32["temporal_img_fp32"])))
     for name in BACKWARD:
         kernels.append(kernel_row(
@@ -3417,7 +3934,8 @@ def main() -> int:
             temporal=measured[name]["temporal_b5_fp32"],
             cases={c: measured[name][c] for c in BWD_SHAPES if BWD_SHAPES[c][2] == torch.float32},
             train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
-                             pairs_won=entry["pairs_won"]), launches_train_more=more_launches[name]))
+                             pairs_won=entry["pairs_won"]), launches_train_more=more_launches[name],
+            launches_moe_train=moe["train"]["launches"][name]))
     # the "qk" mode (int8_attention: qk under attention_mode: auto, the fused
     # rule), on the same source's "qk" kernels
     qk, qk_cases = int8_run["qk"], {c: r for c, r in measured[INT8].items() if c.endswith("_qk")}
@@ -3431,7 +3949,7 @@ def main() -> int:
         cases=qk_cases, fp32=int8_fp32["qk_times"],
         ddim_pairs=dict(pairs=qk["pairs"], pairs_won=qk["pairs_won"],
                         videos_per_min=qk["pair_videos_per_min"]),
-        launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8]))
+        launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8], launches_moe=moe_launches[INT8]))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

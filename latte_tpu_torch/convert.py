@@ -34,6 +34,13 @@ reads the reference's ``.pt`` / ``.bin`` or ``.safetensors`` (through
 :func:`read_safetensors`, plain Python: the machine with the card has no
 ``safetensors`` package), refusing keys that the model does not have, as
 ``latte_tpu/tools/convert_t2v.py`` does.
+
+Mixture-of-Experts blocks: the JAX ``moe`` leaves (``router``, ``wi``,
+``bi``, ``wo``, ``bo``, stacked (n_pairs, E, ...) a block column) keep
+their names and layouts, under ``blocks.{i}.moe.*``,
+``transformer_blocks.{i}.moe.*`` and ``temporal_transformer_blocks.{i}.moe.*``.
+No reference checkpoint holds expert weights (the JAX converter maps none),
+so :func:`load_t2v_state_dict` for an MoE model names them as missing.
 """
 
 from __future__ import annotations
@@ -117,8 +124,11 @@ def flax_to_state_dict(
             blk = _unstack(params["blocks"][kind], i)
             put_qkv(f"blocks.{idx}.attn.qkv", blk["attn"]["qkv"])
             put_linear(f"blocks.{idx}.attn.proj", blk["attn"]["proj"])
-            put_linear(f"blocks.{idx}.mlp.fc1", blk["mlp"]["fc1"])
-            put_linear(f"blocks.{idx}.mlp.fc2", blk["mlp"]["fc2"])
+            if "moe" in blk:
+                _put_moe(sd, f"blocks.{idx}.moe", blk["moe"])
+            else:
+                put_linear(f"blocks.{idx}.mlp.fc1", blk["mlp"]["fc1"])
+                put_linear(f"blocks.{idx}.mlp.fc2", blk["mlp"]["fc2"])
             put_linear(f"blocks.{idx}.adaLN_modulation.1", blk["adaLN_modulation"])
             for name in _ATTN_SCALES:
                 if name in blk["attn"]:
@@ -129,6 +139,13 @@ def flax_to_state_dict(
 
 
 _ATTN_SCALES = ("q_scale", "k_scale", "v_scale")
+# the MoE feed-forward's parameters, in the JAX layer's names and layouts
+MOE_PARAMS = ("router", "wi", "bi", "wo", "bo")
+
+
+def _put_moe(sd: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:
+    for name in MOE_PARAMS:
+        sd[f"{prefix}.{name}"] = np.asarray(p[name])
 
 
 def _put_linear(sd: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:
@@ -295,6 +312,9 @@ def flax_t2v_to_state_dict(params: Mapping[str, Any], patch_size: int = 2) -> Di
             for attn in attns:
                 for src, dst in _T2V_ATTN:
                     _put_linear(sd, f"{prefix}.{i}.{attn}.{dst}", blk[attn][src])
+            if "moe" in blk:
+                _put_moe(sd, f"{prefix}.{i}.moe", blk["moe"])
+                continue
             for src, dst in _T2V_FF:
                 _put_linear(sd, f"{prefix}.{i}.ff.{dst}", blk["ff"][src])
     sd["scale_shift_table"] = np.asarray(params["scale_shift_table"])
@@ -302,8 +322,10 @@ def flax_t2v_to_state_dict(params: Mapping[str, Any], patch_size: int = 2) -> Di
     return {key: _tensor(v) for key, v in sd.items()}
 
 
-def t2v_keys(num_layers: int) -> set:
-    """The keys of a reference LatteT2V state dict (frozen buffers aside)."""
+def t2v_keys(num_layers: int, moe_experts: int = 0) -> set:
+    """The keys of a reference LatteT2V state dict (frozen buffers aside);
+    with ``moe_experts > 1`` each block's ``moe.*`` in place of its ``ff``."""
+    moe = moe_experts > 1
     linears = [
         "pos_embed.proj", "adaln_single.emb.timestep_embedder.linear_1",
         "adaln_single.emb.timestep_embedder.linear_2", "adaln_single.linear",
@@ -315,7 +337,10 @@ def t2v_keys(num_layers: int) -> set:
         for i in range(num_layers):
             keys.add(f"{prefix}.{i}.scale_shift_table")
             linears += [f"{prefix}.{i}.{a}.{dst}" for a in attns for _, dst in _T2V_ATTN]
-            linears += [f"{prefix}.{i}.ff.{dst}" for _, dst in _T2V_FF]
+            if moe:
+                keys.update(f"{prefix}.{i}.moe.{name}" for name in MOE_PARAMS)
+            else:
+                linears += [f"{prefix}.{i}.ff.{dst}" for _, dst in _T2V_FF]
     return keys | {f"{name}.{w}" for name in linears for w in ("weight", "bias")}
 
 
@@ -350,19 +375,26 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_t2v_state_dict(path: str, num_layers: int = 28) -> Dict[str, torch.Tensor]:
+def load_t2v_state_dict(path: str, num_layers: int = 28, moe_experts: int = 0) -> Dict[str, torch.Tensor]:
     """A reference LatteT2V checkpoint (``.safetensors``, or a
     ``torch.load``-able ``.pt`` / ``.bin`` state dict, or one under
     ``"state_dict"``) -> the port's state dict, without the frozen buffers.
     A key the model does not have raises ``ValueError`` (it would be
-    dropped silently); a missing key raises ``KeyError``."""
+    dropped silently); a missing key raises ``KeyError``. For an MoE model
+    (``moe_experts > 1``) missing expert weights are named first."""
     if path.endswith(".safetensors"):
         sd = read_safetensors(path)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
-    expected = t2v_keys(num_layers)
+    expected = t2v_keys(num_layers, moe_experts)
+    missing_moe = sorted(k for k in expected - set(sd) if ".moe." in k)
+    if missing_moe:
+        raise KeyError(
+            f"T2V checkpoint lacks the expert weights of a moe_experts={moe_experts} model "
+            f"(no converter maps MoE leaves): {missing_moe[:10]}"
+        )
     unmapped = set(sd) - expected - set(T2V_BUFFERS)
     if unmapped:
         raise ValueError(

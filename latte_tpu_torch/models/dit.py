@@ -37,6 +37,19 @@ always runs the flash kernel).
 ``forward`` also carries the block-cache staging hooks of the JAX model
 (``return_front``, ``front_state``/``start_pair``), which
 :mod:`latte_tpu_torch.core.block_cache` drives.
+
+``moe_experts > 1`` gives every block the Mixture-of-Experts feed-forward
+(:mod:`latte_tpu_torch.models.moe`, ``moe_top_k`` experts a token at
+``moe_capacity_factor``). ``forward(..., return_aux=True)`` then also
+returns the blocks' Switch losses, (2, n_pairs): row 0 the spatial blocks',
+row 1 the temporal blocks' (the JAX model's per-column stacks sown under
+``intermediates``), which the train step weights by ``moe_aux_weight``.
+Each pair hands its two losses out as outputs of the (checkpointed) pair
+function, so a recomputed pair never leaves a second copy behind. Under
+"dots" the router's product is an ``aten.mm`` and is saved, while the
+expert products (``baddbmm``, batched) are recomputed: what JAX's
+``dots_with_no_batch_dims_saveable`` does with them, so the policy needs
+nothing of its own for MoE.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from latte_tpu_torch.models.embeddings import (
     get_2d_sincos_pos_embed,
 )
 from latte_tpu_torch.models.layers import AdaLNBlock, FinalLayer, PatchEmbed, unpatchify
+from latte_tpu_torch.models.moe import MoEMlp, collect_loss, loss_columns, pair_losses
 
 __all__ = ["Latte"]
 
@@ -98,6 +112,9 @@ class Latte(nn.Module):
         quantized=False,
         int8_attention=False,
         attention_mode: str = "auto",
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
     ):
         super().__init__()
         if extras not in (1, 2):
@@ -122,6 +139,7 @@ class Latte(nn.Module):
         self.remat_policy = remat_policy
         self.compute_dtype = compute_dtype
         self.quantized = quantized
+        self.moe_experts = moe_experts
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
@@ -132,6 +150,7 @@ class Latte(nn.Module):
             AdaLNBlock(
                 hidden_size, num_heads, mlp_ratio, plain=plain, quantized=quantized,
                 int8_attention=int8_attention, attention_mode=attention_mode,
+                moe_experts=moe_experts, moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
             )
             for _ in range(depth)
         )
@@ -152,15 +171,18 @@ class Latte(nn.Module):
     def initialize_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """The reference's init (as the JAX modules' initializers): xavier-uniform
         linears and patch embedding with zero biases, N(0, 0.02) timestep MLP and
-        label table, zero adaLN modulations and output layer (adaLN-Zero).
-        An int8 serving model has no fp weights to draw: it loads the output
-        of ``quant.quantize_params``."""
+        label table, zero adaLN modulations and output layer (adaLN-Zero);
+        the experts' own init (``MoEMlp.reset_parameters``). An int8 serving
+        model has no fp weights to draw: it loads the output of
+        ``quant.quantize_params``."""
         if self.quantized in (True, "static"):
             raise ValueError("an int8 model loads quantize_params' output; initialise its fp twin")
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, MoEMlp):
+                m.reset_parameters(generator)
         w = self.x_embedder.proj.weight
         nn.init.xavier_uniform_(w.view(w.shape[0], -1), generator=generator)
         nn.init.zeros_(self.x_embedder.proj.bias)
@@ -187,22 +209,24 @@ class Latte(nn.Module):
         table = get_1d_sincos_pos_embed(self.hidden_size, frames)
         return torch.from_numpy(table).to(self.temp_embed.device, dtype)[None]
 
-    def _pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int) -> torch.Tensor:
-        """Blocks i (spatial) and i + 1 (temporal) on (B·F, T, D) tokens.
+    def _pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int):
+        """Blocks i (spatial) and i + 1 (temporal) on (B·F, T, D) tokens:
+        ``(x, aux)``, aux the two blocks' Switch losses (2,) or None.
 
         The relayouts copy: the kernels take contiguous activations (at B = 1
         a reshape of the transposed view would otherwise stay strided)."""
         T, D = x.shape[1], x.shape[2]
-        x = self.blocks[i](x, c_spatial)
+        aux = []
+        x = collect_loss(self.blocks[i](x, c_spatial), aux)
         # (b f) t d -> (b t) f d
         x = x.reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
         if temp_embed is not None:
             x = x + temp_embed
-        x = self.blocks[i + 1](x, c_temp)
+        x = collect_loss(self.blocks[i + 1](x, c_temp), aux)
         # (b t) f d -> (b f) t d
-        return x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
+        return x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D), pair_losses(aux)
 
-    def _run_pair(self, fn, *args) -> torch.Tensor:
+    def _run_pair(self, fn, *args):
         """``fn(*args)``, under gradient checkpointing with the remat policy
         when the graph is recorded."""
         if not (self.gradient_checkpointing and torch.is_grad_enabled()):
@@ -226,10 +250,13 @@ class Latte(nn.Module):
         return_front: int = 0,
         front_state: Optional[torch.Tensor] = None,
         start_pair: int = 0,
+        return_aux: bool = False,
     ):
         """The forward (``train``, ``generator`` and ``force_drop_ids``
-        reach the label embedder), plus the block-cache staging hooks of the
-        JAX model:
+        reach the label embedder); ``return_aux`` also returns the MoE
+        blocks' Switch losses, ``(out, aux)`` with aux (2, n_pairs), or None
+        for a dense model. Plus the block-cache staging hooks of the JAX
+        model:
 
         - ``return_front=k`` (full forward): also return the (B·F, T, D)
           activation after pair k - 1 (block 2k - 1), in the compute type,
@@ -247,6 +274,8 @@ class Latte(nn.Module):
             raise ValueError("return_front and front_state are exclusive")
         if (front_state is None) != (start_pair == 0):
             raise ValueError("front_state and start_pair must be set together")
+        if return_aux and (return_front or front_state is not None):
+            raise ValueError("return_aux is the train step's: no staging hook goes with it")
         B, F, C, H, W = x.shape
         in_dtype = x.dtype
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
@@ -269,9 +298,12 @@ class Latte(nn.Module):
             c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
 
         temp_embed = self._temp_embed(F, dtype)
-        front = None
+        front, aux = None, []
         for i in range(2 * start_pair, self.depth, 2):
-            x = self._run_pair(self._pair, x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F)
+            x, pair_aux = self._run_pair(
+                self._pair, x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F
+            )
+            aux.append(pair_aux)
             if i == 2 * return_front - 2:
                 front = x
 
@@ -279,6 +311,8 @@ class Latte(nn.Module):
         x = self.final_layer(x, c_final)
         x = unpatchify(x, p, self.out_channels)
         out = x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
+        if return_aux:
+            return out, loss_columns(aux)
         return (out, front) if return_front else out
 
     def forward_with_cfg(

@@ -12,7 +12,7 @@ the label dropout after ``y``.
 
 The parameters and their names are ``Latte``'s, so
 :func:`latte_tpu_torch.convert.flax_to_state_dict` carries the JAX
-LatteIMG's over unchanged.
+LatteIMG's over unchanged; so are the MoE options and ``return_aux``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from latte_tpu_torch.models.dit import Latte
 from latte_tpu_torch.models.layers import unpatchify
+from latte_tpu_torch.models.moe import collect_loss, loss_columns, pair_losses
 
 __all__ = ["LatteIMG"]
 
@@ -36,22 +37,24 @@ class LatteIMG(Latte):
         super().__init__(*args, **kwargs)
         self.use_image_num = use_image_num
 
-    def _joint_pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int, Fv: int) -> torch.Tensor:
+    def _joint_pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int, Fv: int):
         """Blocks i (spatial, all F frames) and i + 1 (temporal, the first Fv
-        frames) on (B·F, T, D) tokens. The video frames go to the
+        frames) on (B·F, T, D) tokens: ``(x, aux)`` as ``Latte._pair``'s. The
+        video frames go to the
         (b t) f d layout in one copy, so the kernels get a contiguous block;
         the images' tokens stay where they are and the concatenation on the
         way back writes both into a new contiguous (B·F, T, D) tensor."""
         if Fv == F:
             return self._pair(x, c_spatial, c_temp, temp_embed, i, B, F)
         T, D = x.shape[1], x.shape[2]
-        x = self.blocks[i](x, c_spatial).view(B, F, T, D)
+        aux = []
+        x = collect_loss(self.blocks[i](x, c_spatial), aux).view(B, F, T, D)
         video = x[:, :Fv].transpose(1, 2).contiguous().view(B * T, Fv, D)
         if temp_embed is not None:
             video = video + temp_embed
-        video = self.blocks[i + 1](video, c_temp)
+        video = collect_loss(self.blocks[i + 1](video, c_temp), aux)
         out = torch.cat([video.view(B, T, Fv, D).transpose(1, 2), x[:, Fv:]], dim=1)
-        return out.view(B * F, T, D)
+        return out.view(B * F, T, D), pair_losses(aux)
 
     def forward(
         self,
@@ -64,10 +67,12 @@ class LatteIMG(Latte):
         generator: Optional[torch.Generator] = None,
         force_drop_ids: Optional[torch.Tensor] = None,
         force_drop_ids_image: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        return_aux: bool = False,
+    ):
         """(B, F + I, C, H, W), (B,) -> (B, F + I, C', H, W). Under ``train``
         the last ``use_image_num`` frames are still images, labelled by
-        ``y_image`` (B, I) when the model is class-conditional."""
+        ``y_image`` (B, I) when the model is class-conditional.
+        ``return_aux``: ``(out, aux)`` as ``Latte.forward``'s."""
         B, F, C, H, W = x.shape
         in_dtype = x.dtype
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
@@ -91,10 +96,13 @@ class LatteIMG(Latte):
             c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
 
         temp_embed = self._temp_embed(Fv, dtype)
+        aux = []
         for i in range(0, self.depth, 2):
-            x = self._run_pair(
+            x, pair_aux = self._run_pair(
                 self._joint_pair, x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F, Fv
             )
+            aux.append(pair_aux)
         x = self.final_layer(x, c_spatial)
         x = unpatchify(x, p, self.out_channels)
-        return x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
+        out = x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
+        return (out, loss_columns(aux)) if return_aux else out

@@ -11,7 +11,9 @@ launch the CUDA kernels for CUDA tensors and run the plain versions for CPU
 tensors. ``plain=True`` runs the plain versions on any device (for attention
 both its forward and its backward); it exists so a run on the card can hold
 the kernel path against the plain one.
-The ring-attention and MoE branches of the JAX blocks are not ported.
+``moe_experts > 1`` swaps a block's MLP for the Mixture-of-Experts
+feed-forward (:mod:`latte_tpu_torch.models.moe`), as in the JAX block; the
+ring-attention branch is not ported.
 
 W8A8 int8 (``quantized``, the JAX ``QDense`` modes): the block's qkv, proj,
 fc1, fc2 and adaLN modulation are :class:`QLinear` layers, and with
@@ -86,6 +88,9 @@ class Linear(nn.Linear):
 
 
 QUANT_MODES = (False, True, "static", "calib", "train")
+MOE_INT8_REFUSAL = (
+    "quantized (W8A8/QAT) + moe_experts is not supported: MoEMlp has no int8 expert path"
+)
 INT8_ATTENTION = (False, True, "full", "qk")
 # "auto" gives the int8 core the flash arithmetic from this many tokens on,
 # as the JAX model routes N >= 512 to its flash kernel
@@ -263,7 +268,13 @@ class AdaLNBlock(nn.Module):
     ``ln_modulate`` before attention, ``residual_ln_modulate`` after it
     (the JAX block's ``fused_adaln=True`` path). The adaLN modulation is
     quantized for int8 serving and its calibration, not for quantized
-    training (it is zero-init sensitive), as in JAX."""
+    training (it is zero-init sensitive), as in JAX.
+
+    With ``moe_experts > 1`` the feed-forward is :class:`~latte_tpu_torch.
+    models.moe.MoEMlp` (``self.moe`` in place of ``self.mlp``, fed by the
+    same ``residual_ln_modulate``) and the block returns ``(x, aux)``, its
+    Switch loss beside the output. It has no int8 expert path: a quantized
+    block with MoE raises ``NotImplementedError``, as in JAX."""
 
     def __init__(
         self,
@@ -274,6 +285,9 @@ class AdaLNBlock(nn.Module):
         quantized=False,
         int8_attention=False,
         attention_mode: str = "auto",
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
     ):
         super().__init__()
         self.plain = plain
@@ -281,7 +295,16 @@ class AdaLNBlock(nn.Module):
             hidden_size, num_heads, qkv_bias=True, plain=plain, quantized=quantized,
             int8_attention=int8_attention, attention_mode=attention_mode,
         )
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size, quantized=quantized)
+        hidden = int(hidden_size * mlp_ratio)
+        self.is_moe = moe_experts > 1
+        if self.is_moe:
+            from latte_tpu_torch.models.moe import MoEMlp
+
+            if quantized:
+                raise NotImplementedError(MOE_INT8_REFUSAL)
+            self.moe = MoEMlp(hidden_size, hidden, hidden_size, moe_experts, moe_top_k, moe_capacity_factor)
+        else:
+            self.mlp = Mlp(hidden_size, hidden, hidden_size, quantized=quantized)
         mod_quantized = quantized if quantized in (True, "static", "calib") else False
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), QLinear(hidden_size, 6 * hidden_size, quantized=mod_quantized)
@@ -297,6 +320,9 @@ class AdaLNBlock(nn.Module):
             ln_mod, res_ln_mod = ln_modulate, residual_ln_modulate
         attn_out = self.attn(ln_mod(x, shift_msa, scale_msa))
         x, ff_in = res_ln_mod(x, attn_out, gate_msa, shift_mlp, scale_mlp)
+        if self.is_moe:
+            ff, aux = self.moe(ff_in)
+            return x + gate_mlp[:, None, :] * ff, aux
         return x + gate_mlp[:, None, :] * self.mlp(ff_in)
 
 

@@ -1,8 +1,10 @@
 """Model registry: named Latte and LatteIMG configurations (XL/L/B/S x
 patch 2/4/8).
 
-Port of ``latte_tpu/models/registry.py``. Options of the JAX factory that
-select work this port has not taken on yet (MoE, ring attention) raise
+Port of ``latte_tpu/models/registry.py``. ``moe_experts`` (> 0, with
+``moe_top_k`` and ``moe_capacity_factor`` when set) gives the blocks the
+Mixture-of-Experts feed-forward, as the JAX factory passes it. Ring
+attention, which this port has not taken on yet, raises
 ``NotImplementedError``; execution hints for the JAX compiler (scan
 unrolling, the fused-adaLN switch) have no counterpart here, since the port
 always runs its fused kernels. ``gradient_checkpointing`` recomputes each
@@ -57,10 +59,9 @@ def get_models(args, quantized=False) -> Latte:
     ``num_classes``, ``attention_mode``, ``int8_attention`` (checked against
     ``args.quantized``) and ``model_overrides`` (explicit depth/width
     changes), ``gradient_checkpointing`` with ``remat_policy``, and for a
-    LatteIMG name ``use_image_num``. ``quantized`` is the blocks' int8 mode
-    (see ``models.layers``)."""
-    if getattr(args, "moe_experts", None):
-        raise NotImplementedError("moe_experts: not ported yet; comes with the MoE slice")
+    LatteIMG name ``use_image_num``, and ``moe_experts`` with
+    ``moe_top_k`` and ``moe_capacity_factor``. ``quantized`` is the blocks'
+    int8 mode (see ``models.layers``)."""
     mode = str(getattr(args, "attention_mode", None) or "auto")
     if mode not in _ATTENTION_MODES:
         raise NotImplementedError(
@@ -98,6 +99,12 @@ def get_models(args, quantized=False) -> Latte:
             common["remat_policy"] = str(args.remat_policy)
     if getattr(args, "model_overrides", None):
         common.update(dict(args.model_overrides))
+    if getattr(args, "moe_experts", 0):
+        common["moe_experts"] = int(args.moe_experts)
+        if getattr(args, "moe_top_k", None):
+            common["moe_top_k"] = int(args.moe_top_k)
+        if getattr(args, "moe_capacity_factor", None):
+            common["moe_capacity_factor"] = float(args.moe_capacity_factor)
     if args.model in LatteIMG_models:
         common["use_image_num"] = int(getattr(args, "use_image_num", 0) or 0)
     return get_model(args.model, **common)

@@ -43,9 +43,17 @@ projections and the feed-forward W8A8 int8 :class:`QLinear` layers, which
 load ``quant.quantize_params``'s output. ``forward`` carries the JAX model's
 block-cache staging hooks (``return_front``, ``front_state``/``start_pair``).
 
-Not ported: ``moe_experts > 1`` (MoE, ROADMAP M4), ``attention_mode:
-ring`` (M6) and ``gradient_checkpointing`` (no entry point trains LatteT2V):
-each raises ``NotImplementedError``.
+``moe_experts > 1`` replaces every block's feed-forward by the
+Mixture-of-Experts feed-forward (:class:`~latte_tpu_torch.models.moe.MoEMlp`
+under ``moe`` with the block's ``activation_fn``; it replaces
+``feed_forward_chunk_size`` outright, as in the JAX model's ``_make_ff``),
+which groups the block's tokens in the (B·F, T, D) or (B·T, F, D) order the
+JAX model sees; ``forward(..., return_aux=True)`` also returns the blocks'
+Switch losses, (columns, n_pairs) with the spatial blocks' first. A
+quantized model with MoE raises, as in JAX.
+
+Not ported: ``attention_mode: ring`` (M6) and ``gradient_checkpointing``
+(no entry point trains LatteT2V): each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,7 +77,15 @@ from latte_tpu_torch.models.embeddings import (
     get_2d_sincos_pos_embed,
     timestep_embedding,
 )
-from latte_tpu_torch.models.layers import Linear, PatchEmbed, QLinear, _Fp32Scales, unpatchify
+from latte_tpu_torch.models.layers import (
+    MOE_INT8_REFUSAL,
+    Linear,
+    PatchEmbed,
+    QLinear,
+    _Fp32Scales,
+    unpatchify,
+)
+from latte_tpu_torch.models.moe import MoEMlp, collect_loss, loss_columns, pair_losses
 
 __all__ = [
     "T2VFeedForward",
@@ -190,23 +206,38 @@ def _modulation(table: torch.Tensor, t_mod: torch.Tensor, dtype, unit_gate: bool
 
 class _AdaLNSingleBlock(_Fp32Scales):
     """What the spatial and temporal blocks share: the (6, D) table, kept
-    fp32, self-attention, feed-forward, and the adaLN kernels or their plain
-    versions."""
+    fp32, self-attention, the feed-forward (``ff``, or the experts ``moe``
+    when ``moe[0] > 1``; an MoE block returns ``(x, aux)``), and the adaLN
+    kernels or their plain versions."""
 
     FP32_BUFFERS = ("scale_shift_table",)
 
-    def __init__(self, dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain):
+    def __init__(self, dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe):
         super().__init__()
         self.plain = plain
         self.scale_shift_table = nn.Parameter(torch.randn(6, dim) / dim**0.5)
         self.attn1 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain)
-        self.ff = T2VFeedForward(dim, activation_fn=activation_fn, chunk_size=ff_chunk_size,
-                                 quantized=quantized)
+        experts, top_k, capacity_factor = moe
+        self.is_moe = experts > 1
+        if self.is_moe:
+            if quantized:
+                raise NotImplementedError(MOE_INT8_REFUSAL)
+            self.moe = MoEMlp(dim, 4 * dim, dim, experts, top_k, capacity_factor, activation_fn)
+        else:
+            self.ff = T2VFeedForward(dim, activation_fn=activation_fn, chunk_size=ff_chunk_size,
+                                     quantized=quantized)
 
     def _norms(self):
         if self.plain:
             return ln_modulate_reference, residual_ln_modulate_reference
         return ln_modulate, residual_ln_modulate
+
+    def _feed_forward(self, x, h, gate, shape):
+        """``x + gate·FF(h)`` back in ``shape``; with MoE ``(that, aux)``."""
+        if self.is_moe:
+            y, aux = self.moe(h.view(shape))
+            return (x + gate * y.view(x.shape)).view(shape), aux
+        return (x + gate * self.ff(h.view(shape)).view(x.shape)).view(shape)
 
 
 class T2VSpatialBlock(_AdaLNSingleBlock):
@@ -215,8 +246,8 @@ class T2VSpatialBlock(_AdaLNSingleBlock):
     then the feed-forward."""
 
     def __init__(self, dim, num_heads, head_dim, activation_fn="gelu-approximate",
-                 ff_chunk_size=None, quantized=False, plain=False):
-        super().__init__(dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain)
+                 ff_chunk_size=None, quantized=False, plain=False, moe=(0, 2, 1.25)):
+        super().__init__(dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe)
         self.attn2 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain)
 
     def forward(self, x, t_mod, context, mask_bias) -> torch.Tensor:
@@ -230,7 +261,7 @@ class T2VSpatialBlock(_AdaLNSingleBlock):
         x = x + mods[:, 2, None] * self.attn1(h).view(x.shape)
         cross = self.attn2(x.view(shape), context, mask_bias).view(x.shape)
         x, h = res_ln_mod(x, cross, mods[:, 6], mods[:, 3], mods[:, 4])
-        return (x + mods[:, 5, None] * self.ff(h.view(shape)).view(x.shape)).view(shape)
+        return self._feed_forward(x, h, mods[:, 5, None], shape)
 
 
 class T2VTemporalBlock(_AdaLNSingleBlock):
@@ -239,8 +270,8 @@ class T2VTemporalBlock(_AdaLNSingleBlock):
     axis only)."""
 
     def __init__(self, dim, num_heads, head_dim, activation_fn="gelu-approximate",
-                 quantized=False, plain=False):
-        super().__init__(dim, num_heads, head_dim, activation_fn, None, quantized, plain)
+                 quantized=False, plain=False, moe=(0, 2, 1.25)):
+        super().__init__(dim, num_heads, head_dim, activation_fn, None, quantized, plain, moe)
 
     def forward(self, x, t_mod) -> torch.Tensor:
         """x (B·T, F, D); t_mod (B, 6D). The adaLN steps see x as
@@ -251,7 +282,7 @@ class T2VTemporalBlock(_AdaLNSingleBlock):
         x = x.view(B, -1, shape[2])
         h = ln_mod(x, mods[:, 0], mods[:, 1]).view(shape)
         x, h = res_ln_mod(x, self.attn1(h).view(x.shape), mods[:, 2], mods[:, 3], mods[:, 4])
-        return (x + mods[:, 5, None] * self.ff(h.view(shape)).view(x.shape)).view(shape)
+        return self._feed_forward(x, h, mods[:, 5, None], shape)
 
 
 class _TimestepEmbedding(nn.Module):
@@ -333,14 +364,12 @@ class LatteT2V(_Fp32Scales):
         feed_forward_chunk_size: Optional[int] = None,
         quantized=False,
         moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
         gradient_checkpointing: bool = False,
         plain: bool = False,
     ):
         super().__init__()
-        if moe_experts and moe_experts > 1:
-            raise NotImplementedError(
-                f"moe_experts={moe_experts}: the MoE feed-forward is not ported yet (ROADMAP M4)"
-            )
         if attention_mode == "ring":
             raise NotImplementedError("attention_mode: ring is not ported yet (ROADMAP M6, multi-GPU)")
         if attention_mode not in ATTENTION_MODES:
@@ -358,12 +387,14 @@ class LatteT2V(_Fp32Scales):
         self.patch_size = patch_size
         self.enable_temporal_attentions = enable_temporal_attentions
         self.quantized = quantized
+        self.moe_experts = moe_experts
         self.plain = plain
 
         self.pos_embed = PatchEmbed(patch_size, in_channels, D)
         self.adaln_single = AdaLayerNormSingle(D)
         self.caption_projection = CaptionProjection(caption_channels, D)
-        block = dict(activation_fn=activation_fn, quantized=quantized, plain=plain)
+        block = dict(activation_fn=activation_fn, quantized=quantized, plain=plain,
+                     moe=(moe_experts, moe_top_k, moe_capacity_factor))
         self.transformer_blocks = nn.ModuleList(
             T2VSpatialBlock(D, num_attention_heads, attention_head_dim,
                             ff_chunk_size=feed_forward_chunk_size, **block)
@@ -391,14 +422,16 @@ class LatteT2V(_Fp32Scales):
     def initialize_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX modules' initializers: xavier-uniform linears and patch
         embedding with zero biases, N(0, 0.02²) timestep MLP and caption
-        projection, N(0, 1/D) adaLN tables. An int8 model loads
-        ``quant.quantize_params``' output instead."""
+        projection, N(0, 1/D) adaLN tables, the experts' own init. An int8
+        model loads ``quant.quantize_params``' output instead."""
         if self.quantized:
             raise ValueError("an int8 model loads quantize_params' output; initialise its fp twin")
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, MoEMlp):
+                m.reset_parameters(generator)
         w = self.pos_embed.proj.weight
         nn.init.xavier_uniform_(w.view(w.shape[0], -1), generator=generator)
         nn.init.zeros_(self.pos_embed.proj.bias)
@@ -418,23 +451,25 @@ class LatteT2V(_Fp32Scales):
             return buf.to(dtype)
         return torch.from_numpy(fn(self.inner_dim, n)).to(buf.device, dtype)[None]
 
-    def _pair(self, i, x, t_mod, ctx, ctx_bias, temp, B, F, Fv) -> torch.Tensor:
+    def _pair(self, i, x, t_mod, ctx, ctx_bias, temp, B, F, Fv):
         """Pair i on (B·F, T, D) tokens: the spatial block, then the temporal
         block on the Fv video frames of each patch (the image frames of a
-        joint batch skip it). The relayouts copy: the kernels take contiguous
+        joint batch skip it). Returns ``(x, aux)``, aux the blocks' Switch
+        losses or None. The relayouts copy: the kernels take contiguous
         activations."""
-        x = self.transformer_blocks[i](x, t_mod, ctx, ctx_bias)
+        aux = []
+        x = collect_loss(self.transformer_blocks[i](x, t_mod, ctx, ctx_bias), aux)
         if not self.enable_temporal_attentions:
-            return x
+            return x, pair_losses(aux)
         T, D = x.shape[1], x.shape[2]
         x = x.view(B, F, T, D).transpose(1, 2).contiguous()  # (b t) f d
         video = x[:, :, :Fv].contiguous().view(B * T, Fv, D) if Fv < F else x.view(B * T, F, D)
         if temp is not None:
             video = video + temp
-        video = self.temporal_transformer_blocks[i](video, t_mod).view(B, T, Fv, D)
+        video = collect_loss(self.temporal_transformer_blocks[i](video, t_mod), aux).view(B, T, Fv, D)
         if Fv < F:
             video = torch.cat([video, x[:, :, Fv:]], dim=2)
-        return video.transpose(1, 2).contiguous().view(B * F, T, D)
+        return video.transpose(1, 2).contiguous().view(B * F, T, D), pair_losses(aux)
 
     def forward(
         self,
@@ -448,6 +483,7 @@ class LatteT2V(_Fp32Scales):
         front_state: Optional[torch.Tensor] = None,
         start_pair: int = 0,
         return_front: int = 0,
+        return_aux: bool = False,
     ):
         """``encoder_hidden_states`` (B, L, C_text), and its mask (B, L)
         (1 = keep); with ``use_image_num`` and ``train``, the joint form:
@@ -456,11 +492,14 @@ class LatteT2V(_Fp32Scales):
         model: ``return_front=k`` also returns the (B·F, T, D) activation
         after pair k - 1, as ``(out, front)``; ``front_state=front,
         start_pair=k`` resumes at pair k from ``front`` (no patch, position
-        or temporal embedding)."""
+        or temporal embedding). ``return_aux``: ``(out, aux)``, the MoE
+        blocks' Switch losses (columns, n_pairs), None for dense blocks."""
         if return_front and front_state is not None:
             raise ValueError("return_front and front_state are exclusive")
         if (front_state is None) != (start_pair == 0):
             raise ValueError("front_state and start_pair must be set together")
+        if return_aux and (return_front or front_state is not None):
+            raise ValueError("return_aux goes with no staging hook")
         B, _, F, H, W = hidden_states.shape
         Fv = F - use_image_num
         p = self.patch_size
@@ -492,9 +531,10 @@ class LatteT2V(_Fp32Scales):
                 ctx_bias = bias.reshape(B * F, 1, -1)
 
         temp = self._table(self.temp_table, get_1d_sincos_pos_embed, Fv, Fv, dtype) if Fv > 1 else None
-        front = None
+        front, aux = None, []
         for i in range(start_pair, self.num_layers):
-            x = self._pair(i, x, t_mod, ctx, ctx_bias, temp if i == 0 else None, B, F, Fv)
+            x, pair_aux = self._pair(i, x, t_mod, ctx, ctx_bias, temp if i == 0 else None, B, F, Fv)
+            aux.append(pair_aux)
             if i == return_front - 1:
                 front = x
 
@@ -504,4 +544,6 @@ class LatteT2V(_Fp32Scales):
         x = self.proj_out(ln_mod(x.view(B, -1, x.shape[2]), mods[:, 0], mods[:, 1]).view(x.shape))
         x = unpatchify(x, p, self.out_channels)  # (B·F, C_out, H, W)
         out = x.view(B, F, *x.shape[1:]).transpose(1, 2).to(in_dtype)
+        if return_aux:
+            return out, loss_columns(aux)
         return (out, front) if return_front else out

@@ -6,7 +6,9 @@ DDIM loop, decodes the latents with the SD VAE and writes the frames to
 ``save_video_path`` as an mp4 at 8 fps (OpenCV). The VAE comes from ``vae:
 tiny`` or ``vae_ckpt: random`` (seeded random weights: a tiny VAE or the full
 SD architecture) or from ``vae_ckpt``, a diffusers ``AutoencoderKL`` state
-dict (``diffusion_pytorch_model.bin``). With no VAE configured, or a
+dict (``diffusion_pytorch_model.bin``). ``moe_experts`` serves the
+Mixture-of-Experts model (exactly or with the block cache; not in int8,
+which raises before anything is built). With no VAE configured, or a
 ``vae_ckpt`` that does not exist, it saves the latents as ``<save_video_path
 stem>_latents.npz`` instead, as the JAX sampler does. Tensor-parallel
 serving (``tensor_parallel``) raises ``NotImplementedError``.
@@ -48,6 +50,7 @@ from latte_tpu_torch.core.block_cache import cached_sample_loop
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
 from latte_tpu_torch.models import Latte, get_models
+from latte_tpu_torch.models.layers import MOE_INT8_REFUSAL
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.utils import create_logger, resolve_device, save_video, to_uint8
 from latte_tpu_torch.vae import AutoencoderKL, build_vae, make_decode_fn
@@ -60,13 +63,16 @@ def check_config(config: Config) -> None:
     (``NotImplementedError``) or a block cache without ``loop_mode: scan``
     (``ValueError``), before anything is built. (``block_cache_pairs`` does
     nothing without the interval. A ``vae_ckpt`` directory is refused by
-    :func:`load_vae`.)"""
+    :func:`load_vae`.) ``quantized`` with ``moe_experts`` raises
+    ``NotImplementedError``: MoE has no int8 expert path, in either package."""
     block_cache_interval(config)
     if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             f"tensor_parallel={config.tensor_parallel}: not ported yet; comes with the "
             "multi-GPU slice"
         )
+    if quantized_mode(config) and int(getattr(config, "moe_experts", 0) or 0) > 1:
+        raise NotImplementedError(MOE_INT8_REFUSAL)
 
 
 def block_cache_interval(config: Config) -> int:

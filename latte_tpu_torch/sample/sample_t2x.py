@@ -24,8 +24,11 @@ with seed ``seed + i``, and writes a png (``video_length: 1``) or an mp4 at
   (dynamic activation scales) for the attention projections and the
   feed-forward, quantized from the fp32 weights.
 - ``block_cache_interval`` / ``block_cache_pairs``: the pipeline's block cache.
-- ``pipeline_parallel > 1`` and ``moe_experts > 1`` raise
-  ``NotImplementedError`` (ROADMAP M6 and M4).
+- ``moe_experts > 1`` (with ``moe_top_k``, ``moe_capacity_factor``): the
+  Mixture-of-Experts feed-forward in every block; with ``quantized: true``
+  it raises ``NotImplementedError`` (no int8 expert path, as in JAX), and a
+  ``ckpt`` raises ``KeyError`` naming the expert weights it lacks.
+- ``pipeline_parallel > 1`` raises ``NotImplementedError`` (ROADMAP M6).
 
 Runs on ``cuda`` unless asked for the CPU::
 
@@ -46,6 +49,7 @@ import torch
 from latte_tpu_torch.config import Config, load_config
 from latte_tpu_torch.convert import load_t2v_state_dict
 from latte_tpu_torch.core.scheduler import get_scheduler
+from latte_tpu_torch.models.layers import MOE_INT8_REFUSAL
 from latte_tpu_torch.models.t2v import LatteT2V
 from latte_tpu_torch.quant import quantize_params
 from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
@@ -77,7 +81,9 @@ def transformer_kwargs(config: Config) -> dict:
         sample_size=image_hw(config)[0] // 8,
         enable_temporal_attentions=bool(get("enable_temporal_attentions", True)),
         attention_mode=str(get("attention_mode", "auto")),
-        moe_experts=int(get("moe_experts", 0)),
+        moe_experts=int(getattr(config, "moe_experts", 0) or 0),
+        moe_top_k=int(getattr(config, "moe_top_k", 2) or 2),
+        moe_capacity_factor=float(getattr(config, "moe_capacity_factor", 1.25) or 1.25),
     )
 
 
@@ -94,7 +100,7 @@ def build_transformer(config: Config, device: torch.device) -> LatteT2V:
     if ckpt:
         if not os.path.exists(str(ckpt)):
             raise FileNotFoundError(f"ckpt {ckpt!r} does not exist")
-        sd = load_t2v_state_dict(str(ckpt), model.num_layers)
+        sd = load_t2v_state_dict(str(ckpt), model.num_layers, model.moe_experts)
         if not model.enable_temporal_attentions:
             sd = {k: v for k, v in sd.items() if not k.startswith("temporal_transformer_blocks.")}
         model.load_state_dict(sd, strict=True)
@@ -126,13 +132,16 @@ def build_text_encoder(config: Config) -> StubTextEncoder:
 
 def check_config(config: Config) -> None:
     """Raise for pipeline-parallel serving, which this port does not carry,
-    before anything is built (LatteT2V refuses ``moe_experts`` itself)."""
+    and for int8 serving of an MoE model, which neither package carries,
+    before anything is built."""
     pp = int(getattr(config, "pipeline_parallel", 1) or 1)
     if pp > 1:
         raise NotImplementedError(
             f"pipeline_parallel={pp}: pipeline-parallel serving is not ported yet "
             "(ROADMAP M6, multi-GPU)"
         )
+    if getattr(config, "quantized", False) and int(getattr(config, "moe_experts", 0) or 0) > 1:
+        raise NotImplementedError(MOE_INT8_REFUSAL)
 
 
 def main(config: Config, device: Optional[str] = None) -> List[dict]:

@@ -12,13 +12,19 @@ all but the temporal attention's (``train.state.trainable_temporal_attn_mask``),
 so the norm, the clipping and AdamW see those alone, as the JAX step's zeroed
 gradients leave the others unchanged.
 
+A Mixture-of-Experts model adds the Switch load-balancing loss at
+``moe_aux_weight`` (> 0): the forward hands out its blocks' losses
+(``return_aux``), and ``aux`` is the mean over each block column (spatial,
+temporal) of its blocks' losses, then over the columns, as the JAX step
+averages its sown leaves; ``metrics["moe_aux"]`` reports it (under gradient
+accumulation the mean over the chunks).
+
 The step leaves its metrics on the device: it never waits for the host, so
 the loop syncs only when it logs.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -74,6 +80,7 @@ def make_train_step(
     vae_scale: float = 0.18215,
     encode_fn: Optional[Callable] = None,
     grad_accum: int = 1,
+    moe_aux_weight: float = 0.0,
 ) -> Callable[[TrainState, Batch, torch.Generator], Dict[str, torch.Tensor]]:
     """Build ``train_step(state, batch, generator) -> metrics``, which updates
     ``state`` in place.
@@ -95,6 +102,9 @@ def make_train_step(
     r mod K (the JAX step's interleaving), each with its own draws, in
     chunk order; the gradients are summed over the chunks and divided by K,
     then clipped and applied once, and the loss is the mean of the chunks'.
+
+    ``moe_aux_weight`` > 0 adds that times the MoE model's Switch loss to
+    each chunk's loss (nothing is collected at 0, nor for a dense model).
     """
 
     def chunk_loss(model, batch: Batch, generator: torch.Generator):
@@ -119,20 +129,35 @@ def make_train_step(
         for key, label in (("force_drop_ids", "y"), ("force_drop_ids_image", "y_image")):
             if key in batch and label in kwargs:
                 kwargs[key] = batch[key]
-        model_fn = functools.partial(model, train=True, generator=generator)
+        aux_box = []
+
+        def model_fn(x, tt, **kw):
+            if moe_aux_weight <= 0.0:
+                return model(x, tt, train=True, generator=generator, **kw)
+            # training_losses calls the model once: its losses land here
+            out, aux = model(x, tt, train=True, generator=generator, return_aux=True, **kw)
+            aux_box.append(aux)
+            return out
+
         terms = diffusion.training_losses(model_fn, latents, t, noise, model_kwargs=kwargs)
         per_sample = terms["loss"]
         if "t_weights" in batch:
             # importance-sampling correction: E_p[w(t) L(t)] = E_U[L]
             per_sample = per_sample * batch["t_weights"]
-        return per_sample.mean(), terms, t
+        loss = per_sample.mean()
+        if aux_box and aux_box[0] is not None:
+            columns = aux_box[0]  # (columns, n_pairs)
+            aux = columns.mean(dim=1).sum() / columns.shape[0]
+            terms["moe_aux"] = aux
+            loss = loss + moe_aux_weight * aux
+        return loss, terms, t
 
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
         model = state.model
         params = [p for p in model.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
         K = grad_accum
-        losses, mses, vbs, ts, per_sample = [], [], [], [], []
+        losses, mses, vbs, auxes, ts, per_sample = [], [], [], [], [], []
         for k in range(K):
             part = batch if K == 1 else {key: v[k::K] for key, v in batch.items()}
             loss, terms, t = chunk_loss(model, part, generator)
@@ -141,6 +166,8 @@ def make_train_step(
             mses.append(terms["mse"].detach().mean())
             if "vb" in terms:
                 vbs.append(terms["vb"].detach().mean())
+            if "moe_aux" in terms:
+                auxes.append(terms["moe_aux"].detach())
             ts.append(t)
             per_sample.append(terms["loss"].detach())
 
@@ -169,6 +196,8 @@ def make_train_step(
         }
         if vbs:
             metrics["vb"] = torch.stack(vbs).mean()
+        if auxes:
+            metrics["moe_aux"] = torch.stack(auxes).mean()
         if "t" in batch:
             # per-sample feedback for the loss-aware resampler (unweighted)
             metrics["t_sampled"] = t

@@ -21,13 +21,18 @@ before training, ``fixed_spatial`` trains the temporal attention alone,
 ``gradient_accumulation_steps`` splits each batch into chunks,
 ``adam_mu_dtype: bfloat16`` stores AdamW's first moment in bf16 and
 ``remat_policy: dots`` keeps the matmul outputs under gradient checkpointing.
+``moe_experts > 1`` trains the Mixture-of-Experts model (``moe_top_k``,
+``moe_capacity_factor``) with the Switch loss at ``moe_aux_weight``
+(default 0.01, as in the JAX trainer; 0 for a dense model), on one device:
+``expert_parallel > 1`` is refused with the other multi-GPU keys, and
+``quant_train`` with MoE raises (no int8 expert path, as in JAX).
 
 Runs on ``cuda`` unless asked for the CPU::
 
     python -m latte_tpu_torch.train.train --config configs/ffs/ffs_train.yaml \\
         [--device cpu] [key=value ...]
 
-Options of the JAX trainer that this port does not carry yet (MoE, the
+Options of the JAX trainer that this port does not carry yet (the
 multi-GPU keys, text conditioning) raise ``NotImplementedError`` naming the
 slice that brings them.
 """
@@ -66,22 +71,26 @@ from latte_tpu_torch.train.step import make_train_step
 from latte_tpu_torch.utils import create_experiment_dir, create_logger, resolve_device
 from latte_tpu_torch.vae import build_vae, make_encode_fn
 
-__all__ = ["build_encode_fn", "build_encode_fn_raw", "check_config", "make_batch_iterator", "main", "cli"]
+__all__ = [
+    "build_encode_fn", "build_encode_fn_raw", "check_config", "make_batch_iterator", "moe_aux_weight",
+    "main", "cli",
+]
 
 # config options of the JAX trainer that this slice does not port, with the
 # slice that brings each: (key, is it set?, later slice)
+_MULTI_GPU = "the multi-GPU slice (ROADMAP M6)"
 _NOT_PORTED = (
-    ("moe_experts", lambda v: int(v or 0) > 0, "the MoE slice (models/moe.py on one device)"),
-    ("tensor_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
-    ("sequence_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
-    ("pipeline_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
-    ("expert_parallel", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
-    ("fsdp", lambda v: bool(v), "the multi-GPU slice"),
-    ("zero1", lambda v: bool(v), "the multi-GPU slice"),
+    ("tensor_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
+    ("sequence_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
+    ("pipeline_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
+    # MoE itself trains on one device; its experts sharded over GPUs do not
+    ("expert_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
+    ("fsdp", lambda v: bool(v), _MULTI_GPU),
+    ("zero1", lambda v: bool(v), _MULTI_GPU),
     # the JAX trainer's multi-process rendezvous (initialize_distributed)
-    ("coordinator_address", lambda v: bool(v), "the multi-GPU slice"),
-    ("num_processes", lambda v: int(v or 1) > 1, "the multi-GPU slice"),
-    ("process_id", lambda v: int(v or 0) > 0, "the multi-GPU slice"),
+    ("coordinator_address", lambda v: bool(v), _MULTI_GPU),
+    ("num_processes", lambda v: int(v or 1) > 1, _MULTI_GPU),
+    ("process_id", lambda v: int(v or 0) > 0, _MULTI_GPU),
 )
 
 
@@ -102,6 +111,15 @@ def check_config(config: Config) -> None:
     batch = int(getattr(config, "local_batch_size", 5))
     if accum < 1 or batch % accum:
         raise ValueError(f"gradient_accumulation_steps={accum} must divide local_batch_size={batch}")
+
+
+def moe_aux_weight(config: Config) -> float:
+    """The Switch loss's weight: ``moe_aux_weight`` (0.01 when unset; a
+    null turns it off) for an MoE model, 0 for a dense one, as the JAX
+    trainer sets it."""
+    if int(getattr(config, "moe_experts", 0) or 0) <= 1:
+        return 0.0
+    return float(getattr(config, "moe_aux_weight", 0.01) or 0.0)
 
 
 def build_encode_fn(config: Config, device) -> Optional[Callable]:
@@ -236,7 +254,8 @@ def _step_seed(seed: int, step: int) -> int:
 
 def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     """Train; returns ``{"experiment_dir", "final_step", "loss", "grad_norm",
-    "steps_per_sec"}`` (the last three from the last log interval)."""
+    "steps_per_sec"}`` (the last three from the last log interval; an MoE
+    model's ``moe_aux`` too)."""
     check_config(config)
     dev = resolve_device(device)
     cbs = CallbackList(callbacks)
@@ -281,7 +300,8 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         f"({sum(p.numel() for p in model.parameters() if p.requires_grad):,} trainable), "
         f"compute {model.compute_dtype or torch.float32}, "
         f"gradient checkpointing {model.gradient_checkpointing} ({model.remat_policy}), "
-        f"int8 training {model.quantized == 'train'}, Adam mu {mu_dtype or torch.float32}"
+        f"int8 training {model.quantized == 'train'}, Adam mu {mu_dtype or torch.float32}, "
+        f"experts {model.moe_experts or 1} (Switch loss weight {moe_aux_weight(config)})"
     )
 
     resume = getattr(config, "resume_from_checkpoint", None)
@@ -326,6 +346,7 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         vae_scale=float(getattr(config, "vae_scale", 0.18215)),
         encode_fn=encode_fn,
         grad_accum=grad_accum,
+        moe_aux_weight=moe_aux_weight(config),
     )
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion
@@ -352,10 +373,13 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         if (step_idx + 1) % log_every == 0:
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # the host sync
             steps_per_sec = running / (time.perf_counter() - t_start)
+            last_metrics = {"loss": loss, "grad_norm": gnorm, "steps_per_sec": steps_per_sec}
+            if "moe_aux" in metrics:
+                last_metrics["moe_aux"] = float(metrics["moe_aux"])
             logger.info(
                 f"step {step_idx + 1}: loss={loss:.4f} grad_norm={gnorm:.3f} steps/s={steps_per_sec:.3f}"
+                + (f" moe_aux={last_metrics['moe_aux']:.4f}" if "moe_aux" in last_metrics else "")
             )
-            last_metrics = {"loss": loss, "grad_norm": gnorm, "steps_per_sec": steps_per_sec}
             cbs.on_log(step_idx + 1, last_metrics)
             if cbs.should_stop(step_idx + 1, last_metrics):
                 logger.info(f"early stop requested at step {step_idx + 1}")

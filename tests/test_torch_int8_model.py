@@ -156,8 +156,8 @@ def test_registry_is_the_int8_attention_choke_point():
     served = get_models(_args(int8_attention="qk", quantized="static", attention_mode="flash"), quantized="static")
     attn = served.blocks[0].attn
     assert attn.int8 and not attn.pv_int8 and attn.attention_mode == "flash" and attn.q_scale.shape == (2,)
-    with pytest.raises(NotImplementedError, match="moe"):
-        get_models(_args(moe_experts=4))
+    with pytest.raises(NotImplementedError, match="moe_experts is not supported"):
+        get_models(_args(moe_experts=4), quantized="static")
 
 
 def test_attention_refuses_an_int8_flag_without_calibrated_scales():

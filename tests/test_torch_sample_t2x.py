@@ -83,14 +83,14 @@ def test_cli_quantized_and_block_cache(tmp_path):
 
 @pytest.mark.parametrize("override, exc, match", [
     ("pipeline_parallel=2", NotImplementedError, "M6"),
-    ("moe_experts=2", NotImplementedError, "M4"),
+    ("moe_experts=2 quantized=true", NotImplementedError, "no int8 expert path"),
     ("ckpt=/nonexistent/t2v.safetensors", FileNotFoundError, "does not exist"),
     ("quantized=static", ValueError, "quantized"),
     ("sample_method=LMSDiscrete", ValueError, "unknown scheduler"),
 ], ids=["pipeline_parallel", "moe", "missing_ckpt", "static_int8", "scheduler"])
 def test_refusals(tmp_path, override, exc, match):
     with pytest.raises(exc, match=match):
-        sample_t2x.main(tiny(T2V, tmp_path, "video_length=4", override), device="cpu")
+        sample_t2x.main(tiny(T2V, tmp_path, "video_length=4", *override.split()), device="cpu")
 
 
 def test_t5_directory_refused(tmp_path):

@@ -252,7 +252,7 @@ def test_safetensors_reader_matches_the_package(tmp_path):
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(moe_experts=2), NotImplementedError, "M4"),
+    (dict(moe_experts=2, quantized=True), NotImplementedError, "no int8 expert path"),
     (dict(attention_mode="ring"), NotImplementedError, "M6"),
     (dict(gradient_checkpointing=True), NotImplementedError, "trains LatteT2V"),
     (dict(attention_mode="pallas"), ValueError, "attention_mode"),

@@ -147,7 +147,7 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
 @pytest.mark.parametrize(
     "override",
     [
-        "moe_experts=4",
+        "expert_parallel=2",
         "tensor_parallel=2",
         "sequence_parallel=2",
         "pipeline_parallel=2",
@@ -159,11 +159,12 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
     ],
 )
 def test_unported_options_raise(tmp_path, override):
-    """What the trainer does not carry yet names its slice: MoE (a layer of
-    its own on one device) and the multi-GPU keys. The options of the
-    training slices train (tests/test_torch_train_options.py,
+    """What the trainer does not carry yet names its slice: the multi-GPU
+    keys, MoE's experts sharded over GPUs among them (MoE on one device
+    trains: tests/test_torch_train_moe.py). The options of the training
+    slices train (tests/test_torch_train_options.py,
     tests/test_torch_train_cond.py, tests/test_torch_train_entry.py)."""
-    with pytest.raises(NotImplementedError, match=r"comes with the (MoE|multi-GPU) slice"):
+    with pytest.raises(NotImplementedError, match=r"comes with the multi-GPU slice \(ROADMAP M6\)"):
         train.main(_cfg(tmp_path, "max_train_steps=1", override), device="cpu")
 
 

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.convert import qkv_to_reference
+from latte_tpu_torch.models.moe import MoEMlp
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -120,3 +121,37 @@ def close_int8(got, want, dtype):
         assert moved.mean() <= 0.01, f"{moved.sum()} of {moved.size} rows moved"
         close(np.where(moved[..., None], want, got), want, rel, elem)
     close(got, want, 1.0 if dtype == jnp.float32 else rel, elem)
+
+
+def top_k_margin(probs, k) -> float:
+    """The smallest gap between a token's j-th and (j+1)-th largest router
+    probability over j < k: below fp32 rounding a choice could reorder."""
+    p = -np.sort(-np.asarray(probs, np.float64), axis=-1)
+    k = min(k, p.shape[-1] - 1)
+    return float((p[:, :k] - p[:, 1:k + 1]).min()) if k else float("inf")
+
+
+class RouterMargins:
+    """Context: prints the smallest top-k margin of the tokens that every
+    port ``MoEMlp`` router call inside it saw (``MoEMlp.route`` patched), so
+    a test records how near its inputs come to a routing flip."""
+
+    def __init__(self, label: str):
+        self.label, self.margins = label, []
+
+    def __enter__(self):
+        self.route = route = MoEMlp.route
+
+        def recording(mod, xf):
+            out = route(mod, xf)
+            self.margins.append(top_k_margin(out[0].detach().float().numpy(), mod.top_k))
+            return out
+
+        MoEMlp.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        MoEMlp.route = self.route
+        if self.margins:
+            print(f"{self.label}: smallest top-k margin over {len(self.margins)} router calls "
+                  f"{min(self.margins):.3e}")
