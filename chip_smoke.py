@@ -223,12 +223,40 @@ non-zero exit and a traceback:
    and after the fp32 build; one CFG forward against the plain path
    (cosine >= 0.999) with the routing choices of both, one DDIM step
    profiled by kind and its MoE parts by CUDA events, ``quantized: true``
-   refused. Prints a ``moe: {...}`` line.
+   refused. Prints a ``moe: {...}`` line;
+9. text: the text encoders, ``extras: 78`` and the SVD temporal decoder at
+   full width on seeded random weights. (a) A T5 v1.1-XXL ``t5_ckpt``
+   directory (d_model 4096, 64 heads of 64, d_ff 10240, 24 layers,
+   gated-gelu; 4.76 B parameters made on the card in bf16, written as two
+   safetensors shards with their index, config.json and a synthetic
+   spiece.model), then ``sample_t2x.cli`` on configs/t2x/t2v_sample.yaml
+   with it, ``num_sampling_steps=10`` (the shipped 50, cut for time) and
+   ``vae_ckpt=random``: three mp4s of 16x512x512x3, ``t2v_launches(28, 30)``
+   on the tensor-core and vector routes, the port's bf16 T5 loaded, its
+   load and encode times, s a video to latents and with decode, peak
+   memory, and the bf16 features against an fp32 T5 on the same ids
+   (cosine >= 0.999 on the unmasked tokens). (b) The SVD temporal decoder
+   (128, 256, 512, 512; 3 resnets a block): one ``LattePipeline`` call with
+   ``enable_vae_temporal_decoder`` on (a)'s model and T5 (16 frames at
+   512^2, chunks 14 + 2), a 2-frame chunk in fp32 (TF32 off) against fp64
+   (relative L2 <= 1e-4), and (a)'s latents decoded in fp32 and bf16:
+   s/video, peak memory, device ms by kind. (c) CLIP ViT-L/14's text tower
+   (a stand-in tokenizer) encodes two prompts into (2, 77, 768); Latte-XL/2
+   with ``extras: 78`` on them, a bf16 forward (B1, B2, B3 28 each) against
+   the plain bf16 and fp32 paths (cosine >= 0.999, error <= 1.25x the plain
+   bf16 path's + 1e-3); ``train.main`` on configs/ffs/ffs_train.yaml with
+   ``extras=78`` for 3 steps (fp32, batch 5, full remat; 3 x STEP_LAUNCHES
+   on the fp32 and vector routes), its step time, peak memory and that
+   ``text_embedding_projection`` moved. Prints a ``text: {...}`` line. To
+   run it alone: ``import chip_smoke as c; c.build.build();
+   c.build.load_library(); c.text_phase(tmp, smi, torch.device("cuda", 0),
+   c.Timer(torch.device("cuda", 0)))``.
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``t2v: {...}``, ``moe: {...}``), the total seconds, the kernels' JSON line (every
-row with the MoE runs' launches, ``launches_moe`` or ``launches_moe_train``; rows
+{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``), the total seconds, the kernels' JSON line
+(every row with phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
+the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
 ``launches_t2v_block_cache``, phase 5e's, and B1 with its T2V shapes'
 measurements under ``t2v``; rows B1, B2, B3 and both
@@ -248,6 +276,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3630,6 +3659,400 @@ def moe_phase(tmp: str, smi: str, device, timer) -> dict:
     return out
 
 
+# ---- phase "text": T5 v1.1-XXL through sample_t2x, the SVD temporal decoder,
+# CLIP's text tower and extras: 78, at full width on seeded random weights ----
+
+# T5 v1.1-XXL's encoder (4.76 B parameters, 9.5 GB in bf16)
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+              relative_attention_num_buckets=32, relative_attention_max_distance=128,
+              layer_norm_epsilon=1e-6, feed_forward_proj="gated-gelu", model_type="t5")
+T5_SHARDS = 2  # the t5_ckpt's safetensors shards, with their index
+TEXT_STEPS = 10  # DDIM steps of the phase's T2V run: t2v_sample.yaml's 50, cut for time
+T5_COSINE = 0.999  # the bf16 T5 features against fp32 on the same ids, unmasked tokens
+TD_CHECK_FRAMES = 2  # the temporal decoder's fp32 chunk held against fp64 (VAE_TOL)
+# the aten op at the root of a temporal-decoder kernel's op -> its kind
+TD_KINDS = {**VAE_KINDS, "aten::conv3d": "temporal_convolution", "aten::_to_copy": "copies",
+            "aten::sigmoid": "mix", "aten::rsub": "mix", "aten::clamp": "to_frames",
+            "aten::div": "to_frames"}
+CLIP_PROMPTS = ["a dog jumping over fences", "Sunset over the sea."]
+TEXT_TRAIN_STEPS = 3  # train.main steps of ffs_train.yaml with extras=78
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(field: int, wire: int, payload: bytes) -> bytes:
+    key = _pb_varint((field << 3) | wire)
+    return key + (_pb_varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def write_spiece_model(path: str, words) -> int:
+    """A synthetic unigram ``spiece.model`` (protobuf): <pad>, </s>, <unk>,
+    ▁, every character of ``words`` and ▁ + each word, whole words scoring
+    highest; the nmt_nfkc normalizer's flags. Returns the piece count."""
+    words = sorted(set(words))
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -4.0, 1)]
+    pieces += [(c, -8.0, 1) for c in sorted(set("".join(words)))]
+    pieces += [("▁" + w, -2.0 - 1e-3 * i, 1) for i, w in enumerate(words)]
+    out = b""
+    for piece, score, kind in pieces:
+        out += _pb_field(1, 2, _pb_field(1, 2, piece.encode()) + _pb_field(2, 5, np.float32(score).tobytes())
+                         + _pb_field(3, 0, _pb_varint(kind)))
+    out += _pb_field(2, 2, _pb_field(3, 0, _pb_varint(1)))  # unigram
+    out += _pb_field(3, 2, _pb_field(1, 2, b"nmt_nfkc") + b"".join(
+        _pb_field(f, 0, _pb_varint(1)) for f in (3, 4, 5)))
+    with open(path, "wb") as f:
+        f.write(out)
+    return len(pieces)
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """``tensors`` as a .safetensors file, written without the package (the
+    format ``convert.read_safetensors`` reads); returns its data bytes."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = dict(dtype=_ST_DTYPES[t.dtype], shape=list(t.shape), data_offsets=[offset, offset + n])
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return offset
+
+
+def write_t5_ckpt(folder: str, device, words) -> dict:
+    """A Hugging Face T5 directory of T5 v1.1-XXL's encoder: config.json, its
+    seeded random weights made on the card in bf16 (Hugging Face's init; the
+    norms fp32), T5_SHARDS safetensors shards with their index, and a
+    synthetic spiece.model of ``words``."""
+    from latte_tpu_torch.text.t5 import T5Config, T5EncoderModel
+
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        t5 = T5EncoderModel(T5Config.from_dict(T5_XXL))
+    t5 = t5.to(torch.bfloat16).to_empty(device=device)
+    t5.initialize_weights(torch.Generator(device=device).manual_seed(19))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sd = t5.state_dict()
+    n_params = sum(v.numel() for v in sd.values())
+    total = sum(v.numel() * v.element_size() for v in sd.values())
+    shards, cur, size = [], [], 0
+    for name, v in sd.items():
+        cur.append(name)
+        size += v.numel() * v.element_size()
+        if size >= total / T5_SHARDS and len(shards) < T5_SHARDS - 1:
+            shards, cur, size = shards + [cur], [], 0
+    shards.append(cur)
+    t0 = time.perf_counter()
+    weight_map = {}
+    for i, names in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(folder, fname), {n: sd[n] for n in names})
+        weight_map.update({n: fname for n in names})
+    with open(os.path.join(folder, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(T5_XXL, f)
+    pieces = write_spiece_model(os.path.join(folder, "spiece.model"), words)
+    write_s = time.perf_counter() - t0
+    del t5, sd
+    torch.cuda.empty_cache()
+    return dict(parameters=n_params, gb=total / 1e9, shards=len(shards), pieces=pieces, init_s=init_s,
+                write_s=write_s)
+
+
+class StandInTokenizer:
+    """A stand-in for CLIP's BPE tokenizer (no vocabulary is in the repo)
+    with the Hugging Face call signature: each word's crc32 into CLIP's
+    vocabulary, start and end tokens (49406, 49407), padded with the end
+    token and masked to ``max_length``, as tests/test_text.py's
+    FakeTokenizer stands in on the CPU."""
+
+    def __call__(self, texts, padding=None, max_length=None, truncation=None, return_tensors=None, **kw):
+        import zlib
+
+        ids = np.full((len(texts), max_length), 49407, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            toks = [49406] + [zlib.crc32(w.encode()) % 49406 for w in text.lower().split()][: max_length - 2]
+            toks.append(49407)
+            ids[i, : len(toks)], mask[i, : len(toks)] = toks, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def peak_gib_of(fn) -> tuple:
+    """The peak memory (GiB) while ``fn()`` runs, and what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30, before / 2**30
+
+
+def text_t5(tmp: str, smi: str, device) -> tuple:
+    """Phase "text" (a): a T5 v1.1-XXL ``t5_ckpt`` directory, then the entry
+    point ``sample_t2x.cli`` on t2v_sample.yaml with it (three prompts,
+    DDIM-10, CFG 7.5, bf16, 16x512^2, ``vae_ckpt=random``); the encoder's
+    load and encode times, the bf16 features against an fp32 T5 on the same
+    ids. Returns the record, the entry point's records, its LatteT2V and
+    its T5 encoder."""
+    from latte_tpu_torch.sample import sample_t2x
+    from latte_tpu_torch.text import T5EncoderModel, clean_caption
+
+    cfg = load_config(T2V_CONFIG)
+    prompts = list(cfg.text_prompt)
+    folder = os.path.join(tmp, "t5_ckpt")
+    written = write_t5_ckpt(folder, device, " ".join(clean_caption(p) for p in prompts).split())
+    print(f"  t5_ckpt: {written['parameters']:,} parameters, {written['gb']:.3f} GB in {written['shards']} "
+          f"shards, {written['pieces']} pieces; made on the card in {written['init_s']:.2f} s, written in "
+          f"{written['write_s']:.2f} s", flush=True)
+
+    built, real = {}, (sample_t2x.build_text_encoder, sample_t2x.build_transformer)
+
+    def build_text_encoder(config, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built["t5"] = real[0](config, device)
+        torch.cuda.synchronize()
+        built["load_s"] = time.perf_counter() - t0
+        return built["t5"]
+
+    def build_transformer(config, device):
+        built["model"] = real[1](config, device)
+        return built["model"]
+
+    sample_t2x.build_text_encoder, sample_t2x.build_transformer = build_text_encoder, build_transformer
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        records = sample_t2x.cli(["--config", T2V_CONFIG, f"t5_ckpt={folder}", f"num_sampling_steps={TEXT_STEPS}",
+                                  "vae_ckpt=random", f"save_video_path={tmp}/text_t2v"])
+        main_s = time.perf_counter() - t0
+    finally:
+        sample_t2x.build_text_encoder, sample_t2x.build_transformer = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pairs, frames = sample_t2x.transformer_kwargs(cfg)["num_layers"], int(cfg.video_length)
+    launches = expect_launches(f"t2v_sample.yaml with T5-XXL, {len(prompts)} videos, DDIM-{TEXT_STEPS}",
+                               t2v_launches(pairs, len(prompts) * TEXT_STEPS))
+    shapes = [read_mp4(r["path"]).shape for r in records]
+    H, W = sample_t2x.image_hw(cfg)
+    if shapes != [(frames, H, W, 3)] * len(prompts):
+        raise AssertionError(f"expected {len(prompts)} mp4s of {frames}x{H}x{W}x3, got {shapes}")
+    enc = built["t5"]
+    if not (isinstance(enc.model, T5EncoderModel) and enc.model.shared.weight.dtype == torch.bfloat16):
+        raise AssertionError(f"sample_t2x did not load the port's bf16 T5: {type(enc.model)}")
+    lat_s = statistics.median(r["latents_s"] for r in records[1:])
+    dec_s = statistics.median(r["decode_s"] for r in records[1:])
+
+    # the encoder: a video's encode (its prompt and the negative) and all six rows at once
+    one_ms = time_t2v_step(lambda: enc.encode_with_negative(prompts[:1]))
+    six_ms = time_t2v_step(lambda: enc.encode_with_negative(prompts))
+    ids, mask = enc.tokenize(prompts)
+    ids, mask = torch.as_tensor(ids, device=device), torch.as_tensor(mask, device=device)
+    with torch.inference_mode():
+        f16 = enc.model(ids, mask)
+    with torch.device("meta"):
+        t5_32 = T5EncoderModel(enc.model.config)
+    t5_32 = t5_32.to_empty(device=device)
+    t5_32.load_state_dict(enc.model.state_dict())
+    with torch.inference_mode():
+        f32 = t5_32(ids, mask)
+    del t5_32
+    torch.cuda.empty_cache()
+    keep = mask.bool()
+    vs32 = compare("T5-XXL features, bf16 vs fp32 on the same ids, unmasked tokens", f16[keep], f32[keep])
+    tokens = [int(m.sum()) for m in mask]
+    print(f"  T5-XXL: load {built['load_s']:.2f} s; encode of a video's prompt and negative (2 x 120 "
+          f"tokens) {one_ms:.2f} ms, of all {2 * len(prompts)} rows {six_ms:.2f} ms (medians of 3); "
+          f"tokens a prompt {tokens}", flush=True)
+    print(f"  t2v with T5-XXL, DDIM-{TEXT_STEPS} + CFG, {frames}x{H}x{W} bf16: {lat_s:.4f} s a video to "
+          f"latents, decode {dec_s:.4f} s (median of prompts 2-3; prompt 1 {records[0]['latents_s']:.4f} + "
+          f"{records[0]['decode_s']:.4f}); peak {peak:.3f} GiB; cli {main_s:.2f} s on {smi}", flush=True)
+    if f16.shape != (len(prompts), enc.max_length, T5_XXL["d_model"]) or not vs32["finite"] \
+            or vs32["cosine"] < T5_COSINE:
+        raise AssertionError(f"the bf16 T5-XXL features {tuple(f16.shape)} disagree with fp32: {vs32}")
+    r = dict(t5_ckpt=written, load_s=built["load_s"], encode_video_ms=one_ms, encode_six_rows_ms=six_ms,
+             tokens=tokens, bf16_vs_fp32=vs32, s_per_video_latents=lat_s, s_decode=dec_s,
+             prompt_seconds=[(x["latents_s"], x["decode_s"]) for x in records], main_s=main_s,
+             peak_gib=peak, launches=launches, mp4_shapes=[list(s) for s in shapes], steps=TEXT_STEPS)
+    return r, records, built["model"], enc
+
+
+def text_temporal_decoder(records, model, enc, smi: str, device) -> dict:
+    """Phase "text" (b): the SVD temporal decoder at full width (128, 256,
+    512, 512; 3 resnets a block; seeded random weights): one
+    ``LattePipeline`` call with ``enable_vae_temporal_decoder`` on (a)'s
+    LatteT2V and T5, then (a)'s first latents decoded (16 frames, chunks
+    14 + 2) in fp32 with cuDNN's TF32 off and in bf16: s/video, peak memory,
+    device ms by kind; an fp32 chunk of TD_CHECK_FRAMES against fp64."""
+    from latte_tpu_torch.core.scheduler import get_scheduler
+    from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
+    from latte_tpu_torch.vae.temporal_decoder import TemporalDecoder
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.device(device):
+        td = TemporalDecoder()
+    td.initialize_weights(torch.Generator(device=device).manual_seed(23))
+    td.eval()
+    n_params = sum(p.numel() for p in td.parameters())
+    prompt = load_config(T2V_CONFIG).text_prompt[0]
+    pipe = LattePipeline(model, get_scheduler("DDIM"), enc, temporal_decoder=td)
+    t0 = time.perf_counter()
+    video = pipe(prompt, num_inference_steps=TEXT_STEPS, enable_vae_temporal_decoder=True).video
+    call_s = time.perf_counter() - t0
+    print(f"  LattePipeline call with the temporal decoder: {video.shape} {video.dtype} in {call_s:.2f} s "
+          f"(DDIM-{TEXT_STEPS}, T5 and the decode)", flush=True)
+    lat = records[0]["latents"].to(device)
+    want = (1, FRAMES, 8 * lat.shape[-2], 8 * lat.shape[-1], 3)
+    if video.shape != want or not np.isfinite(video).all() or video.min() < 0 or video.max() > 1:
+        raise AssertionError(f"the temporal decode gave {video.shape}, not {want} in [0, 1]")
+    z2 = lat[0, :, :TD_CHECK_FRAMES].transpose(0, 1) / pipe.vae_scale
+    td64 = copy.deepcopy(td).double()
+    with torch.inference_mode(), cudnn_tf32(False):
+        x32, x64 = td.decode(z2, TD_CHECK_FRAMES), td64.decode(z2.double(), TD_CHECK_FRAMES)
+    vs64 = compare(f"temporal decode of a {TD_CHECK_FRAMES}-frame chunk, fp32 (TF32 off) vs fp64", x32, x64)
+    del td64, x32, x64
+    torch.cuda.empty_cache()
+    if vs64["rel_l2"] > VAE_TOL or not vs64["finite"]:
+        raise AssertionError(f"the fp32 temporal decoder is more than {VAE_TOL} off fp64: {vs64}")
+    out = dict(parameters=n_params, call_s=call_s, fp32_vs_fp64=vs64)
+    for name in ("fp32", "bf16"):
+        if name == "bf16":
+            pipe.temporal_decoder = copy.deepcopy(td).to(torch.bfloat16)
+        s = time_t2v_step(lambda: pipe.decode_latents_with_temporal_decoder(lat)) / 1e3
+        peak, before = peak_gib_of(lambda: pipe.decode_latents_with_temporal_decoder(lat))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe.decode_latents_with_temporal_decoder(lat)
+            torch.cuda.synchronize()
+        kinds = print_profile(f"temporal decode {name}", prof, s * 1e3, TD_KINDS)
+        _, busy, _ = device_ms_by_kind(prof)
+        out[name] = dict(s_per_video=s, peak_gib=peak, allocated_before_gib=before,
+                         device_ms_by_kind=kinds, busy_ms=busy, idle=1 - busy / (s * 1e3) if busy else None)
+        print(f"  temporal decode {name}, {FRAMES} frames at 512^2 (chunks 14 + 2): {s:.4f} s/video "
+              f"(median of 3); peak {peak:.3f} GiB ({before:.3f} before) on {smi}", flush=True)
+    del td, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+class TextLog(StepLog):
+    """StepLog that keeps text_embedding_projection's weight before the run."""
+
+    def on_train_start(self, config, state, experiment_dir):
+        super().on_train_start(config, state, experiment_dir)
+        self.start = state.model.text_embedding_projection.weight.detach().clone()
+
+
+def text_extras78(tmp: str, smi: str, device, timer) -> dict:
+    """Phase "text" (c): CLIP ViT-L/14's text tower (seeded random weights, a
+    stand-in tokenizer) encodes two prompts; Latte-XL/2 with extras: 78 on
+    those features, a bf16 forward on the kernels against the plain bf16
+    and fp32 paths; ``train.main`` on ffs_train.yaml with extras=78 (fp32,
+    batch 5, full remat, synthetic latents and text) for TEXT_TRAIN_STEPS
+    steps."""
+    from latte_tpu_torch.text import CLIPTextModel, FrozenCLIPEmbedder
+
+    with torch.device(device):
+        clip = CLIPTextModel()
+    clip.initialize_weights(torch.Generator(device=device).manual_seed(29))
+    emb = FrozenCLIPEmbedder(clip, StandInTokenizer())
+    feats = emb.encode(CLIP_PROMPTS)
+    clip_ms = timer.ms(lambda: emb.encode(CLIP_PROMPTS), iters=5)
+    print(f"  CLIP ViT-L/14 text tower ({sum(p.numel() for p in clip.parameters()):,} parameters): "
+          f"{tuple(feats.shape)} features of {len(CLIP_PROMPTS)} prompts in {clip_ms:.3f} ms", flush=True)
+    if feats.shape != (len(CLIP_PROMPTS), 77, 768) or not torch.isfinite(feats).all():
+        raise AssertionError(f"CLIP features {tuple(feats.shape)}, not finite ({len(CLIP_PROMPTS)}, 77, 768)")
+    del emb, clip
+
+    arch = dict(input_size=32, num_frames=FRAMES, extras=78)
+    with torch.device(device):
+        model = get_model("Latte-XL/2", **arch)
+        plain32 = get_model("Latte-XL/2", plain=True, **arch)
+    randomize_(model, seed=31)
+    plain32.load_state_dict(model.state_dict())
+    model.to(torch.bfloat16).eval()
+    plain32.eval()
+    with torch.device(device):
+        plain16 = get_model("Latte-XL/2", plain=True, **arch)
+    plain16.load_state_dict(model.state_dict())
+    plain16.to(torch.bfloat16).eval()
+    gen = torch.Generator(device=device).manual_seed(37)
+    x = torch.randn((len(CLIP_PROMPTS), FRAMES, 4, 32, 32), generator=gen, device=device)
+    t = torch.full((len(CLIP_PROMPTS),), 500, device=device)
+    with torch.inference_mode():
+        model(x, t, text_embedding=feats)
+        torch.cuda.synchronize()
+        reset_counts()
+        out_k = model(x, t, text_embedding=feats)
+        torch.cuda.synchronize()
+        launches = expect_launches("Latte-XL/2 extras: 78 bf16 forward",
+                                   {k: DEPTH if k in FORWARD else 0 for k in KERNELS})
+        out_p16, out_p32 = plain16(x, t, text_embedding=feats), plain32(x, t, text_embedding=feats)
+        fwd_ms = timer.ms(lambda: model(x, t, text_embedding=feats), iters=5)
+    vs_plain = compare("extras 78 forward, kernels bf16 vs plain bf16", out_k, out_p16)
+    vs32 = compare("extras 78 forward, kernels bf16 vs plain fp32", out_k, out_p32)
+    plain_vs32 = compare("extras 78 forward, plain bf16 vs plain fp32", out_p16, out_p32)
+    del model, plain16, plain32, out_k, out_p16, out_p32
+    torch.cuda.empty_cache()
+    if not (vs32["finite"] and vs32["cosine"] >= 0.999 and vs32["rel_l2"] <= 1.25 * plain_vs32["rel_l2"] + 1e-3):
+        raise AssertionError("the extras: 78 kernel path disagrees with the plain fp32 path")
+
+    log = TextLog()
+    r = run_config(FFS_TRAIN, tmp, TEXT_TRAIN_STEPS, "ffs_train extras=78 fp32", ["extras=78"], log=log)
+    state = r.pop("state")
+    proj = state.model.text_embedding_projection
+    moved = not torch.equal(proj.weight.detach(), log.start)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    del state, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    r.update(parameters=n_params, projection=list(proj.weight.shape), projection_moved=moved,
+             s_per_step=r["step_seconds"][-1])
+    print(f"  ffs_train extras=78: {n_params:,} parameters (projection {tuple(proj.weight.shape)}); step "
+          f"{TEXT_TRAIN_STEPS} {r['s_per_step']:.4f} s; peak {r['peak_gib']:.3f} GiB; projection moved "
+          f"{moved} on {smi}", flush=True)
+    if not moved:
+        raise AssertionError("text_embedding_projection did not move in the extras=78 run")
+    return dict(clip_features=list(feats.shape), clip_ms=clip_ms, forward_launches=launches, forward_ms=fwd_ms,
+                forward=dict(vs_plain_bf16=vs_plain, vs_plain_fp32=vs32, plain_bf16_vs_fp32=plain_vs32),
+                train=r)
+
+
+def text_phase(tmp: str, smi: str, device, timer) -> dict:
+    """Phase "text": (a) T5-XXL through sample_t2x, (b) the temporal
+    decoder, (c) CLIP and extras: 78; returns the ``text: {...}`` line's
+    dict."""
+    t0 = time.perf_counter()
+    t5, records, model, enc = text_t5(tmp, smi, device)
+    t5["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    td = text_temporal_decoder(records, model, enc, smi, device)
+    td["s"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(tmp, "t5_ckpt"))
+    del records, model, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clip = text_extras78(tmp, smi, device, timer)
+    clip["s"] = time.perf_counter() - t0
+    return dict(device=smi, t5=t5, temporal_decoder=td, extras78=clip)
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     """One kernel's entry of the JSON line: its main-path launches and its
     measurements at the main path's shape (``row``)."""
@@ -3866,12 +4289,25 @@ def main() -> int:
     print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
     print("moe: " + json.dumps(moe, default=str), flush=True)
 
+    # 9. text: T5-XXL through sample_t2x, the SVD temporal decoder, CLIP and extras: 78
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        text = text_phase(tmp, smi, device, timer)
+    torch.cuda.empty_cache()
+    phase("text", t0)
+    print("text: " + json.dumps(text, default=str), flush=True)
+
     # each kernel's launches in the runs of phase "train more"
     more_launches = {name: {run: more[run]["launches"][name] for run in (
         "ucf101_train", "ucf101_mixed", "ffs_img_train", "ucf101_img_train")} for name in KERNELS}
     # and in phase "moe": 6 ffs_train_moe steps, the MoE DDIM-50, the MoE T2V DDIM-10
     moe_launches = {name: dict(train=moe["train"]["launches"][name], latte_ddim50=moe["latte"]["launches"][name],
                                t2v_ddim10=moe["t2v"]["launches"][name]) for name in KERNELS}
+    # and in phase "text": T2V with T5-XXL (three DDIM-10 videos), the extras: 78
+    # forward and its 3 ffs_train steps
+    text_launches = {name: dict(t5_t2v_ddim10=text["t5"]["launches"][name],
+                                extras78_forward=text["extras78"]["forward_launches"][name],
+                                extras78_train=text["extras78"]["train"]["launches"][name]) for name in KERNELS}
     kernels = []
     for name, k in KERNELS.items():
         if name == INT8:  # the int8 sampler's path (bf16, batch 1, flash route, pv_int8)
@@ -3917,7 +4353,7 @@ def main() -> int:
             launches = mixed["launches"][name]
         kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row,
                                   launches_train_more=more_launches[name], launches_moe=moe_launches[name],
-                                  **extra))
+                                  launches_text=text_launches[name], **extra))
     # the fp32 trainer's path, at its shapes (fp32, batch 5)
     fwd32 = measured["flash_attention"]
     kernels.append(kernel_row(
@@ -3926,6 +4362,7 @@ def main() -> int:
         temporal=fwd32["temporal_b5_fp32"], cases={c: fwd32[c] for c in FLASH_FP32_SHAPES},
         train_pairs=entry["forward_pairs"], launches_train_more=more_launches["flash_attention"],
         launches_moe_train=moe["train"]["launches"]["flash_attention"],
+        launches_text_train=text["extras78"]["train"]["launches"]["flash_attention"],
         img=dict(spatial=fwd32["spatial_img_fp32"], temporal=fwd32["temporal_img_fp32"])))
     for name in BACKWARD:
         kernels.append(kernel_row(
@@ -3935,7 +4372,8 @@ def main() -> int:
             cases={c: measured[name][c] for c in BWD_SHAPES if BWD_SHAPES[c][2] == torch.float32},
             train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
                              pairs_won=entry["pairs_won"]), launches_train_more=more_launches[name],
-            launches_moe_train=moe["train"]["launches"][name]))
+            launches_moe_train=moe["train"]["launches"][name],
+            launches_text_train=text["extras78"]["train"]["launches"][name]))
     # the "qk" mode (int8_attention: qk under attention_mode: auto, the fused
     # rule), on the same source's "qk" kernels
     qk, qk_cases = int8_run["qk"], {c: r for c, r in measured[INT8].items() if c.endswith("_qk")}
@@ -3949,7 +4387,8 @@ def main() -> int:
         cases=qk_cases, fp32=int8_fp32["qk_times"],
         ddim_pairs=dict(pairs=qk["pairs"], pairs_won=qk["pairs_won"],
                         videos_per_min=qk["pair_videos_per_min"]),
-        launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8], launches_moe=moe_launches[INT8]))
+        launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8], launches_moe=moe_launches[INT8],
+        launches_text=text_launches[INT8]))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

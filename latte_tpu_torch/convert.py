@@ -41,6 +41,24 @@ their names and layouts, under ``blocks.{i}.moe.*``,
 ``transformer_blocks.{i}.moe.*`` and ``temporal_transformer_blocks.{i}.moe.*``.
 No reference checkpoint holds expert weights (the JAX converter maps none),
 so :func:`load_t2v_state_dict` for an MoE model names them as missing.
+
+Latte's ``extras: 78`` text conditioning: ``text_embedding_projection``
+(a Dense of the flattened (77, 768) CLIP features in ``Latte``, of 768 in
+``LatteIMG``) carries over as a linear; :func:`load_flax_params` names the
+width when it is not the model's.
+
+The text encoders: :func:`flax_t5_to_state_dict` and
+:func:`flax_clip_to_state_dict` carry transformers' ``FlaxT5EncoderModel``
+and ``FlaxCLIPTextModel`` params onto Hugging Face's torch names (the
+port's), and :func:`load_hf_weights` streams a Hugging Face directory's
+weights (``model.safetensors``, sharded safetensors with their index,
+``pytorch_model.bin`` and its shards) into a model one file at a time.
+
+The SVD temporal decoder: :func:`flax_temporal_decoder_to_state_dict`
+carries the JAX ``TemporalDecoder``'s params onto diffusers' names, and
+:func:`load_temporal_decoder_state_dict` loads a diffusers
+``AutoencoderKLTemporalDecoder`` state dict (``decoder.``-prefixed or bare)
+strictly.
 """
 
 from __future__ import annotations
@@ -63,6 +81,12 @@ __all__ = [
     "t2v_keys",
     "load_t2v_state_dict",
     "read_safetensors",
+    "flax_t5_to_state_dict",
+    "flax_clip_to_state_dict",
+    "hf_weight_files",
+    "load_hf_weights",
+    "flax_temporal_decoder_to_state_dict",
+    "load_temporal_decoder_state_dict",
 ]
 
 # frozen sincos tables in reference checkpoints; the port recomputes them
@@ -118,6 +142,8 @@ def flax_to_state_dict(
         sd["y_embedder.embedding_table.weight"] = np.asarray(
             params["y_embedder"]["embedding_table"]
         )
+    if "text_embedding_projection" in params:
+        put_linear("text_embedding_projection", params["text_embedding_projection"])
 
     for i in range(depth // 2):
         for kind, idx in (("spatial", 2 * i), ("temporal", 2 * i + 1)):
@@ -201,6 +227,14 @@ def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch
     sd = flax_to_state_dict(
         params, model.depth, model.num_heads, model.patch_size
     )
+    proj = getattr(model, "text_embedding_projection", None)
+    key = "text_embedding_projection.weight"
+    if proj is not None and key in sd and sd[key].shape != proj.weight.shape:
+        raise ValueError(
+            f"text_embedding_projection takes {sd[key].shape[1]} features; the model's takes "
+            f"{proj.in_features} (extras: 78 conditions Latte on (77, 768) CLIP features, flattened, "
+            "and LatteIMG on (1 + I, 768))"
+        )
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -265,8 +299,14 @@ def load_vae_state_dict(path: str) -> Dict[str, torch.Tensor]:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
+    return _vae_attention_names(sd)
+
+
+def _vae_attention_names(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Legacy attention names renamed, 1x1-conv projections made (O, I)."""
     out = {}
     for key, v in sd.items():
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
         parts = key.split(".")
         if ".attentions." in key and parts[-2] in _VAE_LEGACY_ATTN:
             key = ".".join(parts[:-2] + [_VAE_LEGACY_ATTN[parts[-2]], parts[-1]])
@@ -405,3 +445,137 @@ def load_t2v_state_dict(path: str, num_layers: int = 28, moe_experts: int = 0) -
     if missing:
         raise KeyError(f"T2V checkpoint lacks {sorted(missing)[:10]}")
     return {k: sd[k] for k in expected}
+
+
+# Hugging Face's Flax leaf names -> its torch names
+_HF_LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight", "weight": "weight", "bias": "bias"}
+
+
+def _flax_hf_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A transformers Flax params tree -> its torch state dict: the path
+    joined with dots, Dense kernels (I, O) -> weights (O, I), embeddings and
+    norm scales -> ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for key, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [key])
+                continue
+            a = np.asarray(v)
+            if key == "kernel":
+                a = a.T
+            sd[".".join(path + [_HF_LEAVES[key]])] = _tensor(np.ascontiguousarray(a))
+
+    walk(params, [])
+    return sd
+
+
+def flax_t5_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``FlaxT5EncoderModel.params`` -> the port's
+    :class:`~latte_tpu_torch.text.t5.T5EncoderModel` state dict."""
+    return _flax_hf_to_state_dict(params)
+
+
+def flax_clip_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``FlaxCLIPTextModel.params`` -> the port's
+    :class:`~latte_tpu_torch.text.clip.CLIPTextModel` state dict."""
+    return _flax_hf_to_state_dict(params)
+
+
+def hf_weight_files(path: str) -> list:
+    """The weight files of a Hugging Face model directory: the shards an
+    index names (``model.safetensors.index.json``, else
+    ``pytorch_model.bin.index.json``), else ``model.safetensors``, else
+    ``pytorch_model.bin``."""
+    import json
+    import os
+
+    for index in ("model.safetensors.index.json", "pytorch_model.bin.index.json"):
+        f = os.path.join(path, index)
+        if os.path.exists(f):
+            with open(f) as fh:
+                shards = sorted(set(json.load(fh)["weight_map"].values()))
+            return [os.path.join(path, s) for s in shards]
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        f = os.path.join(path, name)
+        if os.path.exists(f):
+            return [f]
+    raise FileNotFoundError(f"{path!r} holds no model.safetensors, pytorch_model.bin or their index")
+
+
+@torch.no_grad()
+def load_hf_weights(model: torch.nn.Module, path: str, rename: Mapping[str, str] = None,
+                    skip: tuple = ()) -> torch.nn.Module:
+    """Copy the weights of the Hugging Face directory ``path`` into
+    ``model``'s parameters (already on their device, in their type), one
+    file at a time: only one shard is in host memory at once, and each
+    tensor converts to its parameter's type as it is copied. Keys are
+    renamed by ``rename``, and those starting with a prefix in ``skip`` are
+    ignored. A key the model lacks raises ``ValueError``, a parameter no file
+    holds ``KeyError``, a shape apart ``ValueError``."""
+    params = dict(model.named_parameters())
+    loaded, unexpected = set(), []
+    for f in hf_weight_files(path):
+        if f.endswith(".safetensors"):
+            sd = read_safetensors(f)
+        else:
+            sd = torch.load(f, map_location="cpu", weights_only=True, mmap=True)
+        for key, v in sd.items():
+            key = (rename or {}).get(key, key)
+            if key.startswith(skip) or key in loaded:
+                continue
+            if key not in params:
+                unexpected.append(key)
+                continue
+            if tuple(v.shape) != tuple(params[key].shape):
+                raise ValueError(f"{f}: {key} has shape {tuple(v.shape)}, the model's {tuple(params[key].shape)}")
+            params[key].copy_(v)
+            loaded.add(key)
+        del sd
+    if unexpected:
+        raise ValueError(f"{path}: keys the model does not have: {sorted(unexpected)[:10]}")
+    missing = set(params) - loaded
+    if missing:
+        raise KeyError(f"{path}: no weights for {sorted(missing)[:10]}")
+    return model
+
+
+def flax_temporal_decoder_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``TemporalDecoder``'s params -> the port's (diffusers') state
+    dict: the SD VAE's renames, ``mix_factor`` under ``time_mixer``, and the
+    (kt, kh, kw, I, O) kernels of the temporal convolutions -> (O, I, kt, kh, kw)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for key, v in tree.items():
+            if isinstance(v, Mapping):
+                name = key
+                for pattern, repl in _VAE_NAMES:
+                    name = pattern.sub(repl, name)
+                walk(v, path + [name])
+                continue
+            a = np.asarray(v)
+            if key == "kernel" and a.ndim == 5:
+                a = a.transpose(4, 3, 0, 1, 2)
+            elif key == "kernel" and a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif key == "kernel":
+                a = a.T
+            name = {"kernel": "weight", "scale": "weight", "mix_factor": "time_mixer.mix_factor"}.get(key, key)
+            sd[".".join(path + [name])] = _tensor(np.ascontiguousarray(a))
+
+    walk(params, [])
+    return sd
+
+
+def load_temporal_decoder_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> torch.nn.Module:
+    """Load a diffusers ``AutoencoderKLTemporalDecoder`` state dict into the
+    port's :class:`~latte_tpu_torch.vae.temporal_decoder.TemporalDecoder`
+    with ``strict=True``: the whole autoencoder's (its ``decoder.*`` keys
+    taken) or the decoder's own. Legacy attention names and 1x1-conv
+    attention projections are mapped as for the SD VAE."""
+    if any(k.startswith("decoder.") for k in sd):
+        sd = {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")}
+    model.load_state_dict(_vae_attention_names(sd), strict=True)
+    return model

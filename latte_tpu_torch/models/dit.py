@@ -67,7 +67,7 @@ from latte_tpu_torch.models.embeddings import (
     get_1d_sincos_pos_embed,
     get_2d_sincos_pos_embed,
 )
-from latte_tpu_torch.models.layers import AdaLNBlock, FinalLayer, PatchEmbed, unpatchify
+from latte_tpu_torch.models.layers import AdaLNBlock, FinalLayer, Linear, PatchEmbed, unpatchify
 from latte_tpu_torch.models.moe import MoEMlp, collect_loss, loss_columns, pair_losses
 
 __all__ = ["Latte"]
@@ -85,11 +85,17 @@ _dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_p
 
 
 class Latte(nn.Module):
-    """Video DiT. ``extras``: 1 = unconditional, 2 = class-conditional.
+    """Video DiT. ``extras``: 1 = unconditional, 2 = class-conditional, 78 =
+    text-conditioned on CLIP features (``text_embedding`` (B, 77, 768)).
 
     ``plain=True`` runs the kernels' plain PyTorch versions on any device
     (see :mod:`latte_tpu_torch.models.layers`).
     """
+
+    # the input width of text_embedding_projection: the flattened (77, 768)
+    # CLIP features of the JAX package's uses (sample.py:316, train.py:194-196),
+    # which Flax's Dense infers and torch needs at construction
+    TEXT_EMBEDDING_WIDTH = 77 * 768
 
     def __init__(
         self,
@@ -117,11 +123,8 @@ class Latte(nn.Module):
         moe_capacity_factor: float = 1.25,
     ):
         super().__init__()
-        if extras not in (1, 2):
-            raise NotImplementedError(
-                f"extras={extras}: only 1 (unconditional) and 2 (class) are ported; "
-                "the text-conditioned model comes with the T2V slice"
-            )
+        if extras not in (1, 2, 78):
+            raise ValueError(f"extras={extras}: expected 1 (unconditional), 2 (class) or 78 (text)")
         if depth % 2:
             raise ValueError(f"depth must be even (spatial/temporal pairs); got {depth}")
         if remat_policy not in REMAT_POLICIES:
@@ -146,6 +149,8 @@ class Latte(nn.Module):
         self.t_embedder = TimestepEmbedder(hidden_size)
         if extras == 2:
             self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
+        elif extras == 78:
+            self.text_embedding_projection = Linear(self.TEXT_EMBEDDING_WIDTH, hidden_size)
         self.blocks = nn.ModuleList(
             AdaLNBlock(
                 hidden_size, num_heads, mlp_ratio, plain=plain, quantized=quantized,
@@ -238,6 +243,12 @@ class Latte(nn.Module):
     def _embed_labels(self, y, train: bool, force_drop_ids, generator, dtype) -> torch.Tensor:
         return self.y_embedder(y, train=train, force_drop_ids=force_drop_ids, generator=generator).to(dtype)
 
+    def _embed_text(self, text_embedding: torch.Tensor, dtype) -> torch.Tensor:
+        """The projection of SiLU of the features cast to the compute type
+        (in that order, as in JAX); (B, ..., 768) rows of LatteIMG keep
+        their leading axes."""
+        return self.text_embedding_projection(nn.functional.silu(text_embedding.to(dtype)))
+
     def forward(
         self,
         x: torch.Tensor,
@@ -251,9 +262,13 @@ class Latte(nn.Module):
         front_state: Optional[torch.Tensor] = None,
         start_pair: int = 0,
         return_aux: bool = False,
+        text_embedding: Optional[torch.Tensor] = None,
     ):
         """The forward (``train``, ``generator`` and ``force_drop_ids``
-        reach the label embedder); ``return_aux`` also returns the MoE
+        reach the label embedder; ``text_embedding`` (B, 77, 768) is the
+        ``extras: 78`` model's conditioning, projected and added to every
+        block's, the final layer keeping the timestep's alone, as in the
+        reference); ``return_aux`` also returns the MoE
         blocks' Switch losses, ``(out, aux)`` with aux (2, n_pairs), or None
         for a dense model. Plus the block-cache staging hooks of the JAX
         model:
@@ -296,6 +311,10 @@ class Latte(nn.Module):
             y_emb = self._embed_labels(y, train, force_drop_ids, generator, dtype)
             c_spatial = c_spatial + y_emb.repeat_interleave(F, dim=0)
             c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
+        elif self.extras == 78:
+            txt = self._embed_text(text_embedding.reshape(B, -1), dtype)
+            c_spatial = c_spatial + txt.repeat_interleave(F, dim=0)
+            c_temp = c_temp + txt.repeat_interleave(T, dim=0)
 
         temp_embed = self._temp_embed(F, dtype)
         front, aux = None, []
@@ -321,11 +340,12 @@ class Latte(nn.Module):
         t: torch.Tensor,
         y: Optional[torch.Tensor] = None,
         cfg_scale: float = 7.0,
+        text_embedding: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """CFG forward: the batch is [cond | uncond]; guidance applies to the
         first 4 (eps) channels only, as in the reference."""
         half = x[: x.shape[0] // 2]
-        model_out = self.forward(torch.cat([half, half], dim=0), t, y=y)
+        model_out = self.forward(torch.cat([half, half], dim=0), t, y=y, text_embedding=text_embedding)
         eps, rest = model_out[:, :, :4], model_out[:, :, 4:]
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)

@@ -33,6 +33,9 @@ class LatteIMG(Latte):
     ``use_image_num``. No block-cache staging hooks (the JAX model has
     none)."""
 
+    # extras: 78 projects each frame's (768,) CLIP row (latte_tpu/models/dit_img.py:205-219)
+    TEXT_EMBEDDING_WIDTH = 768
+
     def __init__(self, *args, use_image_num: int = 0, **kwargs):
         super().__init__(*args, **kwargs)
         self.use_image_num = use_image_num
@@ -68,11 +71,16 @@ class LatteIMG(Latte):
         force_drop_ids: Optional[torch.Tensor] = None,
         force_drop_ids_image: Optional[torch.Tensor] = None,
         return_aux: bool = False,
+        text_embedding: Optional[torch.Tensor] = None,
     ):
         """(B, F + I, C, H, W), (B,) -> (B, F + I, C', H, W). Under ``train``
         the last ``use_image_num`` frames are still images, labelled by
         ``y_image`` (B, I) when the model is class-conditional.
-        ``return_aux``: ``(out, aux)`` as ``Latte.forward``'s."""
+        ``return_aux``: ``(out, aux)`` as ``Latte.forward``'s. A
+        text-conditioned model (``extras: 78``) takes per-frame CLIP features
+        ``text_embedding`` (B, 1 + I, 768): row 0 conditions every video
+        frame's spatial block and every temporal block, rows 1..I the
+        images' spatial blocks."""
         B, F, C, H, W = x.shape
         in_dtype = x.dtype
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
@@ -94,6 +102,11 @@ class LatteIMG(Latte):
                 y_spatial = y_emb.repeat_interleave(F, dim=0)
             c_spatial = c_spatial + y_spatial
             c_temp = c_temp + y_emb.repeat_interleave(T, dim=0)
+        elif self.extras == 78:
+            txt = self._embed_text(text_embedding, dtype)  # (B, 1 + I, D)
+            txt_spatial = torch.cat([txt[:, :1].expand(B, Fv, -1), txt[:, 1:]], dim=1)
+            c_spatial = c_spatial + txt_spatial.reshape(B * F, -1)
+            c_temp = c_temp + txt[:, 0].repeat_interleave(T, dim=0)
 
         temp_embed = self._temp_embed(Fv, dtype)
         aux = []

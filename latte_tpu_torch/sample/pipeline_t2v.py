@@ -25,8 +25,17 @@ exact loop.
 Stochastic schedulers draw each step's noise from the same generator as z,
 after it. ``pp_mesh`` (pipeline-parallel serving) raises
 ``NotImplementedError``: it comes with the multi-GPU slice (ROADMAP M6).
-The JAX pipeline's SVD temporal decoder is not built by its sampler either,
-so ``enable_vae_temporal_decoder`` decodes frame by frame in both.
+
+The text encoder's features may be tensors on the device (the port's T5)
+or numpy arrays (the caption stub); they reach the transformer as fp32 on
+its device without a trip through the host.
+
+Decoding: a video of one frame is an image; with ``temporal_decoder`` (the
+port's SVD :class:`~latte_tpu_torch.vae.temporal_decoder.TemporalDecoder`)
+and ``enable_vae_temporal_decoder`` the frames go through it in chunks of
+14 (the reference's chunk), each chunk decoded as one clip of its own
+length, the F % 14 remainder last; otherwise every frame through the SD VAE.
+``sample_t2x`` builds no temporal decoder, as in the JAX sampler.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from latte_tpu_torch.vae import make_decode_fn
+from latte_tpu_torch.vae import cudnn_tf32, make_decode_fn
 
 
 @dataclasses.dataclass
@@ -49,8 +58,9 @@ class LattePipeline:
     """T2V pipeline over (transformer, scheduler, text encoder, VAE). The
     transformer is a :class:`latte_tpu_torch.models.t2v.LatteT2V` (its
     parameters fix the device and compute type), the text encoder has
-    ``encode_with_negative`` (numpy features and masks), the VAE is the
-    port's :class:`~latte_tpu_torch.vae.AutoencoderKL` (fp32)."""
+    ``encode_with_negative`` (features and masks, tensors or numpy), the
+    VAE is the port's :class:`~latte_tpu_torch.vae.AutoencoderKL` (fp32),
+    the temporal decoder a ``TemporalDecoder`` (its parameters' type)."""
 
     def __init__(
         self,
@@ -58,6 +68,7 @@ class LattePipeline:
         scheduler,
         text_encoder=None,
         vae=None,
+        temporal_decoder=None,
         vae_scale: float = 0.18215,
         vae_spatial_scale: int = 8,
         pp_mesh=None,
@@ -72,6 +83,7 @@ class LattePipeline:
         self.scheduler = scheduler
         self.text_encoder = text_encoder
         self.vae = vae
+        self.temporal_decoder = temporal_decoder
         self.vae_scale = vae_scale
         self.vae_spatial_scale = vae_spatial_scale
         self.bc_interval = int(block_cache_interval or 0)
@@ -95,10 +107,11 @@ class LattePipeline:
         cond, cond_mask, uncond, uncond_mask = self.text_encoder.encode_with_negative(
             list(prompt), negative_prompt, clean=clean_caption
         )
+        cond, cond_mask, uncond, uncond_mask = (
+            torch.as_tensor(a, device=self.device) for a in (cond, cond_mask, uncond, uncond_mask))
         if do_cfg:
-            cond, cond_mask = np.concatenate([uncond, cond]), np.concatenate([uncond_mask, cond_mask])
-        return (torch.from_numpy(np.asarray(cond, np.float32)).to(self.device),
-                torch.from_numpy(np.asarray(cond_mask)).to(self.device))
+            cond, cond_mask = torch.cat([uncond, cond]), torch.cat([uncond_mask, cond_mask])
+        return cond.float(), cond_mask
 
     def prepare_latents(self, batch: int, channels: int, video_length: int, height: int, width: int,
                         generator: torch.Generator, num_inference_steps: int = 50) -> torch.Tensor:
@@ -198,6 +211,8 @@ class LattePipeline:
         )
         if output_type == "latents":
             return VideoPipelineOutput(video=latents.cpu().numpy())
+        if latents.shape[2] > 1 and enable_vae_temporal_decoder and self.temporal_decoder is not None:
+            return VideoPipelineOutput(video=self.decode_latents_with_temporal_decoder(latents))
         return VideoPipelineOutput(video=self.decode_latents(latents))
 
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
@@ -210,3 +225,25 @@ class LattePipeline:
         video = self._decode(z)  # (B·F, 3, H, W)
         video = video.view(B, F, *video.shape[1:]).permute(0, 1, 3, 4, 2)
         return (video / 2 + 0.5).clamp(0, 1).float().cpu().numpy()
+
+    # the JAX pipeline's chunk (latte_tpu/sample/pipeline_t2v.py:319-337)
+    TEMPORAL_CHUNK = 14
+
+    def decode_latents_with_temporal_decoder(self, latents: torch.Tensor) -> np.ndarray:
+        """(B, C, F, h, w) -> (B, F, H, W, 3) in [0, 1], fp32 numpy: the B·F
+        frames through the temporal decoder in chunks of 14, each decoded as
+        one clip (``num_frames`` = its length), in the decoder's type with
+        cuDNN's TF32 off; each chunk's frames go to the host before the
+        next, so one chunk's activations are alive at a time."""
+        if self.temporal_decoder is None:
+            raise ValueError("the pipeline was built without a temporal decoder")
+        B, C, F, h, w = latents.shape
+        z = latents.transpose(1, 2).reshape(B * F, C, h, w).float() / self.vae_scale
+        out = []
+        with torch.inference_mode(), cudnn_tf32(False):
+            for s in range(0, z.shape[0], self.TEMPORAL_CHUNK):
+                chunk = z[s : s + self.TEMPORAL_CHUNK]
+                frames = self.temporal_decoder.decode(chunk, num_frames=chunk.shape[0])
+                out.append((frames.float() / 2 + 0.5).clamp(0, 1).cpu())
+        video = torch.cat(out).view(B, F, *out[0].shape[1:]).permute(0, 1, 3, 4, 2)
+        return video.numpy()

@@ -64,8 +64,16 @@ def check_config(config: Config) -> None:
     (``ValueError``), before anything is built. (``block_cache_pairs`` does
     nothing without the interval. A ``vae_ckpt`` directory is refused by
     :func:`load_vae`.) ``quantized`` with ``moe_experts`` raises
-    ``NotImplementedError``: MoE has no int8 expert path, in either package."""
+    ``NotImplementedError``: MoE has no int8 expert path, in either package;
+    so does ``extras: 78``, which the JAX sampler passes no text to."""
     block_cache_interval(config)
+    if int(getattr(config, "extras", 1)) == 78:
+        raise NotImplementedError(
+            "extras: 78: the JAX sampler builds a text embedding for its int8 calibration "
+            "(latte_tpu/sample/sample.py:315-316) but passes none to the sample loop (sample.py:341-349), "
+            "so it does not sample a text-conditioned Latte, and neither does the port; "
+            "the model itself takes text_embedding (Latte.forward, forward_with_cfg)"
+        )
     if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             f"tensor_parallel={config.tensor_parallel}: not ported yet; comes with the "

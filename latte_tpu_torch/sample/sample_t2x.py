@@ -16,10 +16,11 @@ with seed ``seed + i``, and writes a png (``video_length: 1``) or an mp4 at
   from random init instead).
 - ``vae_ckpt``: as in ``sample.load_vae`` (``random``: the SD VAE from a
   seed; null: save latents).
-- ``t5_ckpt``: the T5 encoder is not ported yet (ROADMAP M5.2): a directory
-  raises ``NotImplementedError``; otherwise the hash-embedding stub
+- ``t5_ckpt``: a Hugging Face T5 directory (``config.json``, the weights,
+  ``spiece.model``): :meth:`latte_tpu_torch.text.T5TextEncoder.from_pretrained`
+  on the device in the config's type; otherwise the hash-embedding stub
   (:class:`latte_tpu_torch.text.StubTextEncoder`), as the JAX sampler falls
-  back to it.
+  back to it. No temporal decoder is built, as in the JAX sampler.
 - ``use_fp16: true`` serves in bf16; ``quantized: true`` in W8A8 int8
   (dynamic activation scales) for the attention projections and the
   feed-forward, quantized from the fp32 weights.
@@ -54,7 +55,7 @@ from latte_tpu_torch.models.t2v import LatteT2V
 from latte_tpu_torch.quant import quantize_params
 from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
 from latte_tpu_torch.sample.sample import load_vae
-from latte_tpu_torch.text import StubTextEncoder
+from latte_tpu_torch.text import StubTextEncoder, T5TextEncoder
 from latte_tpu_torch.utils import create_logger, resolve_device, save_image, save_video
 
 
@@ -119,14 +120,17 @@ def build_transformer(config: Config, device: torch.device) -> LatteT2V:
     return model.to(dtype=dtype).eval()
 
 
-def build_text_encoder(config: Config) -> StubTextEncoder:
+def build_text_encoder(config: Config, device: torch.device = None):
+    """The T5 encoder of a ``t5_ckpt`` directory on ``device``, in the
+    config's type (bf16 under ``use_fp16``; the JAX sampler computes T5 in
+    bf16 whatever the config), else the hash-embedding stub, as in JAX."""
+    logger = create_logger()
     t5_ckpt = getattr(config, "t5_ckpt", None)
     if t5_ckpt and os.path.isdir(str(t5_ckpt)):
-        raise NotImplementedError(
-            f"t5_ckpt {t5_ckpt!r}: the T5 text encoder is not ported yet (ROADMAP M5.2); "
-            "leave t5_ckpt unset to sample with the hash-embedding stub"
-        )
-    create_logger().info("WARNING: no T5 checkpoint — using the hash-embedding stub")
+        dtype = torch.bfloat16 if getattr(config, "use_fp16", False) else torch.float32
+        logger.info(f"loading T5 from {t5_ckpt} ({dtype}, {device})")
+        return T5TextEncoder.from_pretrained(str(t5_ckpt), dtype=dtype, device=device or "cuda")
+    logger.info("WARNING: no T5 checkpoint — using the hash-embedding stub")
     return StubTextEncoder(dim=int(getattr(config, "caption_channels", None) or 4096))
 
 
@@ -152,7 +156,7 @@ def main(config: Config, device: Optional[str] = None) -> List[dict]:
     logger = create_logger()
     check_config(config)
     dev = resolve_device(device)
-    text_encoder = build_text_encoder(config)
+    text_encoder = build_text_encoder(config, dev)
     vae = load_vae(config, dev)
     model = build_transformer(config, dev)
     if not getattr(config, "ckpt", None):

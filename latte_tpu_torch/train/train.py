@@ -15,8 +15,10 @@ the end, and resumes from ``resume_from_checkpoint``.
 
 It trains the video model (``Latte-*``) and the joint video-image model
 (``LatteIMG-*`` with ``use_image_num`` still images behind the video frames),
-unconditional or class-conditional (``extras: 2``; the batches carry ``y``,
-and ``y_image`` for the images). ``pretrained`` partially loads a checkpoint
+unconditional, class-conditional (``extras: 2``; the batches carry ``y``,
+and ``y_image`` for the images) or text-conditioned (``extras: 78``; on
+synthetic latents alone, which carry ``text_embedding``: no dataset provides
+text embeddings, in either package). ``pretrained`` partially loads a checkpoint
 before training, ``fixed_spatial`` trains the temporal attention alone,
 ``gradient_accumulation_steps`` splits each batch into chunks,
 ``adam_mu_dtype: bfloat16`` stores AdamW's first moment in bf16 and
@@ -33,8 +35,8 @@ Runs on ``cuda`` unless asked for the CPU::
         [--device cpu] [key=value ...]
 
 Options of the JAX trainer that this port does not carry yet (the
-multi-GPU keys, text conditioning) raise ``NotImplementedError`` naming the
-slice that brings them.
+multi-GPU keys) raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from latte_tpu_torch.config.loader import save_config
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.timestep_samplers import LossAwareSampler, create_named_schedule_sampler
 from latte_tpu_torch.models import get_models
+from latte_tpu_torch.models.registry import LatteIMG_models
 from latte_tpu_torch.train.callbacks import CallbackList
 from latte_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -97,15 +100,20 @@ _NOT_PORTED = (
 def check_config(config: Config) -> None:
     """Raise ``NotImplementedError`` for a set option this slice does not
     port, and ``ValueError`` for gradient accumulation that does not divide
-    the batch."""
+    the batch and for ``extras: 78`` on batches that carry no text (a
+    dataset, a latent cache, synthetic pixels)."""
     for key, is_set, later in _NOT_PORTED:
         if is_set(getattr(config, key, None)):
             raise NotImplementedError(f"{key}={getattr(config, key)!r}: not ported yet; comes with {later}")
     extras = int(getattr(config, "extras", 1))
-    if extras not in (1, 2):
-        raise NotImplementedError(
-            f"extras={extras}: the port trains unconditional (1) and class-conditional (2) "
-            "models; text conditioning comes with the T2V slice (ROADMAP M5)"
+    if extras not in (1, 2, 78):
+        raise ValueError(f"extras={extras}: expected 1 (unconditional), 2 (class) or 78 (text)")
+    data_path = str(getattr(config, "data_path", "") or "")
+    if extras == 78 and (os.path.isdir(data_path) or str(getattr(config, "synthetic_kind", "latents")) == "pixels"):
+        raise ValueError(
+            "extras: 78 trains on text embeddings, and no dataset provides them (a data_path folder, a "
+            "latent cache and synthetic pixels carry none, as in the JAX trainer); leave data_path unset "
+            "for synthetic latents"
         )
     accum = int(getattr(config, "gradient_accumulation_steps", 1) or 1)
     batch = int(getattr(config, "local_batch_size", 5))
@@ -179,7 +187,10 @@ def make_batch_iterator(
     both from ``global_seed``. F counts the ``use_image_num`` still images
     too; a class-conditional config's synthetic batches draw ``y`` (B,) in
     [0, ``num_classes``) after the data, and ``y_image`` (B, I) after it
-    under ``use_image_num``."""
+    under ``use_image_num``; a text-conditioned one (``extras: 78``)
+    standard-normal ``text_embedding`` (B, 77, 768) after the data, as the
+    JAX trainer's latent batches do ((B, 1 + I, 768) for LatteIMG, the shape
+    its model takes)."""
     from latte_tpu_torch.data import DataLoader, LatentCacheDataset, get_dataset, is_latent_cache
 
     data_path = str(getattr(config, "data_path", "") or "")
@@ -211,13 +222,21 @@ def make_batch_iterator(
         )
         return iter(loader), "real"
     rng = np.random.default_rng(seed)
+    # the CLIP features of a text-conditioned model: Latte's flattened (77, 768),
+    # LatteIMG's a row per frame kind (1 + I, 768)
+    text_shape = (batch_size, 77, 768)
+    if config.model in LatteIMG_models:
+        text_shape = (batch_size, 1 + int(getattr(config, "use_image_num", 0) or 0), 768)
 
-    def with_labels(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        if int(getattr(config, "extras", 1)) == 2:
+    def with_conditioning(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        extras = int(getattr(config, "extras", 1))
+        if extras == 2:
             nc = int(getattr(config, "num_classes", 1) or 1)
             batch["y"] = rng.integers(0, nc, size=(batch_size,), dtype=np.int32)
             if getattr(config, "use_image_num", 0):
                 batch["y_image"] = rng.integers(0, nc, size=(batch_size, int(config.use_image_num)), dtype=np.int32)
+        elif extras == 78:
+            batch["text_embedding"] = rng.standard_normal(text_shape, dtype=np.float32)
         return batch
 
     if str(getattr(config, "synthetic_kind", "latents")) == "pixels":
@@ -228,7 +247,7 @@ def make_batch_iterator(
 
         def synthetic_pixels():
             while True:
-                yield with_labels(
+                yield with_conditioning(
                     {"video": rng.integers(0, 256, size=(batch_size, frames, 3, size, size), dtype=np.uint8)}
                 )
 
@@ -237,7 +256,7 @@ def make_batch_iterator(
 
     def synthetic():
         while True:
-            yield with_labels({
+            yield with_conditioning({
                 "latents": rng.standard_normal(
                     (batch_size, frames, 4, latent, latent), dtype=np.float32
                 )

@@ -1,6 +1,7 @@
 """The SD VAE of the port (counterpart of ``latte_tpu/vae``): the module,
 the constructor that the sampler and the trainer share, the sampler's decode
-and the trainer's encode."""
+and the trainer's encode; and SVD's temporal decoder
+(:mod:`latte_tpu_torch.vae.temporal_decoder`)."""
 
 import contextlib
 import os
@@ -20,6 +21,7 @@ from latte_tpu_torch.vae.autoencoder_kl import (  # noqa: F401
     Upsample,
     tiny_vae,
 )
+from latte_tpu_torch.vae.temporal_decoder import TemporalDecoder, tiny_temporal_decoder  # noqa: F401
 
 
 @contextlib.contextmanager

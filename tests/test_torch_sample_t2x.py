@@ -2,10 +2,12 @@
 CPU at a tiny size, on the shipped configs/t2x configs with overrides: an
 mp4 per prompt through a tiny VAE, a png for the t2i config, ``.npz``
 latents without a VAE, a reference checkpoint in ``.safetensors``, the
-int8 path, and each refusal. (The pipeline's numbers against the JAX
-pipeline are tests/test_torch_pipeline_t2v.py's.)
+int8 path, each refusal, and a ``t5_ckpt`` directory against the JAX
+pipeline with the JAX T5 encoder. (The pipeline's other numbers against
+the JAX pipeline are tests/test_torch_pipeline_t2v.py's.)
 """
 
+import json
 import os
 
 import cv2
@@ -94,8 +96,72 @@ def test_refusals(tmp_path, override, exc, match):
 
 
 def test_t5_directory_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="M5.2"):
-        sample_t2x.main(tiny(T2V, tmp_path, f"t5_ckpt={tmp_path}"), device="cpu")
+    """A ``t5_ckpt`` directory now loads the port's T5; one without its
+    files is refused, naming what it lacks (no silent fall-back to the
+    stub)."""
+    (tmp_path / "t5").mkdir()
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        sample_t2x.main(tiny(T2V, tmp_path, f"t5_ckpt={tmp_path}/t5"), device="cpu")
+    (tmp_path / "t5" / "config.json").write_text(json.dumps(dict(T5_TINY)))
+    with pytest.raises(FileNotFoundError, match="model.safetensors"):
+        sample_t2x.main(tiny(T2V, tmp_path, f"t5_ckpt={tmp_path}/t5"), device="cpu")
+
+
+T5_TINY = dict(vocab_size=128, d_model=32, d_kv=4, d_ff=32, num_layers=2, num_heads=2,
+               feed_forward_proj="gated-gelu")
+
+
+def test_t5_checkpoint_matches_the_jax_pipeline(tmp_path):
+    """``sample_t2x`` with a tiny ``t5_ckpt`` directory (config.json,
+    model.safetensors, a synthetic spiece.model) and a LatteT2V checkpoint,
+    in fp32, against the JAX ``LattePipeline`` with the JAX
+    ``T5TextEncoder`` (FlaxT5EncoderModel and ``tokenizers``' Unigram on
+    the same weights and vocabulary), z handed across: the latents of both
+    prompts within 1e-5 relative L2 (``close``)."""
+    import jax
+    import jax.numpy as jnp
+    from safetensors.torch import save_file
+    from torch_port_util import close, hf_unigram_tokenizer, randomize, spiece_model_bytes, spiece_pieces
+    from transformers import FlaxT5EncoderModel
+    from transformers import T5Config as HFT5Config
+
+    from latte_tpu.core.scheduler import get_scheduler as jax_get_scheduler
+    from latte_tpu.models.t2v import LatteT2V as JaxLatteT2V
+    from latte_tpu.sample.pipeline_t2v import LattePipeline as JaxPipeline
+    from latte_tpu.text import T5TextEncoder as JaxT5TextEncoder
+    from latte_tpu_torch.convert import flax_t2v_to_state_dict, flax_t5_to_state_dict
+
+    pieces = spiece_pieces()
+    t5 = FlaxT5EncoderModel(HFT5Config(**T5_TINY), seed=0)
+    t5_params = randomize(t5.params, seed=1)
+    t5_dir = tmp_path / "t5"
+    t5_dir.mkdir()
+    (t5_dir / "config.json").write_text(json.dumps(T5_TINY))
+    (t5_dir / "spiece.model").write_bytes(spiece_model_bytes(pieces))
+    save_file(flax_t5_to_state_dict(t5_params), str(t5_dir / "model.safetensors"))
+
+    prompts = ["A cat walking on the beach", "the red car in the city at night"]
+    cfg = tiny(T2V, tmp_path / "out", "video_length=4", f"t5_ckpt={t5_dir}", f"ckpt={tmp_path}/t2v.safetensors",
+               "seed=3", "guidance_scale=4.0", f"text_prompt=[{', '.join(prompts)}]")
+    arch = sample_t2x.transformer_kwargs(cfg)
+    jm = JaxLatteT2V(**{k: v for k, v in arch.items() if not k.startswith("moe") and k != "attention_mode"},
+                     attention_mode="xla")
+    params = jax.jit(lambda: jm.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((2, 4, 4, 4, 4)),
+                                     jnp.zeros((2,)), jnp.zeros((2, 120, 32)), None))()
+    params = randomize(params["params"], seed=2, std=0.1)
+    save_file(flax_t2v_to_state_dict(params), str(tmp_path / "t2v.safetensors"))
+
+    records = sample_t2x.main(cfg, device="cpu")
+    jtext = JaxT5TextEncoder(t5, t5_params, hf_unigram_tokenizer(pieces), max_length=120)
+    jp = JaxPipeline(transformer=jm, transformer_params={"params": params}, scheduler=jax_get_scheduler("DDIM"),
+                     text_encoder=jtext)
+    for i, (prompt, r) in enumerate(zip(prompts, records)):
+        z = torch.randn((1, 4, 4, 4, 4), generator=torch.Generator().manual_seed(3 + i)).numpy()
+        jp.prepare_latents = lambda *a, num_inference_steps=50, z=z: (
+            jnp.asarray(z) * jp.scheduler.init_noise_sigma_for(num_inference_steps))
+        want = jp(prompt, video_length=4, height=32, width=32, num_inference_steps=2, guidance_scale=4.0,
+                  output_type="latents").video
+        close(r["latents"], want)
 
 
 def test_refuses_cuda_without_a_gpu(tmp_path):

@@ -155,3 +155,84 @@ class RouterMargins:
         if self.margins:
             print(f"{self.label}: smallest top-k margin over {len(self.margins)} router calls "
                   f"{min(self.margins):.3e}")
+
+
+# ---- a synthetic SentencePiece vocabulary -------------------------------------
+
+SPIECE_CONTROL = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+# whole words, word starts, subwords and single characters; no piece for q, x,
+# z, accented letters or CJK, which become <unk>. "▁" alone is a piece, as in
+# T5's vocabulary, so a run of unknowns never spans a word boundary
+SPIECE_WORDS = (
+    "▁a ▁the ▁cat ▁cats ▁dog ▁dogs ▁is ▁on ▁in ▁of ▁and ▁sun ▁sunset ▁beautiful ▁beach ▁water "
+    "▁walk ▁walking ▁jump ▁jumping ▁over ▁fence ▁fences ▁red ▁blue ▁car ▁city ▁night ▁light ▁ "
+    "▁b ▁c ▁d ▁f ▁h ▁l ▁m ▁p ▁s ▁t ▁w ▁y ▁1 ▁2 ing ed er es ly s t n r l e a o i u "
+    "b c d f g h j k m p v w y th he an in on at ▁wh ▁sh ch un re . , ! ? ' - : ; 0 1 2 3 4 5 6 7 8 9"
+).split(" ")
+
+
+def spiece_pieces(seed: int = 0):
+    """(piece, score, type) rows of a small unigram vocabulary: <pad>,
+    </s>, <unk>, then SPIECE_WORDS with negative scores from a numpy seed
+    (longer pieces score higher, so that whole words win), rounded to fp32
+    as the model file stores them."""
+    rng = np.random.default_rng(seed)
+    rows = list(SPIECE_CONTROL)
+    for w in dict.fromkeys(w for w in SPIECE_WORDS if w):
+        score = float(np.float32(-12.0 + 1.5 * len(w) - rng.uniform(0.0, 2.0)))
+        rows.append((w, score, 1))
+    return rows
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(field: int, wire: int, payload: bytes) -> bytes:
+    key = _pb_varint((field << 3) | wire)
+    if wire == 2:
+        return key + _pb_varint(len(payload)) + payload
+    return key + payload
+
+
+def spiece_model_bytes(pieces, normalizer: str = "nmt_nfkc") -> bytes:
+    """A serialized ModelProto: the pieces, a unigram TrainerSpec and a
+    NormalizerSpec (``normalizer``, no precompiled map, the dummy prefix,
+    whitespace removal and escaping on)."""
+    import struct
+
+    out = b""
+    for piece, score, kind in pieces:
+        msg = (_pb_field(1, 2, piece.encode("utf-8")) + _pb_field(2, 5, struct.pack("<f", score))
+               + _pb_field(3, 0, _pb_varint(kind)))
+        out += _pb_field(1, 2, msg)
+    out += _pb_field(2, 2, _pb_field(3, 0, _pb_varint(1)))
+    norm = (_pb_field(1, 2, normalizer.encode()) + _pb_field(3, 0, _pb_varint(1))
+            + _pb_field(4, 0, _pb_varint(1)) + _pb_field(5, 0, _pb_varint(1)))
+    return out + _pb_field(3, 2, norm)
+
+
+def hf_unigram_tokenizer(pieces):
+    """The same vocabulary through ``tokenizers``' Unigram (NFKC, strip,
+    runs of spaces collapsed, a Metaspace pre-tokenizer that prepends ``▁``,
+    ``</s>`` appended), wrapped in transformers' ``PreTrainedTokenizerFast``:
+    the tokenizer the JAX ``T5TextEncoder.tokenize`` calls, built without a
+    ``spiece.model`` reader."""
+    from tokenizers import Regex, Tokenizer, normalizers, pre_tokenizers
+    from tokenizers.models import Unigram
+    from tokenizers.processors import TemplateProcessing
+    from transformers import PreTrainedTokenizerFast
+
+    tok = Tokenizer(Unigram([(p, s) for p, s, _ in pieces], unk_id=2))
+    tok.normalizer = normalizers.Sequence(
+        [normalizers.NFKC(), normalizers.Strip(), normalizers.Replace(Regex(" {2,}"), " ")])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="always")
+    tok.post_processor = TemplateProcessing(single="$A </s>", special_tokens=[("</s>", 1)])
+    return PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="</s>", pad_token="<pad>",
+                                   unk_token="<unk>")
