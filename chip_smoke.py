@@ -58,8 +58,8 @@ non-zero exit and a traceback:
 5. sampler: the entry point ``latte_tpu_torch.sample.sample.main`` on
    configs/ffs/ffs_sample.yaml with DDIM-50 at batch 1 from a random
    checkpoint, then DDPM for a few steps; finite latents, launch counts,
-   videos/min (median of three DDIM-50 runs, each paired with a run that
-   forces the CUDA-core attention forward), the device's idle share in a
+   videos/min (median of ROUTE_PAIRS DDIM-50 runs, each paired with a run
+   that forces the CUDA-core attention forward), the device's idle share in a
    profiled DDIM-50 run, and the
    DDIM latents against the plain path's; every bf16 attention call of
    both runs goes through the tensor-core kernel, and none of a forced run;
@@ -207,8 +207,8 @@ non-zero exit and a traceback:
    finite losses, ``moe_aux`` >= 1 - 1e-3 every step, block 0's router
    moved by step 1 and its ``wi`` not before step 2 (adaLN-Zero), 6 x
    STEP_LAUNCHES on the fp32 and vector routes, s/step (median of steps
-   3-5), peak memory, step 6 profiled by kind, the disk's free space and
-   the final checkpoint's size and seconds; one more step with the MoE
+   3-5), peak memory, step 6 profiled by kind and the disk's free space
+   (no checkpoint written: ``NoCheckpoints``); one more step with the MoE
    parts (router, dispatch, expert products, combine; forward, recompute
    and backward) timed by CUDA events. (c) ``sample.main`` on
    ffs_sample.yaml with ``moe_experts: 8``, DDIM-50, batch 1, bf16, from a
@@ -252,10 +252,31 @@ non-zero exit and a traceback:
    c.build.load_library(); c.text_phase(tmp, smi, torch.device("cuda", 0),
    c.Timer(torch.device("cuda", 0)))``.
 
+10. dist: multi-GPU training and sampling over NCCL, one process a GPU,
+   spawned at world size ``min(4, device_count)`` (1 on a one-GPU machine;
+   each rank prints its device and the backend, which must be nccl). At
+   world 1, before the process group exists, ``train.main`` (``gate_run``:
+   no checkpoint written) takes 3 steps of configs/ffs/ffs_train.yaml as
+   shipped and 2 of configs/ffs/ffs_train_moe.yaml at ``expert_parallel=1``
+   on one GPU, and ``sample_many`` writes 4 DDIM-50 latents at batch 2;
+   then, over the group, the same runs (DDP, ``zero1``, ``fsdp``, the MoE
+   config with ``fsdp``) must equal them to the bit (DDP, ZeRO-1) or within
+   1e-6 (FSDP) in losses, grad norms and parameters, each with
+   STEP_LAUNCHES a step on the fp32 and vector routes, and ``sample_many``'s
+   latents to the bit. Then ``train.main`` on
+   ffs_train.yaml over the group (at 4 GPUs also ffs_train_moe.yaml as
+   shipped, dp 1 x ep 4) for 3 steps, counted from 0 on every rank (the
+   kernels line's ``launches_dist``), its step gaps, peak memory, the NCCL
+   kernels of its profiled third step and the full checkpoint's gather and
+   write. Prints a ``dist: {...}`` line. To run it alone: ``import
+   chip_smoke as c; c.build.build(); c.build.load_library();
+   c.dist_phase(tmp, smi)``.
+
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``), the total seconds, the kernels' JSON line
-(every row with phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
+{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``dist: {...}``), the total seconds,
+the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
+phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
 ``launches_t2v_block_cache``, phase 5e's, and B1 with its T2V shapes'
@@ -270,6 +291,7 @@ library to the git-ignored build/.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -503,10 +525,11 @@ FLASH_FP32_SHAPES = {
     "spatial_img_fp32": (IMG_BATCH * (FRAMES + IMAGES), TOKENS, 0),
     "temporal_img_fp32": (IMG_BATCH * TOKENS, FRAMES, 0),
 }
-# pairs of steps in one process, the backward's own route against the
-# CUDA-core backward forced: in fp32 after the resume (phase 6b), in mixed
-# precision after its TRAIN_STEPS steps (6c)
-ROUTE_PAIRS = 3
+# pairs of runs in one process, a kernel's own route against its first
+# version forced: DDIM-50 runs (phases 5, 7c), and steps in fp32 after the
+# resume (phase 6b) and in mixed precision after its TRAIN_STEPS steps (6c);
+# 2, and BC_TIMED_PAIRS 3, keep the whole script well inside its time limit
+ROUTE_PAIRS = 2
 # phase "block cache": bench.py:580's setting, also the sampler's default
 # (14·2)//3 pairs. A DDIM-50 runs 25 full forwards and 25 of the back 5
 # pairs (10 blocks): 950 launches of each per-block kernel, 0.679 of 1400
@@ -518,7 +541,7 @@ BC_LAUNCHES = BC_FULL * DEPTH + (BC_STEPS - BC_FULL) * (DEPTH - 2 * BC_PAIRS)
 BC_COSINE = 0.9
 # pairs of DDIM-50 runs, block cache against exact: the host's speed drifts
 # by up to 2x between runs on a shared host, so more than ROUTE_PAIRS
-BC_TIMED_PAIRS = 5
+BC_TIMED_PAIRS = 3
 # phase "sample many": batch 2, 3 videos asked for (rounded up to 4)
 MANY_BATCH, MANY_SAMPLES = 2, 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2436,10 +2459,11 @@ def train_quant(tmp: str, smi: str) -> dict:
     attention and the adaLN glue run kernels 1-5."""
     log = StepLog()
     reset_counts()
-    out = train.main(load_config(FFS_TRAIN, [
-        f"results_dir={tmp}/results", "max_train_steps=2", "log_every=1", "local_batch_size=1",
-        "quant_train=true",
-    ]), callbacks=[log])
+    with NoCheckpoints():
+        out = train.main(load_config(FFS_TRAIN, [
+            f"results_dir={tmp}/results", "max_train_steps=2", "log_every=1", "local_batch_size=1",
+            "quant_train=true",
+        ]), callbacks=[log])
     launches = counts()
     check_tc("quant_train fp32", 0, f32=2 * STEP_LAUNCHES["flash_attention"])
     check_vec("quant_train fp32")
@@ -2715,10 +2739,11 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
-        out = train.main(load_config(FFS_TRAIN, [
-            f"results_dir={tmp}/results", f"max_train_steps={log.steps}", "log_every=1",
-            "mixed_precision=true",
-        ]), callbacks=[log])
+        with NoCheckpoints():
+            out = train.main(load_config(FFS_TRAIN, [
+                f"results_dir={tmp}/results", f"max_train_steps={log.steps}", "log_every=1",
+                "mixed_precision=true",
+            ]), callbacks=[log])
     finally:
         log.restore()
     check_vec(f"mixed precision, all {log.steps} steps")
@@ -2791,6 +2816,22 @@ class TimedBatches:
         return batch
 
 
+class NoCheckpoints:
+    """Within it ``train.main`` writes no checkpoint (the callbacks still
+    hear of it): a cut of the script's time, ~10 s a 10.8 GB write, for the
+    runs whose checkpoint nothing reads (the MoE run's 44 GB one takes ~50
+    s). Phase 6b's run and its resume, the ucf101 run that feeds
+    ``pretrained`` and phase "dist"'s gathered checkpoint are written."""
+
+    def __enter__(self):
+        self.real = train.save_checkpoint
+        train.save_checkpoint = lambda path, *args, **kwargs: path
+        return self
+
+    def __exit__(self, *exc):
+        train.save_checkpoint = self.real
+
+
 def run_timed(config, callbacks) -> tuple:
     """``train.main(config)`` with its batch iterator timed; returns its
     result, the data kind and the TimedBatches."""
@@ -2803,7 +2844,8 @@ def run_timed(config, callbacks) -> tuple:
 
     train.make_batch_iterator = timed
     try:
-        out = train.main(config, callbacks=callbacks)  # on cuda by default
+        with NoCheckpoints():
+            out = train.main(config, callbacks=callbacks)  # on cuda by default
     finally:
         train.make_batch_iterator = real
     return out, seen[0][1], seen[0][0]
@@ -2977,16 +3019,18 @@ def run_config(path: str, tmp: str, steps: int, label: str, overrides=(), mixed:
     when there are 6, peak memory, the optimizer state's bytes, and the
     train state (under "state"). ``log`` is the callback (a ``StepLog``,
     made here unless given; a given one profiles as it was made to). The
-    experiment's directory is deleted unless ``keep``."""
+    experiment's directory is deleted unless ``keep``; its final checkpoint
+    is written only with ``keep`` (``NoCheckpoints``)."""
     log = log or StepLog(profile_after=steps - 1 if profile else 0)
     gc.collect()  # an earlier stage's state, so that the peak is this run's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out = train.main(load_config(path, [
-        f"results_dir={tmp}/results", f"max_train_steps={steps}", "log_every=1", f"ckpt_every={steps}",
-        *overrides,
-    ]), callbacks=[log])
+    with contextlib.nullcontext() if keep else NoCheckpoints():
+        out = train.main(load_config(path, [
+            f"results_dir={tmp}/results", f"max_train_steps={steps}", "log_every=1", f"ckpt_every={steps}",
+            *overrides,
+        ]), callbacks=[log])
     torch.cuda.synchronize()
     launches = counts()
     routes = check_routes(label, launches, {k: steps * c for k, c in launches_per_step.items()}, mixed)
@@ -3291,10 +3335,10 @@ class MoESpans:
             setattr(MoEMlp, name, method)
 
     def _spanned(self, name, method):
-        def call(mod, *args):
+        def call(mod, *args, **kwargs):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = method(mod, *args)
+            out = method(mod, *args, **kwargs)
             end.record()
             self.fwd[name].append((start, end))
             if torch.is_grad_enabled():
@@ -3330,12 +3374,12 @@ class MoELog(StepLog):
     """StepLog that also keeps each step's ``moe_aux``, block 0's router and
     ``wi`` before the run and whether each moved by steps 1 and 2 (adaLN-Zero
     holds the experts' gradient at 0 in step 1, so only the Switch loss moves
-    the router there), and the seconds of the final checkpoint's write."""
+    the router there)."""
 
     def on_train_start(self, config, state, experiment_dir):
         super().on_train_start(config, state, experiment_dir)
         moe = state.model.blocks[0].moe
-        self.aux, self.moved, self.ckpt_s, self.ckpt_bytes = [], {}, None, None
+        self.aux, self.moved = [], {}
         self.start = {name: getattr(moe, name).detach().clone() for name in ("router", "wi")}
 
     def on_log(self, step, metrics):
@@ -3345,11 +3389,6 @@ class MoELog(StepLog):
             moe = self.state.model.blocks[0].moe
             self.moved[step] = {name: not torch.equal(getattr(moe, name).detach(), v)
                                 for name, v in self.start.items()}
-        self.logged = time.perf_counter()  # after the profiler's stop at the last step
-
-    def on_checkpoint(self, step, path):
-        self.ckpt_s = time.perf_counter() - self.logged
-        self.ckpt_bytes = os.path.getsize(path)
 
 
 def moe_train_step_parity(device) -> dict:
@@ -3424,11 +3463,9 @@ def moe_train(tmp: str, smi: str, device) -> dict:
                    log=log)
     state = r.pop("state")
     n_params = sum(p.numel() for p in state.model.parameters())
-    r.update(parameters=n_params, moe_aux=log.aux, moved=log.moved, checkpoint_s=log.ckpt_s,
-             checkpoint_gb=log.ckpt_bytes / 1e9, disk_free_gb=disk.free / 1e9)
+    r.update(parameters=n_params, moe_aux=log.aux, moved=log.moved, disk_free_gb=disk.free / 1e9)
     print(f"  ffs_train_moe: {n_params:,} parameters; moe_aux by step {log.aux}; block 0 moved by step "
-          f"{log.moved}; the final checkpoint {r['checkpoint_gb']:.2f} GB written in "
-          f"{log.ckpt_s:.2f} s on {smi}", flush=True)
+          f"{log.moved} on {smi}", flush=True)
     if not (all(a >= MOE_AUX_MIN for a in log.aux) and log.moved[1] == dict(router=True, wi=False)
             and log.moved[2]["wi"]):
         raise AssertionError(f"ffs_train_moe: moe_aux {log.aux}, block 0 moved {log.moved}")
@@ -4053,6 +4090,211 @@ def text_phase(tmp: str, smi: str, device, timer) -> dict:
     return dict(device=smi, t5=t5, temporal_decoder=td, extras78=clip)
 
 
+# phase "dist": the world size (one process a GPU, NCCL), the steps of each
+# run, and the tolerance of FSDP against the plain trainer
+DIST_WORLD = min(4, torch.cuda.device_count()) if torch.cuda.is_available() else 0
+DIST_STEPS, DIST_MOE_STEPS = 3, 2
+DIST_REL = 1e-6
+
+
+def nccl_kernels(prof) -> dict:
+    """Device ms and count of the NCCL kernels in a profile."""
+    ms, n = 0.0, 0
+    for ev in prof.key_averages():
+        if "nccl" in ev.key.lower() and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            ms += ev.self_device_time_total / 1e3
+            n += ev.count
+    return dict(ms=ms, count=n)
+
+
+def gate_run(path: str, overrides, tmp: str, label: str) -> dict:
+    """``train.main`` on the config at ``path`` with ``overrides`` (over the
+    process group when one exists), a log every step and no checkpoint
+    written (``NoCheckpoints``): the logged losses and grad norms, the full
+    parameters after the steps (on the CPU), the step gaps, the peak memory
+    and the launches by route."""
+    from torch.distributed.tensor import DTensor
+
+    log = StepLog()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # what earlier work still holds
+    reset_counts()
+    with NoCheckpoints():
+        out = train.main(load_config(path, [f"results_dir={tmp}/gates", "log_every=1", *overrides]),
+                         callbacks=[log])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts()
+    routes = check_routes(label, launches, {k: out["final_step"] * c for k, c in STEP_LAUNCHES.items()})
+    params = {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach().cpu()
+              for k, v in log.state.model.state_dict().items()}
+    log.state = None
+    shutil.rmtree(out["experiment_dir"])
+    metrics = [dict(loss=r[2], grad_norm=r[3]) for r in log.records]
+    secs = log.step_seconds()
+    print(f"  {label}: losses {[m['loss'] for m in metrics]}, step gaps {secs}, "
+          f"peak {peak:.3f} GiB ({held:.3f} held before the run)", flush=True)
+    return dict(metrics=metrics, params=params, step_seconds=secs, peak_gib=peak, held_gib=held,
+                launches=launches, routes=routes)
+
+
+def check_gate(label: str, got: dict, want: dict, rel: float = 0.0) -> dict:
+    """``got``'s metrics and parameters against ``want``'s: equal to the bit
+    (``rel`` 0) or within ``rel`` relative L2 (relative error for the
+    metrics)."""
+    worst_param, worst_metric = 0.0, 0.0
+    for g, w in zip(got["metrics"], want["metrics"]):
+        for k in ("loss", "grad_norm"):
+            worst_metric = max(worst_metric, abs(g[k] - w[k]) / max(abs(w[k]), 1e-30))
+    bits = all(g == w for g, w in zip(got["metrics"], want["metrics"]))
+    device = torch.device("cuda", torch.cuda.current_device())
+    for k, w in want["params"].items():
+        g = got["params"][k]
+        if not torch.equal(g, w):  # the relative L2 on the card, a tensor at a time
+            bits = False
+            g, w = g.to(device, torch.float64), w.to(device, torch.float64)
+            worst_param = max(worst_param, float((g - w).norm() / w.norm().clamp_min(1e-30)))
+    r = dict(bit_equal=bits, worst_param_rel_l2=worst_param, worst_metric_rel=worst_metric,
+             s_per_step=statistics.median(got["step_seconds"]), peak_gib=got["peak_gib"],
+             held_gib=got["held_gib"], launches=got["launches"])
+    print(f"  {label}: {json.dumps({k: v for k, v in r.items() if k != 'launches'})}", flush=True)
+    if (rel == 0.0 and not bits) or worst_param > rel or worst_metric > rel:
+        raise AssertionError(f"{label}: against the plain trainer {r}, tolerance {rel}")
+    return r
+
+
+def dist_sample(device, out: str) -> dict:
+    """``sample_many.main`` at DDIM-50, batch 2, four videos, to latents."""
+    cfg = load_config(FFS_CONFIG, ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}",
+                                   f"per_proc_batch_size={MANY_BATCH}", "num_fvd_samples=4",
+                                   f"save_video_path={out}"])
+    reset_counts()
+    t0 = time.perf_counter()
+    sample_many.main(cfg, device=str(device))
+    secs = time.perf_counter() - t0
+    return dict(seconds=secs, launches=counts(),
+                latents={f: np.load(os.path.join(out, f))["latents"] for f in sorted(os.listdir(out))})
+
+
+def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
+    """One rank of phase "dist" (see the module docstring); writes its
+    results to ``tmp/dist.<rank>.json``."""
+    from latte_tpu_torch.dist.mesh import initialize_distributed
+
+    build.load_library()
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    res = dict(rank=rank, world=world, device=f"{device} {torch.cuda.get_device_name(device)}")
+    ffs, moe_cfg = [f"max_train_steps={DIST_STEPS}"], ["expert_parallel=1", f"max_train_steps={DIST_MOE_STEPS}"]
+    plain = {}
+    if world == 1:
+        # the plain trainer and the one-process sampler, before any process group
+        plain["ffs"] = gate_run(FFS_TRAIN, ffs, tmp, "ffs_train plain")
+        plain["moe"] = gate_run(MOE_TRAIN, moe_cfg, tmp, "ffs_train_moe plain")
+        plain["sample"] = dist_sample(device, os.path.join(tmp, "many_plain"))
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    initialize_distributed()
+    backend = torch.distributed.get_backend()
+    res["backend"] = backend
+    print(f"  rank {rank} of {world}: {res['device']}, backend {backend}", flush=True)
+    if backend != "nccl":
+        raise AssertionError(f"rank {rank}: the process group's backend is {backend}, not nccl")
+    if world == 1:
+        # the same runs over the group: DDP, ZeRO-1 and FSDP
+        gates = {}
+        gates["ddp"] = check_gate("ffs_train ddp, world 1", gate_run(FFS_TRAIN, ffs, tmp, "ddp"), plain["ffs"])
+        gates["zero1"] = check_gate("ffs_train zero1, world 1", gate_run(FFS_TRAIN, ffs + ["zero1=true"], tmp,
+                                                                          "zero1"), plain["ffs"])
+        gates["fsdp"] = check_gate("ffs_train fsdp, world 1", gate_run(FFS_TRAIN, ffs + ["fsdp=true"], tmp,
+                                                                        "fsdp"), plain["ffs"], DIST_REL)
+        gates["plain"] = dict(s_per_step=statistics.median(plain["ffs"]["step_seconds"]),
+                              peak_gib=plain["ffs"]["peak_gib"], held_gib=plain["ffs"]["held_gib"])
+        moe_fsdp = gate_run(MOE_TRAIN, moe_cfg + ["fsdp=true"], tmp, "ffs_train_moe fsdp")
+        gates["moe_fsdp"] = check_gate("ffs_train_moe fsdp, world 1", moe_fsdp, plain["moe"], DIST_REL)
+        gates["moe_plain"] = dict(s_per_step=statistics.median(plain["moe"]["step_seconds"]),
+                                  peak_gib=plain["moe"]["peak_gib"], held_gib=plain["moe"]["held_gib"])
+        del moe_fsdp
+        plain["ffs"]["params"] = plain["moe"]["params"] = None
+        res["gates"] = gates
+        got = dist_sample(device, os.path.join(tmp, "many_dist"))
+        want = plain.pop("sample")
+        same = sorted(got["latents"]) == sorted(want["latents"]) and all(
+            np.array_equal(got["latents"][f], want["latents"][f]) for f in want["latents"])
+        res["sample_many"] = dict(bit_equal=same, files=sorted(got["latents"]), seconds=got["seconds"],
+                                  plain_seconds=want["seconds"], launches=got["launches"])
+        print(f"  sample_many world 1 against one process: bit-equal {same}, {got['seconds']:.3f} s "
+              f"(one process {want['seconds']:.3f} s)", flush=True)
+        if not same:
+            raise AssertionError("sample_many over NCCL at world 1 wrote other latents than one process")
+    # the main path: train.main on ffs_train.yaml over this process group
+    # (world 1: DDP; world 4: dp 4), its launches, s/step, peak memory, one
+    # profiled step's NCCL kernels and the full checkpoint's gather and write
+    runs = [("ffs_train", FFS_TRAIN, [])]
+    if world >= 4:
+        runs.append(("ffs_train_moe", MOE_TRAIN, []))  # as shipped: dp 1 x ep 4
+    res["train"] = {}
+    for name, path, extra in runs:
+        log = StepLog(profile_after=DIST_STEPS - 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device) / 2**30
+        reset_counts()
+        out = train.main(load_config(path, [f"results_dir={tmp}/results_{name}", f"max_train_steps={DIST_STEPS}",
+                                            "log_every=1", f"ckpt_every={DIST_STEPS}", *extra]), callbacks=[log])
+        torch.cuda.synchronize(device)
+        launches = counts()
+        routes = check_routes(f"rank {rank} {name}", launches,
+                              {k: DIST_STEPS * c for k, c in STEP_LAUNCHES.items()})
+        t_end = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        secs = log.step_seconds()
+        nccl = nccl_kernels(log.prof)
+        if out["final_step"] != DIST_STEPS or not log.finite():
+            raise AssertionError(f"rank {rank} {name}: the run failed: {out}, {log.records}")
+        ckpt = os.path.join(out["experiment_dir"], "checkpoints", f"{DIST_STEPS:07d}.pt")
+        res["train"][name] = dict(
+            launches=launches, routes=routes, step_seconds=secs, peak_gib=peak, held_gib=held,
+            nccl_profiled_step=nccl,
+            losses=[r[2] for r in log.records], grad_norms=[r[3] for r in log.records],
+            checkpoint_seconds=t_end - log.records[-1][1],
+            checkpoint_gib=os.path.getsize(ckpt) / 2**30 if rank == 0 else None,
+            profile_ms=print_profile(f"rank {rank} {name} step {DIST_STEPS}", log.prof, secs[-1] * 1e3))
+        log.state = None
+        print(f"  rank {rank} {name} at world {world}: step gaps {secs} s, peak {peak:.3f} GiB, NCCL kernels "
+              f"in the profiled step {nccl}, launches {launches}", flush=True)
+        torch.distributed.barrier(device_ids=[rank])
+        if rank == 0:
+            shutil.rmtree(out["experiment_dir"])
+    with open(os.path.join(tmp, f"dist.{rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+    torch.distributed.destroy_process_group()
+
+
+def dist_phase(tmp: str, smi: str) -> dict:
+    """Phase 10 "dist": ``dist_worker`` in DIST_WORLD processes, one a GPU,
+    spawned from here; any rank's failure fails the phase. Returns every
+    rank's results."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    print(f"  world size {DIST_WORLD} (NCCL, one process a GPU) on {smi}", flush=True)
+    mp.spawn(dist_worker, args=(DIST_WORLD, port, tmp, smi), nprocs=DIST_WORLD, join=True)
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(tmp, f"dist.{r}.json")) as f:
+            ranks.append(json.load(f))
+    return dict(world=DIST_WORLD, device=smi, ranks=ranks)
+
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     """One kernel's entry of the JSON line: its main-path launches and its
     measurements at the main path's shape (``row``)."""
@@ -4297,6 +4539,16 @@ def main() -> int:
     phase("text", t0)
     print("text: " + json.dumps(text, default=str), flush=True)
 
+    # 10. multi-GPU training and sampling over NCCL, one process a GPU
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist = dist_phase(tmp, smi)
+    phase("dist", t0)
+    print("dist: " + json.dumps(dist, default=str), flush=True)
+    # each kernel's launches on each rank in the phase's train.main run (ffs_train)
+    dist_launches = {name: {f"rank{r['rank']}": r["train"]["ffs_train"]["launches"][name] for r in dist["ranks"]}
+                     for name in KERNELS}
+
     # each kernel's launches in the runs of phase "train more"
     more_launches = {name: {run: more[run]["launches"][name] for run in (
         "ucf101_train", "ucf101_mixed", "ffs_img_train", "ucf101_img_train")} for name in KERNELS}
@@ -4353,7 +4605,7 @@ def main() -> int:
             launches = mixed["launches"][name]
         kernels.append(kernel_row(name, k["source"], k["replaces"], launches, row,
                                   launches_train_more=more_launches[name], launches_moe=moe_launches[name],
-                                  launches_text=text_launches[name], **extra))
+                                  launches_text=text_launches[name], launches_dist=dist_launches[name], **extra))
     # the fp32 trainer's path, at its shapes (fp32, batch 5)
     fwd32 = measured["flash_attention"]
     kernels.append(kernel_row(
@@ -4363,6 +4615,7 @@ def main() -> int:
         train_pairs=entry["forward_pairs"], launches_train_more=more_launches["flash_attention"],
         launches_moe_train=moe["train"]["launches"]["flash_attention"],
         launches_text_train=text["extras78"]["train"]["launches"]["flash_attention"],
+        launches_dist=dist_launches["flash_attention"],
         img=dict(spatial=fwd32["spatial_img_fp32"], temporal=fwd32["temporal_img_fp32"])))
     for name in BACKWARD:
         kernels.append(kernel_row(
@@ -4373,7 +4626,7 @@ def main() -> int:
             train_pairs=dict(pairs=entry["pairs"], pair_median_s=entry["pair_median_s"],
                              pairs_won=entry["pairs_won"]), launches_train_more=more_launches[name],
             launches_moe_train=moe["train"]["launches"][name],
-            launches_text_train=text["extras78"]["train"]["launches"][name]))
+            launches_text_train=text["extras78"]["train"]["launches"][name], launches_dist=dist_launches[name]))
     # the "qk" mode (int8_attention: qk under attention_mode: auto, the fused
     # rule), on the same source's "qk" kernels
     qk, qk_cases = int8_run["qk"], {c: r for c, r in measured[INT8].items() if c.endswith("_qk")}
@@ -4388,7 +4641,7 @@ def main() -> int:
         ddim_pairs=dict(pairs=qk["pairs"], pairs_won=qk["pairs_won"],
                         videos_per_min=qk["pair_videos_per_min"]),
         launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8], launches_moe=moe_launches[INT8],
-        launches_text=text_launches[INT8]))
+        launches_text=text_launches[INT8], launches_dist=dist_launches[INT8]))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -36,17 +36,23 @@ def quantize_video_u8(video: np.ndarray) -> np.ndarray:
 
 
 class DataLoader:
-    """Infinite shuffled loader with worker threads and bounded prefetch."""
+    """Infinite shuffled loader with worker threads and bounded prefetch.
+
+    ``shard_id`` / ``num_shards`` give DistributedSampler-style splitting
+    (one loader per process, as the JAX loader): each epoch's shuffled order
+    is cut into ``num_shards`` disjoint strided shards that cover it."""
 
     def __init__(
         self, dataset, batch_size: int, num_workers: int = 4, seed: int = 0,
-        pixel_uint8: bool = False,
+        pixel_uint8: bool = False, shard_id: int = 0, num_shards: int = 1,
     ):
         self.pixel_uint8 = pixel_uint8
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
         self._batch_q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
@@ -60,7 +66,7 @@ class DataLoader:
             rng = random.Random(self.seed + epoch)
             order = list(range(n))
             rng.shuffle(order)
-            for i in order:
+            for i in order[self.shard_id :: self.num_shards]:
                 if self._stop.is_set():
                     return
                 self._index_q.put(i)

@@ -1,0 +1,356 @@
+"""Where each parameter, Adam moment and EMA entry lives over the (dp, ep)
+mesh, and the training step's collectives (port of the ``ep``, ``fsdp`` and
+``zero1`` rules of ``latte_tpu/dist/sharding.py``).
+
+The rules, over the port's parameter names:
+
+- **ep** (``expert_parallel > 1``): the expert axis (0) of the MoE weights
+  ``*.moe.wi``/``bi``/``wo``/``bo`` goes over ``ep``; each rank holds its
+  E/ep experts (``models/moe.py`` builds them so). Routers and every other
+  weight are replicated. Their moments and EMA mirror them.
+- **fsdp**: every block parameter (``blocks.*``) goes over ``dp`` on its
+  largest dp-divisible axis, through FSDP2's ``fully_shard`` (per block, then
+  the model, whose embedders and final layer stay replicated); a block
+  parameter with no such axis stays replicated. The axes the JAX rule
+  composes on top of its Megatron ``tp`` rule are not candidates, as there,
+  even at tp = 1: the output axis of a column-parallel linear (``qkv``,
+  ``fc1``; so their biases stay whole), the input axis of a row-parallel one
+  (``proj``, ``fc2``), and an expert weight's expert axis under ep. The EMA
+  copy is sharded alike, and the moments follow their shards.
+- **zero1**: each moment goes over ``dp`` on its parameter's largest
+  dp-divisible axis; parameters and EMA stay replicated. With ``ep`` it
+  raises the JAX trainer's ``ValueError``.
+
+The axis a split takes is the port's choice (JAX's layout stacks the blocks
+and transposes the linears); the bytes a rank holds are the JAX rule's
+(:func:`local_numels`). Tensor, sequence and pipeline parallelism wait for
+ROADMAP M6b.
+
+:class:`ShardedParams` carries a step's collectives: gradient averaging
+(dense gradients over every rank, dp·ep, so the ep replicas cannot drift;
+expert gradients over dp; FSDP's reduce-scatter over dp, then the dense
+shards over ep), the norm of the full gradient, the ZeRO-1 update of a
+rank's slice and the gather of the parameters after it, the EMA of the local
+shards, and the full state of the one-process checkpoint format, gathered to
+rank 0 and cut again on load.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+__all__ = [
+    "EXPERT_KEYS", "ZERO1_EP_ERROR", "is_expert", "is_block", "largest_axis", "fsdp_axis", "local_numels",
+    "apply_fsdp", "ShardedParams",
+]
+
+EXPERT_KEYS = ("wi", "bi", "wo", "bo")
+ZERO1_EP_ERROR = (
+    "zero1 + expert_parallel: use fsdp instead (its rule composes the ep and dp splits without "
+    "moment resharding)"
+)
+
+
+def is_expert(name: str) -> bool:
+    """An MoE expert weight: its axis 0 is the expert axis."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2] == "moe" and parts[-1] in EXPERT_KEYS
+
+
+def is_block(name: str) -> bool:
+    return name.startswith("blocks.")
+
+
+def largest_axis(shape, n: int, skip: Iterable[int] = ()) -> Optional[int]:
+    """The JAX rules' choice: the largest axis divisible by ``n`` (the first
+    of equal ones), not in ``skip``; None when none is, or it is below n."""
+    best, best_size = None, 0
+    for axis, size in enumerate(shape):
+        if axis not in skip and size % n == 0 and size > best_size:
+            best, best_size = axis, size
+    return best if best is not None and best_size >= n else None
+
+
+# the JAX rule's Megatron layers: column-parallel (output axis over tp) and
+# row-parallel (input axis over tp)
+_COLUMN_KEYS = ("qkv", "fc1", "to_q", "to_k", "to_v", "net_0_proj")
+_ROW_KEYS = ("proj", "fc2", "to_out", "net_2")
+
+
+def _tp_axes(name: str, ndim: int) -> Tuple[int, ...]:
+    """The axes of a port parameter (a linear's weight is (out, in)) that
+    the JAX rule gives to ``tp``."""
+    parts = name.split(".")
+    layer = [p for p in parts if p in _COLUMN_KEYS + _ROW_KEYS]
+    if not layer:
+        return ()
+    if layer[-1] in _COLUMN_KEYS:
+        return (0,)
+    return (1,) if parts[-1] == "weight" and ndim >= 2 else ()
+
+
+def fsdp_axis(name: str, shape, dp: int, ep: int) -> Optional[int]:
+    """The axis of a block parameter that FSDP splits over dp (None:
+    replicated, as every non-block parameter is)."""
+    if not is_block(name):
+        return None
+    skip = _tp_axes(name, len(shape)) + ((0,) if ep > 1 and is_expert(name) else ())
+    return largest_axis(shape, dp, skip=skip)
+
+
+def local_numels(named_shapes, dp: int, ep: int, fsdp: bool = False, zero1: bool = False) -> Tuple[int, int]:
+    """(parameter elements, moment elements per moment) one rank holds, from
+    the full shapes of the one-process model, by the rules above."""
+    params = moments = 0
+    for name, shape in named_shapes:
+        n = 1
+        for s in shape:
+            n *= s
+        if ep > 1 and is_expert(name):
+            n //= ep
+        p = n
+        if fsdp and fsdp_axis(name, shape, dp, ep) is not None:
+            p = n // dp
+        m = p
+        if zero1 and largest_axis(shape, dp) is not None:
+            m = n // dp
+        params += p
+        moments += m
+    return params, moments
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (an alias of its storage); a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        return t._local_tensor
+    return t
+
+
+def apply_fsdp(model: nn.Module, ctx) -> nn.Module:
+    """FSDP2 ``fully_shard`` over ``dp``: each block by :func:`fsdp_axis`
+    (``Shard(axis)``; a parameter with no axis is left to itself), then the
+    model, whose own parameters (embedders, final layer) it leaves
+    replicated."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    mesh = ctx.mesh["dp"]
+    for i, block in enumerate(model.blocks):
+        placements, ignored = {}, set()
+        for pname, p in block.named_parameters():
+            axis = fsdp_axis(f"blocks.{i}.{pname}", p.shape, ctx.dp, ctx.ep)
+            if axis is None:
+                ignored.add(p)
+            else:
+                placements[p] = Shard(axis)
+        fully_shard(block, mesh=mesh, reshard_after_forward=True,
+                    shard_placement_fn=placements.get, ignored_params=ignored or None)
+    own = {p for name, p in model.named_parameters() if not is_block(name)}
+    fully_shard(model, mesh=mesh, reshard_after_forward=True, ignored_params=own or None)
+    return model
+
+
+class _Entry:
+    """A trainable parameter: its name, the tensor the model holds, the
+    leaf the optimizer updates (the parameter, its DTensor shard, or its
+    ZeRO-1 slice, each an alias of the parameter's storage), and how its
+    gradient reduces."""
+
+    def __init__(self, name: str, param: torch.Tensor, ctx, zero1: bool):
+        from torch.distributed.tensor import DTensor
+
+        self.name, self.param = name, param
+        self.fsdp = isinstance(param, DTensor)
+        self.expert = ctx.ep > 1 and is_expert(name)
+        self.axis = largest_axis(param.shape, ctx.dp) if zero1 and ctx.dp > 1 else None
+        with torch.no_grad():
+            local = _local(param)
+            if self.axis is not None:
+                n = param.shape[self.axis] // ctx.dp
+                self.leaf = nn.Parameter(local.narrow(self.axis, ctx.dp_rank * n, n))
+            elif self.fsdp:
+                self.leaf = nn.Parameter(local)
+            else:
+                self.leaf = param
+        # the group the squares of a gradient's local part sum over for the norm
+        if self.fsdp and self.expert:
+            self.norm_group = ctx.world_group
+        elif self.fsdp:
+            self.norm_group = ctx.dp_group
+        elif self.expert:
+            self.norm_group = ctx.ep_group
+        else:
+            self.norm_group = None
+
+
+class ShardedParams:
+    """The trainable parameters of ``model`` on this rank of ``ctx`` and the
+    step's collectives (see the module docstring). ``leaves`` are what the
+    optimizer updates, in ``model.parameters()`` order, so its state dict
+    indexes them as the one-process optimizer does."""
+
+    def __init__(self, model: nn.Module, ctx, zero1: bool = False):
+        if zero1 and ctx.ep > 1:
+            raise ValueError(ZERO1_EP_ERROR)
+        self.ctx = ctx
+        self.entries = [_Entry(n, p, ctx, zero1) for n, p in model.named_parameters() if p.requires_grad]
+        # a norm that sums over no group is the one-process norm, to the bit
+        self.plain_norm = all(e.norm_group is None for e in self.entries)
+
+    @property
+    def leaves(self) -> List[torch.Tensor]:
+        return [e.leaf for e in self.entries]
+
+    def reduce_grads(self, chunks: int = 1) -> List[torch.Tensor]:
+        """Average every gradient over the ranks that share its parameter
+        (and over ``chunks`` accumulated backwards), and hand each leaf its
+        part; returns the local gradients (for :meth:`grad_norm`)."""
+        ctx, works, todo = self.ctx, [], []
+        for e in self.entries:
+            if e.param.grad is None:
+                e.param.grad = torch.zeros_like(e.param)
+            g = _local(e.param.grad)
+            if e.fsdp:  # FSDP's reduce-scatter averaged it over dp
+                group, n = (ctx.ep_group, ctx.ep) if not e.expert and ctx.ep > 1 else (None, 1)
+            elif e.expert:
+                group, n = ctx.dp_group, ctx.dp
+            else:
+                group, n = ctx.world_group, ctx.world
+            if group is not None and n > 1:
+                works.append(dist.all_reduce(g, group=group, async_op=True))
+            todo.append((e, g, n * chunks))
+        for w in works:
+            w.wait()
+        for e, g, n in todo:
+            if n != 1:
+                g.div_(n)
+            e.leaf.grad = g if e.axis is None else g.narrow(e.axis, self.ctx.dp_rank * e.leaf.shape[e.axis],
+                                                          e.leaf.shape[e.axis])
+        return [g for _, g, _ in todo]
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The norm of the full gradient from :meth:`reduce_grads`' local
+        gradients: each local part's squares summed over the ranks that
+        split it."""
+        from latte_tpu_torch.train.step import global_norm
+
+        if self.plain_norm:
+            return global_norm(grads)
+        cpu = grads[0].device.type == "cpu"
+        norms = [torch.linalg.vector_norm(g, dtype=torch.float64 if cpu else None) for g in grads]
+        by_group: Dict[object, list] = {}
+        for e, n in zip(self.entries, norms):
+            by_group.setdefault(e.norm_group, []).append(n)
+        total = None
+        for group, ns in by_group.items():
+            sq = torch.stack(ns).square().sum()
+            if group is not None:
+                dist.all_reduce(sq, group=group)
+            total = sq if total is None else total + sq
+        return total.sqrt().float()
+
+    @torch.no_grad()
+    def gather_params(self) -> None:
+        """After a ZeRO-1 update: every rank's slice back into the whole
+        parameter."""
+        for e in self.entries:
+            if e.axis is not None:
+                parts = [torch.empty_like(e.leaf) for _ in range(self.ctx.dp)]
+                dist.all_gather(parts, e.leaf.contiguous(), group=self.ctx.dp_group)
+                e.param.copy_(torch.cat(parts, dim=e.axis))
+
+    @staticmethod
+    @torch.no_grad()
+    def update_ema(ema: nn.Module, model: nn.Module, decay: float) -> None:
+        """``ema ← decay·ema + (1 − decay)·params`` on the local shards (the
+        EMA is sharded as the model is)."""
+        torch._foreach_lerp_([_local(p) for p in ema.parameters()], [_local(p) for p in model.parameters()],
+                             1.0 - decay)
+
+    # -- the one-process checkpoint format -------------------------------
+
+    def _full(self, name: str, t: torch.Tensor, like: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
+        """The whole tensor of which ``t`` is this rank's part: ``like`` is
+        the parameter (a DTensor gives the dp placement), ``axis`` a ZeRO-1
+        slice's."""
+        from torch.distributed.tensor import DTensor
+
+        ctx = self.ctx
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        elif isinstance(like, DTensor):
+            t = DTensor.from_local(t, like.device_mesh, like.placements, shape=like.shape,
+                                   stride=like.stride()).full_tensor()
+        if axis is not None:
+            parts = [torch.empty_like(t) for _ in range(ctx.dp)]
+            dist.all_gather(parts, t.contiguous(), group=ctx.dp_group)
+            t = torch.cat(parts, dim=axis)
+        if ctx.ep > 1 and is_expert(name):
+            parts = [torch.empty_like(t) for _ in range(ctx.ep)]
+            dist.all_gather(parts, t.contiguous(), group=ctx.ep_group)
+            t = torch.cat(parts)
+        return t.detach().cpu() if ctx.rank == 0 else None
+
+    def _part(self, name: str, full: torch.Tensor, like: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
+        """This rank's part of a whole tensor, the inverse of :meth:`_full`."""
+        from torch.distributed.tensor import DTensor
+
+        ctx = self.ctx
+        if ctx.ep > 1 and is_expert(name):
+            full = full.chunk(ctx.ep)[ctx.ep_rank]
+        if isinstance(like, DTensor):
+            dim = like.placements[0].dim
+            chunks = full.chunk(ctx.dp, dim)
+            full = chunks[ctx.dp_rank] if ctx.dp_rank < len(chunks) else full.narrow(dim, 0, 0)
+        if axis is not None:
+            n = full.shape[axis] // ctx.dp
+            full = full.narrow(axis, ctx.dp_rank * n, n)
+        return full
+
+    def full_state_dict(self, module: nn.Module) -> Dict[str, torch.Tensor]:
+        """``module``'s state dict with every tensor whole, on the CPU of
+        rank 0 (None elsewhere; a collective: every rank calls it)."""
+        params = dict(module.named_parameters())
+        return {name: self._full(name, t, params.get(name, t)) for name, t in module.state_dict().items()}
+
+    @torch.no_grad()
+    def load_full_state_dict(self, module: nn.Module, full: Dict[str, torch.Tensor]) -> None:
+        """Each parameter takes its part of a whole state dict (strict)."""
+        params = dict(module.named_parameters())
+        missing = set(module.state_dict()) ^ set(full)
+        if missing:
+            raise KeyError(f"state dict keys differ: {sorted(missing)[:8]}")
+        for name, p in params.items():
+            _local(p).copy_(self._part(name, full[name].to(p.device), p))
+
+    def full_optimizer_state(self, optimizer: torch.optim.Optimizer) -> dict:
+        """The optimizer's state dict in the one-process layout, every
+        moment whole (on rank 0, as :meth:`full_state_dict`)."""
+        sd = optimizer.state_dict()
+        for i, e in enumerate(self.entries):
+            st = sd["state"].get(i)
+            if st is None:
+                continue
+            st = dict(st)
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key] = self._full(e.name, st[key], e.param, e.axis)
+            sd["state"][i] = st
+        return sd
+
+    def load_full_optimizer_state(self, optimizer: torch.optim.Optimizer, full: dict) -> None:
+        sd = {"state": {}, "param_groups": full["param_groups"]}
+        for i, e in enumerate(self.entries):
+            st = full["state"].get(i)
+            if st is None:
+                continue
+            st = dict(st)
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key] = self._part(e.name, st[key], e.param, e.axis).clone()
+            sd["state"][i] = st
+        optimizer.load_state_dict(sd)

@@ -121,6 +121,7 @@ class Latte(nn.Module):
         moe_experts: int = 0,
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
+        moe_mesh=None,
     ):
         super().__init__()
         if extras not in (1, 2, 78):
@@ -156,6 +157,7 @@ class Latte(nn.Module):
                 hidden_size, num_heads, mlp_ratio, plain=plain, quantized=quantized,
                 int8_attention=int8_attention, attention_mode=attention_mode,
                 moe_experts=moe_experts, moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
+                moe_mesh=moe_mesh,
             )
             for _ in range(depth)
         )

@@ -288,6 +288,7 @@ class AdaLNBlock(nn.Module):
         moe_experts: int = 0,
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
+        moe_mesh=None,
     ):
         super().__init__()
         self.plain = plain
@@ -302,7 +303,8 @@ class AdaLNBlock(nn.Module):
 
             if quantized:
                 raise NotImplementedError(MOE_INT8_REFUSAL)
-            self.moe = MoEMlp(hidden_size, hidden, hidden_size, moe_experts, moe_top_k, moe_capacity_factor)
+            self.moe = MoEMlp(hidden_size, hidden, hidden_size, moe_experts, moe_top_k, moe_capacity_factor,
+                              mesh=moe_mesh)
         else:
             self.mlp = Mlp(hidden_size, hidden, hidden_size, quantized=quantized)
         mod_quantized = quantized if quantized in (True, "static", "calib") else False

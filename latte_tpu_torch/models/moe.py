@@ -1,5 +1,6 @@
-"""Mixture-of-Experts feed-forward on one device (port of
-``latte_tpu/models/moe.py``).
+"""Mixture-of-Experts feed-forward (port of ``latte_tpu/models/moe.py``),
+on one device or split over the ranks of a :class:`~latte_tpu_torch.dist.
+mesh.DistContext` (expert parallelism, below).
 
 The block's dense MLP becomes E expert MLPs behind a learned top-k router
 (Switch / GShard). Parameters keep the JAX names and layouts: ``router``
@@ -42,6 +43,27 @@ cut off, and reads a real row at weight zero.
 The layer returns ``(y, aux)``; its forward is :meth:`MoEMlp.route`,
 :meth:`MoEMlp.dispatch`, :meth:`MoEMlp.experts` and :meth:`MoEMlp.combine`
 in turn.
+
+Over several ranks (``mesh``, the counterpart of the JAX layer's
+``ep_axis``), the semantics stay those of the JAX layer on the global batch,
+whose rows are split over ``dp`` and replicated over ``ep``:
+
+- Each rank holds the E/ep experts ``[ep_rank·E/ep, (ep_rank+1)·E/ep)``;
+  ``reset_parameters`` draws all E from the generator and keeps its own,
+  so a seed gives the one-process model's weights.
+- The groups and the capacity are the global batch's (g from S·dp tokens).
+  Where a group spans the ranks' rows, the first choices are all-gathered
+  over ``dp`` to place each token in its queue; else nothing is exchanged.
+- Every rank of an ep group routes the group's tokens alike, runs its own
+  experts on them and all-reduces its share of the combine over ``ep``.
+  That all-reduce passes the gradient through unchanged, and the inputs of
+  the experts' share (the tokens and the gates) all-reduce their gradients
+  over ``ep``: each rank's share of the input gradient is partial, and the
+  sum is the whole, so every rank ends with the one-process gradient of
+  every weight it holds.
+- f_e of the Switch loss is all-reduced over ``dp``, P_e stays this rank's
+  mean: the dp mean of the ranks' losses (and of their gradients, which the
+  step averages) is the global batch's ``E · Σ_e f_e · P_e``.
 """
 
 from __future__ import annotations
@@ -50,6 +72,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -95,6 +118,35 @@ def loss_columns(pair_aux: list) -> Optional[torch.Tensor]:
     return torch.stack(pair_aux, dim=1)
 
 
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced (summed) over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _SumOut(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` forward; the gradient passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class MoEMlp(_Fp32Scales):
     """Drop-in MoE replacement for :class:`~latte_tpu_torch.models.layers.Mlp`
     and the T2V feed-forward: ``(B, N, D) -> ((B, N, D_out), aux)``.
@@ -102,6 +154,8 @@ class MoEMlp(_Fp32Scales):
     ``activation_fn``: ``"gelu-approximate"`` (tanh gelu, the Latte MLP) or
     ``"geglu"`` (``wi`` projects to 2H; the first half times the exact gelu
     of the second, the LatteT2V feed-forward). ``E == 1`` is the dense MLP.
+    ``mesh`` (a ``DistContext`` with dp·ep > 1) splits it over the ranks as
+    the module docstring says; ``None`` is the one-process layer.
     """
 
     FP32_BUFFERS = ("router",)
@@ -116,18 +170,27 @@ class MoEMlp(_Fp32Scales):
         capacity_factor: float = 1.25,
         activation_fn: str = "gelu-approximate",
         group_size: int = 512,
+        mesh=None,
     ):
         super().__init__()
         if activation_fn not in ACTIVATIONS:
             raise NotImplementedError(activation_fn)
+        if mesh is not None and mesh.dp * mesh.ep == 1:
+            mesh = None
+        ep = mesh.ep if mesh is not None else 1
+        if num_experts % ep:
+            raise ValueError(f"expert_parallel={ep} needs moe_experts (got {num_experts}) divisible by it")
+        self.mesh = mesh
+        self.local_experts = num_experts // ep
+        self.first_expert = (mesh.ep_rank if mesh is not None else 0) * self.local_experts
         self.num_experts = num_experts
         self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.activation_fn = activation_fn
         self.group_size = group_size
-        E, H = num_experts, hidden_features
+        E, H = self.local_experts, hidden_features
         h_in = 2 * H if activation_fn == "geglu" else H
-        self.router = nn.Parameter(torch.empty(in_features, E))
+        self.router = nn.Parameter(torch.empty(in_features, num_experts))
         self.wi = nn.Parameter(torch.empty(E, in_features, h_in))
         self.bi = nn.Parameter(torch.zeros(E, h_in))
         self.wo = nn.Parameter(torch.empty(E, H, out_features))
@@ -137,11 +200,15 @@ class MoEMlp(_Fp32Scales):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX layer's init: router N(0, 0.02²), each expert's ``wi`` and
-        ``wo`` slice xavier-uniform over its (in, out) fans, zero biases."""
+        ``wo`` slice xavier-uniform over its (in, out) fans, zero biases.
+        Every expert is drawn, in order; a rank keeps its own."""
         nn.init.normal_(self.router, std=0.02, generator=generator)
         for w in (self.wi, self.wo):
+            scratch = torch.empty_like(w[0])
             for e in range(self.num_experts):
-                nn.init.xavier_uniform_(w[e], generator=generator)
+                local = e - self.first_expert
+                target = w[local] if 0 <= local < self.local_experts else scratch
+                nn.init.xavier_uniform_(target, generator=generator)
         nn.init.zeros_(self.bi)
         nn.init.zeros_(self.bo)
 
@@ -161,29 +228,45 @@ class MoEMlp(_Fp32Scales):
             denom = sum(gates) + 1e-9
             gates = [gate / denom for gate in gates]
         f = (choices[0][:, None] == torch.arange(E, device=xf.device)).float().mean(dim=0)
+        if self.mesh is not None and self.mesh.dp > 1:
+            # f_e of the global batch; P_e stays this rank's (see the module docstring)
+            dist.all_reduce(f, group=self.mesh.dp_group)
+            f = f / self.mesh.dp
         return probs, choices, gates, E * (f * probs.mean(dim=0)).sum()
 
-    def dispatch(self, xf: torch.Tensor, choices, gates, g: int, C: int):
+    def dispatch(self, xf: torch.Tensor, choices, gates, g: int, C: int, offset: int = 0, context=None):
         """Each (token, choice) to its place in its expert's queue of the
         group: ``(xin, slots, weights)``, the expert-major (E, G·C, D)
         buffer (zeros where no token sits), each choice's row in it (S,)
         (``E·G·C``, the spare row, when dropped), and its combine weight
-        (the gate, 0 when dropped) in the input's type."""
+        (the gate, 0 when dropped) in the input's type.
+
+        Over several ranks E is this rank's experts (a choice of another
+        rank's expert weighs 0 here), the xf rows are tokens ``[offset,
+        offset + S)`` of the global sequence, G the groups they touch, and
+        ``context`` the choices of every token of those groups (all-gathered
+        over dp; None: xf's own)."""
         S, D = xf.shape
-        E, G = self.num_experts, S // g
+        E, e0 = self.local_experts, self.first_expert
+        ctx = choices if context is None else context
+        lo = offset - (offset // g) * g  # xf's first token within the context
+        grp0 = offset // g
+        G = (offset + S - 1) // g - grp0 + 1
+        Gc = ctx[0].shape[0] // g
         rows = E * G * C
-        experts = torch.arange(E, device=xf.device)
-        counts = torch.zeros((G, 1, E), dtype=torch.int32, device=xf.device)
-        group = torch.arange(G, device=xf.device)[:, None]
+        experts = torch.arange(self.num_experts, device=xf.device)
+        counts = torch.zeros((Gc, 1, self.num_experts), dtype=torch.int32, device=xf.device)
+        group = (torch.arange(offset, offset + S, device=xf.device) // g - grp0).view(S)
         slots, weights = [], []
-        for idx, gate in zip(choices, gates):
-            m = (idx[:, None] == experts).to(torch.int32).view(G, g, E)
-            pos = (m.cumsum(dim=1) - m + counts).gather(2, idx.view(G, g, 1)).squeeze(2)
+        for full, gate in zip(ctx, gates):
+            m = (full[:, None] == experts).to(torch.int32).view(Gc, g, self.num_experts)
+            pos = (m.cumsum(dim=1) - m + counts).gather(2, full.view(Gc, g, 1)).view(-1)[lo : lo + S]
             counts = counts + m.sum(dim=1, keepdim=True)
-            keep = pos < C
-            slot = (idx.view(G, g) * G + group) * C + pos
-            slots.append(torch.where(keep, slot, rows).view(S))
-            weights.append((gate * keep.view(S)).to(xf.dtype))
+            idx = full.view(-1)[lo : lo + S] - e0
+            keep = (pos < C) & (idx >= 0) & (idx < E)
+            slot = (idx * G + group) * C + pos
+            slots.append(torch.where(keep, slot, rows))
+            weights.append((gate * keep).to(xf.dtype))
         xin = xf.new_zeros((rows + 1, D))
         for slot in slots:
             xin.index_copy_(0, slot, xf)
@@ -202,19 +285,38 @@ class MoEMlp(_Fp32Scales):
         out = torch.baddbmm(self.bo.to(dtype)[:, None], h, self.wo.to(dtype))
         return out.view(-1, out.shape[-1])
 
-    def combine(self, out: torch.Tensor, slots, weights) -> torch.Tensor:
+    def combine(self, out: torch.Tensor, slots, weights, dtype=None) -> torch.Tensor:
         """Each token's k output rows, weighted, summed in fp32 and rounded
-        once to the output's type: (S, D_out). A dropped choice reads the
-        last real row at weight 0."""
+        once to ``dtype`` (the output's type; None keeps fp32): (S, D_out).
+        A dropped choice reads the last real row at weight 0."""
         last = out.shape[0] - 1
         y = sum(w.float()[:, None] * out.index_select(0, slot.clamp(max=last)).float()
                 for slot, w in zip(slots, weights))
-        return y.to(out.dtype)
+        return y.to(out.dtype if dtype is None else dtype)
 
     def forward(self, x: torch.Tensor):
         B, N, D = x.shape
-        g, C = moe_groups(B * N, self.num_experts, self.top_k, self.capacity_factor, self.group_size)
-        xf = x.reshape(B * N, D)
+        S, mesh = B * N, self.mesh
+        dp, dp_rank, ep = (mesh.dp, mesh.dp_rank, mesh.ep) if mesh is not None else (1, 0, 1)
+        g, C = moe_groups(S * dp, self.num_experts, self.top_k, self.capacity_factor, self.group_size)
+        offset = dp_rank * S
+        xf = x.reshape(S, D)
         _, choices, gates, aux = self.route(xf)
-        xin, slots, weights = self.dispatch(xf, choices, gates, g, C)
-        return self.combine(self.experts(xin), slots, weights).view(B, N, -1), aux
+        context = None
+        if offset % g or S % g:
+            # a group spans the ranks' rows: its queues need every rank's choices
+            first, last = offset // g * g, ((offset + S - 1) // g + 1) * g
+            context = []
+            for c in choices:
+                parts = [torch.empty_like(c) for _ in range(dp)]
+                dist.all_gather(parts, c.contiguous(), group=mesh.dp_group)
+                context.append(torch.cat(parts)[first:last])
+        if ep > 1:
+            xf = _SumGrad.apply(xf, mesh.ep_group)
+            gates = [_SumGrad.apply(gate, mesh.ep_group) for gate in gates]
+        xin, slots, weights = self.dispatch(xf, choices, gates, g, C, offset, context)
+        # over ep the shares are summed in fp32 before the one rounding
+        y = self.combine(self.experts(xin), slots, weights, dtype=torch.float32 if ep > 1 else None)
+        if ep > 1:
+            y = _SumOut.apply(y, mesh.ep_group)
+        return y.to(x.dtype).view(B, N, -1), aux

@@ -53,7 +53,7 @@ def get_model(name: str, **overrides) -> Latte:
     raise ValueError(f"unknown model {name!r}; known: {sorted(Latte_models) + sorted(LatteIMG_models)}")
 
 
-def get_models(args, quantized=False) -> Latte:
+def get_models(args, quantized=False, moe_mesh=None) -> Latte:
     """Config-object factory: ``args`` needs ``model``, ``image_size``,
     ``num_frames``, ``learn_sigma``, ``extras``, and optionally
     ``num_classes``, ``attention_mode``, ``int8_attention`` (checked against
@@ -61,12 +61,13 @@ def get_models(args, quantized=False) -> Latte:
     changes), ``gradient_checkpointing`` with ``remat_policy``, and for a
     LatteIMG name ``use_image_num``, and ``moe_experts`` with
     ``moe_top_k`` and ``moe_capacity_factor``. ``quantized`` is the blocks'
-    int8 mode (see ``models.layers``)."""
+    int8 mode (see ``models.layers``); ``moe_mesh`` the ``DistContext`` the
+    experts are split over (``models.moe``)."""
     mode = str(getattr(args, "attention_mode", None) or "auto")
     if mode not in _ATTENTION_MODES:
         raise NotImplementedError(
             f"attention_mode={mode!r}: the port runs one attention (its flash "
-            f"kernel) for {_ATTENTION_MODES}; ring attention comes with multi-GPU"
+            f"kernel) for {_ATTENTION_MODES}; ring attention comes with multi-GPU (ROADMAP M6b)"
         )
     latent_size = int(
         getattr(args, "latent_size", 0) or int(getattr(args, "image_size", 256)) // 8
@@ -105,6 +106,8 @@ def get_models(args, quantized=False) -> Latte:
             common["moe_top_k"] = int(args.moe_top_k)
         if getattr(args, "moe_capacity_factor", None):
             common["moe_capacity_factor"] = float(args.moe_capacity_factor)
+        if moe_mesh is not None:
+            common["moe_mesh"] = moe_mesh
     if args.model in LatteIMG_models:
         common["use_image_num"] = int(getattr(args, "use_image_num", 0) or 0)
     return get_model(args.model, **common)

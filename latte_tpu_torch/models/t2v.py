@@ -52,7 +52,7 @@ JAX model sees; ``forward(..., return_aux=True)`` also returns the blocks'
 Switch losses, (columns, n_pairs) with the spatial blocks' first. A
 quantized model with MoE raises, as in JAX.
 
-Not ported: ``attention_mode: ring`` (M6) and ``gradient_checkpointing``
+Not ported: ``attention_mode: ring`` (M6b) and ``gradient_checkpointing``
 (no entry point trains LatteT2V): each raises ``NotImplementedError``.
 """
 
@@ -217,12 +217,12 @@ class _AdaLNSingleBlock(_Fp32Scales):
         self.plain = plain
         self.scale_shift_table = nn.Parameter(torch.randn(6, dim) / dim**0.5)
         self.attn1 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain)
-        experts, top_k, capacity_factor = moe
+        experts, top_k, capacity_factor, mesh = moe
         self.is_moe = experts > 1
         if self.is_moe:
             if quantized:
                 raise NotImplementedError(MOE_INT8_REFUSAL)
-            self.moe = MoEMlp(dim, 4 * dim, dim, experts, top_k, capacity_factor, activation_fn)
+            self.moe = MoEMlp(dim, 4 * dim, dim, experts, top_k, capacity_factor, activation_fn, mesh=mesh)
         else:
             self.ff = T2VFeedForward(dim, activation_fn=activation_fn, chunk_size=ff_chunk_size,
                                      quantized=quantized)
@@ -246,7 +246,7 @@ class T2VSpatialBlock(_AdaLNSingleBlock):
     then the feed-forward."""
 
     def __init__(self, dim, num_heads, head_dim, activation_fn="gelu-approximate",
-                 ff_chunk_size=None, quantized=False, plain=False, moe=(0, 2, 1.25)):
+                 ff_chunk_size=None, quantized=False, plain=False, moe=(0, 2, 1.25, None)):
         super().__init__(dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe)
         self.attn2 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain)
 
@@ -270,7 +270,7 @@ class T2VTemporalBlock(_AdaLNSingleBlock):
     axis only)."""
 
     def __init__(self, dim, num_heads, head_dim, activation_fn="gelu-approximate",
-                 quantized=False, plain=False, moe=(0, 2, 1.25)):
+                 quantized=False, plain=False, moe=(0, 2, 1.25, None)):
         super().__init__(dim, num_heads, head_dim, activation_fn, None, quantized, plain, moe)
 
     def forward(self, x, t_mod) -> torch.Tensor:
@@ -366,12 +366,13 @@ class LatteT2V(_Fp32Scales):
         moe_experts: int = 0,
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
+        moe_mesh=None,
         gradient_checkpointing: bool = False,
         plain: bool = False,
     ):
         super().__init__()
         if attention_mode == "ring":
-            raise NotImplementedError("attention_mode: ring is not ported yet (ROADMAP M6, multi-GPU)")
+            raise NotImplementedError("attention_mode: ring is not ported yet (ROADMAP M6b, sequence parallelism)")
         if attention_mode not in ATTENTION_MODES:
             raise ValueError(f"attention_mode {attention_mode!r}; expected one of {ATTENTION_MODES}")
         if gradient_checkpointing:
@@ -394,7 +395,7 @@ class LatteT2V(_Fp32Scales):
         self.adaln_single = AdaLayerNormSingle(D)
         self.caption_projection = CaptionProjection(caption_channels, D)
         block = dict(activation_fn=activation_fn, quantized=quantized, plain=plain,
-                     moe=(moe_experts, moe_top_k, moe_capacity_factor))
+                     moe=(moe_experts, moe_top_k, moe_capacity_factor, moe_mesh))
         self.transformer_blocks = nn.ModuleList(
             T2VSpatialBlock(D, num_attention_heads, attention_head_dim,
                             ff_chunk_size=feed_forward_chunk_size, **block)

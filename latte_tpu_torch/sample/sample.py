@@ -77,7 +77,7 @@ def check_config(config: Config) -> None:
     if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             f"tensor_parallel={config.tensor_parallel}: not ported yet; comes with the "
-            "multi-GPU slice"
+            "multi-GPU slice's second half (ROADMAP M6b)"
         )
     if quantized_mode(config) and int(getattr(config, "moe_experts", 0) or 0) > 1:
         raise NotImplementedError(MOE_INT8_REFUSAL)
@@ -178,13 +178,14 @@ def sample_loop(
     z: torch.Tensor,
     y: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    noise_schedule=None,
 ) -> torch.Tensor:
     """Final latents (B, F, 4, L, L), fp32, from noise ``z`` (B, F, 4, L, L)
     and, for a class-conditional model, labels ``y`` (B,): the one
     construction of the sampler (the CFG doubling and combine, DDPM or DDIM,
     the standard or the block-cache loop), the counterpart of the JAX
     package's ``build_sample_impl``. ``generator`` draws DDPM's per-step
-    noise."""
+    noise, unless ``noise_schedule[t]`` gives it (the loops' rule)."""
     n = z.shape[0]
     diffusion = create_diffusion(str(config.num_sampling_steps))
     method = str(getattr(config, "sample_method", "ddpm")).lower()
@@ -202,12 +203,14 @@ def sample_loop(
             latents = cached_sample_loop(
                 diffusion, model, z, cache_pairs=k, cache_interval=interval, y=y,
                 cfg_scale=cfg_scale, sample_method=method, generator=generator,
+                noise_schedule=noise_schedule,
             )
         else:
             model_fn = functools.partial(model.forward_with_cfg, cfg_scale=cfg_scale) if use_cfg else model
             loop = ddim_sample_loop if method == "ddim" else p_sample_loop
             kwargs = {} if y is None else {"y": y}
-            latents = loop(diffusion, model_fn, z, generator=generator, model_kwargs=kwargs)
+            latents = loop(diffusion, model_fn, z, generator=generator, model_kwargs=kwargs,
+                           noise_schedule=noise_schedule)
     return latents[:n]
 
 

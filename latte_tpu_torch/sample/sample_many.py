@@ -1,18 +1,26 @@
-"""Batch sampling for FVD evaluation (port of ``latte_tpu/sample/sample_many.py``)
-in one process on one device.
+"""Batch sampling for FVD evaluation (port of ``latte_tpu/sample/sample_many.py``),
+in one process or in one process per GPU.
 
 Writes ``num_fvd_samples`` videos (rounded up to a whole number of batches)
 under ``save_video_path`` as ``{idx:04d}.mp4``, or as ``{idx:04d}.npz``
 latents when no VAE is configured, with the reference's interleaved global
-index ``idx = it·global_batch + p·n_dev + s`` (position p within shard s),
-here at ``n_dev = 1``. The model comes from ``sample.build_model`` and the
-sampler from ``sample.sample_loop``, so the int8 modes and the block cache
-apply as in the single-video entry point. Under ``WORLD_SIZE > 1`` it
-raises ``NotImplementedError``: the multi-process form comes with the
-multi-GPU slice. Runs on ``cuda`` unless asked for the CPU::
+index ``idx = it·global_batch + p·n_dev + s`` (position p within shard s).
+``n_dev`` is the world size (torchrun, or ``coordinator_address``/
+``num_processes``/``process_id``); rank s samples shard s, draws its z from
+``stream_seed(seed, 0, it·n_dev + s)`` and writes its own indices. The
+labels and DDPM's noise of iteration ``it`` are drawn for the global batch,
+as the JAX program draws them, and each rank takes its rows, so any world
+size writes what one process writes for the concatenated shards. With
+``create_npz: true`` rank 0 bundles the folder (``samples_N.npz``) after a
+barrier. An MoE model samples in one process only (its dispatch groups span
+the shards). The model comes from ``sample.build_model`` and the sampler
+from ``sample.sample_loop``, so the int8 modes and the block cache apply as
+in the single-video entry point. Runs on ``cuda`` unless asked for the CPU::
 
     python -m latte_tpu_torch.sample.sample_many --config configs/ffs/ffs_sample.yaml \
         [--device cpu] [key=value ...]
+    torchrun --nproc_per_node=4 -m latte_tpu_torch.sample.sample_many \
+        --config configs/ffs/ffs_sample.yaml
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.config import Config, load_config
+from latte_tpu_torch.dist.mesh import barrier, initialize_distributed, is_main_process
 from latte_tpu_torch.sample import sample
 from latte_tpu_torch.utils import create_logger, read_video, resolve_device, save_video
 
@@ -52,20 +61,24 @@ class BatchGenerator:
     of reading files), and used by :func:`main`, which writes the files."""
 
     def __init__(self, config: Config, logger=None, device: Optional[str] = None):
-        world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: sample_many runs in one process on one device; the "
-                "multi-process form comes with the multi-GPU slice"
-            )
         sample.block_cache_interval(config)  # a bad block-cache setting fails before the build
+        dev = initialize_distributed(
+            getattr(config, "coordinator_address", None), getattr(config, "num_processes", None),
+            getattr(config, "process_id", None), device,
+        )
+        self.n_dev = torch.distributed.get_world_size() if dev is not None else 1
+        self.shard = torch.distributed.get_rank() if dev is not None else 0
+        if self.n_dev > 1 and int(getattr(config, "moe_experts", 0) or 0) > 1:
+            raise NotImplementedError(
+                f"moe_experts with {self.n_dev} processes: the JAX program's dispatch groups span the "
+                "shards of its global batch; sample an MoE model in one process"
+            )
         self.config = config
-        self.device = resolve_device(device)
+        self.device = dev if dev is not None else resolve_device(device)
         self.model = sample.build_model(config, self.device)
         if logger and not getattr(config, "ckpt", None):
             logger.info("WARNING: no checkpoint given — sampling from random init")
         self.vae = sample.load_vae(config, self.device)
-        self.n_dev = 1
         self.per_dev = int(getattr(config, "per_proc_batch_size", 2))
         self.global_batch = self.per_dev * self.n_dev
         self.seed = int(getattr(config, "seed", 0) or 0)
@@ -74,26 +87,33 @@ class BatchGenerator:
     def _generator(self, stream: int, index: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(stream_seed(self.seed, stream, index))
 
+    def _rows(self) -> slice:
+        return slice(self.shard * self.per_dev, (self.shard + 1) * self.per_dev)
+
     def draw(self, it: int):
-        """Iteration ``it``'s noise z (global_batch, F, 4, L, L), shard by
-        shard, and, under ``extras: 2``, its labels (global_batch,) in
-        [0, num_classes), else None."""
+        """Iteration ``it``'s noise z of this process's shard
+        (per_proc_batch_size, F, 4, L, L), and, under ``extras: 2``, its
+        labels in [0, num_classes), drawn for the global batch, else None."""
         shape = sample.latent_shape(self.config, self.per_dev)
-        z = torch.cat([
-            torch.randn(shape, generator=self._generator(Z_STREAM, it * self.n_dev + s), device=self.device)
-            for s in range(self.n_dev)
-        ])
+        z = torch.randn(shape, generator=self._generator(Z_STREAM, it * self.n_dev + self.shard), device=self.device)
         y = None
         if int(getattr(self.config, "extras", 1)) == 2:
             y = torch.randint(0, self.model.num_classes, (self.global_batch,),
                               generator=self._generator(LABEL_STREAM, it), device=self.device)
+            if self.n_dev > 1:
+                y = y[self._rows()]
         return z, y
 
     def sample_latents(self) -> torch.Tensor:
-        """The next batch's final latents (global_batch, F, 4, L, L), fp32, on
-        the device."""
+        """This shard's next final latents (per_proc_batch_size, F, 4, L, L),
+        fp32, on the device."""
         z, y = self.draw(self.it)
-        latents = sample.sample_loop(self.model, self.config, z, y, self._generator(NOISE_STREAM, self.it))
+        generator = self._generator(NOISE_STREAM, self.it)
+        noise = None
+        if self.n_dev > 1:
+            cfg = int(getattr(self.config, "extras", 1)) == 2 and float(getattr(self.config, "cfg_scale", 1.0)) > 1.0
+            noise = ShardNoise(generator, (self.global_batch,) + tuple(z.shape[1:]), self._rows(), cfg)
+        latents = sample.sample_loop(self.model, self.config, z, y, generator, noise_schedule=noise)
         self.it += 1
         return latents
 
@@ -109,25 +129,47 @@ class BatchGenerator:
         return self.decode_to_uint8(self.sample_latents())
 
 
+class ShardNoise:
+    """DDPM's per-step noise of one shard, as ``noise_schedule``: each step
+    draws the noise of the global x (``global_shape``; twice the rows under
+    CFG, [cond | uncond]) from ``generator`` and returns the shard's
+    ``rows`` of each half."""
+
+    def __init__(self, generator: torch.Generator, global_shape, rows: slice, cfg: bool):
+        self.generator, self.rows, self.cfg = generator, rows, cfg
+        self.shape = ((2 if cfg else 1) * global_shape[0],) + tuple(global_shape[1:])
+
+    def __getitem__(self, t: int) -> torch.Tensor:
+        full = torch.randn(self.shape, generator=self.generator, device=self.generator.device)
+        if not self.cfg:
+            return full[self.rows]
+        half = self.shape[0] // 2
+        return torch.cat([full[self.rows], full[half:][self.rows]])
+
+
 def main(config: Config, device: Optional[str] = None) -> str:
     """Write the run's videos (or latents) under ``save_video_path``; return
     that directory."""
-    logger = create_logger()
-    gen = BatchGenerator(config, logger=logger, device=device)
+    gen = BatchGenerator(config, device=device)
+    logger = create_logger(enabled=is_main_process())
+    if not getattr(config, "ckpt", None):
+        logger.info("WARNING: no checkpoint given — sampling from random init")
     global_batch, per_dev, n_dev = gen.global_batch, gen.per_dev, gen.n_dev
     total = int(getattr(config, "num_fvd_samples", 2048))
     total = int(math.ceil(total / global_batch) * global_batch)
     iterations = total // global_batch
-    logger.info(f"sampling {total} videos on {gen.device} ({per_dev} a batch, {iterations} iterations)")
+    logger.info(f"sampling {total} videos on {n_dev} x {gen.device.type} ({per_dev} a batch each, "
+                f"{iterations} iterations)")
 
     out_dir = getattr(config, "save_video_path", None) or "./sampled_videos"
     os.makedirs(out_dir, exist_ok=True)
     for it in range(iterations):
         latents = gen.sample_latents()
-        for b in range(global_batch):
+        for b in range(latents.shape[0]):
             # the reference's interleave: rank-minor, position-major; the
             # batch is shard-major, b = s·per_dev + p
             s, p = divmod(b, per_dev)
+            s += gen.shard
             idx = it * global_batch + p * n_dev + s
             if gen.vae is not None:
                 video = gen.decode_to_uint8(latents[b : b + 1])[0]
@@ -135,6 +177,9 @@ def main(config: Config, device: Optional[str] = None) -> str:
             else:
                 np.savez(os.path.join(out_dir, f"{idx:04d}.npz"), latents=latents[b].float().cpu().numpy())
         logger.info(f"iteration {it + 1}/{iterations} done")
+    barrier()
+    if getattr(config, "create_npz", False) and is_main_process():
+        logger.info(f"wrote {create_npz_from_sample_folder(out_dir, total)}")
     return out_dir
 
 

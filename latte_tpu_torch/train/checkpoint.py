@@ -7,6 +7,12 @@ dicts, the optimizer's state dict, the step and the run's config. The
 port's sampler reads it through
 :func:`latte_tpu_torch.convert.load_reference_checkpoint`, preferring EMA,
 and the trainer's ``pretrained`` option through :func:`load_pretrained`.
+
+Over several GPUs (``shards``, a ``dist.sharding.ShardedParams``) every
+rank takes part in gathering the full state from its FSDP, ZeRO-1 and
+expert shards, rank 0 writes it in the same format (the names carry no
+wrapper prefix), and the others wait at a barrier; on load each rank takes
+its parts, whatever world size wrote the file.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import torch
 import yaml
 
 from latte_tpu_torch.convert import load_reference_checkpoint
+from latte_tpu_torch.dist.mesh import barrier, is_main_process
+from latte_tpu_torch.dist.sharding import is_expert
 from latte_tpu_torch.train.state import TrainState
 
 __all__ = [
@@ -31,20 +39,22 @@ __all__ = [
 ]
 
 
-def save_checkpoint(path: str, state: TrainState, args: Optional[Dict[str, Any]] = None) -> str:
+def save_checkpoint(path: str, state: TrainState, args: Optional[Dict[str, Any]] = None, shards=None) -> str:
     """Write the whole train state to ``path``; atomic (a reader never sees
-    a partial file)."""
-    payload = {
-        "model": state.model.state_dict(),
-        "ema": state.ema.state_dict(),
-        "opt": state.optimizer.state_dict(),
-        "step": int(state.step),
-        "args": dict(args or {}),
-    }
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    a partial file). With ``shards`` every rank must call it."""
+    if shards is None:
+        model, ema, opt = state.model.state_dict(), state.ema.state_dict(), state.optimizer.state_dict()
+    else:
+        model, ema = shards.full_state_dict(state.model), shards.full_state_dict(state.ema)
+        opt = shards.full_optimizer_state(state.optimizer)
+    if is_main_process():
+        payload = {"model": model, "ema": ema, "opt": opt, "step": int(state.step), "args": dict(args or {})}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    del model, ema, opt
+    barrier()
     return path
 
 
@@ -52,11 +62,17 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
-def restore_train_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
-    """Load step, model, EMA and optimizer state into ``state`` in place."""
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.ema.load_state_dict(payload["ema"], strict=True)
-    state.optimizer.load_state_dict(payload["opt"])
+def restore_train_state(state: TrainState, payload: Dict[str, Any], shards=None) -> TrainState:
+    """Load step, model, EMA and optimizer state into ``state`` in place;
+    with ``shards``, each rank its parts."""
+    if shards is None:
+        state.model.load_state_dict(payload["model"], strict=True)
+        state.ema.load_state_dict(payload["ema"], strict=True)
+        state.optimizer.load_state_dict(payload["opt"])
+    else:
+        shards.load_full_state_dict(state.model, payload["model"])
+        shards.load_full_state_dict(state.ema, payload["ema"])
+        shards.load_full_optimizer_state(state.optimizer, payload["opt"])
     state.step = int(payload["step"])
     return state
 
@@ -103,12 +119,13 @@ def find_model(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
     return load_reference_checkpoint(path, prefer_ema=prefer_ema)
 
 
-def load_pretrained(model: torch.nn.Module, path: str) -> int:
+def load_pretrained(model: torch.nn.Module, path: str, ctx=None) -> int:
     """The partial load of ``pretrained`` (the JAX trainer's, after the
     reference ``train.py``): from a reference ``.pt`` or a port checkpoint
     (EMA preferred, :func:`find_model`), every parameter whose name and shape
     match overwrites the model's; every other keeps its value. Returns the
-    number kept. A path that does not exist raises ``FileNotFoundError``
+    number kept. Under expert parallelism (``ctx``) an expert weight is
+    cut to this rank's experts first. A path that does not exist raises ``FileNotFoundError``
     (the JAX trainer ignores it), a directory (an orbax checkpoint)
     ``NotImplementedError``."""
     if not os.path.exists(path):
@@ -123,6 +140,8 @@ def load_pretrained(model: torch.nn.Module, path: str) -> int:
     with torch.no_grad():
         for name, p in model.named_parameters():
             cand = loaded.get(name)
+            if cand is not None and ctx is not None and ctx.ep > 1 and is_expert(name):
+                cand = cand.chunk(ctx.ep)[ctx.ep_rank] if cand.shape[0] % ctx.ep == 0 else cand
             if cand is not None and tuple(cand.shape) == tuple(p.shape):
                 p.copy_(cand)
             else:

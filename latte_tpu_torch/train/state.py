@@ -14,6 +14,11 @@ optax's step semantics: the update of step ``n`` (counting from 0) uses
 The optimizer holds the parameters that require a gradient: ``fixed_spatial``
 freezes all but :func:`trainable_temporal_attn_mask`'s, which are then the
 only ones updated and decayed (the JAX trainer's decay mask).
+
+Over several GPUs the optimizer holds this rank's parts of them instead
+(``dist.sharding.ShardedParams.leaves``: a ZeRO-1 slice or an FSDP shard,
+each an alias of its parameter's storage), so its moments are that part's
+alone; the arithmetic is elementwise, and so the same.
 """
 
 from __future__ import annotations
@@ -168,13 +173,15 @@ class AdamW(torch.optim.Optimizer):
 
 
 def make_optimizer(
-    model: nn.Module, weight_decay: float = 0.0, mu_dtype: Optional[torch.dtype] = None
+    model: nn.Module, weight_decay: float = 0.0, mu_dtype: Optional[torch.dtype] = None, params=None
 ) -> torch.optim.Optimizer:
     """AdamW with optax's defaults over the parameters that require a
-    gradient (only they are decayed); the learning rate is set before each
-    update from the schedule. ``mu_dtype`` other than fp32 stores the first
-    moment in that type (:class:`AdamW`)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    gradient (only they are decayed), or over ``params`` (a rank's parts of
+    them); the learning rate is set before each update from the schedule.
+    ``mu_dtype`` other than fp32 stores the first moment in that type
+    (:class:`AdamW`)."""
+    if params is None:
+        params = [p for p in model.parameters() if p.requires_grad]
     kw = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
     if mu_dtype is not None and mu_dtype != torch.float32:
         return AdamW(params, mu_dtype=mu_dtype, **kw)
@@ -182,11 +189,13 @@ def make_optimizer(
 
 
 def create_train_state(
-    model: nn.Module, optimizer: torch.optim.Optimizer, schedule: Schedule
+    model: nn.Module, optimizer: torch.optim.Optimizer, schedule: Schedule, ema: Optional[nn.Module] = None
 ) -> TrainState:
     """EMA starts as a copy of the parameters (the reference's
-    ``update_ema(..., decay=0)`` at init)."""
-    ema = copy.deepcopy(model).requires_grad_(False)
+    ``update_ema(..., decay=0)`` at init); ``ema`` gives that copy (made
+    before the model was sharded, and sharded alike)."""
+    if ema is None:
+        ema = copy.deepcopy(model).requires_grad_(False)
     return TrainState(step=0, model=model, ema=ema, optimizer=optimizer, schedule=schedule)
 
 

@@ -1,4 +1,5 @@
-"""The training step (port of ``latte_tpu/train/step.py``, one device).
+"""The training step (port of ``latte_tpu/train/step.py``), on one device or
+on each rank of a (dp, ep) mesh.
 
 [VAE encode of a pixel batch ->] q_sample -> model forward (``train=True``:
 class labels dropped to the null class at the model's dropout rate) ->
@@ -21,6 +22,15 @@ accumulation the mean over the chunks).
 
 The step leaves its metrics on the device: it never waits for the host, so
 the loop syncs only when it logs.
+
+Over several ranks (``shards``, a :class:`~latte_tpu_torch.dist.sharding.
+ShardedParams`) each rank holds the rows of its dp index of the global batch
+(``local_batch_size·dp`` rows), and the step is the one-process step on that
+global batch: t, the noise, the posterior sample and the label dropout are
+drawn for the global batch from the shared generator and each rank takes its
+rows; the gradients are averaged over the ranks that share a parameter, the
+norm is the full gradient's, and the metrics are the global batch's means
+(all-reduced on the device, without a host sync).
 """
 
 from __future__ import annotations
@@ -58,13 +68,41 @@ def dequantize_video(video: torch.Tensor) -> torch.Tensor:
     return video
 
 
+class Draws:
+    """Random draws of a batch whose rows are block ``index`` of ``parts``
+    equal blocks of a global batch: each draw is taken for the global batch
+    (leading axis times ``parts``) and cut to this block, so that every
+    split of a batch draws what one process draws for the whole. One part
+    draws directly."""
+
+    def __init__(self, parts: int = 1, index: int = 0):
+        self.parts, self.index = parts, index
+
+    def _rows(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        return t if self.parts == 1 else t[self.index * n : (self.index + 1) * n]
+
+    def randn(self, shape, generator, device, dtype=torch.float32) -> torch.Tensor:
+        full = (shape[0] * self.parts,) + tuple(shape[1:])
+        return self._rows(torch.randn(full, generator=generator, device=device, dtype=dtype), shape[0])
+
+    def randint(self, high: int, n: int, generator, device) -> torch.Tensor:
+        return self._rows(torch.randint(0, high, (n * self.parts,), generator=generator, device=device), n)
+
+    def rand(self, shape, generator, device) -> torch.Tensor:
+        full = (shape[0] * self.parts,) + tuple(shape[1:])
+        return self._rows(torch.rand(full, generator=generator, device=device), shape[0])
+
+
 def _latents(
-    batch: Batch, generator: torch.Generator, vae_scale: float, encode_fn: Optional[Callable] = None
+    batch: Batch, generator: torch.Generator, vae_scale: float, encode_fn: Optional[Callable] = None,
+    draws: Draws = Draws(),
 ) -> torch.Tensor:
     if "video" in batch:
         # pixels: the frozen VAE's encode and a posterior sample, scaled
         if encode_fn is None:
             raise ValueError("the batch holds pixels (\"video\") but the step has no encode_fn")
+        if draws.parts > 1:
+            return encode_fn(dequantize_video(batch["video"]), generator, draws=draws)
         return encode_fn(dequantize_video(batch["video"]), generator)
     if "latent_mean" not in batch:
         return batch["latents"]
@@ -74,7 +112,7 @@ def _latents(
     # same latents as the encode path
     mean, std = batch["latent_mean"], batch["latent_std"]
     flat = (mean.shape[0] * mean.shape[1],) + tuple(mean.shape[2:])
-    eps = torch.randn(flat, generator=generator, device=mean.device, dtype=mean.dtype)
+    eps = draws.randn(flat, generator, mean.device, mean.dtype)
     return ((mean.reshape(flat) + std.reshape(flat) * eps) * vae_scale).reshape(mean.shape)
 
 
@@ -89,6 +127,7 @@ def make_train_step(
     encode_fn: Optional[Callable] = None,
     grad_accum: int = 1,
     moe_aux_weight: float = 0.0,
+    shards=None,
 ) -> Callable[[TrainState, Batch, torch.Generator], Dict[str, torch.Tensor]]:
     """Build ``train_step(state, batch, generator) -> metrics``, which updates
     ``state`` in place.
@@ -114,22 +153,25 @@ def make_train_step(
 
     ``moe_aux_weight`` > 0 adds that times the MoE model's Switch loss to
     each chunk's loss (nothing is collected at 0, nor for a dense model).
+
+    ``shards`` (a ``ShardedParams``) runs the step on this rank's rows of the
+    global batch, as the module docstring says; the batch then holds those
+    rows alone, and ``"t"``/``"noise"``/``"force_drop_ids"``, when given,
+    too.
     """
+    ctx = shards.ctx if shards is not None else None
+    draws = Draws(ctx.dp, ctx.dp_rank) if ctx is not None else Draws()
 
     def chunk_loss(model, batch: Batch, generator: torch.Generator):
-        latents = _latents(batch, generator, vae_scale, encode_fn)
+        latents = _latents(batch, generator, vae_scale, encode_fn, draws)
         B = latents.shape[0]
         if "t" in batch:
             t = batch["t"].long()
         else:
-            t = torch.randint(
-                0, diffusion.num_timesteps, (B,), generator=generator, device=latents.device
-            )
+            t = draws.randint(diffusion.num_timesteps, B, generator, latents.device)
         noise = batch.get("noise")
         if noise is None:
-            noise = torch.randn(
-                latents.shape, generator=generator, device=latents.device, dtype=latents.dtype
-            )
+            noise = draws.randn(latents.shape, generator, latents.device, latents.dtype)
         kwargs = {}
         if getattr(model, "extras", 1) == 2:
             kwargs["y"] = batch["y"]
@@ -140,6 +182,10 @@ def make_train_step(
         for key, label in (("force_drop_ids", "y"), ("force_drop_ids_image", "y_image")):
             if key in batch and label in kwargs:
                 kwargs[key] = batch[key]
+            elif draws.parts > 1 and label in kwargs and model.y_embedder.dropout_prob > 0:
+                # the model's own draw, taken for the global batch
+                u = draws.rand(kwargs[label].shape, generator, latents.device)
+                kwargs[key] = (u < model.y_embedder.dropout_prob).long()
         aux_box = []
 
         def model_fn(x, tt, **kw):
@@ -167,6 +213,8 @@ def make_train_step(
         model = state.model
         params = [p for p in model.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
+        if shards is not None:
+            model.zero_grad(set_to_none=True)
         K = grad_accum
         losses, mses, vbs, auxes, ts, per_sample = [], [], [], [], [], []
         for k in range(K):
@@ -182,20 +230,27 @@ def make_train_step(
             ts.append(t)
             per_sample.append(terms["loss"].detach())
 
-        grads = [p.grad for p in params]
-        if K > 1:
-            torch._foreach_div_(grads, K)
-        grad_norm = global_norm(grads)
+        if shards is None:
+            grads = [p.grad for p in params]
+            if K > 1:
+                torch._foreach_div_(grads, K)
+            grad_norm = global_norm(grads)
+        else:
+            grad_norm = shards.grad_norm(shards.reduce_grads(K))
+            grads = [leaf.grad for leaf in shards.leaves]
+        ema_fn = update_ema if shards is None else shards.update_ema
         with torch.no_grad():
             if state.step >= start_clip_iter:
                 torch._foreach_mul_(grads, torch.clamp(clip_max_norm / (grad_norm + 1e-6), max=1.0))
             for group in state.optimizer.param_groups:
                 group["lr"] = state.schedule(state.step)
             state.optimizer.step()
+            if shards is not None:
+                shards.gather_params()
             if ema_every <= 1:
-                update_ema(state.ema, model, ema_decay)
+                ema_fn(state.ema, model, ema_decay)
             elif (state.step + 1) % ema_every == 0:
-                update_ema(state.ema, model, ema_decay**ema_every)
+                ema_fn(state.ema, model, ema_decay**ema_every)
         state.step += 1
 
         t = torch.cat(ts)
@@ -209,6 +264,13 @@ def make_train_step(
             metrics["vb"] = torch.stack(vbs).mean()
         if auxes:
             metrics["moe_aux"] = torch.stack(auxes).mean()
+        if ctx is not None:
+            # the global batch's means: each rank's over its equal share of rows
+            keys = [k for k in ("loss", "mse", "t_mean", "vb", "moe_aux") if k in metrics]
+            means = torch.stack([metrics[k].float() for k in keys])
+            torch.distributed.all_reduce(means)
+            for k, v in zip(keys, (means / ctx.world).unbind()):
+                metrics[k] = v
         if "t" in batch:
             # per-sample feedback for the loss-aware resampler (unweighted)
             metrics["t_sampled"] = t

@@ -1,4 +1,5 @@
-"""Training entry point (port of ``latte_tpu/train/train.py``, one device).
+"""Training entry point (port of ``latte_tpu/train/train.py``), on one GPU
+or one process per GPU.
 
 Builds the model, AdamW, the EMA and the diffusion from a config, feeds a
 latent cache, a dataset of videos or frames (``data/datasets.py``), or,
@@ -25,23 +26,32 @@ before training, ``fixed_spatial`` trains the temporal attention alone,
 ``remat_policy: dots`` keeps the matmul outputs under gradient checkpointing.
 ``moe_experts > 1`` trains the Mixture-of-Experts model (``moe_top_k``,
 ``moe_capacity_factor``) with the Switch loss at ``moe_aux_weight``
-(default 0.01, as in the JAX trainer; 0 for a dense model), on one device:
-``expert_parallel > 1`` is refused with the other multi-GPU keys, and
-``quant_train`` with MoE raises (no int8 expert path, as in JAX).
+(default 0.01, as in the JAX trainer; 0 for a dense model); ``quant_train``
+with MoE raises (no int8 expert path, as in JAX).
+
+Several GPUs, one process each (``torchrun``, or the JAX trainer's
+``coordinator_address``/``num_processes``/``process_id``): the mesh is dp ×
+``expert_parallel`` (``dist/mesh.py``), the global batch
+``local_batch_size·dp`` (each rank its dp index's rows; the members of an ep
+group share them), the experts split over ep, ``fsdp`` splits the block
+weights, their EMA and their moments over dp and ``zero1`` the moments
+(``dist/sharding.py``). Rank 0 makes the experiment directory, logs and
+writes the full checkpoints; the logged metrics are the global batch's.
+``tensor_parallel``, ``sequence_parallel`` and ``pipeline_parallel`` above 1
+raise ``NotImplementedError`` naming ROADMAP M6b.
 
 Runs on ``cuda`` unless asked for the CPU::
 
     python -m latte_tpu_torch.train.train --config configs/ffs/ffs_train.yaml \\
         [--device cpu] [key=value ...]
-
-Options of the JAX trainer that this port does not carry yet (the
-multi-GPU keys) raise ``NotImplementedError`` naming the slice that brings
-them.
+    torchrun --nproc_per_node=4 -m latte_tpu_torch.train.train \\
+        --config configs/ffs/ffs_train_moe.yaml
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
@@ -53,6 +63,8 @@ from latte_tpu_torch.config import Config, load_config
 from latte_tpu_torch.config.loader import save_config
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.timestep_samplers import LossAwareSampler, create_named_schedule_sampler
+from latte_tpu_torch.dist.mesh import barrier, batch_rows, refuse_m6b, setup, shard_batch
+from latte_tpu_torch.dist.sharding import ZERO1_EP_ERROR, ShardedParams, apply_fsdp
 from latte_tpu_torch.models import get_models
 from latte_tpu_torch.models.registry import LatteIMG_models
 from latte_tpu_torch.train.callbacks import CallbackList
@@ -71,7 +83,7 @@ from latte_tpu_torch.train.state import (
     trainable_temporal_attn_mask,
 )
 from latte_tpu_torch.train.step import make_train_step
-from latte_tpu_torch.utils import create_experiment_dir, create_logger, resolve_device
+from latte_tpu_torch.utils import create_experiment_dir, create_logger
 from latte_tpu_torch.vae import build_vae, make_encode_fn
 
 __all__ = [
@@ -79,32 +91,29 @@ __all__ = [
     "main", "cli",
 ]
 
-# config options of the JAX trainer that this slice does not port, with the
-# slice that brings each: (key, is it set?, later slice)
-_MULTI_GPU = "the multi-GPU slice (ROADMAP M6)"
-_NOT_PORTED = (
-    ("tensor_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
-    ("sequence_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
-    ("pipeline_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
-    # MoE itself trains on one device; its experts sharded over GPUs do not
-    ("expert_parallel", lambda v: int(v or 1) > 1, _MULTI_GPU),
-    ("fsdp", lambda v: bool(v), _MULTI_GPU),
-    ("zero1", lambda v: bool(v), _MULTI_GPU),
-    # the JAX trainer's multi-process rendezvous (initialize_distributed)
-    ("coordinator_address", lambda v: bool(v), _MULTI_GPU),
-    ("num_processes", lambda v: int(v or 1) > 1, _MULTI_GPU),
-    ("process_id", lambda v: int(v or 0) > 0, _MULTI_GPU),
-)
-
-
-def check_config(config: Config) -> None:
-    """Raise ``NotImplementedError`` for a set option this slice does not
-    port, and ``ValueError`` for gradient accumulation that does not divide
-    the batch and for ``extras: 78`` on batches that carry no text (a
-    dataset, a latent cache, synthetic pixels)."""
-    for key, is_set, later in _NOT_PORTED:
-        if is_set(getattr(config, key, None)):
-            raise NotImplementedError(f"{key}={getattr(config, key)!r}: not ported yet; comes with {later}")
+def check_config(config: Config, world: int = 1) -> None:
+    """Raise for what the trainer refuses before anything is built:
+    ``NotImplementedError`` naming ROADMAP M6b for ``tensor_parallel``,
+    ``sequence_parallel`` and ``pipeline_parallel`` above 1; the JAX
+    trainer's errors for a mesh that does not divide the ``world`` size
+    (``AssertionError``), for ``moe_experts`` that ``expert_parallel`` does
+    not divide and for ``zero1`` with ``expert_parallel`` (``ValueError``);
+    and ``ValueError`` for gradient accumulation that does not divide the
+    batch and for ``extras: 78`` on batches that carry no text (a dataset, a
+    latent cache, synthetic pixels)."""
+    tp, sp, pp, ep = (int(getattr(config, k, 1) or 1) for k in
+                      ("tensor_parallel", "sequence_parallel", "pipeline_parallel", "expert_parallel"))
+    refuse_m6b(tp, sp, pp)
+    if world % (tp * sp * pp * ep):
+        raise AssertionError(
+            f"tensor_parallel={tp} x sequence_parallel={sp} x pipeline_parallel={pp} x "
+            f"expert_parallel={ep} must divide {world} devices"
+        )
+    moe_experts = int(getattr(config, "moe_experts", 0) or 0)
+    if ep > 1 and (moe_experts % ep != 0 or moe_experts < ep):
+        raise ValueError(f"expert_parallel={ep} needs moe_experts (got {moe_experts}) divisible by it")
+    if ep > 1 and getattr(config, "zero1", False) and not getattr(config, "fsdp", False):
+        raise ValueError(ZERO1_EP_ERROR)
     extras = int(getattr(config, "extras", 1))
     if extras not in (1, 2, 78):
         raise ValueError(f"extras={extras}: expected 1 (unconditional), 2 (class) or 78 (text)")
@@ -154,11 +163,13 @@ def build_encode_fn(config: Config, device) -> Optional[Callable]:
     raw = make_encode_fn(vae)
     scale = float(getattr(config, "vae_scale", 0.18215))
 
-    def encode(video: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def encode(video: torch.Tensor, generator: torch.Generator, draws=None) -> torch.Tensor:
         with torch.profiler.record_function("vae_encode"):
             B, F = video.shape[:2]
             post = raw(video.reshape(B * F, *video.shape[2:]))
-            z = post.sample(generator) * scale
+            # draws (train.step.Draws): the posterior noise of the global batch, cut to these rows
+            noise = None if draws is None else draws.randn(post.mean.shape, generator, video.device, post.mean.dtype)
+            z = post.sample(generator, noise) * scale
             return z.reshape(B, F, *z.shape[1:])
 
     encode.raw, encode.vae = raw, vae
@@ -176,7 +187,7 @@ def build_encode_fn_raw(config: Config, device) -> Callable:
 
 
 def make_batch_iterator(
-    config: Config, logger, batch_size: int
+    config: Config, logger, batch_size: int, ctx=None
 ) -> Tuple[Iterator[Dict[str, np.ndarray]], str]:
     """The batches and their kind, by what ``data_path`` holds: a latent
     cache ("latents_cached"; a cache is a directory too, so it is tested
@@ -190,8 +201,16 @@ def make_batch_iterator(
     under ``use_image_num``; a text-conditioned one (``extras: 78``)
     standard-normal ``text_embedding`` (B, 77, 768) after the data, as the
     JAX trainer's latent batches do ((B, 1 + I, 768) for LatteIMG, the shape
-    its model takes)."""
+    its model takes).
+
+    Over several GPUs (``ctx``) ``batch_size`` is a rank's: a dataset's
+    loader reads the dp index's shard of every epoch (``shard_id``/
+    ``num_shards`` = dp index/dp; the ranks of an ep group read the same
+    rows), and synthetic batches are drawn for the global batch and cut to
+    the dp index's rows, so any world size draws the one-process batches."""
     from latte_tpu_torch.data import DataLoader, LatentCacheDataset, get_dataset, is_latent_cache
+
+    dp, dp_rank = (ctx.dp, ctx.dp_rank) if ctx is not None else (1, 0)
 
     data_path = str(getattr(config, "data_path", "") or "")
     latent = int(getattr(config, "latent_size", 0) or int(config.image_size) // 8)
@@ -211,7 +230,8 @@ def make_batch_iterator(
                 f"{config.vae_scale}; using the cache's scale"
             )
         config.vae_scale = cache_scale
-        loader = DataLoader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed)
+        loader = DataLoader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed,
+                            shard_id=dp_rank, num_shards=dp)
         return iter(loader), "latents_cached"
     if os.path.isdir(data_path):
         dataset = get_dataset(config)
@@ -219,9 +239,11 @@ def make_batch_iterator(
         loader = DataLoader(
             dataset, batch_size=batch_size, num_workers=num_workers, seed=seed,
             pixel_uint8=str(getattr(config, "pixel_transport", "uint8")) == "uint8",
+            shard_id=dp_rank, num_shards=dp,
         )
         return iter(loader), "real"
     rng = np.random.default_rng(seed)
+    batch_size *= dp  # the global batch; shard_batch cuts this rank's rows
     # the CLIP features of a text-conditioned model: Latte's flattened (77, 768),
     # LatteIMG's a row per frame kind (1 + I, 768)
     text_shape = (batch_size, 77, 768)
@@ -247,20 +269,20 @@ def make_batch_iterator(
 
         def synthetic_pixels():
             while True:
-                yield with_conditioning(
+                yield shard_batch(with_conditioning(
                     {"video": rng.integers(0, 256, size=(batch_size, frames, 3, size, size), dtype=np.uint8)}
-                )
+                ), ctx)
 
         return synthetic_pixels(), "synthetic_pixels"
     logger.info("data_path missing — using synthetic latent batches")
 
     def synthetic():
         while True:
-            yield with_conditioning({
+            yield shard_batch(with_conditioning({
                 "latents": rng.standard_normal(
                     (batch_size, frames, 4, latent, latent), dtype=np.float32
                 )
-            })
+            }), ctx)
 
     return synthetic(), "synthetic_latents"
 
@@ -274,25 +296,35 @@ def _step_seed(seed: int, step: int) -> int:
 def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     """Train; returns ``{"experiment_dir", "final_step", "loss", "grad_norm",
     "steps_per_sec"}`` (the last three from the last log interval; an MoE
-    model's ``moe_aux`` too)."""
-    check_config(config)
-    dev = resolve_device(device)
+    model's ``moe_aux`` too). Over several GPUs every rank returns the same
+    metrics, and the experiment directory rank 0 made."""
+    # the rendezvous before anything else, as the JAX trainer's
+    dev, ctx = setup(config, device, check=lambda world: check_config(config, world))
+    main_rank = ctx is None or ctx.rank == 0
     cbs = CallbackList(callbacks)
-    experiment_dir = create_experiment_dir(str(getattr(config, "results_dir", "./results")), config)
-    logger = create_logger(experiment_dir)
-    save_config(config, os.path.join(experiment_dir, "config.yaml"))
+    results_dir = str(getattr(config, "results_dir", "./results"))
+    if main_rank:
+        experiment_dir = create_experiment_dir(results_dir, config)
+        save_config(config, os.path.join(experiment_dir, "config.yaml"))
+        os.makedirs(os.path.join(experiment_dir, "checkpoints"), exist_ok=True)
+    barrier()
+    if not main_rank:
+        # join the directory rank 0 just made: the highest NNN-<name> index
+        exps = [d for d in os.listdir(results_dir) if "-" in d and d.split("-")[0].isdigit()]
+        experiment_dir = os.path.join(results_dir, max(exps, key=lambda d: int(d.split("-")[0])))
+    logger = create_logger(experiment_dir if main_rank else None, enabled=main_rank)
     ckpt_dir = os.path.join(experiment_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
     seed = int(getattr(config, "global_seed", 0))
 
     with torch.device(dev):
         # quant_train: W8A8 forward of the block matmuls from fp32 masters,
         # straight-through backward (the JAX trainer's quantized="train")
-        model = get_models(config, quantized="train" if getattr(config, "quant_train", False) else False)
+        model = get_models(config, quantized="train" if getattr(config, "quant_train", False) else False,
+                           moe_mesh=ctx)
     model.initialize_weights(torch.Generator(device=dev).manual_seed(seed))
     pretrained = getattr(config, "pretrained", None)
     if pretrained:
-        kept = load_pretrained(model, str(pretrained))
+        kept = load_pretrained(model, str(pretrained), ctx)
         logger.info(f"partial-loaded pretrained {pretrained} ({kept} keys kept at init)")
     if getattr(config, "mixed_precision", False):
         # bf16 compute over fp32 master parameters (model.clone(dtype=bfloat16))
@@ -312,8 +344,22 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     )
     # bf16 first-moment storage; nu and the EMA stay fp32
     mu_dtype = torch.bfloat16 if str(getattr(config, "adam_mu_dtype", "") or "") == "bfloat16" else None
-    optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)), mu_dtype=mu_dtype)
-    state = create_train_state(model, optimizer, schedule)
+    ema = copy.deepcopy(model).requires_grad_(False)
+    shards = None
+    if ctx is not None:
+        fsdp = bool(getattr(config, "fsdp", False))
+        if fsdp:
+            apply_fsdp(model, ctx)
+            apply_fsdp(ema, ctx)
+        shards = ShardedParams(model, ctx, zero1=bool(getattr(config, "zero1", False)) and not fsdp)
+        logger.info(
+            f"{ctx.world} processes ({torch.distributed.get_backend()}): dp {ctx.dp} x ep {ctx.ep}, global batch "
+            f"{int(getattr(config, 'local_batch_size', 5)) * ctx.dp}, fsdp {fsdp}, "
+            f"zero1 {bool(getattr(config, 'zero1', False)) and not fsdp}"
+        )
+    optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)), mu_dtype=mu_dtype,
+                               params=shards.leaves if shards is not None else None)
+    state = create_train_state(model, optimizer, schedule, ema)
     logger.info(
         f"{config.model} on {dev}: {sum(p.numel() for p in model.parameters()):,} parameters "
         f"({sum(p.numel() for p in model.parameters() if p.requires_grad):,} trainable), "
@@ -337,7 +383,7 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         if path is None:
             logger.warning(f"resume_from_checkpoint={resume!r}: no checkpoint found; starting from scratch")
         else:
-            restore_train_state(state, load_checkpoint(path))
+            restore_train_state(state, load_checkpoint(path), shards)
             start_step = state.step
             logger.info(f"resumed from {path} @ step {start_step}")
 
@@ -345,7 +391,11 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     grad_accum = int(getattr(config, "gradient_accumulation_steps", 1) or 1)
     if grad_accum > 1:
         logger.info(f"gradient accumulation: {grad_accum} chunks/step")
-    batches, data_kind = make_batch_iterator(config, logger, local_batch)
+    batches, data_kind = make_batch_iterator(config, logger, local_batch, ctx)
+    if start_step and data_kind.startswith("synthetic"):
+        # a resumed run takes the batches an unbroken one would
+        for _ in range(start_step):
+            next(batches)
     needs_encode = data_kind in ("real", "synthetic_pixels")
     encode_fn = build_encode_fn(config, dev) if needs_encode else None
     if needs_encode and encode_fn is None:
@@ -366,6 +416,7 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         encode_fn=encode_fn,
         grad_accum=grad_accum,
         moe_aux_weight=moe_aux_weight(config),
+        shards=shards,
     )
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion
@@ -384,10 +435,15 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         generator.manual_seed(_step_seed(seed, step_idx))
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in next(batches).items()}
         if loss_aware:
-            batch["t"], batch["t_weights"] = schedule_sampler.sample(generator, local_batch)
+            # drawn for the global batch; this rank's rows
+            t, w = schedule_sampler.sample(generator, local_batch * (ctx.dp if ctx else 1))
+            rows = batch_rows(local_batch, ctx)
+            batch["t"], batch["t_weights"] = t[rows], w[rows]
         metrics = train_step(state, batch, generator)
         if loss_aware:
-            schedule_sampler.update_with_local_losses(metrics["t_sampled"], metrics["per_sample_loss"])
+            schedule_sampler.update_with_local_losses(
+                *(gather_rows(metrics[k], ctx, grad_accum) for k in ("t_sampled", "per_sample_loss"))
+            )
         running += 1
         if (step_idx + 1) % log_every == 0:
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # the host sync
@@ -406,19 +462,31 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
                 break
             running, t_start = 0, time.perf_counter()
         if (step_idx + 1) % ckpt_every == 0:
-            path = save_checkpoint(os.path.join(ckpt_dir, f"{step_idx + 1:07d}.pt"), state, args)
+            path = save_checkpoint(os.path.join(ckpt_dir, f"{step_idx + 1:07d}.pt"), state, args, shards)
             last_ckpt_step = step_idx + 1
             logger.info(f"saved checkpoint {path}")
             cbs.on_checkpoint(step_idx + 1, path)
 
     # a final checkpoint unless that step was just saved or nothing trained
     if last_ckpt_step != stop_step and stop_step > start_step:
-        path = save_checkpoint(os.path.join(ckpt_dir, f"{stop_step:07d}.pt"), state, args)
+        path = save_checkpoint(os.path.join(ckpt_dir, f"{stop_step:07d}.pt"), state, args, shards)
         logger.info(f"saved checkpoint {path}")
         cbs.on_checkpoint(stop_step, path)
     result = {"experiment_dir": experiment_dir, "final_step": stop_step, **last_metrics}
     cbs.on_train_end(result)
     return result
+
+
+def gather_rows(x: torch.Tensor, ctx, chunks: int = 1) -> torch.Tensor:
+    """A step's per-row values (this rank's rows, chunk by chunk) for the
+    global batch, in the order one process lists them: chunk-major, then
+    the dp indices' rows (all-gathered over dp; the ep replicas are
+    equal)."""
+    if ctx is None or ctx.dp == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(ctx.dp)]
+    torch.distributed.all_gather(parts, x.contiguous(), group=ctx.dp_group)
+    return torch.stack(parts).view(ctx.dp, chunks, -1).transpose(0, 1).reshape(-1)
 
 
 def cli(argv=None) -> dict:

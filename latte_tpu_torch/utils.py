@@ -11,12 +11,16 @@ import numpy as np
 import torch
 
 
-def create_logger(logging_dir: Optional[str] = None) -> logging.Logger:
-    """Logger to stdout, and to ``<logging_dir>/log.txt`` when a dir is given."""
+def create_logger(logging_dir: Optional[str] = None, enabled: bool = True) -> logging.Logger:
+    """Logger to stdout, and to ``<logging_dir>/log.txt`` when a dir is given;
+    ``enabled=False`` (a rank other than 0) drops every record."""
     logger = logging.getLogger("latte_tpu_torch")
     logger.handlers.clear()
     logger.setLevel(logging.INFO)
     logger.propagate = False
+    if not enabled:
+        logger.addHandler(logging.NullHandler())
+        return logger
     fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
@@ -44,8 +48,12 @@ def create_experiment_dir(results_dir: str, config) -> str:
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
-    """``cuda`` unless the caller names another device; never a silent fallback."""
+    """``cuda`` unless the caller names another device; never a silent
+    fallback. A bare ``cuda`` is ``cuda:LOCAL_RANK`` in a process that a
+    launcher gave a ``LOCAL_RANK`` (one GPU per process)."""
     dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (--device cpu) to run on the CPU"

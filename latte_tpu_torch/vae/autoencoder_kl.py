@@ -48,9 +48,10 @@ class DiagonalGaussianDistribution:
         self.logvar = self.logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                            dtype=self.mean.dtype)
+    def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
+                                dtype=self.mean.dtype)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

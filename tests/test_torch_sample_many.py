@@ -114,11 +114,13 @@ def test_class_labels_lie_in_range_and_follow_the_seed(tmp_path):
 
 
 def test_more_than_one_process_raises(tmp_path, monkeypatch):
-    """The multi-process form is the multi-GPU slice's: no quiet sampling on
-    one card of many."""
+    """A launcher's WORLD_SIZE without the rank to join it raises: no quiet
+    sampling on one card of many (the multi-process form itself:
+    tests/test_torch_dist_sample.py)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("RANK", raising=False)
     cfg = load_config(FFS, TINY4 + [f"save_video_path={tmp_path}/out"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2 but no RANK"):
         sample_many.main(cfg, device="cpu")
     assert not any(tmp_path.iterdir())
 

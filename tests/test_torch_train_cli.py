@@ -159,13 +159,26 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
     ],
 )
 def test_unported_options_raise(tmp_path, override):
-    """What the trainer does not carry yet names its slice: the multi-GPU
-    keys, MoE's experts sharded over GPUs among them (MoE on one device
-    trains: tests/test_torch_train_moe.py). The options of the training
-    slices train (tests/test_torch_train_options.py,
-    tests/test_torch_train_cond.py, tests/test_torch_train_entry.py)."""
-    with pytest.raises(NotImplementedError, match=r"comes with the multi-GPU slice \(ROADMAP M6\)"):
-        train.main(_cfg(tmp_path, "max_train_steps=1", override), device="cpu")
+    """The multi-GPU keys in one process: tensor, sequence and pipeline
+    parallelism name the slice that brings them (ROADMAP M6b); an
+    ``expert_parallel`` the world size does not divide, and ``num_processes``
+    without a coordinator, raise as the JAX trainer does; ``fsdp``, ``zero1``
+    and a lone ``coordinator_address`` or ``process_id`` train on one device,
+    as the JAX trainer's one-device mesh does (their multi-process runs:
+    tests/test_torch_dist_train.py)."""
+    cfg = _cfg(tmp_path, "max_train_steps=1", override)
+    key = override.split("=")[0]
+    if key in ("tensor_parallel", "sequence_parallel", "pipeline_parallel"):
+        with pytest.raises(NotImplementedError, match=r"comes with the multi-GPU slice's second half \(ROADMAP M6b\)"):
+            train.main(cfg, device="cpu")
+    elif key == "expert_parallel":
+        with pytest.raises(AssertionError, match="expert_parallel=2 must divide 1 devices"):
+            train.main(cfg, device="cpu")
+    elif key == "num_processes":
+        with pytest.raises(ValueError, match="needs coordinator_address"):
+            train.main(cfg, device="cpu")
+    else:
+        assert train.main(cfg, device="cpu")["final_step"] == 1
 
 
 @pytest.mark.parametrize("override", ["synthetic_kind=pixels", "data_path=<videos>"])

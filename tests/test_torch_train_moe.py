@@ -155,12 +155,14 @@ def test_ffs_train_moe_through_the_cli(tmp_path):
 
 
 @pytest.mark.parametrize("override, exc, match", [
-    ("expert_parallel=2", NotImplementedError, "multi-GPU slice \\(ROADMAP M6\\)"),
+    ("expert_parallel=2", AssertionError, "expert_parallel=2 must divide 1 devices"),
     ("quant_train=true", NotImplementedError, "MoEMlp has no int8 expert path"),
 ], ids=["expert_parallel", "quant_train"])
 def test_trainer_refusals(tmp_path, override, exc, match):
-    """What stays refused with MoE: its experts sharded over GPUs (the
-    shipped config's ``expert_parallel: 4``), and int8 training."""
+    """What stays refused with MoE: its experts split over more GPUs than the
+    run has (the shipped config's ``expert_parallel: 4`` in one process: the
+    JAX trainer's error; over 4 processes it trains, tests/test_torch_dist_train.py),
+    and int8 training."""
     with pytest.raises(exc, match=match):
         train.main(load_config(FFS_MOE, TINY_CLI + ["max_train_steps=1", override, f"results_dir={tmp_path}/r"]),
                    device="cpu")

@@ -1,0 +1,173 @@
+"""Helpers of the multi-process CPU tests (tests/test_torch_dist_*.py): one
+``torch.multiprocessing`` spawn of W ranks over gloo, and what the ranks run.
+The ranks import torch and the port alone (no JAX); what they bring back
+goes through files under the test's temporary directory."""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import glob
+import os
+import socket
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from latte_tpu_torch.train.callbacks import Callback
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank: int, world: int, port: int, fn, args) -> None:
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.set_num_threads(1)
+    try:
+        fn(rank, world, *args)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, *args, join: bool = True):
+    """Run ``fn(rank, world, *args)`` in ``world`` processes; any rank's
+    failure fails the call. ``join=False`` returns at once: call
+    :func:`wait` on the result."""
+    return mp.spawn(_entry, args=(world, free_port(), fn, args), nprocs=world, join=join)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread while the ranks run beside it: the tiny model's
+    steps take no longer, and idle worker threads burn no CPU time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def wait(context) -> None:
+    """Join a ``spawn(..., join=False)``; raises if a rank failed."""
+    while not context.join():
+        pass
+
+
+def join_cpu() -> None:
+    from latte_tpu_torch.dist.mesh import initialize_distributed
+
+    initialize_distributed(device="cpu")
+
+
+def context(ep: int = 1):
+    from latte_tpu_torch.dist.mesh import DistContext, MeshConfig, make_mesh
+
+    return DistContext(make_mesh(MeshConfig(ep=ep), "cpu"), torch.device("cpu"))
+
+
+def local_numels(model, optimizer):
+    """(parameter elements, first-moment elements) this rank holds."""
+    from latte_tpu_torch.dist.sharding import _local
+
+    params = sum(_local(p).numel() for p in model.parameters())
+    moments = sum(st["exp_avg"].numel() for st in optimizer.state.values())
+    return params, moments
+
+
+def step_cases(rank: int, world: int, path: str, cases) -> None:
+    """Two steps of ``make_train_step`` (AdamW lr 1e-3, weight decay 0.01,
+    clip 0.1, EMA 0.9, the Switch loss at 0.01) for each case of ``cases``
+    (name, model kwargs, ep, fsdp, zero1) from the one-process weights and
+    global batches of ``path``; rank 0 writes the metrics and the full
+    parameters and EMA after the steps, every rank its shard sizes."""
+    from latte_tpu_torch.core.diffusion import create_diffusion
+    from latte_tpu_torch.dist.mesh import shard_batch
+    from latte_tpu_torch.dist.sharding import ShardedParams, apply_fsdp
+    from latte_tpu_torch.models import Latte
+    from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+    from latte_tpu_torch.train.step import make_train_step
+
+    data = torch.load(path, weights_only=False)
+    out = {}
+    for name, kw, ep, fsdp, zero1 in cases:
+        ctx = context(ep)
+        model = Latte(**kw, moe_mesh=ctx)
+        ShardedParams(model, ctx).load_full_state_dict(model, data["weights"][kw.get("moe_experts", 0)])
+        ema = copy.deepcopy(model).requires_grad_(False)
+        if fsdp:
+            apply_fsdp(model, ctx)
+            apply_fsdp(ema, ctx)
+        shards = ShardedParams(model, ctx, zero1=zero1)
+        opt = make_optimizer(model, 0.01, params=shards.leaves)
+        state = create_train_state(model, opt, make_lr_schedule(1e-3), ema)
+        step = make_train_step(create_diffusion(""), ema_decay=0.9, clip_max_norm=0.1, start_clip_iter=0,
+                               moe_aux_weight=0.01 if kw.get("moe_experts") else 0.0, shards=shards)
+        metrics = []
+        for batch in data["batches"]:
+            m = step(state, shard_batch(batch, ctx), torch.Generator())
+            metrics.append({k: float(v) for k, v in m.items() if v.ndim == 0})
+        full = shards.full_state_dict(model), shards.full_state_dict(ema)
+        numels = [None] * world
+        dist.all_gather_object(numels, local_numels(model, opt))
+        if rank == 0:
+            out[name] = {"metrics": metrics, "model": full[0], "ema": full[1], "numels": numels,
+                         "dp": ctx.dp, "ep": ctx.ep}
+    if rank == 0:
+        torch.save(out, path + ".out")
+
+
+class Record(Callback):
+    """Keeps each log's metrics and the experts of the first block."""
+
+    def __init__(self):
+        self.metrics, self.experts = [], 0
+
+    def on_train_start(self, config, state, experiment_dir):
+        block = state.model.blocks[0]
+        self.experts = block.moe.local_experts if getattr(block, "is_moe", False) else 0
+
+    def on_log(self, step, metrics):
+        self.metrics.append(dict(metrics, step=step))
+
+
+def train_run(rank: int, world: int, config_path: str, overrides, out: str) -> None:
+    """``train.main`` on the CPU at this world size; every rank writes its
+    result, its logged metrics and the number of experts it holds."""
+    from latte_tpu_torch.config import load_config
+    from latte_tpu_torch.train import train
+
+    rec = Record()
+    result = train.main(load_config(config_path, list(overrides)), callbacks=[rec], device="cpu")
+    torch.save({"result": result, "metrics": rec.metrics, "experts": rec.experts}, f"{out}.{rank}")
+
+
+def resume_run(rank: int, world: int, config_path: str, overrides, results: str, out: str) -> None:
+    """:func:`train_run` resumed from the step-2 checkpoint under ``results``."""
+    ckpt = sorted(glob.glob(os.path.join(results, "*", "checkpoints", "0000002.pt")))[0]
+    train_run(rank, world, config_path, list(overrides) + [f"resume_from_checkpoint={ckpt}"], out)
+
+
+def sample_run(rank: int, world: int, config_path: str, overrides) -> None:
+    """``sample_many.main`` on the CPU at this world size."""
+    from latte_tpu_torch.config import load_config
+    from latte_tpu_torch.sample import sample_many
+
+    sample_many.main(load_config(config_path, list(overrides)), device="cpu")
+
+
+def jobs(rank: int, world: int, todo) -> None:
+    """Join the gloo group, then run each ``(fn, args)`` of ``todo`` in turn."""
+    join_cpu()
+    for fn, args in todo:
+        fn(rank, world, *args)
