@@ -268,14 +268,41 @@ non-zero exit and a traceback:
    shipped, dp 1 x ep 4) for 3 steps, counted from 0 on every rank (the
    kernels line's ``launches_dist``), its step gaps, peak memory, the NCCL
    kernels of its profiled third step and the full checkpoint's gather and
-   write. Prints a ``dist: {...}`` line. To run it alone: ``import
-   chip_smoke as c; c.build.build(); c.build.load_library();
-   c.dist_phase(tmp, smi)``.
+   write. The world-1 DDP gate runs with ``tensor_parallel=1
+   sequence_parallel=1`` named, through the (dp, ep, sp, tp) mesh. At 4
+   GPUs (a one-GPU machine skips this part) it first takes, on one GPU,
+   ffs_train.yaml's 3 steps from seeded Latte-XL/2 weights (``pretrained``)
+   and a bf16 DDIM-50 of them (``one_gpu_refs``); then ffs_train.yaml trains
+   from the same weights at ``tensor_parallel=4`` and at
+   ``sequence_parallel=4`` (dp 1: the global batch of 5 is one GPU's; no
+   checkpoint written), each held to the one-GPU losses and grad norms
+   within TP_SP_REL, with its s/step, peak memory and NCCL device ms,
+   and ``sample.main`` runs the DDIM-50 at ``tensor_parallel=4``, its
+   latents held to one GPU's by phase 5's gate (``tp_sp_gates``). Prints a
+   ``dist: {...}`` line. To run it alone: ``import chip_smoke as c;
+   c.build.build(); c.build.load_library(); c.dist_phase(tmp, smi)``.
+
+10a. tp/sp one card (before phase 10): the virtual ring (``virtual_ring``):
+   Latte-XL/2's spatial attention at batch 1 and 5, its temporal one and
+   T2V 512^2's spatial one (RING_SHAPES, 16 heads of 72), each cut into
+   RING K/V shards and run through the ring's schedule in one process
+   (``dist.ring.virtual_ring_attention``: B1 with its lse, the fp32 merge,
+   B4/B5 fed the merged lse and delta), in bf16 and fp32, against B1, B4 and
+   B5 on the whole sequence: output and q/k/v gradients within BF16_TOL /
+   FP32_TOL of the largest magnitude, each shard on its dtype's route,
+   RING² launches of each; then the virtual tp (``virtual_tp``): one
+   full-width Latte-XL/2 block pair in fp32 at ffs_train.yaml's shapes
+   against its RING tp shards run in turn with the row-parallel sums by
+   hand (``dist.tp.virtual_tp``), output and every weight's gradient within
+   TP_REL. Prints a ``tp_sp: {...}`` line.
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``dist: {...}``), the total seconds,
+{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``dist: {...}``), the
+total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
+phase 10a's and the tp and sp runs' launches, ``launches_ring``, ``launches_tp`` and
+``launches_sp`` (``tp_sp_launches``),
 phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
@@ -4092,6 +4119,152 @@ def text_phase(tmp: str, smi: str, device, timer) -> dict:
 
 # phase "dist": the world size (one process a GPU, NCCL), the steps of each
 # run, and the tolerance of FSDP against the plain trainer
+# the ring of the virtual ring, and the shards of the virtual tp
+RING = 4
+# the virtual ring's attentions, (rows, tokens) at 16 heads of 72: Latte-XL/2's
+# spatial at batch 1 and at the trainer's batch 5, its temporal (blocks of 4
+# tokens), T2V 512^2's spatial (1024 tokens a frame)
+RING_SHAPES = {"spatial": (FRAMES, TOKENS), "spatial_b5": (TRAIN_BATCH * FRAMES, TOKENS),
+               "temporal": (TOKENS, FRAMES), "t2v": (FRAMES, 1024)}
+# the virtual tp's pair against the whole pair, fp32: relative L2 of the
+# output and of each weight's gradient (the row-parallel sums run in
+# another order, a few fp32 ulp apart)
+TP_REL = 1e-5
+
+
+def ring_case(rows: int, n: int, dtype, device, gen) -> dict:
+    """One virtual-ring case: the ring's schedule over RING K/V shards
+    (``dist.ring.virtual_ring_attention``: B1 with its lse, the fp32 merge,
+    B4/B5 with the merged lse and delta) against B1, B4 and B5 on the whole
+    sequence, forward and the q/k/v gradients of one dO."""
+    from latte_tpu_torch.dist.ring import virtual_ring_attention
+
+    q, k, v, dout = (torch.randn((rows, n, HEADS, HEAD_DIM), generator=gen, device=device).to(dtype)
+                     for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def run(fn):
+        out = fn()
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
+
+    reset_counts()
+    whole = run(lambda: flash_attention(q, k, v))
+    torch.cuda.synchronize()
+    whole_launches = {name: KERNELS[name]["fn"].launches for name in ("flash_attention", *BACKWARD)}
+    reset_counts()
+    ring = run(lambda: virtual_ring_attention(q, k, v, RING))
+    torch.cuda.synchronize()
+    ring_launches = {name: KERNELS[name]["fn"].launches for name in ("flash_attention", *BACKWARD)}
+    m = n // RING
+    blk = [t[:, :m].detach().contiguous() for t in (q, k, v, dout)]
+    routes = dict(forward=forward_route(*blk[:3]), backward=backward_route(*blk, *[torch.empty_like(blk[0])] * 3))
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    errs = {name: max_err(r, w) / max_abs(w) for name, r, w in zip(("out", "dq", "dk", "dv"), ring, whole)}
+    return dict(errs=errs, tolerance=tol, shard_routes=routes, ring_launches=ring_launches,
+                whole_launches=whole_launches, run=lambda: run(lambda: virtual_ring_attention(q, k, v, RING)),
+                whole=lambda: run(lambda: flash_attention(q, k, v)))
+
+
+def virtual_ring(device, timer) -> dict:
+    """Phase 10a's ring: each RING_SHAPES case in bf16 and fp32 (see
+    ring_case); every error within the kernels' gates (BF16_TOL, FP32_TOL
+    of the largest magnitude), each shard on the route of its dtype, RING²
+    launches of B1, B4 and B5 for the ring and one each for the whole; ms of
+    the ring's forward and backward beside the whole sequence's."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    out, launches = {}, {name: 0 for name in KERNELS}
+    for label, (rows, n) in RING_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            case = ring_case(rows, n, dtype, device, gen)
+            name = f"{label}_{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            want_route = "tensor_core" if dtype == torch.bfloat16 else "fp32_tiled"
+            r = {k: case[k] for k in ("errs", "tolerance", "shard_routes", "ring_launches", "whole_launches")}
+            r.update(ms=timer.ms(case["run"], iters=3), whole_ms=timer.ms(case["whole"], iters=3))
+            print(f"  virtual ring {name} ({rows} rows x {n} tokens, {RING} shards of {n // RING}): "
+                  + json.dumps(r), flush=True)
+            for k, c in case["ring_launches"].items():
+                launches[k] += c
+            if any(e > case["tolerance"] for e in case["errs"].values()):
+                raise AssertionError(f"virtual ring {name}: {case['errs']} beyond {case['tolerance']}")
+            if set(case["shard_routes"].values()) != {want_route}:
+                raise AssertionError(f"virtual ring {name}: shard routes {case['shard_routes']}, want {want_route}")
+            if any(c != RING * RING for c in case["ring_launches"].values()) or \
+                    any(c != 1 for c in case["whole_launches"].values()):
+                raise AssertionError(f"virtual ring {name}: launches {case['ring_launches']} (ring), "
+                                     f"{case['whole_launches']} (whole)")
+            out[name] = r
+    return dict(cases=out, launches=launches, device=torch.cuda.get_device_name(device))
+
+
+def virtual_tp(device) -> dict:
+    """Phase 10a's tp: one Latte-XL/2 block pair (spatial, then temporal,
+    with the (b f) t d <-> (b t) f d relayouts between) at ffs_train.yaml's
+    shapes (batch 5, 16 frames of 256 tokens, fp32), weights from a seed,
+    against its RING tp shards (``dist.sharding.tp_shard``) run in turn
+    with the row-parallel sums taken by hand (``dist.tp.virtual_tp``, the
+    seam where ``tp_reduce`` all-reduces): the output and every weight's
+    gradient (the shards' joined by ``tp_unshard``) within TP_REL relative
+    L2, and the launches of each kernel (RING times the whole pair's for
+    B1, B4, B5)."""
+    from latte_tpu_torch.dist.sharding import tp_shard, tp_unshard
+    from latte_tpu_torch.dist.tp import virtual_tp as join
+    from latte_tpu_torch.models.layers import AdaLNBlock
+
+    B, F, T, D = TRAIN_BATCH, FRAMES, TOKENS, HIDDEN
+    gen = torch.Generator(device=device).manual_seed(22)
+    with torch.device(device):
+        whole = [AdaLNBlock(D, HEADS) for _ in range(2)]
+    with torch.no_grad():
+        for blk in whole:
+            for p in blk.parameters():
+                p.normal_(0.0, (p[0].numel() ** -0.5) if p.dim() > 1 else 0.1, generator=gen)
+    shards = []
+    for i, blk in enumerate(whole):
+        with torch.device(device):
+            parts = [AdaLNBlock(D, HEADS, tp=RING) for _ in range(RING)]
+        for r, part in enumerate(parts):
+            part.load_state_dict({k: tp_shard(f"blocks.{i}.{k}", v, RING, r) for k, v in blk.state_dict().items()})
+        shards.append(parts)
+    joined = [join(parts) for parts in shards]
+    x = torch.randn((B * F, T, D), generator=gen, device=device)
+    c_s = torch.randn((B * F, D), generator=gen, device=device)
+    c_t = torch.randn((B * T, D), generator=gen, device=device)
+    w = torch.randn((B * F, T, D), generator=gen, device=device)
+
+    def pair(blocks, x):
+        y = blocks[0](x, c_s).reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
+        return blocks[1](y, c_t).reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D)
+
+    res = {}
+    for label, blocks in (("whole", whole), ("shards", joined)):
+        xi = x.clone().requires_grad_()
+        reset_counts()
+        out = pair(blocks, xi)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        res[label] = dict(out=out.detach(), dx=xi.grad, launches=counts())
+    out_err = compare("virtual tp pair: output, shards vs whole", res["shards"]["out"], res["whole"]["out"])
+    dx_err = compare("virtual tp pair: input gradient", res["shards"]["dx"], res["whole"]["dx"])
+    worst, worst_name = 0.0, None
+    for i, blk in enumerate(whole):
+        for k, p in blk.named_parameters():
+            grads = [dict(part.named_parameters())[k].grad for part in shards[i]]
+            g = grads[0] if grads[1] is None else tp_unshard(f"blocks.{i}.{k}", grads)
+            err = float((g.double() - p.grad.double()).norm() / p.grad.double().norm().clamp_min(1e-30))
+            if err > worst:
+                worst, worst_name = err, f"blocks.{i}.{k}"
+    r = dict(out_rel_l2=out_err["rel_l2"], dx_rel_l2=dx_err["rel_l2"], worst_grad_rel_l2=worst,
+             worst_grad=worst_name, launches=res["shards"]["launches"], whole_launches=res["whole"]["launches"])
+    print("  virtual tp pair (4 shards, fp32, batch 5): " + json.dumps(r), flush=True)
+    if max(out_err["rel_l2"], dx_err["rel_l2"], worst) > TP_REL:
+        raise AssertionError(f"virtual tp: the shards disagree with the whole pair beyond {TP_REL}: {r}")
+    for name in ("flash_attention", *BACKWARD):
+        if r["launches"][name] != RING * r["whole_launches"][name]:
+            raise AssertionError(f"virtual tp: {name} launched {r['launches'][name]} times, want "
+                                 f"{RING} x {r['whole_launches'][name]}")
+    return r
+
+
 DIST_WORLD = min(4, torch.cuda.device_count()) if torch.cuda.is_available() else 0
 DIST_STEPS, DIST_MOE_STEPS = 3, 2
 DIST_REL = 1e-6
@@ -4205,7 +4378,10 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
     if world == 1:
         # the same runs over the group: DDP, ZeRO-1 and FSDP
         gates = {}
-        gates["ddp"] = check_gate("ffs_train ddp, world 1", gate_run(FFS_TRAIN, ffs, tmp, "ddp"), plain["ffs"])
+        # DDP through the (dp, ep, sp, tp) mesh with tp and sp named at 1
+        gates["ddp"] = check_gate("ffs_train ddp, tensor_parallel=1 sequence_parallel=1, world 1",
+                                  gate_run(FFS_TRAIN, ffs + ["tensor_parallel=1", "sequence_parallel=1"], tmp, "ddp"),
+                                  plain["ffs"])
         gates["zero1"] = check_gate("ffs_train zero1, world 1", gate_run(FFS_TRAIN, ffs + ["zero1=true"], tmp,
                                                                           "zero1"), plain["ffs"])
         gates["fsdp"] = check_gate("ffs_train fsdp, world 1", gate_run(FFS_TRAIN, ffs + ["fsdp=true"], tmp,
@@ -4235,6 +4411,10 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
     runs = [("ffs_train", FFS_TRAIN, [])]
     if world >= 4:
         runs.append(("ffs_train_moe", MOE_TRAIN, []))  # as shipped: dp 1 x ep 4
+        # tensor and sequence parallelism at dp 1: the global batch of 5 is one
+        # GPU's; from one_gpu_refs' seeded weights, as its one-GPU run
+        runs += [("ffs_train_tp4", FFS_TRAIN, ["tensor_parallel=4", f"pretrained={seeded_xl(tmp)}"]),
+                 ("ffs_train_sp4", FFS_TRAIN, ["sequence_parallel=4", f"pretrained={seeded_xl(tmp)}"])]
     res["train"] = {}
     for name, path, extra in runs:
         log = StepLog(profile_after=DIST_STEPS - 1)
@@ -4243,8 +4423,10 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
         torch.cuda.reset_peak_memory_stats(device)
         held = torch.cuda.memory_allocated(device) / 2**30
         reset_counts()
-        out = train.main(load_config(path, [f"results_dir={tmp}/results_{name}", f"max_train_steps={DIST_STEPS}",
-                                            "log_every=1", f"ckpt_every={DIST_STEPS}", *extra]), callbacks=[log])
+        # the tp and sp runs write no checkpoint (phase "dist"'s dp run gathers one)
+        with NoCheckpoints() if extra else contextlib.nullcontext():
+            out = train.main(load_config(path, [f"results_dir={tmp}/results_{name}", f"max_train_steps={DIST_STEPS}",
+                                                "log_every=1", f"ckpt_every={DIST_STEPS}", *extra]), callbacks=[log])
         torch.cuda.synchronize(device)
         launches = counts()
         routes = check_routes(f"rank {rank} {name}", launches,
@@ -4260,8 +4442,8 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
             launches=launches, routes=routes, step_seconds=secs, peak_gib=peak, held_gib=held,
             nccl_profiled_step=nccl,
             losses=[r[2] for r in log.records], grad_norms=[r[3] for r in log.records],
-            checkpoint_seconds=t_end - log.records[-1][1],
-            checkpoint_gib=os.path.getsize(ckpt) / 2**30 if rank == 0 else None,
+            checkpoint_seconds=None if extra else t_end - log.records[-1][1],
+            checkpoint_gib=os.path.getsize(ckpt) / 2**30 if rank == 0 and not extra else None,
             profile_ms=print_profile(f"rank {rank} {name} step {DIST_STEPS}", log.prof, secs[-1] * 1e3))
         log.state = None
         print(f"  rank {rank} {name} at world {world}: step gaps {secs} s, peak {peak:.3f} GiB, NCCL kernels "
@@ -4269,9 +4451,96 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
         torch.distributed.barrier(device_ids=[rank])
         if rank == 0:
             shutil.rmtree(out["experiment_dir"])
+    if world >= 4:
+        res["tp_sp"] = tp_sp_gates(res["train"], tmp, rank, device)
     with open(os.path.join(tmp, f"dist.{rank}.json"), "w") as f:
         json.dump(res, f, default=str)
     torch.distributed.destroy_process_group()
+
+
+# the tp and sp runs' first losses and grad norms against one GPU's (fp32: the
+# row-parallel sums and the relayouts' gradients run in another order)
+TP_SP_REL = 1e-4
+
+
+def seeded_xl(tmp: str) -> str:
+    """The path of Latte-XL/2's weights from ``randomize_`` (seed 0) under
+    ``tmp``: the 4-GPU tp and sp runs' ``pretrained`` (the reference init's
+    zero adaLN gates would leave the blocks out of the first losses) and the
+    DDIM-50's ``ckpt``."""
+    return os.path.join(tmp, "seeded_xl.pt")
+
+
+def one_gpu_refs(tmp: str, smi: str) -> None:
+    """For phase "dist" at 4 GPUs, before the ranks start: Latte-XL/2's
+    seeded weights (``seeded_xl``), ffs_train.yaml's DIST_STEPS steps from
+    them on one GPU (``gate_run``) and a bf16 DDIM-50 of them through
+    ``sample.main``, written under ``tmp`` for the ranks to hold the tp and
+    sp runs to."""
+    with torch.device("cuda", 0):
+        model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES)
+    randomize_(model, seed=0)
+    ckpt = seeded_xl(tmp)
+    torch.save({"ema": model.state_dict()}, ckpt)
+    del model
+    ref = gate_run(FFS_TRAIN, [f"max_train_steps={DIST_STEPS}", f"pretrained={ckpt}"], tmp, "ffs_train one GPU")
+    cfg = load_config(FFS_CONFIG, ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}", f"ckpt={ckpt}",
+                                   f"save_video_path={tmp}/one_gpu_ddim/v.mp4"])
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = np.load(sample.main(cfg))["latents"]
+    secs = time.perf_counter() - t0
+    with open(os.path.join(tmp, "one_gpu.json"), "w") as f:
+        json.dump(dict(metrics=ref["metrics"], step_seconds=ref["step_seconds"], peak_gib=ref["peak_gib"],
+                       ddim_seconds=secs, ckpt=ckpt, device=smi), f)
+    np.save(os.path.join(tmp, "one_gpu_ddim.npy"), lat)
+    print(f"  one-GPU references: ffs_train losses {[m['loss'] for m in ref['metrics']]}, DDIM-50 {secs:.3f} s",
+          flush=True)
+
+
+def tp_sp_gates(train_runs: dict, tmp: str, rank: int, device) -> dict:
+    """At 4 GPUs: the tp 4 and sp 4 runs' losses and grad norms against the
+    one-GPU run's (within TP_SP_REL), then a bf16 DDIM-50 of the same
+    Latte-XL/2 weights at ``tensor_parallel=4`` through ``sample.main``
+    against the one-GPU latents (finite, cosine >= 0.99, phase 5's gate),
+    its seconds and launches."""
+    with open(os.path.join(tmp, "one_gpu.json")) as f:
+        one = json.load(f)
+    out = {}
+    for name in ("ffs_train_tp4", "ffs_train_sp4"):
+        got = train_runs[name]
+        rel = [max(abs(a - m[k]) / abs(m[k]) for a, k in ((got["losses"][i], "loss"),
+                                                         (got["grad_norms"][i], "grad_norm")))
+               for i, m in enumerate(one["metrics"])]
+        out[name] = dict(rel=rel, losses=got["losses"], one_gpu_losses=[m["loss"] for m in one["metrics"]],
+                         grad_norms=got["grad_norms"], one_gpu_grad_norms=[m["grad_norm"] for m in one["metrics"]],
+                         s_per_step=statistics.median(got["step_seconds"]),
+                         one_gpu_s_per_step=statistics.median(one["step_seconds"]),
+                         peak_gib=got["peak_gib"], one_gpu_peak_gib=one["peak_gib"],
+                         nccl_profiled_step=got["nccl_profiled_step"])
+        print(f"  rank {rank} {name} against one GPU: {json.dumps(out[name])}", flush=True)
+        if max(rel) > TP_SP_REL:
+            raise AssertionError(f"rank {rank} {name}: losses/grad norms {rel} apart from one GPU's (limit {TP_SP_REL})")
+    cfg = load_config(FFS_CONFIG, ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}", f"ckpt={one['ckpt']}",
+                                   "tensor_parallel=4", f"save_video_path={tmp}/tp4_ddim/v.mp4"])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    path = sample.main(cfg)
+    secs = time.perf_counter() - t0
+    r = dict(seconds=secs, one_gpu_seconds=one["ddim_seconds"], launches=counts(),
+             peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    if rank == 0:
+        lat, want = torch.from_numpy(np.load(path)["latents"]), torch.from_numpy(np.load(
+            os.path.join(tmp, "one_gpu_ddim.npy")))
+        r["vs_one_gpu"] = compare("tp 4 DDIM-50 latents vs one GPU's", lat, want)
+        if lat.shape != want.shape or not r["vs_one_gpu"]["finite"] or r["vs_one_gpu"]["cosine"] < 0.99:
+            raise AssertionError(f"the tp 4 DDIM-50 latents disagree with one GPU's: {r['vs_one_gpu']}")
+    if any(r["launches"][k] != DEPTH * BC_STEPS for k in FORWARD):
+        raise AssertionError(f"rank {rank} tp 4 DDIM-50: launches {r['launches']}, want {DEPTH * BC_STEPS} each")
+    print(f"  rank {rank} tp 4 DDIM-50: {json.dumps(r)}", flush=True)
+    out["ddim50_tp4"] = r
+    return out
 
 
 def dist_phase(tmp: str, smi: str) -> dict:
@@ -4286,6 +4555,8 @@ def dist_phase(tmp: str, smi: str) -> dict:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     print(f"  world size {DIST_WORLD} (NCCL, one process a GPU) on {smi}", flush=True)
+    if DIST_WORLD >= 4:
+        one_gpu_refs(tmp, smi)
     mp.spawn(dist_worker, args=(DIST_WORLD, port, tmp, smi), nprocs=DIST_WORLD, join=True)
     ranks = []
     for r in range(DIST_WORLD):
@@ -4293,6 +4564,26 @@ def dist_phase(tmp: str, smi: str) -> dict:
             ranks.append(json.load(f))
     return dict(world=DIST_WORLD, device=smi, ranks=ranks)
 
+
+
+def tp_sp_launches(name: str, ring: dict, vtp: dict, dist: dict) -> dict:
+    """A kernel's launches (all routes) in this slice's runs: ``launches_ring``
+    in each virtual-ring case, ``launches_tp`` in the virtual tp pair and,
+    per rank, in the 4-GPU tp 4 training and DDIM-50, ``launches_sp`` per
+    rank in the 4-GPU sp 4 training; both with the world-1 DDP run over the
+    (dp, ep, sp, tp) mesh at tp = sp = 1 where the machine has one GPU."""
+    ranks = dist["ranks"]
+    tp = {"virtual_tp4_pair": vtp["launches"][name]}
+    sp = {}
+    if dist["world"] == 1:
+        tp["world1_tp1_sp1_ddp"] = sp["world1_tp1_sp1_ddp"] = ranks[0]["gates"]["ddp"]["launches"][name]
+    elif dist["world"] >= 4:
+        for r in ranks:
+            tp[f"tp4_train_rank{r['rank']}"] = r["train"]["ffs_train_tp4"]["launches"][name]
+            tp[f"tp4_ddim50_rank{r['rank']}"] = r["tp_sp"]["ddim50_tp4"]["launches"][name]
+            sp[f"sp4_train_rank{r['rank']}"] = r["train"]["ffs_train_sp4"]["launches"][name]
+    return dict(launches_ring={case: c["ring_launches"].get(name, 0) for case, c in ring["cases"].items()},
+                launches_tp=tp, launches_sp=sp)
 
 
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
@@ -4539,6 +4830,14 @@ def main() -> int:
     phase("text", t0)
     print("text: " + json.dumps(text, default=str), flush=True)
 
+    # 10a. tensor parallelism and ring attention on the one card
+    t0 = time.perf_counter()
+    ring = virtual_ring(device, timer)
+    vtp = virtual_tp(device)
+    torch.cuda.empty_cache()
+    phase("tp/sp one card", t0)
+    print("tp_sp: " + json.dumps(dict(ring=ring, tp=vtp, device=smi), default=str), flush=True)
+
     # 10. multi-GPU training and sampling over NCCL, one process a GPU
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4642,6 +4941,8 @@ def main() -> int:
                         videos_per_min=qk["pair_videos_per_min"]),
         launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8], launches_moe=moe_launches[INT8],
         launches_text=text_launches[INT8], launches_dist=dist_launches[INT8]))
+    for row in kernels:
+        row.update(tp_sp_launches(row["name"].removesuffix("_f32").removesuffix("_qk"), ring, vtp, dist))
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

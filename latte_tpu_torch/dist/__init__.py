@@ -1,7 +1,9 @@
 """Multi-GPU training and sampling over ``torch.distributed`` (port of
-``latte_tpu/dist``): the process group and the (dp, ep) mesh
-(:mod:`.mesh`), and where each parameter, moment and EMA entry lives
-(:mod:`.sharding`)."""
+``latte_tpu/dist``): the process group and the (dp, ep, sp, tp) mesh
+(:mod:`.mesh`), where each parameter, moment and EMA entry lives
+(:mod:`.sharding`), Megatron's tensor-parallel collectives (:mod:`.tp`),
+the sequence-parallel relayouts (:mod:`.seq`) and ring attention
+(:mod:`.ring`)."""
 
 from latte_tpu_torch.dist.mesh import (
     DistContext,

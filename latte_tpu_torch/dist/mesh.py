@@ -5,18 +5,27 @@ The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets XLA
 insert the collectives; here one process drives one GPU and the collectives
 are ``torch.distributed``'s (NCCL on the card, gloo when the caller asked
 for the CPU). The mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh`
-with the JAX axis order, ``dp`` outermost, then ``ep``: rank = dp_rank·ep +
-ep_rank. The batch is split over ``dp`` and replicated over ``ep``, as the
-JAX batch is ``P("dp")``.
+with the JAX axis order ``dp, ep, sp, tp``, ``dp`` outermost: rank =
+((dp_rank·ep + ep_rank)·sp + sp_rank)·tp + tp_rank. The batch is split over
+``dp`` and replicated over ``ep``, ``sp`` and ``tp``, as the JAX batch is
+``P("dp")``.
 
 Axes:
   - ``dp``: data parallel (batch rows; under ``fsdp`` also the block weights,
     their EMA and their moments; under ``zero1`` the moments).
   - ``ep``: expert parallel (the expert axis of the MoE weights,
     ``models/moe.py``).
-  - ``tp``, ``sp``, ``pp`` (tensor, sequence and pipeline parallelism) are
-    not ported yet: above 1 they raise ``NotImplementedError`` naming
-    ROADMAP M6b.
+  - ``sp``: sequence parallel (the fused batch·token rows of the model's
+    activations, ``models/dit.py``; and the ring of ring attention,
+    ``dist/ring.py``).
+  - ``tp``: tensor parallel (attention heads and MLP columns of the blocks,
+    ``dist/tp.py``).
+  - ``pp`` (pipeline parallelism) is not ported yet: above 1 it raises
+    ``NotImplementedError`` naming ROADMAP M6b.2.
+
+:meth:`DistContext.group` gives the process group of any set of axes (the
+ranks that differ only along them), which the step's collectives average
+over.
 
 Processes meet through :func:`initialize_distributed`: torchrun's
 ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``/``MASTER_PORT``, or
@@ -27,8 +36,9 @@ the config's ``coordinator_address``, ``num_processes`` and ``process_id``
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,7 +50,8 @@ __all__ = [
     "is_main_process", "barrier", "batch_rows", "shard_batch",
 ]
 
-M6B = "the multi-GPU slice's second half (ROADMAP M6b)"
+M6B = "pipeline parallelism (ROADMAP M6b.2)"
+AXES = ("dp", "ep", "sp", "tp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,33 +72,67 @@ class MeshConfig:
         return MeshConfig(dp=dp, tp=self.tp, sp=self.sp, pp=self.pp, ep=self.ep)
 
 
-def refuse_m6b(tp: int = 1, sp: int = 1, pp: int = 1) -> None:
-    """``NotImplementedError`` naming M6b for a tensor, sequence or pipeline
-    axis above 1."""
-    for key, n in (("tensor_parallel", tp), ("sequence_parallel", sp), ("pipeline_parallel", pp)):
-        if n > 1:
-            raise NotImplementedError(f"{key}={n}: not ported yet; comes with {M6B}")
+def refuse_m6b(pp: int = 1) -> None:
+    """``NotImplementedError`` naming M6b.2 for a pipeline axis above 1."""
+    if pp > 1:
+        raise NotImplementedError(f"pipeline_parallel={pp}: not ported yet; comes with {M6B}")
 
 
 def make_mesh(config: MeshConfig = MeshConfig(), device_type: str = "cuda"):
-    """The (dp, ep) ``DeviceMesh`` over every rank of the process group."""
+    """The (dp, ep, sp, tp) ``DeviceMesh`` over every rank of the process
+    group (an axis of size 1 included)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    refuse_m6b(config.tp, config.sp, config.pp)
+    refuse_m6b(config.pp)
     cfg = config.resolve(dist.get_world_size())
-    return init_device_mesh(device_type, (cfg.dp, cfg.ep), mesh_dim_names=("dp", "ep"))
+    return init_device_mesh(device_type, (cfg.dp, cfg.ep, cfg.sp, cfg.tp), mesh_dim_names=AXES)
 
 
 @dataclasses.dataclass
 class DistContext:
-    """This process's place in the mesh: its device, its dp and ep indices
-    and the groups of its two axes."""
+    """This process's place in the mesh: its device, its index on each axis
+    (``dp_rank``, ...), and the groups of the axes and of their unions
+    (:meth:`group`), made once here, as every rank must make each group."""
 
     mesh: object  # DeviceMesh
     device: torch.device
+    # the local batch is the [cond | uncond] halves of this rank's rows, and
+    # the global batch [cond | uncond] of every rank's (the samplers' CFG doubling)
+    cfg_halves: bool = False
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        sizes = dict(zip(AXES, self.mesh.shape))
+        live = [a for a in AXES if sizes[a] > 1]
+        ranks = torch.arange(self.world).view(*self.mesh.shape)
+        for n in range(2, len(live) + 1):
+            for axes in itertools.combinations(live, n):
+                if n == len(live):
+                    self.groups[axes] = dist.group.WORLD
+                    continue
+                # the ranks that differ only along `axes`: those axes last, flattened
+                keep = [AXES.index(a) for a in AXES if a not in axes]
+                move = [AXES.index(a) for a in axes]
+                members = ranks.permute(*keep, *move).reshape(-1, _prod(sizes[a] for a in axes))
+                mine, _ = dist.new_subgroups_by_enumeration(members.tolist())
+                self.groups[axes] = mine
 
     def __deepcopy__(self, memo):
         return self  # a copied model (the EMA) shares the process groups
+
+    def size(self, *axes: str) -> int:
+        """The number of ranks along ``axes`` together."""
+        return _prod(self.mesh.size(AXES.index(a)) for a in axes)
+
+    def group(self, *axes: str):
+        """The process group of the ranks that differ from this one only
+        along ``axes``, or None when that is this rank alone."""
+        live = tuple(a for a in AXES if a in axes and self.size(a) > 1)
+        if not live:
+            return None
+        if len(live) == 1:
+            return self.mesh.get_group(live[0])
+        return self.groups[live]
 
     @property
     def world(self) -> int:
@@ -106,6 +151,14 @@ class DistContext:
         return self.mesh.size(1)
 
     @property
+    def sp(self) -> int:
+        return self.mesh.size(2)
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.size(3)
+
+    @property
     def dp_rank(self) -> int:
         return self.mesh.get_local_rank("dp")
 
@@ -114,12 +167,53 @@ class DistContext:
         return self.mesh.get_local_rank("ep")
 
     @property
+    def sp_rank(self) -> int:
+        return self.mesh.get_local_rank("sp")
+
+    @property
+    def tp_rank(self) -> int:
+        return self.mesh.get_local_rank("tp")
+
+    @property
     def dp_group(self):
         return self.mesh.get_group("dp")
 
     @property
     def ep_group(self):
         return self.mesh.get_group("ep")
+
+    @property
+    def sp_group(self):
+        return self.mesh.get_group("sp")
+
+    @property
+    def tp_group(self):
+        return self.mesh.get_group("tp")
+
+    # the rows of the model's activations: split over dp, then sp
+    # (P(("dp", "sp")) of the JAX model's activation sharding)
+
+    @property
+    def rows(self) -> int:
+        return self.dp * self.sp
+
+    @property
+    def row_rank(self) -> int:
+        return self.dp_rank * self.sp + self.sp_rank
+
+    @property
+    def row_group(self):
+        return self.group("dp", "sp")
+
+    def token_segments(self, n: int, row_rank: Optional[int] = None):
+        """Where the ``n`` tokens of row rank ``row_rank`` (default this
+        rank's) sit in the global token order: ``[(global start, local
+        start, length)]``, one segment, or two under ``cfg_halves``."""
+        r = self.row_rank if row_rank is None else row_rank
+        if not self.cfg_halves:
+            return [(r * n, 0, n)]
+        half = n // 2
+        return [(r * half, 0, half), ((self.rows + r) * half, half, half)]
 
     @property
     def world_group(self):
@@ -165,11 +259,19 @@ def initialize_distributed(
     return dev
 
 
-def setup(config, device: Optional[str] = None, check=None):
+def _prod(values) -> int:
+    n = 1
+    for v in values:
+        n *= v
+    return n
+
+
+def setup(config, device: Optional[str] = None, check=None, mesh: Optional[MeshConfig] = None):
     """``(device, ctx)`` for an entry point: the rendezvous of
     :func:`initialize_distributed` from the config's keys, ``check(world
     size)`` (the entry point's own validation), then the mesh of its
-    ``expert_parallel`` (the M6b axes raise). A single process gets
+    ``expert_parallel``, ``sequence_parallel`` and ``tensor_parallel`` (or
+    ``mesh``; ``pipeline_parallel`` raises). A single process gets
     ``(resolve_device(device), None)``."""
     dev = initialize_distributed(
         getattr(config, "coordinator_address", None),
@@ -181,16 +283,14 @@ def setup(config, device: Optional[str] = None, check=None):
         check(1 if dev is None else dist.get_world_size())
     if dev is None:
         return resolve_device(device), None
-    mesh = make_mesh(
-        MeshConfig(
+    if mesh is None:
+        mesh = MeshConfig(
             tp=int(getattr(config, "tensor_parallel", 1) or 1),
             sp=int(getattr(config, "sequence_parallel", 1) or 1),
             pp=int(getattr(config, "pipeline_parallel", 1) or 1),
             ep=int(getattr(config, "expert_parallel", 1) or 1),
-        ),
-        dev.type,
-    )
-    return dev, DistContext(mesh, dev)
+        )
+    return dev, DistContext(make_mesh(mesh, dev.type), dev)
 
 
 def is_main_process() -> bool:
@@ -209,7 +309,7 @@ def barrier() -> None:
 
 def batch_rows(n_local: int, ctx: Optional[DistContext]) -> slice:
     """This rank's rows of a global batch of ``n_local·dp`` rows: the block
-    of its dp index (the ranks of one ep group share it)."""
+    of its dp index (the ranks of one ep, sp or tp group share it)."""
     if ctx is None:
         return slice(0, n_local)
     return slice(ctx.dp_rank * n_local, (ctx.dp_rank + 1) * n_local)

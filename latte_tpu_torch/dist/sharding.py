@@ -1,9 +1,22 @@
-"""Where each parameter, Adam moment and EMA entry lives over the (dp, ep)
-mesh, and the training step's collectives (port of the ``ep``, ``fsdp`` and
-``zero1`` rules of ``latte_tpu/dist/sharding.py``).
+"""Where each parameter, Adam moment and EMA entry lives over the
+(dp, ep, sp, tp) mesh, and the training step's collectives (port of
+``latte_tpu/dist/sharding.py``).
 
 The rules, over the port's parameter names:
 
+- **tp** (``tensor_parallel > 1``, Megatron, the JAX ``_spec_for``): inside
+  ``blocks`` the column-parallel layers (``qkv``, ``fc1``, ``to_q/k/v``,
+  ``net.0.proj``) split their output axis and their bias over ``tp``, the
+  row-parallel ones (``proj``, ``fc2``, ``to_out``, ``net.2``) their input
+  axis (weights only; their bias is whole and added once). Everything outside
+  ``blocks``, the adaLN modulations and the MoE experts are replicated. The
+  int8 serving buffers follow their weight (``weight_i8`` as ``weight``, a
+  column layer's per-channel ``weight_scale`` as its rows, the per-head
+  ``q/k/v_scale`` by heads); per-tensor ``act_scale`` is whole. The JAX qkv
+  output is head-major, (H, 3, hd), so its contiguous split lands on whole
+  heads; the port's qkv rows keep the reference's [q|k|v] order, so a tp
+  rank's rows are ``view(3, H, hd, C)[:, h0:h1]``: the same heads of q, k
+  and v (:func:`tp_shard`, :func:`tp_unshard`).
 - **ep** (``expert_parallel > 1``): the expert axis (0) of the MoE weights
   ``*.moe.wi``/``bi``/``wo``/``bo`` goes over ``ep``; each rank holds its
   E/ep experts (``models/moe.py`` builds them so). Routers and every other
@@ -17,22 +30,27 @@ The rules, over the port's parameter names:
   ``fc1``; so their biases stay whole), the input axis of a row-parallel one
   (``proj``, ``fc2``), and an expert weight's expert axis under ep. The EMA
   copy is sharded alike, and the moments follow their shards.
-- **zero1**: each moment goes over ``dp`` on its parameter's largest
-  dp-divisible axis; parameters and EMA stay replicated. With ``ep`` it
-  raises the JAX trainer's ``ValueError``.
+- **zero1**: each moment goes over ``dp`` on its (tp-local) parameter's
+  largest dp-divisible axis; parameters and EMA stay replicated. With ``ep``
+  it raises the JAX trainer's ``ValueError``. Under tp the port's moments
+  are those of the rank's tp shard, split over dp; the JAX trainer's
+  ``zero1_opt_shardings`` splits the whole moment over dp alone and
+  replicates it over tp (more bytes a device, the same values).
 
 The axis a split takes is the port's choice (JAX's layout stacks the blocks
 and transposes the linears); the bytes a rank holds are the JAX rule's
-(:func:`local_numels`). Tensor, sequence and pipeline parallelism wait for
-ROADMAP M6b.
+(:func:`local_numels`). Pipeline parallelism waits for ROADMAP M6b.2.
 
-:class:`ShardedParams` carries a step's collectives: gradient averaging
-(dense gradients over every rank, dp·ep, so the ep replicas cannot drift;
-expert gradients over dp; FSDP's reduce-scatter over dp, then the dense
-shards over ep), the norm of the full gradient, the ZeRO-1 update of a
+:class:`ShardedParams` carries a step's collectives: gradient averaging over
+the ranks that hold the same entry and see other data or hold the same
+copy (a dense gradient over dp·ep·sp, and over tp when the parameter is not
+tp-split, so no replica can drift; an expert's over dp·sp·tp; after FSDP's
+reduce-scatter over dp, the rest of those axes), the norm of the full
+gradient (each local part's squares summed over the axes that split it:
+dp under FSDP, ep for an expert, tp for a tp shard), the ZeRO-1 update of a
 rank's slice and the gather of the parameters after it, the EMA of the local
 shards, and the full state of the one-process checkpoint format, gathered to
-rank 0 and cut again on load.
+rank 0 (over dp, ep and tp) and cut again on load.
 """
 
 from __future__ import annotations
@@ -45,7 +63,7 @@ from torch import nn
 
 __all__ = [
     "EXPERT_KEYS", "ZERO1_EP_ERROR", "is_expert", "is_block", "largest_axis", "fsdp_axis", "local_numels",
-    "apply_fsdp", "ShardedParams",
+    "tp_axis", "tp_shard", "tp_unshard", "tp_shard_state_dict", "apply_fsdp", "ShardedParams",
 ]
 
 EXPERT_KEYS = ("wi", "bi", "wo", "bo")
@@ -76,21 +94,83 @@ def largest_axis(shape, n: int, skip: Iterable[int] = ()) -> Optional[int]:
 
 
 # the JAX rule's Megatron layers: column-parallel (output axis over tp) and
-# row-parallel (input axis over tp)
+# row-parallel (input axis over tp); LatteT2V's feed-forward layers are
+# ``net.0.proj`` and ``net.2`` in the port's names
 _COLUMN_KEYS = ("qkv", "fc1", "to_q", "to_k", "to_v", "net_0_proj")
 _ROW_KEYS = ("proj", "fc2", "to_out", "net_2")
+# the tensors of a layer that its split cuts (the int8 serving buffers too)
+_COLUMN_LEAVES = ("weight", "bias", "weight_i8", "weight_scale")
+_ROW_LEAVES = ("weight", "weight_i8")
+_HEAD_SCALES = ("q_scale", "k_scale", "v_scale")
+
+
+def _tp_layer(name: str) -> Optional[str]:
+    """"column", "row" or None: the Megatron role of the layer holding
+    ``name``, by the last of its path's layer keys."""
+    path = name.replace("net.0.proj.", "net_0_proj.").replace("net.2.", "net_2.")
+    layer = [p for p in path.split(".") if p in _COLUMN_KEYS + _ROW_KEYS]
+    if not layer:
+        return None
+    return "column" if layer[-1] in _COLUMN_KEYS else "row"
+
+
+def tp_axis(name: str, ndim: int) -> Optional[int]:
+    """The axis of a block tensor (a linear's weight is (out, in)) that the
+    JAX rule gives to ``tp``, or None (replicated)."""
+    if not is_block(name):
+        return None
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _HEAD_SCALES:
+        return 0
+    kind = _tp_layer(name)
+    if kind == "column" and leaf in _COLUMN_LEAVES:
+        return 0
+    if kind == "row" and leaf in _ROW_LEAVES and ndim >= 2:
+        return 1
+    return None
+
+
+def _is_qkv(name: str) -> bool:
+    return name.rsplit(".", 2)[-2:-1] == ["qkv"]
+
+
+def tp_shard(name: str, t: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s part of the whole tensor ``t`` under ``tp`` shards
+    (``t`` itself when the rule replicates it; a view where it can be). The
+    fused qkv rows are [q|k|v]: each rank takes its heads of all three."""
+    axis = tp_axis(name, t.dim())
+    if axis is None or tp == 1:
+        return t
+    if t.shape[axis] % tp:
+        raise ValueError(f"tensor_parallel={tp} does not divide axis {axis} of {name} {tuple(t.shape)}")
+    if _is_qkv(name):
+        return t.view(3, tp, t.shape[0] // (3 * tp), *t.shape[1:])[:, rank].reshape(-1, *t.shape[1:])
+    n = t.shape[axis] // tp
+    return t.narrow(axis, rank * n, n)
+
+
+def tp_unshard(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
+    """The whole tensor from every rank's part (in rank order), the inverse
+    of :func:`tp_shard`."""
+    axis = tp_axis(name, parts[0].dim())
+    if axis is None or len(parts) == 1:
+        return parts[0]
+    if _is_qkv(name):
+        rest = parts[0].shape[1:]
+        return torch.stack([p.reshape(3, -1, *rest) for p in parts], dim=1).reshape(-1, *rest)
+    return torch.cat(parts, dim=axis)
+
+
+def tp_shard_state_dict(sd: Dict[str, torch.Tensor], tp: int, rank: int) -> Dict[str, torch.Tensor]:
+    """A one-process state dict cut to tp rank ``rank``'s (contiguous
+    copies)."""
+    return {k: tp_shard(k, v, tp, rank).contiguous() for k, v in sd.items()}
 
 
 def _tp_axes(name: str, ndim: int) -> Tuple[int, ...]:
-    """The axes of a port parameter (a linear's weight is (out, in)) that
-    the JAX rule gives to ``tp``."""
-    parts = name.split(".")
-    layer = [p for p in parts if p in _COLUMN_KEYS + _ROW_KEYS]
-    if not layer:
-        return ()
-    if layer[-1] in _COLUMN_KEYS:
-        return (0,)
-    return (1,) if parts[-1] == "weight" and ndim >= 2 else ()
+    """The axes of a port parameter that the JAX rule gives to ``tp``."""
+    axis = tp_axis(name, ndim)
+    return () if axis is None else (axis,)
 
 
 def fsdp_axis(name: str, shape, dp: int, ep: int) -> Optional[int]:
@@ -102,21 +182,26 @@ def fsdp_axis(name: str, shape, dp: int, ep: int) -> Optional[int]:
     return largest_axis(shape, dp, skip=skip)
 
 
-def local_numels(named_shapes, dp: int, ep: int, fsdp: bool = False, zero1: bool = False) -> Tuple[int, int]:
+def local_numels(named_shapes, dp: int, ep: int, fsdp: bool = False, zero1: bool = False,
+                 tp: int = 1) -> Tuple[int, int]:
     """(parameter elements, moment elements per moment) one rank holds, from
     the full shapes of the one-process model, by the rules above."""
     params = moments = 0
     for name, shape in named_shapes:
-        n = 1
-        for s in shape:
-            n *= s
+        local = list(shape)
         if ep > 1 and is_expert(name):
-            n //= ep
+            local[0] //= ep
+        axis = tp_axis(name, len(shape)) if tp > 1 else None
+        if axis is not None:
+            local[axis] //= tp
+        n = 1
+        for s in local:
+            n *= s
         p = n
-        if fsdp and fsdp_axis(name, shape, dp, ep) is not None:
+        if fsdp and fsdp_axis(name, local, dp, ep) is not None:
             p = n // dp
         m = p
-        if zero1 and largest_axis(shape, dp) is not None:
+        if zero1 and largest_axis(local, dp) is not None:
             m = n // dp
         params += p
         moments += m
@@ -168,6 +253,7 @@ class _Entry:
         self.name, self.param = name, param
         self.fsdp = isinstance(param, DTensor)
         self.expert = ctx.ep > 1 and is_expert(name)
+        self.tp_split = ctx.tp > 1 and tp_axis(name, param.dim()) is not None
         self.axis = largest_axis(param.shape, ctx.dp) if zero1 and ctx.dp > 1 else None
         with torch.no_grad():
             local = _local(param)
@@ -178,15 +264,18 @@ class _Entry:
                 self.leaf = nn.Parameter(local)
             else:
                 self.leaf = param
-        # the group the squares of a gradient's local part sum over for the norm
-        if self.fsdp and self.expert:
-            self.norm_group = ctx.world_group
-        elif self.fsdp:
-            self.norm_group = ctx.dp_group
-        elif self.expert:
-            self.norm_group = ctx.ep_group
-        else:
-            self.norm_group = None
+        # the axes whose ranks hold this entry and average its gradient: those
+        # that see other rows (dp, sp), and those that hold the same copy
+        # (ep for a dense entry, tp for one tp does not split); FSDP's
+        # reduce-scatter has averaged over dp already
+        axes = ("dp", "sp") + (() if self.expert else ("ep",)) + (() if self.tp_split else ("tp",))
+        if self.fsdp:
+            axes = tuple(a for a in axes if a != "dp")
+        self.group, self.n = ctx.group(*axes), ctx.size(*axes)
+        # the group the squares of a gradient's local part sum over for the
+        # norm: the axes that split it
+        split = (("dp",) if self.fsdp else ()) + (("ep",) if self.expert else ()) + (("tp",) if self.tp_split else ())
+        self.norm_group = ctx.group(*split)
 
 
 class ShardedParams:
@@ -211,20 +300,14 @@ class ShardedParams:
         """Average every gradient over the ranks that share its parameter
         (and over ``chunks`` accumulated backwards), and hand each leaf its
         part; returns the local gradients (for :meth:`grad_norm`)."""
-        ctx, works, todo = self.ctx, [], []
+        works, todo = [], []
         for e in self.entries:
             if e.param.grad is None:
                 e.param.grad = torch.zeros_like(e.param)
             g = _local(e.param.grad)
-            if e.fsdp:  # FSDP's reduce-scatter averaged it over dp
-                group, n = (ctx.ep_group, ctx.ep) if not e.expert and ctx.ep > 1 else (None, 1)
-            elif e.expert:
-                group, n = ctx.dp_group, ctx.dp
-            else:
-                group, n = ctx.world_group, ctx.world
-            if group is not None and n > 1:
-                works.append(dist.all_reduce(g, group=group, async_op=True))
-            todo.append((e, g, n * chunks))
+            if e.group is not None:
+                works.append(dist.all_reduce(g, group=e.group, async_op=True))
+            todo.append((e, g, e.n * chunks))
         for w in works:
             w.wait()
         for e, g, n in todo:
@@ -295,6 +378,10 @@ class ShardedParams:
             parts = [torch.empty_like(t) for _ in range(ctx.ep)]
             dist.all_gather(parts, t.contiguous(), group=ctx.ep_group)
             t = torch.cat(parts)
+        if ctx.tp > 1 and tp_axis(name, t.dim()) is not None:
+            parts = [torch.empty_like(t) for _ in range(ctx.tp)]
+            dist.all_gather(parts, t.contiguous(), group=ctx.tp_group)
+            t = tp_unshard(name, parts)
         return t.detach().cpu() if ctx.rank == 0 else None
 
     def _part(self, name: str, full: torch.Tensor, like: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
@@ -302,6 +389,7 @@ class ShardedParams:
         from torch.distributed.tensor import DTensor
 
         ctx = self.ctx
+        full = tp_shard(name, full, ctx.tp, ctx.tp_rank)
         if ctx.ep > 1 and is_expert(name):
             full = full.chunk(ctx.ep)[ctx.ep_rank]
         if isinstance(like, DTensor):

@@ -50,6 +50,27 @@ function, so a recomputed pair never leaves a second copy behind. Under
 expert products (``baddbmm``, batched) are recomputed: what JAX's
 ``dots_with_no_batch_dims_saveable`` does with them, so the policy needs
 nothing of its own for MoE.
+
+Over several ranks (``mesh``, a :class:`~latte_tpu_torch.dist.mesh.
+DistContext`):
+
+- tensor parallelism (``mesh.tp > 1``): each block holds its rank's heads
+  and MLP columns (:mod:`latte_tpu_torch.models.layers`,
+  :mod:`latte_tpu_torch.dist.tp`); everything else is replicated and runs
+  whole on every rank;
+- sequence parallelism (``mesh.sp > 1``, the JAX model's
+  ``activation_sharding=("dp", "sp")``): the model takes the rank's dp rows
+  of the batch whole, patchifies only its sp block of the (b f) rows, runs
+  the spatial blocks on its (b f) rows and the temporal blocks on its (b t)
+  rows, with one all-to-all for each relayout, and all-gathers the output
+  projection's rows, so unpatchify and the loss see the whole video
+  (:mod:`latte_tpu_torch.dist.seq`). The conditioning rows are cut to the
+  rank's. The block-cache hooks do not run under it.
+
+``attention_mode: "ring"`` with ``ring_mesh`` runs every self-attention as
+ring attention over the ring's ranks (:mod:`latte_tpu_torch.dist.ring`),
+which hold the same activations; a sequence the ring's size does not divide
+falls back to the standard attention, as in JAX.
 """
 
 from __future__ import annotations
@@ -61,6 +82,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from latte_tpu_torch.dist.seq import Relayout, gather_rows, local_rows
 from latte_tpu_torch.models.embeddings import (
     LabelEmbedder,
     TimestepEmbedder,
@@ -122,6 +144,8 @@ class Latte(nn.Module):
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
         moe_mesh=None,
+        mesh=None,
+        ring_mesh=None,
     ):
         super().__init__()
         if extras not in (1, 2, 78):
@@ -145,6 +169,9 @@ class Latte(nn.Module):
         self.quantized = quantized
         self.moe_experts = moe_experts
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        # tensor parallelism over mesh's tp, sequence parallelism over its sp
+        self.tp = mesh.tp if mesh is not None else 1
+        self.sp_mesh = mesh if mesh is not None and mesh.sp > 1 else None
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
@@ -157,7 +184,7 @@ class Latte(nn.Module):
                 hidden_size, num_heads, mlp_ratio, plain=plain, quantized=quantized,
                 int8_attention=int8_attention, attention_mode=attention_mode,
                 moe_experts=moe_experts, moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
-                moe_mesh=moe_mesh,
+                moe_mesh=moe_mesh, tp=self.tp, tp_mesh=mesh if self.tp > 1 else None, ring_mesh=ring_mesh,
             )
             for _ in range(depth)
         )
@@ -216,21 +243,28 @@ class Latte(nn.Module):
         table = get_1d_sincos_pos_embed(self.hidden_size, frames)
         return torch.from_numpy(table).to(self.temp_embed.device, dtype)[None]
 
-    def _pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int):
+    def _pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int, relayout: Optional[Relayout] = None):
         """Blocks i (spatial) and i + 1 (temporal) on (B·F, T, D) tokens:
         ``(x, aux)``, aux the two blocks' Switch losses (2,) or None.
 
         The relayouts copy: the kernels take contiguous activations (at B = 1
-        a reshape of the transposed view would otherwise stay strided)."""
+        a reshape of the transposed view would otherwise stay strided).
+        Under sequence parallelism (``relayout``) x is the rank's block of
+        the rows and each relayout is an all-to-all over sp."""
         T, D = x.shape[1], x.shape[2]
         aux = []
         x = collect_loss(self.blocks[i](x, c_spatial), aux)
         # (b f) t d -> (b t) f d
-        x = x.reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
+        if relayout is not None:
+            x = relayout.to_temporal(x)
+        else:
+            x = x.reshape(B, F, T, D).transpose(1, 2).contiguous().view(B * T, F, D)
         if temp_embed is not None:
             x = x + temp_embed
         x = collect_loss(self.blocks[i + 1](x, c_temp), aux)
         # (b t) f d -> (b f) t d
+        if relayout is not None:
+            return relayout.to_spatial(x), pair_losses(aux)
         return x.reshape(B, T, F, D).transpose(1, 2).contiguous().view(B * F, T, D), pair_losses(aux)
 
     def _run_pair(self, fn, *args):
@@ -297,9 +331,17 @@ class Latte(nn.Module):
         in_dtype = x.dtype
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
         p = self.patch_size
+        relayout, rows_s, rows_t = None, slice(None), slice(None)
+        if self.sp_mesh is not None:
+            if return_front or front_state is not None:
+                raise ValueError("the block-cache staging hooks run without sequence parallelism")
+            mesh = self.sp_mesh
+            T = (H // p) * (W // p)
+            relayout = Relayout(mesh, B, F, T)
+            rows_s, rows_t = local_rows(B * F, mesh.sp, mesh.sp_rank), local_rows(B * T, mesh.sp, mesh.sp_rank)
 
         if front_state is None:
-            x = self.x_embedder(x.reshape(B * F, C, H, W), dtype)  # (B·F, T, D)
+            x = self.x_embedder(x.reshape(B * F, C, H, W)[rows_s], dtype)  # (B·F, T, D), or the rank's rows
             x = x + self._pos_embed(H // p, dtype)
         else:
             x = front_state
@@ -317,19 +359,22 @@ class Latte(nn.Module):
             txt = self._embed_text(text_embedding.reshape(B, -1), dtype)
             c_spatial = c_spatial + txt.repeat_interleave(F, dim=0)
             c_temp = c_temp + txt.repeat_interleave(T, dim=0)
+        c_final = c_spatial if self.extras == 2 else t_emb.repeat_interleave(F, dim=0)
+        c_spatial, c_temp, c_final = c_spatial[rows_s], c_temp[rows_t], c_final[rows_s]
 
         temp_embed = self._temp_embed(F, dtype)
         front, aux = None, []
         for i in range(2 * start_pair, self.depth, 2):
             x, pair_aux = self._run_pair(
-                self._pair, x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F
+                self._pair, x, c_spatial, c_temp, temp_embed if i == 0 else None, i, B, F, relayout
             )
             aux.append(pair_aux)
             if i == 2 * return_front - 2:
                 front = x
 
-        c_final = c_spatial if self.extras == 2 else t_emb.repeat_interleave(F, dim=0)
         x = self.final_layer(x, c_final)
+        if relayout is not None:
+            x = gather_rows(x, self.sp_mesh)
         x = unpatchify(x, p, self.out_channels)
         out = x.reshape(B, F, self.out_channels, H, W).to(in_dtype)
         if return_aux:

@@ -12,7 +12,10 @@ the label dropout after ``y``.
 
 The parameters and their names are ``Latte``'s, so
 :func:`latte_tpu_torch.convert.flax_to_state_dict` carries the JAX
-LatteIMG's over unchanged; so are the MoE options and ``return_aux``.
+LatteIMG's over unchanged; so are the MoE options, ``return_aux`` and
+tensor parallelism (``mesh.tp``). Sequence parallelism is not: the JAX
+LatteIMG has no ``activation_sharding``, so a mesh with ``sp > 1`` raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ class LatteIMG(Latte):
 
     def __init__(self, *args, use_image_num: int = 0, **kwargs):
         super().__init__(*args, **kwargs)
+        if self.sp_mesh is not None:
+            raise ValueError(
+                f"LatteIMG with sequence_parallel={self.sp_mesh.sp}: the JAX LatteIMG has no "
+                "activation_sharding (latte_tpu/models/dit_img.py), so neither package splits its rows over sp"
+            )
         self.use_image_num = use_image_num
 
     def _joint_pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int, Fv: int):

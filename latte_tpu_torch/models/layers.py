@@ -12,8 +12,23 @@ tensors. ``plain=True`` runs the plain versions on any device (for attention
 both its forward and its backward); it exists so a run on the card can hold
 the kernel path against the plain one.
 ``moe_experts > 1`` swaps a block's MLP for the Mixture-of-Experts
-feed-forward (:mod:`latte_tpu_torch.models.moe`), as in the JAX block; the
-ring-attention branch is not ported.
+feed-forward (:mod:`latte_tpu_torch.models.moe`), as in the JAX block.
+
+Tensor parallelism (``tp > 1``, :mod:`latte_tpu_torch.dist.tp`): the
+block's attention holds H/tp heads (its ``qkv`` the rows of those heads of
+q, k and v, its ``proj`` those columns) and its MLP 4D/tp hidden columns;
+each runs its partial product (``partial``) between ``tp_enter`` and
+``tp_reduce``, and the row-parallel bias is added once after the sum. The
+adaLN modulation and the glue kernels run on the whole, replicated rows, as
+in JAX. The weights are the rank's part of the one-process model's
+(``dist.sharding.tp_shard``).
+
+``attention_mode: "ring"`` (:mod:`latte_tpu_torch.dist.ring`) runs the
+self-attention as ring attention over the ``ring`` group (a ``DistContext``,
+whose ``sp`` group it takes, or a process group), falling back to the
+standard attention when the group's size does not divide N; without a group
+it raises the JAX model's ``ValueError``. The ring has no int8 core: with
+``int8_attention`` a warning says so and the ring runs in the model's type.
 
 W8A8 int8 (``quantized``, the JAX ``QDense`` modes): the block's qkv, proj,
 fc1, fc2 and adaLN modulation are :class:`QLinear` layers, and with
@@ -44,6 +59,7 @@ from latte_tpu_torch.kernels import (
     residual_ln_modulate,
     residual_ln_modulate_reference,
 )
+from latte_tpu_torch.dist.tp import tp_amax, tp_enter, tp_reduce
 from latte_tpu_torch.quant.int8 import (
     int8_attention,
     int8_matmul,
@@ -92,6 +108,11 @@ MOE_INT8_REFUSAL = (
     "quantized (W8A8/QAT) + moe_experts is not supported: MoEMlp has no int8 expert path"
 )
 INT8_ATTENTION = (False, True, "full", "qk")
+ATTENTION_MODES = ("auto", "xla", "flash", "math", "ring")
+RING_NEEDS_GROUP = (
+    "attention_mode='ring' requires constructing the model with ring_mesh=<a DistContext or a process "
+    "group> (the ring runs over its sp group)"
+)
 # "auto" gives the int8 core the flash arithmetic from this many tokens on,
 # as the JAX model routes N >= 512 to its flash kernel
 FLASH_MIN_N = 512
@@ -146,6 +167,8 @@ class QLinear(_Fp32Scales, Linear):
             raise ValueError(f"quantized={quantized!r}; expected one of {QUANT_MODES}")
         self.quantized = quantized
         self.calib = {} if quantized == "calib" else None
+        # a row-parallel layer's DistContext: its input axis is split over its tp
+        self.tp_mesh = None
         if quantized in (True, "static"):
             self.weight = None  # the fp weight is replaced by its int8 form
             self.register_buffer("weight_i8", torch.zeros((out_features, in_features), dtype=torch.int8))
@@ -153,19 +176,42 @@ class QLinear(_Fp32Scales, Linear):
             if quantized == "static":
                 self.register_buffer("act_scale", torch.ones(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _calibrate(self, x: torch.Tensor) -> None:
+        if self.quantized == "calib":
+            _record_max(self.calib, "act_amax", tp_amax(x.detach().abs().amax().float(), self.amax_group))
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer without its bias (a row-parallel layer's partial
+        product under tp)."""
         mode = self.quantized
         if mode is False or mode == "calib":
-            if mode == "calib":
-                _record_max(self.calib, "act_amax", x.detach().abs().amax().float())
-            return super().forward(x)
+            self._calibrate(x)
+            return F.linear(x, self.weight.to(x.dtype))
         if mode == "train":
-            y = int8_matmul_ste(x, self.weight, x.dtype)
-        elif mode == "static":
-            y = int8_matmul_static(x, self.weight_i8, self.weight_scale, self.act_scale, x.dtype)
-        else:
-            y = int8_matmul(x, self.weight_i8, self.weight_scale, x.dtype)
-        return y if self.bias is None else y + self.bias.to(x.dtype)
+            return int8_matmul_ste(x, self.weight, x.dtype, self.amax_group)
+        if mode == "static":
+            return int8_matmul_static(x, self.weight_i8, self.weight_scale, self.act_scale, x.dtype)
+        return int8_matmul(x, self.weight_i8, self.weight_scale, x.dtype, self.amax_group)
+
+    @property
+    def amax_group(self):
+        return _tp_group(self.tp_mesh)
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized is False or self.quantized == "calib":
+            self._calibrate(x)
+            return super().forward(x)
+        return self.add_bias(self.product(x))
+
+
+def _tp_group(mesh):
+    """The tp group of a ``DistContext`` (None without one, or at tp = 1).
+    Modules keep the context, which a deep copy (the EMA) shares, and not
+    the process group, which cannot be copied."""
+    return mesh.tp_group if mesh is not None and mesh.tp > 1 else None
 
 
 def _record_max(record: dict, key: str, value: torch.Tensor) -> None:
@@ -175,15 +221,31 @@ def _record_max(record: dict, key: str, value: torch.Tensor) -> None:
 
 
 class Mlp(nn.Module):
-    """Linear -> gelu(tanh) -> Linear."""
+    """Linear -> gelu(tanh) -> Linear; under ``tp`` the rank's ``hidden/tp``
+    columns (``fc1`` column-parallel, ``fc2`` row-parallel)."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int, quantized=False):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int, quantized=False,
+                 tp: int = 1, tp_mesh=None):
         super().__init__()
-        self.fc1 = QLinear(in_features, hidden_features, quantized=quantized)
-        self.fc2 = QLinear(hidden_features, out_features, quantized=quantized)
+        if hidden_features % tp:
+            raise ValueError(f"tensor_parallel={tp} does not divide the MLP's {hidden_features} columns")
+        self.tp, self.tp_mesh = tp, tp_mesh
+        self.fc1 = QLinear(in_features, hidden_features // tp, quantized=quantized)
+        self.fc2 = QLinear(hidden_features // tp, out_features, quantized=quantized)
+        self.fc2.tp_mesh = tp_mesh
+
+    @property
+    def tp_group(self):
+        return _tp_group(self.tp_mesh)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns through both layers, without fc2's bias."""
+        return self.fc2.product(F.gelu(self.fc1(x), approximate="tanh"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        if self.tp == 1:
+            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.fc2.add_bias(tp_reduce(self.partial(tp_enter(x, self.tp_group)), self.tp_group))
 
 
 class Attention(_Fp32Scales):
@@ -210,10 +272,15 @@ class Attention(_Fp32Scales):
         quantized=False,
         int8_attention=False,
         attention_mode: str = "auto",
+        tp: int = 1,
+        tp_mesh=None,
+        ring_mesh=None,
     ):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
+        if num_heads % tp:
+            raise ValueError(f"tensor_parallel={tp} does not divide num_heads {num_heads}")
         if int8_attention not in INT8_ATTENTION:
             raise ValueError(
                 f"int8_attention={int8_attention!r}; expected False, True/'full' "
@@ -225,21 +292,44 @@ class Attention(_Fp32Scales):
                 "quantize_params(act_amax=...)) or 'calib' (the calibration pass); got "
                 f"quantized={quantized!r}"
             )
-        self.num_heads = num_heads
+        if tp > 1 and quantized == "calib":
+            raise ValueError("calibrate the one-process model (quantized='calib' at tensor_parallel 1), then shard")
+        if attention_mode == "ring" and ring_mesh is None:
+            raise ValueError(RING_NEEDS_GROUP)
+        self.num_heads = num_heads // tp  # this rank's heads
         self.head_dim = dim // num_heads
+        self.tp, self.tp_mesh = tp, tp_mesh
+        self.ring_mesh = ring_mesh
         self.plain = plain
         self.attention_mode = attention_mode
         self.int8 = bool(int8_attention) and quantized == "static"
         self.pv_int8 = int8_attention != "qk"
         self.calib = {} if int8_attention and quantized == "calib" else None
-        self.qkv = QLinear(dim, dim * 3, bias=qkv_bias, quantized=quantized)
-        self.proj = QLinear(dim, dim, quantized=quantized)
+        local = self.num_heads * self.head_dim
+        self.qkv = QLinear(dim, local * 3, bias=qkv_bias, quantized=quantized)
+        self.proj = QLinear(local, dim, quantized=quantized)
+        self.proj.tp_mesh = tp_mesh
         if self.int8:
             for name in ("q_scale", "k_scale", "v_scale"):
-                self.register_buffer(name, torch.ones(num_heads))
+                self.register_buffer(name, torch.ones(self.num_heads))
+
+    @property
+    def tp_group(self):
+        return _tp_group(self.tp_mesh)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's heads through qkv, the attention and its columns of
+        proj, without proj's bias (the whole layer at tp = 1, bias aside)."""
+        return self.proj.product(self._core(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, C = x.shape
+        if self.tp == 1:
+            return self.proj(self._core(x))
+        return self.proj.add_bias(tp_reduce(self.partial(tp_enter(x, self.tp_group)), self.tp_group))
+
+    def _core(self, x: torch.Tensor) -> torch.Tensor:
+        """qkv and the attention: (B, N, C) -> (B, N, H·hd) of this rank's heads."""
+        B, N, _ = x.shape
         # [q|k|v] rows: q, k, v are strided (B, N, H, hd) views of one tensor,
         # which the kernels read in place; the backward writes its gradient
         # back as one (B, N, 3, H, hd) tensor
@@ -247,13 +337,38 @@ class Attention(_Fp32Scales):
         if self.calib is not None:
             for name, t in zip(("q_amax", "k_amax", "v_amax"), qkv.detach().unbind(2)):
                 _record_max(self.calib, name, t.float().abs().amax(dim=(0, 1, 3)))
-        out = self._int8_core(qkv) if self.int8 else attention_qkv(qkv, plain=self.plain)
-        return self.proj(out.reshape(B, N, C))
+        mode = self.attention_mode
+        if mode == "ring":
+            mode = self._ring_mode(N)
+        if mode == "ring":
+            from latte_tpu_torch.dist.ring import ring_attention_sharded
 
-    def _int8_core(self, qkv: torch.Tensor) -> torch.Tensor:
+            out = ring_attention_sharded(*qkv.unbind(2), self.ring_mesh)
+        elif self.int8:
+            out = self._int8_core(qkv, mode)
+        else:
+            out = attention_qkv(qkv, plain=self.plain)
+        return out.reshape(B, N, self.num_heads * self.head_dim)
+
+    def _ring_mode(self, N: int) -> str:
+        """"ring", or "xla" (the standard attention) when the ring's size
+        does not divide N, as in JAX; a warning when int8 attention was asked
+        for, which the ring does not have."""
+        from latte_tpu_torch.dist.ring import ring_size
+
+        if self.int8:
+            import warnings
+
+            warnings.warn(
+                f"int8_attention: resolved attention mode 'ring' at N={N} has no int8 core — this "
+                "attention call runs bf16; use attention_mode='xla'/'flash' to keep int8 attention",
+                stacklevel=3,
+            )
+        return "xla" if N % ring_size(self.ring_mesh) else "ring"
+
+    def _int8_core(self, qkv: torch.Tensor, mode: str) -> torch.Tensor:
         q, k, v = qkv.unbind(2)
         N = q.shape[1]
-        mode = self.attention_mode
         if mode == "auto":
             mode = "flash" if N >= FLASH_MIN_N else "xla"
         scale_block = flash_scale_block(N) if mode == "flash" else None
@@ -289,12 +404,20 @@ class AdaLNBlock(nn.Module):
         moe_top_k: int = 2,
         moe_capacity_factor: float = 1.25,
         moe_mesh=None,
+        tp: int = 1,
+        tp_mesh=None,
+        ring_mesh=None,
     ):
         super().__init__()
         self.plain = plain
+        self.tp, self.tp_mesh = tp, tp_mesh
+        # virtual tensor parallelism (dist.tp.virtual_tp): every shard of this
+        # block, whose partial products the forward sums by hand
+        self.tp_peers = None
         self.attn = Attention(
             hidden_size, num_heads, qkv_bias=True, plain=plain, quantized=quantized,
-            int8_attention=int8_attention, attention_mode=attention_mode,
+            int8_attention=int8_attention, attention_mode=attention_mode, tp=tp, tp_mesh=tp_mesh,
+            ring_mesh=ring_mesh,
         )
         hidden = int(hidden_size * mlp_ratio)
         self.is_moe = moe_experts > 1
@@ -303,14 +426,25 @@ class AdaLNBlock(nn.Module):
 
             if quantized:
                 raise NotImplementedError(MOE_INT8_REFUSAL)
+            # the experts are replicated over tp: every tp rank runs them on the same rows
             self.moe = MoEMlp(hidden_size, hidden, hidden_size, moe_experts, moe_top_k, moe_capacity_factor,
                               mesh=moe_mesh)
         else:
-            self.mlp = Mlp(hidden_size, hidden, hidden_size, quantized=quantized)
+            self.mlp = Mlp(hidden_size, hidden, hidden_size, quantized=quantized, tp=tp, tp_mesh=tp_mesh)
         mod_quantized = quantized if quantized in (True, "static", "calib") else False
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), QLinear(hidden_size, 6 * hidden_size, quantized=mod_quantized)
         )
+
+    def _row_parallel(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        """The attention or MLP (``name``) on h: the layer itself (whose tp
+        shards all-reduce their partial products), or under virtual tp the
+        sum of every shard's partial product, and the bias once."""
+        if self.tp_peers is None:
+            return getattr(self, name)(h)
+        layer = getattr(self, name)
+        total = sum(getattr(b, name).partial(h) for b in self.tp_peers)
+        return (layer.proj if name == "attn" else layer.fc2).add_bias(total)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -320,12 +454,12 @@ class AdaLNBlock(nn.Module):
             ln_mod, res_ln_mod = ln_modulate_reference, residual_ln_modulate_reference
         else:
             ln_mod, res_ln_mod = ln_modulate, residual_ln_modulate
-        attn_out = self.attn(ln_mod(x, shift_msa, scale_msa))
+        attn_out = self._row_parallel("attn", ln_mod(x, shift_msa, scale_msa))
         x, ff_in = res_ln_mod(x, attn_out, gate_msa, shift_mlp, scale_mlp)
         if self.is_moe:
             ff, aux = self.moe(ff_in)
             return x + gate_mlp[:, None, :] * ff, aux
-        return x + gate_mlp[:, None, :] * self.mlp(ff_in)
+        return x + gate_mlp[:, None, :] * self._row_parallel("mlp", ff_in)
 
 
 class FinalLayer(nn.Module):

@@ -46,14 +46,20 @@ in turn.
 
 Over several ranks (``mesh``, the counterpart of the JAX layer's
 ``ep_axis``), the semantics stay those of the JAX layer on the global batch,
-whose rows are split over ``dp`` and replicated over ``ep``:
+whose rows are split over ``dp`` (and, under sequence parallelism, the rows
+of each dp share over ``sp``: "the rows" below are that (dp, sp) split,
+``mesh.rows``) and replicated over ``ep`` and ``tp``:
 
 - Each rank holds the E/ep experts ``[ep_rank·E/ep, (ep_rank+1)·E/ep)``;
   ``reset_parameters`` draws all E from the generator and keeps its own,
   so a seed gives the one-process model's weights.
-- The groups and the capacity are the global batch's (g from S·dp tokens).
-  Where a group spans the ranks' rows, the first choices are all-gathered
-  over ``dp`` to place each token in its queue; else nothing is exchanged.
+- The groups and the capacity are the global batch's (g from S·rows
+  tokens). A rank's tokens are one contiguous segment of the global token
+  order, or two under the samplers' CFG doubling, whose global batch is
+  [cond | uncond] of every rank's rows (``mesh.token_segments``). Where a
+  group spans the ranks' segments, the choices are all-gathered over the
+  rows to place each token in its queue; else nothing is exchanged. Each
+  segment is dispatched, run through the experts and combined on its own.
 - Every rank of an ep group routes the group's tokens alike, runs its own
   experts on them and all-reduces its share of the combine over ``ep``.
   That all-reduce passes the gradient through unchanged, and the inputs of
@@ -61,9 +67,9 @@ whose rows are split over ``dp`` and replicated over ``ep``:
   over ``ep``: each rank's share of the input gradient is partial, and the
   sum is the whole, so every rank ends with the one-process gradient of
   every weight it holds.
-- f_e of the Switch loss is all-reduced over ``dp``, P_e stays this rank's
-  mean: the dp mean of the ranks' losses (and of their gradients, which the
-  step averages) is the global batch's ``E · Σ_e f_e · P_e``.
+- f_e of the Switch loss is all-reduced over the rows, P_e stays this
+  rank's mean: the mean of the ranks' losses (and of their gradients, which
+  the step averages) is the global batch's ``E · Σ_e f_e · P_e``.
 """
 
 from __future__ import annotations
@@ -175,7 +181,7 @@ class MoEMlp(_Fp32Scales):
         super().__init__()
         if activation_fn not in ACTIVATIONS:
             raise NotImplementedError(activation_fn)
-        if mesh is not None and mesh.dp * mesh.ep == 1:
+        if mesh is not None and mesh.rows * mesh.ep == 1:
             mesh = None
         ep = mesh.ep if mesh is not None else 1
         if num_experts % ep:
@@ -228,10 +234,10 @@ class MoEMlp(_Fp32Scales):
             denom = sum(gates) + 1e-9
             gates = [gate / denom for gate in gates]
         f = (choices[0][:, None] == torch.arange(E, device=xf.device)).float().mean(dim=0)
-        if self.mesh is not None and self.mesh.dp > 1:
+        if self.mesh is not None and self.mesh.rows > 1:
             # f_e of the global batch; P_e stays this rank's (see the module docstring)
-            dist.all_reduce(f, group=self.mesh.dp_group)
-            f = f / self.mesh.dp
+            dist.all_reduce(f, group=self.mesh.row_group)
+            f = f / self.mesh.rows
         return probs, choices, gates, E * (f * probs.mean(dim=0)).sum()
 
     def dispatch(self, xf: torch.Tensor, choices, gates, g: int, C: int, offset: int = 0, context=None):
@@ -297,26 +303,38 @@ class MoEMlp(_Fp32Scales):
     def forward(self, x: torch.Tensor):
         B, N, D = x.shape
         S, mesh = B * N, self.mesh
-        dp, dp_rank, ep = (mesh.dp, mesh.dp_rank, mesh.ep) if mesh is not None else (1, 0, 1)
-        g, C = moe_groups(S * dp, self.num_experts, self.top_k, self.capacity_factor, self.group_size)
-        offset = dp_rank * S
+        rows, ep = (mesh.rows, mesh.ep) if mesh is not None else (1, 1)
+        g, C = moe_groups(S * rows, self.num_experts, self.top_k, self.capacity_factor, self.group_size)
+        segments = mesh.token_segments(S) if mesh is not None else [(0, 0, S)]
         xf = x.reshape(S, D)
         _, choices, gates, aux = self.route(xf)
         context = None
-        if offset % g or S % g:
-            # a group spans the ranks' rows: its queues need every rank's choices
-            first, last = offset // g * g, ((offset + S - 1) // g + 1) * g
+        if any(start % g or n % g for start, _, n in segments):
+            # a group spans the ranks' tokens: its queues need every rank's
+            # choices, placed in the global token order
             context = []
             for c in choices:
-                parts = [torch.empty_like(c) for _ in range(dp)]
-                dist.all_gather(parts, c.contiguous(), group=mesh.dp_group)
-                context.append(torch.cat(parts)[first:last])
+                parts = [torch.empty_like(c) for _ in range(rows)]
+                dist.all_gather(parts, c.contiguous(), group=mesh.row_group)
+                full = c.new_empty(S * rows)
+                for q, part in enumerate(parts):
+                    for start, lo, n in mesh.token_segments(S, q):
+                        full[start:start + n] = part[lo:lo + n]
+                context.append(full)
         if ep > 1:
             xf = _SumGrad.apply(xf, mesh.ep_group)
             gates = [_SumGrad.apply(gate, mesh.ep_group) for gate in gates]
-        xin, slots, weights = self.dispatch(xf, choices, gates, g, C, offset, context)
-        # over ep the shares are summed in fp32 before the one rounding
-        y = self.combine(self.experts(xin), slots, weights, dtype=torch.float32 if ep > 1 else None)
+        ys = []
+        for start, lo, n in segments:
+            seg_context = None
+            if context is not None:
+                first, last = start // g * g, ((start + n - 1) // g + 1) * g
+                seg_context = [c[first:last] for c in context]
+            xin, slots, weights = self.dispatch(xf[lo:lo + n], [c[lo:lo + n] for c in choices],
+                                                [gate[lo:lo + n] for gate in gates], g, C, start, seg_context)
+            # over ep the shares are summed in fp32 before the one rounding
+            ys.append(self.combine(self.experts(xin), slots, weights, dtype=torch.float32 if ep > 1 else None))
+        y = ys[0] if len(ys) == 1 else torch.cat(ys)
         if ep > 1:
             y = _SumOut.apply(y, mesh.ep_group)
         return y.to(x.dtype).view(B, N, -1), aux

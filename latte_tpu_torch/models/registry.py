@@ -3,9 +3,11 @@ patch 2/4/8).
 
 Port of ``latte_tpu/models/registry.py``. ``moe_experts`` (> 0, with
 ``moe_top_k`` and ``moe_capacity_factor`` when set) gives the blocks the
-Mixture-of-Experts feed-forward, as the JAX factory passes it. Ring
-attention, which this port has not taken on yet, raises
-``NotImplementedError``; execution hints for the JAX compiler (scan
+Mixture-of-Experts feed-forward, as the JAX factory passes it.
+``attention_mode: ring`` builds ring attention over the ``ring_mesh`` the
+caller passes (without one the model raises the JAX model's ``ValueError``,
+as the JAX factory passes no mesh either); ``mesh`` splits the model over
+its tp and sp axes (``models/dit.py``). Execution hints for the JAX compiler (scan
 unrolling, the fused-adaLN switch) have no counterpart here, since the port
 always runs its fused kernels. ``gradient_checkpointing`` recomputes each
 spatial/temporal pair in the backward under ``remat_policy`` ("full", the
@@ -41,7 +43,7 @@ LatteIMG_models: Dict[str, Dict[str, Any]] = {
     f"LatteIMG-{s}/{p}": dict(patch_size=p, **cfg) for s, cfg in _SIZES.items() for p in _PATCHES
 }
 
-_ATTENTION_MODES = ("auto", "xla", "flash", "math")
+_ATTENTION_MODES = ("auto", "xla", "flash", "math", "ring")
 
 
 def get_model(name: str, **overrides) -> Latte:
@@ -53,7 +55,7 @@ def get_model(name: str, **overrides) -> Latte:
     raise ValueError(f"unknown model {name!r}; known: {sorted(Latte_models) + sorted(LatteIMG_models)}")
 
 
-def get_models(args, quantized=False, moe_mesh=None) -> Latte:
+def get_models(args, quantized=False, moe_mesh=None, mesh=None, ring_mesh=None) -> Latte:
     """Config-object factory: ``args`` needs ``model``, ``image_size``,
     ``num_frames``, ``learn_sigma``, ``extras``, and optionally
     ``num_classes``, ``attention_mode``, ``int8_attention`` (checked against
@@ -62,12 +64,13 @@ def get_models(args, quantized=False, moe_mesh=None) -> Latte:
     LatteIMG name ``use_image_num``, and ``moe_experts`` with
     ``moe_top_k`` and ``moe_capacity_factor``. ``quantized`` is the blocks'
     int8 mode (see ``models.layers``); ``moe_mesh`` the ``DistContext`` the
-    experts are split over (``models.moe``)."""
+    experts are split over (``models.moe``), ``mesh`` the one whose tp and sp
+    axes split the model, ``ring_mesh`` ring attention's."""
     mode = str(getattr(args, "attention_mode", None) or "auto")
     if mode not in _ATTENTION_MODES:
         raise NotImplementedError(
-            f"attention_mode={mode!r}: the port runs one attention (its flash "
-            f"kernel) for {_ATTENTION_MODES}; ring attention comes with multi-GPU (ROADMAP M6b)"
+            f"attention_mode={mode!r}: the port runs its flash kernel for {_ATTENTION_MODES[:4]} "
+            "and ring attention for 'ring'"
         )
     latent_size = int(
         getattr(args, "latent_size", 0) or int(getattr(args, "image_size", 256)) // 8
@@ -80,6 +83,10 @@ def get_models(args, quantized=False, moe_mesh=None) -> Latte:
         attention_mode=mode,
         quantized=quantized,
     )
+    if mesh is not None:
+        common["mesh"] = mesh
+    if ring_mesh is not None:
+        common["ring_mesh"] = ring_mesh
     ia = getattr(args, "int8_attention", False)
     if ia:
         if ia not in (True, "full", "qk"):

@@ -52,8 +52,15 @@ JAX model sees; ``forward(..., return_aux=True)`` also returns the blocks'
 Switch losses, (columns, n_pairs) with the spatial blocks' first. A
 quantized model with MoE raises, as in JAX.
 
-Not ported: ``attention_mode: ring`` (M6b) and ``gradient_checkpointing``
-(no entry point trains LatteT2V): each raises ``NotImplementedError``.
+``attention_mode: "ring"`` with ``ring_mesh`` (a ``DistContext``, whose sp
+group is the ring, or a process group) runs each self-attention whose
+length the ring's size divides as ring attention
+(:mod:`latte_tpu_torch.dist.ring`); the cross-attention and any other
+self-attention take their usual route, as in JAX. Without a ring it raises
+the JAX model's ``ValueError``.
+
+Not ported: ``gradient_checkpointing`` (no entry point trains LatteT2V): it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from latte_tpu_torch.dist.ring import ring_attention_sharded, ring_size
 from latte_tpu_torch.kernels import (
     attention_reference,
     flash_attention,
@@ -98,7 +106,7 @@ __all__ = [
     "cross_attention",
 ]
 
-ATTENTION_MODES = ("auto", "xla", "flash")
+ATTENTION_MODES = ("auto", "xla", "flash", "ring")
 # the key bias of a masked caption token, as in the JAX model
 MASK_BIAS = -10000.0
 
@@ -165,10 +173,12 @@ class MultiHeadCrossAttention(nn.Module):
     the (B, N, H, hd) views of the projections; attention to a context runs
     :func:`cross_attention`."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, quantized=False, plain: bool = False):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, quantized=False, plain: bool = False,
+                 ring_mesh=None):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim, self.plain = num_heads, head_dim, plain
+        self.ring_mesh = ring_mesh
         self.to_q = QLinear(dim, inner, quantized=quantized)
         self.to_k = QLinear(dim, inner, quantized=quantized)
         self.to_v = QLinear(dim, inner, quantized=quantized)
@@ -184,6 +194,8 @@ class MultiHeadCrossAttention(nn.Module):
         v = self.to_v(kv).view(B, M, H, hd)
         if context is not None or mask_bias is not None:
             out = cross_attention(q, k, v, mask_bias)
+        elif self.ring_mesh is not None and N % ring_size(self.ring_mesh) == 0:
+            out = ring_attention_sharded(q, k, v, self.ring_mesh)
         elif self.plain:
             out = attention_reference(q, k, v)
         else:
@@ -212,11 +224,13 @@ class _AdaLNSingleBlock(_Fp32Scales):
 
     FP32_BUFFERS = ("scale_shift_table",)
 
-    def __init__(self, dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe):
+    def __init__(self, dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe,
+                 ring_mesh=None):
         super().__init__()
         self.plain = plain
         self.scale_shift_table = nn.Parameter(torch.randn(6, dim) / dim**0.5)
-        self.attn1 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain)
+        self.attn1 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain,
+                                             ring_mesh=ring_mesh)
         experts, top_k, capacity_factor, mesh = moe
         self.is_moe = experts > 1
         if self.is_moe:
@@ -246,8 +260,8 @@ class T2VSpatialBlock(_AdaLNSingleBlock):
     then the feed-forward."""
 
     def __init__(self, dim, num_heads, head_dim, activation_fn="gelu-approximate",
-                 ff_chunk_size=None, quantized=False, plain=False, moe=(0, 2, 1.25, None)):
-        super().__init__(dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe)
+                 ff_chunk_size=None, quantized=False, plain=False, moe=(0, 2, 1.25, None), ring_mesh=None):
+        super().__init__(dim, num_heads, head_dim, activation_fn, ff_chunk_size, quantized, plain, moe, ring_mesh)
         self.attn2 = MultiHeadCrossAttention(dim, num_heads, head_dim, quantized=quantized, plain=plain)
 
     def forward(self, x, t_mod, context, mask_bias) -> torch.Tensor:
@@ -270,8 +284,8 @@ class T2VTemporalBlock(_AdaLNSingleBlock):
     axis only)."""
 
     def __init__(self, dim, num_heads, head_dim, activation_fn="gelu-approximate",
-                 quantized=False, plain=False, moe=(0, 2, 1.25, None)):
-        super().__init__(dim, num_heads, head_dim, activation_fn, None, quantized, plain, moe)
+                 quantized=False, plain=False, moe=(0, 2, 1.25, None), ring_mesh=None):
+        super().__init__(dim, num_heads, head_dim, activation_fn, None, quantized, plain, moe, ring_mesh)
 
     def forward(self, x, t_mod) -> torch.Tensor:
         """x (B·T, F, D); t_mod (B, 6D). The adaLN steps see x as
@@ -369,10 +383,14 @@ class LatteT2V(_Fp32Scales):
         moe_mesh=None,
         gradient_checkpointing: bool = False,
         plain: bool = False,
+        ring_mesh=None,
     ):
         super().__init__()
-        if attention_mode == "ring":
-            raise NotImplementedError("attention_mode: ring is not ported yet (ROADMAP M6b, sequence parallelism)")
+        if attention_mode == "ring" and ring_mesh is None:
+            raise ValueError(
+                "attention_mode='ring' requires constructing the model with ring_mesh=<a DistContext or a "
+                "process group>"
+            )
         if attention_mode not in ATTENTION_MODES:
             raise ValueError(f"attention_mode {attention_mode!r}; expected one of {ATTENTION_MODES}")
         if gradient_checkpointing:
@@ -395,7 +413,8 @@ class LatteT2V(_Fp32Scales):
         self.adaln_single = AdaLayerNormSingle(D)
         self.caption_projection = CaptionProjection(caption_channels, D)
         block = dict(activation_fn=activation_fn, quantized=quantized, plain=plain,
-                     moe=(moe_experts, moe_top_k, moe_capacity_factor, moe_mesh))
+                     moe=(moe_experts, moe_top_k, moe_capacity_factor, moe_mesh),
+                     ring_mesh=ring_mesh if attention_mode == "ring" else None)
         self.transformer_blocks = nn.ModuleList(
             T2VSpatialBlock(D, num_attention_heads, attention_head_dim,
                             ff_chunk_size=feed_forward_chunk_size, **block)

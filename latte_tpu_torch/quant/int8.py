@@ -76,12 +76,16 @@ _ATTN_AMAX_KEYS = ("q_amax", "k_amax", "v_amax")
 _INT_MM_MIN_ROWS = 17
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, amax_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 of a torch (..., out, in) weight:
     the scale is taken over the contraction (in) axis, shape (..., out, 1),
-    so it broadcasts back exactly."""
+    so it broadcasts back exactly. ``amax_group``: the tp group over which a
+    row-parallel weight's contraction axis is split (its amax is the MAX
+    over the group, as over the whole axis)."""
+    from latte_tpu_torch.dist.tp import tp_amax
+
     wf = w.detach().float()
-    scale = quant_scale(wf.abs().amax(dim=-1, keepdim=True))
+    scale = quant_scale(tp_amax(wf.abs().amax(dim=-1, keepdim=True), amax_group))
     return quantize_int8(wf, scale).to(torch.int8), scale
 
 
@@ -96,12 +100,17 @@ def _int_mm(x_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul(
-    x: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype
+    x: torch.Tensor, w_i8: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype, amax_group=None
 ) -> torch.Tensor:
     """W8A8 product with dynamic per-token activation scales:
-    x (..., in) @ w_i8 (out, in)ᵀ · scale (out, 1) -> (..., out)."""
+    x (..., in) @ w_i8 (out, in)ᵀ · scale (out, 1) -> (..., out).
+    ``amax_group``: the tp group over which a row-parallel layer's input
+    axis is split; each token's amax is then the MAX over the group, the
+    whole row's (``dist.tp.tp_amax``)."""
+    from latte_tpu_torch.dist.tp import tp_amax
+
     xf = x.float()
-    ax = quant_scale(xf.abs().amax(dim=-1, keepdim=True))
+    ax = quant_scale(tp_amax(xf.abs().amax(dim=-1, keepdim=True), amax_group))
     acc = _int_mm(quantize_int8(xf, ax).to(torch.int8), w_i8)
     return (acc.float() * ax * scale.reshape(-1)).to(out_dtype)
 
@@ -124,10 +133,10 @@ class _Int8MatmulSTE(torch.autograd.Function):
     """W8A8 forward from the fp master weight, straight-through backward."""
 
     @staticmethod
-    def forward(ctx, x, w, out_dtype):
+    def forward(ctx, x, w, out_dtype, amax_group):
         ctx.save_for_backward(x, w)
-        w_i8, scale = quantize_weight(w)
-        return int8_matmul(x, w_i8, scale, out_dtype)
+        w_i8, scale = quantize_weight(w, amax_group)
+        return int8_matmul(x, w_i8, scale, out_dtype, amax_group)
 
     @staticmethod
     def backward(ctx, g):
@@ -137,16 +146,17 @@ class _Int8MatmulSTE(torch.autograd.Function):
         dx = torch.matmul(g, w.to(g.dtype)).to(x.dtype)
         x2 = x.reshape(-1, x.shape[-1]).to(g.dtype).float()
         dw = torch.matmul(g.reshape(-1, g.shape[-1]).float().t(), x2).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
-def int8_matmul_ste(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+def int8_matmul_ste(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype, amax_group=None) -> torch.Tensor:
     """Quantized-training product: the forward runs exactly the serving
     arithmetic (quantize the fp master ``w`` (out, in) per channel and ``x``
     per token, int32 sums); the backward is the fp one, ``dx = g·w`` and
     ``dw = gᵀ·x`` (the straight-through estimator), so the optimizer updates
-    fp masters and checkpoints stay interchangeable with the fp path."""
-    return _Int8MatmulSTE.apply(x, w, out_dtype)
+    fp masters and checkpoints stay interchangeable with the fp path.
+    ``amax_group`` as in :func:`int8_matmul`, for the weight's scales too."""
+    return _Int8MatmulSTE.apply(x, w, out_dtype, amax_group)
 
 
 def _is_target(key: str) -> bool:

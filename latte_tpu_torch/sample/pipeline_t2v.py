@@ -24,7 +24,7 @@ exact loop.
 
 Stochastic schedulers draw each step's noise from the same generator as z,
 after it. ``pp_mesh`` (pipeline-parallel serving) raises
-``NotImplementedError``: it comes with the multi-GPU slice's second half (ROADMAP M6b).
+``NotImplementedError``: it comes with pipeline parallelism (ROADMAP M6b.2).
 
 The text encoder's features may be tensors on the device (the port's T5)
 or numpy arrays (the caption stub); they reach the transformer as fp32 on
@@ -77,7 +77,7 @@ class LattePipeline:
     ):
         if pp_mesh is not None:
             raise NotImplementedError(
-                "pp_mesh (pipeline-parallel serving) is not ported yet (ROADMAP M6b, multi-GPU)"
+                "pp_mesh (pipeline-parallel serving) is not ported yet (ROADMAP M6b.2, pipeline parallelism)"
             )
         self.transformer = transformer
         self.scheduler = scheduler

@@ -10,8 +10,18 @@ dict (``diffusion_pytorch_model.bin``). ``moe_experts`` serves the
 Mixture-of-Experts model (exactly or with the block cache; not in int8,
 which raises before anything is built). With no VAE configured, or a
 ``vae_ckpt`` that does not exist, it saves the latents as ``<save_video_path
-stem>_latents.npz`` instead, as the JAX sampler does. Tensor-parallel
-serving (``tensor_parallel``) raises ``NotImplementedError``.
+stem>_latents.npz`` instead, as the JAX sampler does.
+
+Tensor-parallel serving (``tensor_parallel: N``, the JAX sampler's
+Megatron split, ``latte_tpu/sample/sample.py:117-185``): N processes, one a
+GPU (``torchrun --nproc_per_node=N``, or ``coordinator_address``/
+``num_processes``/``process_id``), each holding its heads and MLP columns of
+the model (``dist/tp.py``). Every rank builds the whole model (and, in int8,
+calibrates and quantizes it) as one process does, keeps its part, and draws
+the same z, labels and noise; each step's forward is one all-reduce after
+each attention and each MLP. Rank 0 decodes and writes the video. It
+composes with CFG, the block cache and the int8 modes; as in JAX it needs
+``loop_mode: scan`` (``ValueError``), and N processes.
 
 ``block_cache_interval: N`` (> 1) samples with the block cache
 (:mod:`latte_tpu_torch.core.block_cache`): the first ``block_cache_pairs``
@@ -49,6 +59,8 @@ from latte_tpu_torch.convert import load_reference_checkpoint
 from latte_tpu_torch.core.block_cache import cached_sample_loop
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
+from latte_tpu_torch.dist.mesh import MeshConfig, barrier, setup
+from latte_tpu_torch.dist.sharding import tp_shard_state_dict
 from latte_tpu_torch.models import Latte, get_models
 from latte_tpu_torch.models.layers import MOE_INT8_REFUSAL
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
@@ -58,26 +70,28 @@ from latte_tpu_torch.vae import AutoencoderKL, build_vae, make_decode_fn
 CALIBRATION_TIMESTEPS = (999, 500, 0)
 
 
-def check_config(config: Config) -> None:
-    """Raise for a sampler option this port does not carry yet
-    (``NotImplementedError``) or a block cache without ``loop_mode: scan``
-    (``ValueError``), before anything is built. (``block_cache_pairs`` does
-    nothing without the interval. A ``vae_ckpt`` directory is refused by
-    :func:`load_vae`.) ``quantized`` with ``moe_experts`` raises
-    ``NotImplementedError``: MoE has no int8 expert path, in either package;
-    so does ``extras: 78``, which the JAX sampler passes no text to."""
+def check_config(config: Config, world: Optional[int] = None) -> None:
+    """Raise for a sampler option this port does not carry
+    (``NotImplementedError``), a block cache or tensor parallelism without
+    ``loop_mode: scan`` (``ValueError``, as in JAX) or, given the ``world``
+    size, ``tensor_parallel`` on another number of processes
+    (``ValueError``), before anything is built. (``block_cache_pairs`` does nothing without the interval. A
+    ``vae_ckpt`` directory is refused by :func:`load_vae`.) ``quantized``
+    with ``moe_experts`` raises ``NotImplementedError``: MoE has no int8
+    expert path, in either package; so does ``extras: 78``, which the JAX
+    sampler passes no text to."""
     block_cache_interval(config)
+    tp = tensor_parallel(config)
+    if tp > 1 and str(getattr(config, "loop_mode", "scan") or "scan") != "scan":
+        raise ValueError("tensor_parallel serving requires loop_mode=scan")
+    if tp > 1 and world is not None and world != tp:
+        raise ValueError(f"tensor_parallel={tp} needs {tp} processes (one a GPU), have {world}")
     if int(getattr(config, "extras", 1)) == 78:
         raise NotImplementedError(
             "extras: 78: the JAX sampler builds a text embedding for its int8 calibration "
             "(latte_tpu/sample/sample.py:315-316) but passes none to the sample loop (sample.py:341-349), "
             "so it does not sample a text-conditioned Latte, and neither does the port; "
             "the model itself takes text_embedding (Latte.forward, forward_with_cfg)"
-        )
-    if int(getattr(config, "tensor_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"tensor_parallel={config.tensor_parallel}: not ported yet; comes with the "
-            "multi-GPU slice's second half (ROADMAP M6b)"
         )
     if quantized_mode(config) and int(getattr(config, "moe_experts", 0) or 0) > 1:
         raise NotImplementedError(MOE_INT8_REFUSAL)
@@ -93,6 +107,10 @@ def block_cache_interval(config: Config) -> int:
     if str(getattr(config, "loop_mode", "scan") or "scan") != "scan":
         raise ValueError("block_cache_interval requires loop_mode=scan")
     return interval
+
+
+def tensor_parallel(config: Config) -> int:
+    return int(getattr(config, "tensor_parallel", 1) or 1)
 
 
 def quantized_mode(config: Config):
@@ -135,15 +153,17 @@ def calibrate(config: Config, masters: dict, dtype: torch.dtype, device: torch.d
     return amax
 
 
-def build_model(config: Config, device: torch.device) -> Latte:
+def build_model(config: Config, device: torch.device, ctx=None, moe_mesh=None) -> Latte:
     """The configured model on ``device`` in the config's dtype, from ``ckpt``
     (a reference ``.pt``) or, when ``ckpt`` is null, the reference init drawn
     from ``torch.Generator`` seed 0. With ``quantized`` the int8 model,
     quantized from the fp32 weights (not from a bf16 cast of them). A
     ``ckpt`` directory (the JAX trainer's orbax checkpoint) raises
-    ``NotImplementedError``: the port reads no orbax format."""
+    ``NotImplementedError``: the port reads no orbax format. With ``ctx``
+    (a ``DistContext`` with tp > 1) this rank's tp part of that model;
+    ``moe_mesh`` the ``DistContext`` of an MoE model's dispatch groups."""
     with torch.device(device):
-        model = get_models(config)
+        model = get_models(config, moe_mesh=moe_mesh)
     ckpt = getattr(config, "ckpt", None)
     if ckpt:
         if not os.path.exists(ckpt):
@@ -162,14 +182,18 @@ def build_model(config: Config, device: torch.device) -> Latte:
     # the reference's use_fp16 switch maps to bf16, as in the JAX sampler
     dtype = torch.bfloat16 if getattr(config, "use_fp16", False) else torch.float32
     qmode = quantized_mode(config)
-    if not qmode:
-        return model.to(device=device, dtype=dtype).eval()
-    masters = model.state_dict()
-    amax = calibrate(config, masters, dtype, device) if qmode == "static" else None
-    with torch.device(device):
-        qmodel = get_models(config, quantized=qmode)
-    qmodel.load_state_dict(quantize_params(masters, act_amax=amax), strict=True)
-    return qmodel.to(device=device, dtype=dtype).eval()
+    if qmode:
+        masters = model.state_dict()
+        amax = calibrate(config, masters, dtype, device) if qmode == "static" else None
+        with torch.device(device):
+            model = get_models(config, quantized=qmode)
+        model.load_state_dict(quantize_params(masters, act_amax=amax), strict=True)
+    if ctx is not None and ctx.tp > 1:
+        whole = model.state_dict()
+        with torch.device(device):
+            model = get_models(config, quantized=qmode, moe_mesh=moe_mesh, mesh=ctx)
+        model.load_state_dict(tp_shard_state_dict(whole, ctx.tp, ctx.tp_rank), strict=True)
+    return model.to(device=device, dtype=dtype).eval()
 
 
 def sample_loop(
@@ -260,17 +284,25 @@ def decode_video(vae: AutoencoderKL, latents: torch.Tensor) -> np.ndarray:
 
 def main(config: Config, device: Optional[str] = None) -> str:
     """Sample one video; return the path of the written mp4, or of the saved
-    ``_latents.npz`` when no VAE is configured."""
-    logger = create_logger()
+    ``_latents.npz`` when no VAE is configured (under tensor parallelism
+    rank 0 writes it; every rank returns the path)."""
     check_config(config)
-    dev = resolve_device(device)
+    tp = tensor_parallel(config)
+    if tp > 1:
+        dev, ctx = setup(config, device, check=lambda world: check_config(config, world),
+                         mesh=MeshConfig(dp=1, tp=tp))
+    else:
+        dev, ctx = resolve_device(device), None
+    main_rank = ctx is None or ctx.rank == 0
+    logger = create_logger(enabled=main_rank)
     vae = load_vae(config, dev)
-    model = build_model(config, dev)
+    model = build_model(config, dev, ctx)
     if not getattr(config, "ckpt", None):
         logger.info("WARNING: no checkpoint given — sampling from random init")
     logger.info(
         f"serving with quantized={quantized_mode(config)}, int8_attention="
-        f"{getattr(config, 'int8_attention', False)}, attention_mode={getattr(config, 'attention_mode', 'auto')}"
+        f"{getattr(config, 'int8_attention', False)}, attention_mode={getattr(config, 'attention_mode', 'auto')}, "
+        f"tensor_parallel={tp}"
     )
 
     t0 = time.perf_counter()
@@ -280,17 +312,23 @@ def main(config: Config, device: Optional[str] = None) -> str:
     logger.info(f"sampled in {time.perf_counter() - t0:.2f}s on {dev}")
 
     out_path = getattr(config, "save_video_path", None) or "./sample_videos/sample.mp4"
+    if vae is None:
+        out_path = os.path.splitext(out_path)[0] + "_latents.npz"
+    if not main_rank:
+        barrier()
+        return out_path
     if vae is not None:
         t0 = time.perf_counter()
         frames = decode_video(vae, latents)  # ends in a copy to the host
         logger.info(f"decoded {len(frames)} frames in {time.perf_counter() - t0:.2f}s on {dev}")
         save_video(out_path, frames, fps=8)
         logger.info(f"saved video to {out_path}")
-        return out_path
-    out_path = os.path.splitext(out_path)[0] + "_latents.npz"
-    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    np.savez(out_path, latents=latents.float().cpu().numpy())
-    logger.info(f"no VAE configured — saved latents to {out_path}")
+    else:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        np.savez(out_path, latents=latents.float().cpu().numpy())
+        logger.info(f"no VAE configured — saved latents to {out_path}")
+    if ctx is not None:
+        barrier()
     return out_path
 
 

@@ -12,8 +12,12 @@ labels and DDPM's noise of iteration ``it`` are drawn for the global batch,
 as the JAX program draws them, and each rank takes its rows, so any world
 size writes what one process writes for the concatenated shards. With
 ``create_npz: true`` rank 0 bundles the folder (``samples_N.npz``) after a
-barrier. An MoE model samples in one process only (its dispatch groups span
-the shards). The model comes from ``sample.build_model`` and the sampler
+barrier. An MoE model's dispatch groups span the shards of the global
+batch, as in the JAX program: over several processes each rank places its
+tokens by the routing choices all-gathered over the world (``models/moe.py``,
+whose rows are then this run's dp split, and under CFG the [cond | uncond]
+halves of the global batch). ``tensor_parallel`` is ignored, as the JAX
+generator ignores it. The model comes from ``sample.build_model`` and the sampler
 from ``sample.sample_loop``, so the int8 modes and the block cache apply as
 in the single-video entry point. Runs on ``cuda`` unless asked for the CPU::
 
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.config import Config, load_config
-from latte_tpu_torch.dist.mesh import barrier, initialize_distributed, is_main_process
+from latte_tpu_torch.dist.mesh import DistContext, MeshConfig, barrier, initialize_distributed, is_main_process, make_mesh
 from latte_tpu_torch.sample import sample
 from latte_tpu_torch.utils import create_logger, read_video, resolve_device, save_video
 
@@ -68,14 +72,15 @@ class BatchGenerator:
         )
         self.n_dev = torch.distributed.get_world_size() if dev is not None else 1
         self.shard = torch.distributed.get_rank() if dev is not None else 0
-        if self.n_dev > 1 and int(getattr(config, "moe_experts", 0) or 0) > 1:
-            raise NotImplementedError(
-                f"moe_experts with {self.n_dev} processes: the JAX program's dispatch groups span the "
-                "shards of its global batch; sample an MoE model in one process"
-            )
         self.config = config
         self.device = dev if dev is not None else resolve_device(device)
-        self.model = sample.build_model(config, self.device)
+        self.cfg = int(getattr(config, "extras", 1)) == 2 and float(getattr(config, "cfg_scale", 1.0)) > 1.0
+        moe_mesh = None
+        if self.n_dev > 1 and int(getattr(config, "moe_experts", 0) or 0) > 1:
+            # the experts' dispatch groups span the shards: the rows are split over dp
+            moe_mesh = DistContext(make_mesh(MeshConfig(dp=self.n_dev), self.device.type), self.device,
+                                   cfg_halves=self.cfg)
+        self.model = sample.build_model(config, self.device, moe_mesh=moe_mesh)
         if logger and not getattr(config, "ckpt", None):
             logger.info("WARNING: no checkpoint given — sampling from random init")
         self.vae = sample.load_vae(config, self.device)
@@ -111,8 +116,7 @@ class BatchGenerator:
         generator = self._generator(NOISE_STREAM, self.it)
         noise = None
         if self.n_dev > 1:
-            cfg = int(getattr(self.config, "extras", 1)) == 2 and float(getattr(self.config, "cfg_scale", 1.0)) > 1.0
-            noise = ShardNoise(generator, (self.global_batch,) + tuple(z.shape[1:]), self._rows(), cfg)
+            noise = ShardNoise(generator, (self.global_batch,) + tuple(z.shape[1:]), self._rows(), self.cfg)
         latents = sample.sample_loop(self.model, self.config, z, y, generator, noise_schedule=noise)
         self.it += 1
         return latents

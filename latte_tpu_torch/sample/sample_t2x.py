@@ -29,7 +29,7 @@ with seed ``seed + i``, and writes a png (``video_length: 1``) or an mp4 at
   Mixture-of-Experts feed-forward in every block; with ``quantized: true``
   it raises ``NotImplementedError`` (no int8 expert path, as in JAX), and a
   ``ckpt`` raises ``KeyError`` naming the expert weights it lacks.
-- ``pipeline_parallel > 1`` raises ``NotImplementedError`` (ROADMAP M6b).
+- ``pipeline_parallel > 1`` raises ``NotImplementedError`` (ROADMAP M6b.2).
 
 Runs on ``cuda`` unless asked for the CPU::
 
@@ -142,7 +142,7 @@ def check_config(config: Config) -> None:
     if pp > 1:
         raise NotImplementedError(
             f"pipeline_parallel={pp}: pipeline-parallel serving is not ported yet "
-            "(ROADMAP M6b, multi-GPU)"
+            "(ROADMAP M6b.2, pipeline parallelism)"
         )
     if getattr(config, "quantized", False) and int(getattr(config, "moe_experts", 0) or 0) > 1:
         raise NotImplementedError(MOE_INT8_REFUSAL)

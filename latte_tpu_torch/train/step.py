@@ -1,5 +1,5 @@
 """The training step (port of ``latte_tpu/train/step.py``), on one device or
-on each rank of a (dp, ep) mesh.
+on each rank of a (dp, ep, sp, tp) mesh.
 
 [VAE encode of a pixel batch ->] q_sample -> model forward (``train=True``:
 class labels dropped to the null class at the model's dropout rate) ->
@@ -25,12 +25,14 @@ the loop syncs only when it logs.
 
 Over several ranks (``shards``, a :class:`~latte_tpu_torch.dist.sharding.
 ShardedParams`) each rank holds the rows of its dp index of the global batch
-(``local_batch_size·dp`` rows), and the step is the one-process step on that
-global batch: t, the noise, the posterior sample and the label dropout are
-drawn for the global batch from the shared generator and each rank takes its
-rows; the gradients are averaged over the ranks that share a parameter, the
-norm is the full gradient's, and the metrics are the global batch's means
-(all-reduced on the device, without a host sync).
+(``local_batch_size·dp`` rows; the ranks of an ep, sp or tp group hold the
+same rows, and the model splits them over sp), and the step is the
+one-process step on that global batch: t, the noise, the posterior sample
+and the label dropout are drawn for the global batch from the shared
+generator and each rank takes its rows; the gradients are averaged over the
+ranks that share a parameter, the norm is the full gradient's, and the
+metrics are the global batch's means (all-reduced on the device, without a
+host sync).
 """
 
 from __future__ import annotations

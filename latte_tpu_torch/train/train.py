@@ -31,14 +31,22 @@ with MoE raises (no int8 expert path, as in JAX).
 
 Several GPUs, one process each (``torchrun``, or the JAX trainer's
 ``coordinator_address``/``num_processes``/``process_id``): the mesh is dp ×
-``expert_parallel`` (``dist/mesh.py``), the global batch
-``local_batch_size·dp`` (each rank its dp index's rows; the members of an ep
-group share them), the experts split over ep, ``fsdp`` splits the block
-weights, their EMA and their moments over dp and ``zero1`` the moments
-(``dist/sharding.py``). Rank 0 makes the experiment directory, logs and
-writes the full checkpoints; the logged metrics are the global batch's.
-``tensor_parallel``, ``sequence_parallel`` and ``pipeline_parallel`` above 1
-raise ``NotImplementedError`` naming ROADMAP M6b.
+``expert_parallel`` × ``sequence_parallel`` × ``tensor_parallel``
+(``dist/mesh.py``), the global batch ``local_batch_size·dp`` (each rank its
+dp index's rows; the members of an ep, sp or tp group share them), the
+experts split over ep, the blocks' heads and MLP columns over tp (Megatron,
+``dist/tp.py``; the model is initialised whole and each rank keeps its
+part), the model's fused batch·token rows over sp (``models/dit.py``,
+``dist/seq.py``), ``fsdp`` splits the block weights, their EMA and their
+moments over dp and ``zero1`` the moments (``dist/sharding.py``); tp
+composes with each of dp, ep, fsdp and zero1, as the JAX rules compose.
+Rank 0 makes the experiment directory, logs and writes the full checkpoints
+(the one-process format, gathered over dp, ep and tp); the logged metrics
+are the global batch's. ``pipeline_parallel`` above 1 raises
+``NotImplementedError`` naming ROADMAP M6b.2. Unlike the JAX trainer, the
+port keeps its fused adaLN kernels on any mesh: each rank runs them on its
+own rows (the JAX trainer drops ``fused_adaln`` there because a
+``pallas_call`` is opaque to GSPMD's partitioner).
 
 Runs on ``cuda`` unless asked for the CPU::
 
@@ -64,7 +72,7 @@ from latte_tpu_torch.config.loader import save_config
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.timestep_samplers import LossAwareSampler, create_named_schedule_sampler
 from latte_tpu_torch.dist.mesh import barrier, batch_rows, refuse_m6b, setup, shard_batch
-from latte_tpu_torch.dist.sharding import ZERO1_EP_ERROR, ShardedParams, apply_fsdp
+from latte_tpu_torch.dist.sharding import ZERO1_EP_ERROR, ShardedParams, apply_fsdp, tp_shard_state_dict
 from latte_tpu_torch.models import get_models
 from latte_tpu_torch.models.registry import LatteIMG_models
 from latte_tpu_torch.train.callbacks import CallbackList
@@ -92,18 +100,29 @@ __all__ = [
 ]
 
 def check_config(config: Config, world: int = 1) -> None:
-    """Raise for what the trainer refuses before anything is built:
-    ``NotImplementedError`` naming ROADMAP M6b for ``tensor_parallel``,
-    ``sequence_parallel`` and ``pipeline_parallel`` above 1; the JAX
-    trainer's errors for a mesh that does not divide the ``world`` size
-    (``AssertionError``), for ``moe_experts`` that ``expert_parallel`` does
-    not divide and for ``zero1`` with ``expert_parallel`` (``ValueError``);
+    """Raise for what the trainer refuses before anything is built: the JAX
+    trainer's mesh errors (``pipeline_parallel`` with tensor or sequence
+    parallelism or with ``fsdp``, ``ValueError``; then ``NotImplementedError``
+    naming ROADMAP M6b.2 for ``pipeline_parallel`` above 1; a mesh that does
+    not divide the ``world`` size, ``AssertionError``; ``moe_experts`` that
+    ``expert_parallel`` does not divide and ``zero1`` with
+    ``expert_parallel``, ``ValueError``), ``ValueError`` for a LatteIMG
+    model with ``sequence_parallel`` (which the JAX LatteIMG cannot take),
     and ``ValueError`` for gradient accumulation that does not divide the
     batch and for ``extras: 78`` on batches that carry no text (a dataset, a
     latent cache, synthetic pixels)."""
     tp, sp, pp, ep = (int(getattr(config, k, 1) or 1) for k in
                       ("tensor_parallel", "sequence_parallel", "pipeline_parallel", "expert_parallel"))
-    refuse_m6b(tp, sp, pp)
+    if pp > 1:
+        if tp > 1 or sp > 1:
+            raise ValueError(
+                "pipeline_parallel composes with data parallelism only "
+                f"(got tensor_parallel={tp}, sequence_parallel={sp})"
+            )
+        if getattr(config, "fsdp", False):
+            raise ValueError("pipeline_parallel already shards the block stack; disable fsdp (zero1 moment "
+                             "sharding is compatible)")
+        refuse_m6b(pp)
     if world % (tp * sp * pp * ep):
         raise AssertionError(
             f"tensor_parallel={tp} x sequence_parallel={sp} x pipeline_parallel={pp} x "
@@ -114,6 +133,11 @@ def check_config(config: Config, world: int = 1) -> None:
         raise ValueError(f"expert_parallel={ep} needs moe_experts (got {moe_experts}) divisible by it")
     if ep > 1 and getattr(config, "zero1", False) and not getattr(config, "fsdp", False):
         raise ValueError(ZERO1_EP_ERROR)
+    if sp > 1 and config.model in LatteIMG_models:
+        raise ValueError(
+            f"{config.model} with sequence_parallel={sp}: the JAX LatteIMG has no activation_sharding "
+            "(latte_tpu/models/dit_img.py), so neither package splits its rows over sp"
+        )
     extras = int(getattr(config, "extras", 1))
     if extras not in (1, 2, 78):
         raise ValueError(f"extras={extras}: expected 1 (unconditional), 2 (class) or 78 (text)")
@@ -316,16 +340,21 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     ckpt_dir = os.path.join(experiment_dir, "checkpoints")
     seed = int(getattr(config, "global_seed", 0))
 
+    quantized = "train" if getattr(config, "quant_train", False) else False
     with torch.device(dev):
         # quant_train: W8A8 forward of the block matmuls from fp32 masters,
         # straight-through backward (the JAX trainer's quantized="train")
-        model = get_models(config, quantized="train" if getattr(config, "quant_train", False) else False,
-                           moe_mesh=ctx)
-    model.initialize_weights(torch.Generator(device=dev).manual_seed(seed))
+        model = get_models(config, quantized=quantized, moe_mesh=ctx, mesh=ctx)
+        # under tp the model is drawn whole, as in one process, and each rank keeps its part
+        whole = get_models(config, quantized=quantized, moe_mesh=ctx) if model.tp > 1 else model
+    whole.initialize_weights(torch.Generator(device=dev).manual_seed(seed))
     pretrained = getattr(config, "pretrained", None)
     if pretrained:
-        kept = load_pretrained(model, str(pretrained), ctx)
+        kept = load_pretrained(whole, str(pretrained), ctx)
         logger.info(f"partial-loaded pretrained {pretrained} ({kept} keys kept at init)")
+    if whole is not model:
+        model.load_state_dict(tp_shard_state_dict(whole.state_dict(), ctx.tp, ctx.tp_rank))
+        del whole
     if getattr(config, "mixed_precision", False):
         # bf16 compute over fp32 master parameters (model.clone(dtype=bfloat16))
         model.compute_dtype = torch.bfloat16
@@ -355,7 +384,8 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         logger.info(
             f"{ctx.world} processes ({torch.distributed.get_backend()}): dp {ctx.dp} x ep {ctx.ep}, global batch "
             f"{int(getattr(config, 'local_batch_size', 5)) * ctx.dp}, fsdp {fsdp}, "
-            f"zero1 {bool(getattr(config, 'zero1', False)) and not fsdp}"
+            f"zero1 {bool(getattr(config, 'zero1', False)) and not fsdp}, sequence_parallel {ctx.sp}, "
+            f"tensor_parallel {ctx.tp}"
         )
     optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)), mu_dtype=mu_dtype,
                                params=shards.leaves if shards is not None else None)

@@ -118,10 +118,12 @@ def test_checkpoint_directory_names_the_conversion(tmp_path):
 
 @pytest.mark.parametrize("override", ["tensor_parallel=2"], ids=["tensor_parallel"])
 def test_unported_sampler_options_raise(tmp_path, override):
-    """Tensor-parallel serving is a later slice: the entry point refuses it
-    rather than sampling the plain way."""
+    """Tensor-parallel serving runs one process a GPU (its runs:
+    tests/test_torch_dist_train.py, tests/test_torch_dist_tp.py): in one
+    process the entry point refuses it, as the JAX sampler refuses a tp
+    larger than its devices, rather than sampling the plain way."""
     cfg = load_config(FFS, TINY + [f"save_video_path={tmp_path}/v.mp4", override])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="tensor_parallel=2 needs 2 processes"):
         sample.main(cfg, device="cpu")
     assert not any(tmp_path.iterdir())
 

@@ -70,10 +70,10 @@ def join_cpu() -> None:
     initialize_distributed(device="cpu")
 
 
-def context(ep: int = 1):
+def context(ep: int = 1, sp: int = 1, tp: int = 1):
     from latte_tpu_torch.dist.mesh import DistContext, MeshConfig, make_mesh
 
-    return DistContext(make_mesh(MeshConfig(ep=ep), "cpu"), torch.device("cpu"))
+    return DistContext(make_mesh(MeshConfig(ep=ep, sp=sp, tp=tp), "cpu"), torch.device("cpu"))
 
 
 def local_numels(model, optimizer):
@@ -91,6 +91,16 @@ def step_cases(rank: int, world: int, path: str, cases) -> None:
     (name, model kwargs, ep, fsdp, zero1) from the one-process weights and
     global batches of ``path``; rank 0 writes the metrics and the full
     parameters and EMA after the steps, every rank its shard sizes."""
+    mesh_step_cases(rank, world, path, [dict(name=n, kw=kw, ep=ep, fsdp=fsdp, zero1=zero1)
+                                        for n, kw, ep, fsdp, zero1 in cases])
+
+
+def mesh_step_cases(rank: int, world: int, path: str, cases) -> None:
+    """:func:`step_cases` over cases given as dicts: ``name``, ``kw`` (the
+    model), and optionally ``ep``, ``sp``, ``tp``, ``fsdp``, ``zero1`` and
+    ``mu_dtype`` (AdamW's first-moment type), ``weights`` (the key of the
+    one-process weights in ``path``; default the model's ``moe_experts``).
+    Writes ``path + ".out"``."""
     from latte_tpu_torch.core.diffusion import create_diffusion
     from latte_tpu_torch.dist.mesh import shard_batch
     from latte_tpu_torch.dist.sharding import ShardedParams, apply_fsdp
@@ -100,16 +110,18 @@ def step_cases(rank: int, world: int, path: str, cases) -> None:
 
     data = torch.load(path, weights_only=False)
     out = {}
-    for name, kw, ep, fsdp, zero1 in cases:
-        ctx = context(ep)
-        model = Latte(**kw, moe_mesh=ctx)
-        ShardedParams(model, ctx).load_full_state_dict(model, data["weights"][kw.get("moe_experts", 0)])
+    for case in cases:
+        name, kw = case["name"], case["kw"]
+        ctx = context(case.get("ep", 1), case.get("sp", 1), case.get("tp", 1))
+        model = Latte(**kw, moe_mesh=ctx, mesh=ctx)
+        weights = data["weights"][case.get("weights", kw.get("moe_experts", 0))]
+        ShardedParams(model, ctx).load_full_state_dict(model, weights)
         ema = copy.deepcopy(model).requires_grad_(False)
-        if fsdp:
+        if case.get("fsdp"):
             apply_fsdp(model, ctx)
             apply_fsdp(ema, ctx)
-        shards = ShardedParams(model, ctx, zero1=zero1)
-        opt = make_optimizer(model, 0.01, params=shards.leaves)
+        shards = ShardedParams(model, ctx, zero1=case.get("zero1", False))
+        opt = make_optimizer(model, 0.01, params=shards.leaves, mu_dtype=case.get("mu_dtype"))
         state = create_train_state(model, opt, make_lr_schedule(1e-3), ema)
         step = make_train_step(create_diffusion(""), ema_decay=0.9, clip_max_norm=0.1, start_clip_iter=0,
                                moe_aux_weight=0.01 if kw.get("moe_experts") else 0.0, shards=shards)
@@ -122,7 +134,7 @@ def step_cases(rank: int, world: int, path: str, cases) -> None:
         dist.all_gather_object(numels, local_numels(model, opt))
         if rank == 0:
             out[name] = {"metrics": metrics, "model": full[0], "ema": full[1], "numels": numels,
-                         "dp": ctx.dp, "ep": ctx.ep}
+                         "dp": ctx.dp, "ep": ctx.ep, "sp": ctx.sp, "tp": ctx.tp}
     if rank == 0:
         torch.save(out, path + ".out")
 
@@ -171,3 +183,42 @@ def jobs(rank: int, world: int, todo) -> None:
     join_cpu()
     for fn, args in todo:
         fn(rank, world, *args)
+
+
+def sample_main_run(rank: int, world: int, config_path: str, overrides) -> None:
+    """``sample.main`` on the CPU at this world size (tensor-parallel
+    serving: rank 0 writes the latents)."""
+    from latte_tpu_torch.config import load_config
+    from latte_tpu_torch.sample import sample
+
+    sample.main(load_config(config_path, list(overrides)), device="cpu")
+
+
+def warm_sampler(name, diffusion):
+    """The loss-aware timestep sampler with its history already full (past
+    its warm-up of ``history_per_term`` losses at every timestep) from a
+    numpy seed, so a short run draws t from the loss-weighted distribution
+    and moves it with each step's losses."""
+    import numpy as np
+
+    from latte_tpu_torch.core.timestep_samplers import LossSecondMomentResampler
+
+    assert name == "loss-second-moment", name
+    s = LossSecondMomentResampler(diffusion)
+    s._loss_history[:] = np.random.default_rng(3).random(s._loss_history.shape) + 0.05
+    s._loss_counts[:] = s.history_per_term
+    assert s._warmed_up()
+    return s
+
+
+def warm_train_run(rank: int, world: int, config_path: str, overrides, out: str) -> None:
+    """:func:`train_run` with the loss-aware sampler past its warm-up
+    (:func:`warm_sampler`)."""
+    from latte_tpu_torch.train import train
+
+    plain = train.create_named_schedule_sampler
+    train.create_named_schedule_sampler = warm_sampler
+    try:
+        train_run(rank, world, config_path, overrides, out)
+    finally:
+        train.create_named_schedule_sampler = plain
