@@ -278,8 +278,15 @@ non-zero exit and a traceback:
    checkpoint written), each held to the one-GPU losses and grad norms
    within TP_SP_REL, with its s/step, peak memory and NCCL device ms,
    and ``sample.main`` runs the DDIM-50 at ``tensor_parallel=4``, its
-   latents held to one GPU's by phase 5's gate (``tp_sp_gates``). Prints a
-   ``dist: {...}`` line. To run it alone: ``import chip_smoke as c;
+   latents held to one GPU's by phase 5's gate (``tp_sp_gates``). At 4 GPUs
+   the dp 4 run also starts from those weights, and ffs_train.yaml trains
+   at ``pipeline_parallel=2`` (dp 2, ``pp_microbatches=5``, its checkpoint
+   gathered over dp and pp); the dp 4 and dp 2 x pp 2 losses are held to one
+   GPU's 3 steps on their global batches of 20 and 10 in one chunk (the
+   same draws) within DIST_REL, their grad norms within PP_GNORM_REL, and
+   t2v_sample.yaml runs at ``pipeline_parallel=4`` and DDIM-10 through
+   ``sample_t2x.main``, its latents within BF16_TOL of one GPU's
+   (``pp_gates``). Prints a ``dist: {...}`` line. To run it alone: ``import chip_smoke as c;
    c.build.build(); c.build.load_library(); c.dist_phase(tmp, smi)``.
 
 10a. tp/sp one card (before phase 10): the virtual ring (``virtual_ring``):
@@ -296,13 +303,28 @@ non-zero exit and a traceback:
    hand (``dist.tp.virtual_tp``), output and every weight's gradient within
    TP_REL. Prints a ``tp_sp: {...}`` line.
 
+10b. pp one card (before phase 10): pipeline parallelism's schedule in one
+   process (``dist.pipeline.LocalHop``, the virtual pipeline) at full width
+   (``pp_one_card``): one fp32 ffs_train step of Latte-XL/2 at batch 5
+   through PP_STAGES stages of 2 pairs and PP_MICRO microbatches of a row
+   against the one-model step from the same weights, generator and batch
+   (loss and grad norm within DIST_REL, every parameter after the update
+   within PP_PARAM_REL; PP_MICRO times the one-model step's B1-B5 launches,
+   on the fp32 and vector routes), a second step of each timed; one bf16
+   LatteT2V CFG forward (28 pairs, 16 x 512^2) through PP_T2V_STAGES stages
+   and PP_T2V_MICRO microbatches against the whole model's (within
+   BF16_TOL of the largest magnitude; B1, B2, B3 twice each block, norm_out
+   once, on the tensor-core and vector routes), both timed. Prints a
+   ``pp: {...}`` line.
+
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``dist: {...}``), the
-total seconds,
+{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp: {...}``, ``dist:
+{...}``), the total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
 phase 10a's and the tp and sp runs' launches, ``launches_ring``, ``launches_tp`` and
-``launches_sp`` (``tp_sp_launches``),
+``launches_sp`` (``tp_sp_launches``), phase 10b's and the 4-GPU pp runs' launches,
+``launches_pp`` (``pp_launches``),
 phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
@@ -321,6 +343,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import hashlib
 import json
 import os
 import re
@@ -3895,8 +3918,8 @@ def text_t5(tmp: str, smi: str, device) -> tuple:
         built["load_s"] = time.perf_counter() - t0
         return built["t5"]
 
-    def build_transformer(config, device):
-        built["model"] = real[1](config, device)
+    def build_transformer(config, device, ctx=None):
+        built["model"] = real[1](config, device, ctx)
         return built["model"]
 
     sample_t2x.build_text_encoder, sample_t2x.build_transformer = build_text_encoder, build_transformer
@@ -4265,6 +4288,153 @@ def virtual_tp(device) -> dict:
     return r
 
 
+# phase "pp one card": the virtual pipeline (dist.pipeline.LocalHop) of the fp32
+# ffs_train step, 7 stages of 2 pairs, a row a microbatch at batch 5; of one
+# bf16 T2V CFG forward, 4 stages of 7 pairs, a video a microbatch
+PP_STAGES, PP_MICRO = 7, 5
+PP_T2V_STAGES, PP_T2V_MICRO = 4, 2
+# every parameter after the update against the one-model step's, relative L2
+# (the weight gradients sum over the microbatches in another order); the k
+# third of each qkv bias, whose gradient is zero but for rounding (softmax
+# does not see a shift of every key) and which AdamW moves by up to the
+# learning rate on that rounding, within 2 learning rates elementwise
+PP_PARAM_REL = 1e-5
+
+
+def pp_param_gate(got: dict, want: dict, lr: float) -> dict:
+    """Every parameter of ``got`` against ``want`` (state dicts on the
+    card): the worst relative L2 (the k third of each qkv bias aside) and
+    the k thirds' largest difference in learning rates."""
+    worst, worst_name, k_bias = 0.0, None, 0.0
+    for name, w in want.items():
+        g = got[name]
+        if name.endswith("qkv.bias"):
+            third = w.shape[0] // 3
+            k_bias = max(k_bias, float((g[third:2 * third] - w[third:2 * third]).abs().max()) / lr)
+            g, w = torch.cat([g[:third], g[2 * third:]]), torch.cat([w[:third], w[2 * third:]])
+        err = float((g.double() - w.double()).norm() / w.double().norm().clamp_min(1e-30))
+        if err > worst:
+            worst, worst_name = err, name
+    return dict(worst_rel_l2=worst, worst=worst_name, qkv_k_bias_lr=k_bias)
+
+
+def pp_one_card(device, smi: str, timer) -> dict:
+    """Phase "pp one card": pipeline parallelism's schedule at full width in
+    one process (see the module docstring). (a) Latte-XL/2 as
+    configs/ffs/ffs_train.yaml builds it (fp32, full remat), seeded weights
+    (``randomize_``), one train step at batch 5 through the virtual
+    pipeline of PP_STAGES stages and PP_MICRO microbatches
+    (``make_pipelined_apply``) against the one-model step on the same
+    weights, generator and batch (AdamW at the config's rate, constant, so
+    the update moves every weight): loss and grad norm within DIST_REL,
+    every parameter after the update within PP_PARAM_REL
+    (``pp_param_gate``), B1-B5 launched PP_MICRO times the one-model step's,
+    all on the fp32 and vector routes; then a second step of each, timed.
+    (b) LatteT2V at full width (t2v_sample.yaml, 28 pairs, bf16, seeded
+    init), one CFG forward through the virtual pipeline of PP_T2V_STAGES
+    stages and PP_T2V_MICRO microbatches against the whole model's: within
+    BF16_TOL of the largest magnitude, B1 and B3 PP_T2V_MICRO times each
+    block, B2 too and once for norm_out, on the tensor-core and vector
+    routes; both forwards timed."""
+    from latte_tpu_torch.core.scheduler import get_scheduler
+    from latte_tpu_torch.dist.pipeline import make_pipelined_apply, pipelined_t2v_forward
+    from latte_tpu_torch.models import get_models
+    from latte_tpu_torch.sample import sample_t2x
+    from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
+
+    cfg = load_config(FFS_TRAIN, [])
+    lr = float(cfg.learning_rate)
+    with torch.device(device):
+        whole = get_models(cfg)
+        virt = get_models(cfg)
+    randomize_(whole, seed=7)
+    virt.load_state_dict(whole.state_dict())
+    gen = torch.Generator(device=device).manual_seed(8)
+    batch = dict(latents=torch.randn((TRAIN_BATCH, FRAMES, 4, 32, 32), generator=gen, device=device))
+    diffusion = create_diffusion("", diffusion_steps=1000)
+    runs = {}
+    for label, model in (("one_model", whole), ("virtual_pp", virt)):
+        state = create_train_state(model, make_optimizer(model, float(getattr(cfg, "weight_decay", 0.0))),
+                                   make_lr_schedule(lr))
+        apply_fn = make_pipelined_apply(model, PP_STAGES, PP_MICRO) if model is virt else None
+        step = make_train_step(diffusion, ema_decay=float(cfg.ema_decay), clip_max_norm=float(cfg.clip_max_norm),
+                               start_clip_iter=int(getattr(cfg, "start_clip_iter", 0) or 0), apply_fn=apply_fn)
+        factor = PP_MICRO if model is virt else 1
+        secs = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # both models, and what earlier steps left
+            reset_counts()
+            t0 = time.perf_counter()
+            m = step(state, batch, torch.Generator(device=device).manual_seed(9 + i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = counts()
+                routes = check_routes(f"pp one card, {label} step", launches,
+                                      {k: factor * c for k, c in STEP_LAUNCHES.items()})
+                metrics = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+                params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        # the second step's working memory: its peak above what it started with
+        runs[label] = dict(metrics, launches=launches, routes=routes, first_step_s=secs[0], step_s=secs[1],
+                           working_gib=(torch.cuda.max_memory_allocated() - held) / 2**30, params=params)
+        del state, step, apply_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    del whole, virt
+    one, pp = runs["one_model"], runs["virtual_pp"]
+    gate = pp_param_gate(pp.pop("params"), one.pop("params"), lr)
+    rel = {k: abs(pp[k] - one[k]) / abs(one[k]) for k in ("loss", "grad_norm")}
+    train_r = dict(stages=PP_STAGES, microbatches=PP_MICRO, one_model=one, virtual_pp=pp, metric_rel=rel, **gate)
+    print(f"  pp one card, ffs_train step (fp32, batch 5, {PP_STAGES} stages x {PP_MICRO} microbatches): "
+          f"{json.dumps({k: v for k, v in train_r.items() if k not in ('one_model', 'virtual_pp')})}; "
+          f"s/step {pp['step_s']:.4f} (one model {one['step_s']:.4f}), a step's working memory "
+          f"{pp['working_gib']:.3f} GiB (one model {one['working_gib']:.3f}) on {smi}", flush=True)
+    if max(rel.values()) > DIST_REL or gate["worst_rel_l2"] > PP_PARAM_REL or gate["qkv_k_bias_lr"] > 2.0:
+        raise AssertionError(f"pp one card: the virtual pipeline's step departs from the one-model step: {train_r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = load_config(T2V_CONFIG, ["use_fp16=false"])
+    model = sample_t2x.build_transformer(tcfg, device).to(torch.bfloat16)
+    pairs = model.num_layers
+    stub = sample_t2x.build_text_encoder(tcfg)
+    ctx, mask = LattePipeline(model, get_scheduler("DDIM"), stub).encode_prompt([tcfg.text_prompt[0]])
+    H, W = sample_t2x.image_hw(tcfg)
+    gen = torch.Generator(device=device).manual_seed(10)
+    x = torch.randn((2, 4, int(tcfg.video_length), H // 8, W // 8), generator=gen, device=device)
+    t = torch.full((2,), 500.0, device=device)
+    with torch.inference_mode():
+        model(x, t, ctx, mask)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        want = model(x, t, ctx, mask)
+        torch.cuda.synchronize()
+        whole_launches = expect_launches("pp one card, whole t2v CFG forward", t2v_launches(pairs))
+        reset_counts()
+        got = pipelined_t2v_forward(model, x, t, ctx, mask, mesh=PP_T2V_STAGES, microbatches=PP_T2V_MICRO)
+        torch.cuda.synchronize()
+        expect = {k: PP_T2V_MICRO * c for k, c in t2v_launches(pairs).items()}
+        expect["ln_modulate"] -= PP_T2V_MICRO - 1  # norm_out runs once, on the whole batch
+        pp_launches = expect_launches("pp one card, virtual pipeline t2v CFG forward", expect)
+        whole_ms = timer.ms(lambda: model(x, t, ctx, mask), iters=3)
+        pp_ms = timer.ms(lambda: pipelined_t2v_forward(model, x, t, ctx, mask, mesh=PP_T2V_STAGES,
+                                                       microbatches=PP_T2V_MICRO), iters=3)
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    t2v_r = dict(stages=PP_T2V_STAGES, microbatches=PP_T2V_MICRO, max_err_over_max=err,
+                 finite=bool(torch.isfinite(got).all()), launches=pp_launches, whole_launches=whole_launches,
+                 ms=pp_ms, whole_ms=whole_ms,
+                 vs_whole=compare("pp one card, t2v forward, virtual pipeline vs whole", got, want))
+    print(f"  pp one card, t2v CFG forward (bf16, {PP_T2V_STAGES} stages x {PP_T2V_MICRO} microbatches): "
+          f"{json.dumps(t2v_r)} on {smi}", flush=True)
+    if not t2v_r["finite"] or err > BF16_TOL:
+        raise AssertionError(f"pp one card: the virtual pipeline's t2v forward departs from the whole model's: {t2v_r}")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return dict(train=train_r, t2v=t2v_r, device=smi)
+
+
 DIST_WORLD = min(4, torch.cuda.device_count()) if torch.cuda.is_available() else 0
 DIST_STEPS, DIST_MOE_STEPS = 3, 2
 DIST_REL = 1e-6
@@ -4408,29 +4578,42 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
     # the main path: train.main on ffs_train.yaml over this process group
     # (world 1: DDP; world 4: dp 4), its launches, s/step, peak memory, one
     # profiled step's NCCL kernels and the full checkpoint's gather and write
-    runs = [("ffs_train", FFS_TRAIN, [])]
+    # (name, config, overrides, checkpoint written, launches a rank against one GPU's step)
+    runs = [("ffs_train", FFS_TRAIN, [], True, 1.0)]
     if world >= 4:
-        runs.append(("ffs_train_moe", MOE_TRAIN, []))  # as shipped: dp 1 x ep 4
+        seeded = f"pretrained={seeded_xl(tmp)}"
+        # dp 4 from one_gpu_refs' seeded weights, held to one GPU's batch of 20
+        runs = [("ffs_train", FFS_TRAIN, [seeded], True, 1.0),
+                ("ffs_train_moe", MOE_TRAIN, [], False, 1.0)]  # as shipped: dp 1 x ep 4
         # tensor and sequence parallelism at dp 1: the global batch of 5 is one
         # GPU's; from one_gpu_refs' seeded weights, as its one-GPU run
-        runs += [("ffs_train_tp4", FFS_TRAIN, ["tensor_parallel=4", f"pretrained={seeded_xl(tmp)}"]),
-                 ("ffs_train_sp4", FFS_TRAIN, ["sequence_parallel=4", f"pretrained={seeded_xl(tmp)}"])]
+        runs += [("ffs_train_tp4", FFS_TRAIN, ["tensor_parallel=4", seeded], False, 1.0),
+                 ("ffs_train_sp4", FFS_TRAIN, ["sequence_parallel=4", seeded], False, 1.0),
+                 # pipeline parallelism at dp 2: each rank its stage's 14 blocks over PP_MICRO
+                 # microbatches of a row; its checkpoint gathered over dp and pp
+                 ("ffs_train_dp2_pp2", FFS_TRAIN, ["pipeline_parallel=2", f"pp_microbatches={PP_MICRO}", seeded],
+                  True, PP_MICRO / 2)]
+    # CHIP_SMOKE_DIST_RUNS (names, comma-separated) runs a subset, for a 4-GPU call
+    # that measures one slice's runs alone; unset, all of them
+    only = os.environ.get("CHIP_SMOKE_DIST_RUNS")
+    if only:
+        runs = [r for r in runs if r[0] in only.split(",")]
     res["train"] = {}
-    for name, path, extra in runs:
+    for name, path, extra, write_ckpt, factor in runs:
         log = StepLog(profile_after=DIST_STEPS - 1)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         held = torch.cuda.memory_allocated(device) / 2**30
         reset_counts()
-        # the tp and sp runs write no checkpoint (phase "dist"'s dp run gathers one)
-        with NoCheckpoints() if extra else contextlib.nullcontext():
+        # the tp, sp and MoE runs write no checkpoint (the dp and pp runs gather one)
+        with contextlib.nullcontext() if write_ckpt else NoCheckpoints():
             out = train.main(load_config(path, [f"results_dir={tmp}/results_{name}", f"max_train_steps={DIST_STEPS}",
                                                 "log_every=1", f"ckpt_every={DIST_STEPS}", *extra]), callbacks=[log])
         torch.cuda.synchronize(device)
         launches = counts()
         routes = check_routes(f"rank {rank} {name}", launches,
-                              {k: DIST_STEPS * c for k, c in STEP_LAUNCHES.items()})
+                              {k: round(DIST_STEPS * c * factor) for k, c in STEP_LAUNCHES.items()})
         t_end = time.perf_counter()
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         secs = log.step_seconds()
@@ -4442,8 +4625,10 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
             launches=launches, routes=routes, step_seconds=secs, peak_gib=peak, held_gib=held,
             nccl_profiled_step=nccl,
             losses=[r[2] for r in log.records], grad_norms=[r[3] for r in log.records],
-            checkpoint_seconds=None if extra else t_end - log.records[-1][1],
-            checkpoint_gib=os.path.getsize(ckpt) / 2**30 if rank == 0 and not extra else None,
+            checkpoint_seconds=t_end - log.records[-1][1] if write_ckpt else None,
+            checkpoint_gib=os.path.getsize(ckpt) / 2**30 if rank == 0 and write_ckpt else None,
+            checkpoint_keys=hashlib.sha1("\n".join(sorted(torch.load(ckpt, mmap=True, weights_only=True)["model"]))
+                                         .encode()).hexdigest() if rank == 0 and write_ckpt else None,
             profile_ms=print_profile(f"rank {rank} {name} step {DIST_STEPS}", log.prof, secs[-1] * 1e3))
         log.state = None
         print(f"  rank {rank} {name} at world {world}: step gaps {secs} s, peak {peak:.3f} GiB, NCCL kernels "
@@ -4451,8 +4636,10 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
         torch.distributed.barrier(device_ids=[rank])
         if rank == 0:
             shutil.rmtree(out["experiment_dir"])
-    if world >= 4:
+    if world >= 4 and {"ffs_train_tp4", "ffs_train_sp4"} <= set(res["train"]):
         res["tp_sp"] = tp_sp_gates(res["train"], tmp, rank, device)
+    if world >= 4 and {"ffs_train", "ffs_train_dp2_pp2"} <= set(res["train"]):
+        res["pp"] = pp_gates(res["train"], tmp, rank, device)
     with open(os.path.join(tmp, f"dist.{rank}.json"), "w") as f:
         json.dump(res, f, default=str)
     torch.distributed.destroy_process_group()
@@ -4474,9 +4661,12 @@ def seeded_xl(tmp: str) -> str:
 def one_gpu_refs(tmp: str, smi: str) -> None:
     """For phase "dist" at 4 GPUs, before the ranks start: Latte-XL/2's
     seeded weights (``seeded_xl``), ffs_train.yaml's DIST_STEPS steps from
-    them on one GPU (``gate_run``) and a bf16 DDIM-50 of them through
-    ``sample.main``, written under ``tmp`` for the ranks to hold the tp and
-    sp runs to."""
+    them on one GPU (``gate_run``) at its batch of 5, at 20 and at 10, a
+    bf16 DDIM-50 of them through ``sample.main`` and t2v_sample.yaml's
+    DDIM-10 latents through ``sample_t2x.main``, written under ``tmp`` for
+    the ranks to hold the tp, sp, dp and pp runs to."""
+    from latte_tpu_torch.sample import sample_t2x
+
     with torch.device("cuda", 0):
         model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES)
     randomize_(model, seed=0)
@@ -4490,10 +4680,24 @@ def one_gpu_refs(tmp: str, smi: str) -> None:
     t0 = time.perf_counter()
     lat = np.load(sample.main(cfg))["latents"]
     secs = time.perf_counter() - t0
+    # the dp 4 and dp 2 x pp 2 runs' global batches on one GPU, one chunk each:
+    # their t and noise drawn for the whole batch at once, as the ranks draw them
+    big = {n: gate_run(FFS_TRAIN, [f"max_train_steps={DIST_STEPS}", f"pretrained={ckpt}", f"local_batch_size={n}"],
+                       tmp, f"ffs_train one GPU, batch {n}") for n in (4 * TRAIN_BATCH, 2 * TRAIN_BATCH)}
+    # t2v_sample.yaml at DDIM-10 to latents (the stub encoder, three prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t2v = sample_t2x.main(load_config(T2V_CONFIG, [f"num_sampling_steps={PP_T2V_STEPS}",
+                                                   f"save_video_path={tmp}/one_gpu_t2v"]))
     with open(os.path.join(tmp, "one_gpu.json"), "w") as f:
         json.dump(dict(metrics=ref["metrics"], step_seconds=ref["step_seconds"], peak_gib=ref["peak_gib"],
-                       ddim_seconds=secs, ckpt=ckpt, device=smi), f)
+                       ddim_seconds=secs, ckpt=ckpt, device=smi,
+                       big={n: dict(metrics=r["metrics"], step_seconds=r["step_seconds"], peak_gib=r["peak_gib"])
+                            for n, r in big.items()},
+                       t2v_latents_s=[r["latents_s"] for r in t2v]), f)
     np.save(os.path.join(tmp, "one_gpu_ddim.npy"), lat)
+    np.save(os.path.join(tmp, "one_gpu_t2v.npy"), np.stack([r["latents"].numpy() for r in t2v]))
     print(f"  one-GPU references: ffs_train losses {[m['loss'] for m in ref['metrics']]}, DDIM-50 {secs:.3f} s",
           flush=True)
 
@@ -4543,6 +4747,64 @@ def tp_sp_gates(train_runs: dict, tmp: str, rank: int, device) -> dict:
     return out
 
 
+PP_T2V_STEPS = 10  # phase "dist"'s pp 4 t2v run: t2v_sample.yaml's DDIM-50, cut for time
+# the 4-GPU runs against one GPU's of the same global batch, fp32: the losses
+# within DIST_REL, the grad norms within PP_GNORM_REL (the dp average and the
+# microbatches' sums of the weight gradients run in another order)
+PP_GNORM_REL = 1e-5
+
+
+def pp_gates(train_runs: dict, tmp: str, rank: int, device) -> dict:
+    """At 4 GPUs: the dp 4 run's and the dp 2 x pp 2 run's losses and grad
+    norms against one GPU's on their global batches of 20 and 10 (one chunk,
+    the same draws; ``one_gpu_refs``), the pp run's checkpoint in the
+    one-process layout (the dp run's keys), then t2v_sample.yaml at
+    ``pipeline_parallel=4`` and DDIM-10 through ``sample_t2x.main`` against
+    one GPU's latents (finite, within BF16_TOL of the largest magnitude),
+    its s a video and launches."""
+    from latte_tpu_torch.sample import sample_t2x
+
+    with open(os.path.join(tmp, "one_gpu.json")) as f:
+        one = json.load(f)
+    out = {}
+    for name, n in (("ffs_train", 4 * TRAIN_BATCH), ("ffs_train_dp2_pp2", 2 * TRAIN_BATCH)):
+        got, want = train_runs[name], one["big"][str(n)]
+        loss_rel = [abs(a - m["loss"]) / abs(m["loss"]) for a, m in zip(got["losses"], want["metrics"])]
+        gnorm_rel = [abs(a - m["grad_norm"]) / abs(m["grad_norm"]) for a, m in zip(got["grad_norms"], want["metrics"])]
+        out[name] = dict(global_batch=n, loss_rel=loss_rel, grad_norm_rel=gnorm_rel, losses=got["losses"],
+                         one_gpu_losses=[m["loss"] for m in want["metrics"]],
+                         s_per_step=statistics.median(got["step_seconds"]),
+                         one_gpu_s_per_step=statistics.median(want["step_seconds"]), peak_gib=got["peak_gib"],
+                         one_gpu_peak_gib=want["peak_gib"], nccl_profiled_step=got["nccl_profiled_step"])
+        print(f"  rank {rank} {name} against one GPU's batch of {n}: {json.dumps(out[name])}", flush=True)
+        if len(loss_rel) != DIST_STEPS or max(loss_rel) > DIST_REL or max(gnorm_rel) > PP_GNORM_REL:
+            raise AssertionError(f"rank {rank} {name}: against one GPU's batch of {n}: {out[name]}")
+    if rank == 0 and train_runs["ffs_train_dp2_pp2"]["checkpoint_keys"] != train_runs["ffs_train"]["checkpoint_keys"]:
+        raise AssertionError("the pp run's checkpoint is not in the one-process layout")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    records = sample_t2x.main(load_config(T2V_CONFIG, [f"num_sampling_steps={PP_T2V_STEPS}", "pipeline_parallel=4",
+                                                       f"save_video_path={tmp}/pp4_t2v"]))
+    r = dict(launches=counts(), latents_s=[rec["latents_s"] for rec in records],
+             one_gpu_latents_s=one["t2v_latents_s"], peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    r["s_per_video"] = statistics.median(r["latents_s"][1:])
+    r["one_gpu_s_per_video"] = statistics.median(r["one_gpu_latents_s"][1:])
+    want = torch.from_numpy(np.load(os.path.join(tmp, "one_gpu_t2v.npy")))
+    got = torch.stack([rec["latents"] for rec in records])
+    r["max_err_over_max"] = float((got - want).abs().max() / want.abs().max())
+    r["vs_one_gpu"] = compare(f"rank {rank} pp 4 t2v DDIM-{PP_T2V_STEPS} latents vs one GPU's", got, want)
+    pairs = 28 // 4  # each rank's pairs; norm_out runs on every rank
+    per = {"flash_attention": 2 * pairs * 2, "ln_modulate": 2 * pairs * 2 + 1, "residual_ln_modulate": 2 * pairs * 2}
+    expect = {k: len(records) * PP_T2V_STEPS * per.get(k, 0) for k in KERNELS}
+    print(f"  rank {rank} pp 4 t2v DDIM-{PP_T2V_STEPS}: {json.dumps(r)}", flush=True)
+    if not r["vs_one_gpu"]["finite"] or r["max_err_over_max"] > BF16_TOL or r["launches"] != expect:
+        raise AssertionError(f"rank {rank} pp 4 t2v: {r}, launches wanted {expect}")
+    check_tc(f"rank {rank} pp 4 t2v", expect["flash_attention"])
+    check_vec(f"rank {rank} pp 4 t2v")
+    out["t2v_pp4"] = r
+    return out
+
+
 def dist_phase(tmp: str, smi: str) -> dict:
     """Phase 10 "dist": ``dist_worker`` in DIST_WORLD processes, one a GPU,
     spawned from here; any rank's failure fails the phase. Returns every
@@ -4584,6 +4846,20 @@ def tp_sp_launches(name: str, ring: dict, vtp: dict, dist: dict) -> dict:
             sp[f"sp4_train_rank{r['rank']}"] = r["train"]["ffs_train_sp4"]["launches"][name]
     return dict(launches_ring={case: c["ring_launches"].get(name, 0) for case, c in ring["cases"].items()},
                 launches_tp=tp, launches_sp=sp)
+
+
+def pp_launches(name: str, pp_run: dict, dist: dict) -> dict:
+    """A kernel's launches (all routes) in pipeline parallelism's runs: the
+    virtual pipeline's fp32 train step and t2v CFG forward (phase "pp one
+    card") and, per rank at 4 GPUs, the dp 2 x pp 2 training and the pp 4
+    t2v DDIM-10."""
+    out = {"virtual_pp_train_step": pp_run["train"]["virtual_pp"]["launches"][name],
+           "virtual_pp_t2v_forward": pp_run["t2v"]["launches"][name]}
+    if dist["world"] >= 4:
+        for r in dist["ranks"]:
+            out[f"dp2_pp2_train_rank{r['rank']}"] = r["train"]["ffs_train_dp2_pp2"]["launches"][name]
+            out[f"pp4_t2v_ddim10_rank{r['rank']}"] = r["pp"]["t2v_pp4"]["launches"][name]
+    return out
 
 
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
@@ -4838,6 +5114,12 @@ def main() -> int:
     phase("tp/sp one card", t0)
     print("tp_sp: " + json.dumps(dict(ring=ring, tp=vtp, device=smi), default=str), flush=True)
 
+    # 10b. pipeline parallelism on the one card: the virtual pipeline at full width
+    t0 = time.perf_counter()
+    pp_run = pp_one_card(device, smi, timer)
+    phase("pp one card", t0)
+    print("pp: " + json.dumps(pp_run, default=str), flush=True)
+
     # 10. multi-GPU training and sampling over NCCL, one process a GPU
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4942,7 +5224,9 @@ def main() -> int:
         launches_block_cache=bc_run["int8"]["int8_qk"]["launches"][INT8], launches_moe=moe_launches[INT8],
         launches_text=text_launches[INT8], launches_dist=dist_launches[INT8]))
     for row in kernels:
-        row.update(tp_sp_launches(row["name"].removesuffix("_f32").removesuffix("_qk"), ring, vtp, dist))
+        name = row["name"].removesuffix("_f32").removesuffix("_qk")
+        row.update(tp_sp_launches(name, ring, vtp, dist))
+        row["launches_pp"] = pp_launches(name, pp_run, dist)
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -69,6 +69,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from latte_tpu_torch.dist.pipeline import stage_range
+
 __all__ = [
     "qkv_to_reference",
     "flax_to_state_dict",
@@ -109,10 +111,13 @@ def qkv_to_reference(kernel, bias, num_heads: int):
 
 
 def flax_to_state_dict(
-    params: Mapping[str, Any], depth: int, num_heads: int, patch_size: int
+    params: Mapping[str, Any], depth: int, num_heads: int, patch_size: int, pp: int = 1, pp_rank: int = 0
 ) -> Dict[str, torch.Tensor]:
     """Flax ``params`` (the tree under ``"params"``), or any tree of that
-    shape such as its gradient, -> the port's state dict."""
+    shape such as its gradient, -> the port's state dict. ``pp > 1``: the
+    pairs of pipeline stage ``pp_rank`` alone (the stacked leading
+    ``n_pairs`` axis split as ``pp_param_shardings`` splits it), under their
+    one-process names."""
     sd: Dict[str, np.ndarray] = {}
 
     def put_linear(prefix: str, p: Mapping[str, Any]) -> None:
@@ -145,7 +150,7 @@ def flax_to_state_dict(
     if "text_embedding_projection" in params:
         put_linear("text_embedding_projection", params["text_embedding_projection"])
 
-    for i in range(depth // 2):
+    for i in stage_range(depth // 2, pp, pp_rank):
         for kind, idx in (("spatial", 2 * i), ("temporal", 2 * i + 1)):
             blk = _unstack(params["blocks"][kind], i)
             put_qkv(f"blocks.{idx}.attn.qkv", blk["attn"]["qkv"])
@@ -223,9 +228,10 @@ def flax_calib_to_amax(calib: Mapping[str, Any], depth: int) -> Dict[str, torch.
 
 
 def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
-    """Load Flax ``params`` into ``model`` (strict: every key must match)."""
+    """Load Flax ``params`` into ``model`` (strict: every key must match); a
+    pipeline stage's model takes its pairs."""
     sd = flax_to_state_dict(
-        params, model.depth, model.num_heads, model.patch_size
+        params, model.depth, model.num_heads, model.patch_size, model.pp, model.pp_rank
     )
     proj = getattr(model, "text_embedding_projection", None)
     key = "text_embedding_projection.weight"
@@ -325,10 +331,12 @@ _T2V_FF = (("net_0_proj", "net.0.proj"), ("net_2", "net.2"))
 T2V_BUFFERS = ("temp_pos_embed", "caption_projection.y_embedding")
 
 
-def flax_t2v_to_state_dict(params: Mapping[str, Any], patch_size: int = 2) -> Dict[str, torch.Tensor]:
+def flax_t2v_to_state_dict(params: Mapping[str, Any], patch_size: int = 2, pp: int = 1,
+                           pp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """The JAX LatteT2V's params (the tree under ``"params"``; a t2i model
     has no ``blocks/temporal``), or a quantized tree, -> the port's state
-    dict."""
+    dict; ``pp > 1``: pipeline stage ``pp_rank``'s pairs alone, as
+    :func:`flax_to_state_dict`."""
     sd: Dict[str, np.ndarray] = {}
     k = np.asarray(params["pos_embed"]["proj"]["kernel"])  # (C·p·p, D)
     p = patch_size
@@ -346,7 +354,7 @@ def flax_t2v_to_state_dict(params: Mapping[str, Any], patch_size: int = 2) -> Di
                                 ("temporal", "temporal_transformer_blocks", ("attn1",))):
         if kind not in blocks:
             continue
-        for i in range(n):
+        for i in stage_range(n, pp, pp_rank):
             blk = _unstack(blocks[kind], i)
             sd[f"{prefix}.{i}.scale_shift_table"] = np.asarray(blk["scale_shift_table"])
             for attn in attns:

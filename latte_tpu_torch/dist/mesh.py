@@ -5,10 +5,12 @@ The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets XLA
 insert the collectives; here one process drives one GPU and the collectives
 are ``torch.distributed``'s (NCCL on the card, gloo when the caller asked
 for the CPU). The mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh`
-with the JAX axis order ``dp, ep, sp, tp``, ``dp`` outermost: rank =
-((dp_rank·ep + ep_rank)·sp + sp_rank)·tp + tp_rank. The batch is split over
-``dp`` and replicated over ``ep``, ``sp`` and ``tp``, as the JAX batch is
-``P("dp")``.
+with the JAX axis order ``dp, ep, sp, tp, pp``, ``dp`` outermost and ``pp``
+innermost (the JAX mesh's order, ``latte_tpu/dist/mesh.py:61-77``): rank =
+(((dp_rank·ep + ep_rank)·sp + sp_rank)·tp + tp_rank)·pp + pp_rank. The batch
+is split over ``dp`` and replicated over ``ep``, ``sp``, ``tp`` and ``pp``,
+as the JAX batch is ``P("dp")``. With ``pp`` innermost the stages of one dp
+row are consecutive ranks, and ranks 0..pp-1 hold dp index 0 of each stage.
 
 Axes:
   - ``dp``: data parallel (batch rows; under ``fsdp`` also the block weights,
@@ -20,8 +22,9 @@ Axes:
     ``dist/ring.py``).
   - ``tp``: tensor parallel (attention heads and MLP columns of the blocks,
     ``dist/tp.py``).
-  - ``pp`` (pipeline parallelism) is not ported yet: above 1 it raises
-    ``NotImplementedError`` naming ROADMAP M6b.2.
+  - ``pp``: pipeline parallel (the model's depth: stage ``pp_rank`` holds
+    its ``n_pairs / pp`` block pairs, ``dist/pipeline.py``; its hops go to
+    the global ranks ``pp_prev`` and ``pp_next``).
 
 :meth:`DistContext.group` gives the process group of any set of axes (the
 ranks that differ only along them), which the step's collectives average
@@ -46,12 +49,11 @@ import torch.distributed as dist
 from latte_tpu_torch.utils import resolve_device
 
 __all__ = [
-    "M6B", "MeshConfig", "DistContext", "make_mesh", "initialize_distributed", "setup",
+    "AXES", "MeshConfig", "DistContext", "make_mesh", "initialize_distributed", "setup",
     "is_main_process", "barrier", "batch_rows", "shard_batch",
 ]
 
-M6B = "pipeline parallelism (ROADMAP M6b.2)"
-AXES = ("dp", "ep", "sp", "tp")
+AXES = ("dp", "ep", "sp", "tp", "pp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,20 +74,13 @@ class MeshConfig:
         return MeshConfig(dp=dp, tp=self.tp, sp=self.sp, pp=self.pp, ep=self.ep)
 
 
-def refuse_m6b(pp: int = 1) -> None:
-    """``NotImplementedError`` naming M6b.2 for a pipeline axis above 1."""
-    if pp > 1:
-        raise NotImplementedError(f"pipeline_parallel={pp}: not ported yet; comes with {M6B}")
-
-
 def make_mesh(config: MeshConfig = MeshConfig(), device_type: str = "cuda"):
-    """The (dp, ep, sp, tp) ``DeviceMesh`` over every rank of the process
-    group (an axis of size 1 included)."""
+    """The (dp, ep, sp, tp, pp) ``DeviceMesh`` over every rank of the
+    process group (an axis of size 1 included)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    refuse_m6b(config.pp)
     cfg = config.resolve(dist.get_world_size())
-    return init_device_mesh(device_type, (cfg.dp, cfg.ep, cfg.sp, cfg.tp), mesh_dim_names=AXES)
+    return init_device_mesh(device_type, (cfg.dp, cfg.ep, cfg.sp, cfg.tp, cfg.pp), mesh_dim_names=AXES)
 
 
 @dataclasses.dataclass
@@ -159,6 +154,10 @@ class DistContext:
         return self.mesh.size(3)
 
     @property
+    def pp(self) -> int:
+        return self.mesh.size(4)
+
+    @property
     def dp_rank(self) -> int:
         return self.mesh.get_local_rank("dp")
 
@@ -175,6 +174,10 @@ class DistContext:
         return self.mesh.get_local_rank("tp")
 
     @property
+    def pp_rank(self) -> int:
+        return self.mesh.get_local_rank("pp")
+
+    @property
     def dp_group(self):
         return self.mesh.get_group("dp")
 
@@ -189,6 +192,25 @@ class DistContext:
     @property
     def tp_group(self):
         return self.mesh.get_group("tp")
+
+    @property
+    def pp_group(self):
+        return self.mesh.get_group("pp")
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of pipeline stage ``stage`` in this rank's dp row
+        (``pp`` is the innermost axis)."""
+        return self.rank - self.pp_rank + stage
+
+    @property
+    def pp_prev(self) -> Optional[int]:
+        """The global rank of the previous stage (None on stage 0)."""
+        return self.stage_rank(self.pp_rank - 1) if self.pp_rank > 0 else None
+
+    @property
+    def pp_next(self) -> Optional[int]:
+        """The global rank of the next stage (None on the last)."""
+        return self.stage_rank(self.pp_rank + 1) if self.pp_rank < self.pp - 1 else None
 
     # the rows of the model's activations: split over dp, then sp
     # (P(("dp", "sp")) of the JAX model's activation sharding)
@@ -270,8 +292,8 @@ def setup(config, device: Optional[str] = None, check=None, mesh: Optional[MeshC
     """``(device, ctx)`` for an entry point: the rendezvous of
     :func:`initialize_distributed` from the config's keys, ``check(world
     size)`` (the entry point's own validation), then the mesh of its
-    ``expert_parallel``, ``sequence_parallel`` and ``tensor_parallel`` (or
-    ``mesh``; ``pipeline_parallel`` raises). A single process gets
+    ``expert_parallel``, ``sequence_parallel``, ``tensor_parallel`` and
+    ``pipeline_parallel`` (or ``mesh``). A single process gets
     ``(resolve_device(device), None)``."""
     dev = initialize_distributed(
         getattr(config, "coordinator_address", None),
@@ -309,7 +331,7 @@ def barrier() -> None:
 
 def batch_rows(n_local: int, ctx: Optional[DistContext]) -> slice:
     """This rank's rows of a global batch of ``n_local·dp`` rows: the block
-    of its dp index (the ranks of one ep, sp or tp group share it)."""
+    of its dp index (the ranks of one ep, sp, tp or pp group share it)."""
     if ctx is None:
         return slice(0, n_local)
     return slice(ctx.dp_rank * n_local, (ctx.dp_rank + 1) * n_local)

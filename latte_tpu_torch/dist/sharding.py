@@ -1,5 +1,5 @@
 """Where each parameter, Adam moment and EMA entry lives over the
-(dp, ep, sp, tp) mesh, and the training step's collectives (port of
+(dp, ep, sp, tp, pp) mesh, and the training step's collectives (port of
 ``latte_tpu/dist/sharding.py``).
 
 The rules, over the port's parameter names:
@@ -37,9 +37,22 @@ The rules, over the port's parameter names:
   ``zero1_opt_shardings`` splits the whole moment over dp alone and
   replicates it over tp (more bytes a device, the same values).
 
+- **pp** (``pipeline_parallel > 1``, ``pp_param_shardings``): a block entry
+  (``blocks.{i}``, ``transformer_blocks.{i}``,
+  ``temporal_transformer_blocks.{i}``) lives on the stage that holds pair
+  ``i`` alone (the model is built so, ``dist.pipeline.StageBlocks``); its
+  gradient is averaged over dp, and its squares sum over pp in the norm.
+  Every other entry (the embedders, the final layer) is replicated over pp:
+  each stage holds its share of its gradient (stage 0 the patch
+  embedding's, each stage the conditioning's of its own pairs, the last the
+  final layer's, ``dist.pipeline.last_stage_grad``), which is summed over
+  pp (and averaged over dp), so every stage holds the one-process gradient;
+  it counts once in the norm. ``zero1`` splits each stage-local moment over
+  dp as above; ``fsdp`` with pp is the JAX trainer's ``ValueError``.
+
 The axis a split takes is the port's choice (JAX's layout stacks the blocks
 and transposes the linears); the bytes a rank holds are the JAX rule's
-(:func:`local_numels`). Pipeline parallelism waits for ROADMAP M6b.2.
+(:func:`local_numels`).
 
 :class:`ShardedParams` carries a step's collectives: gradient averaging over
 the ranks that hold the same entry and see other data or hold the same
@@ -50,7 +63,8 @@ gradient (each local part's squares summed over the axes that split it:
 dp under FSDP, ep for an expert, tp for a tp shard), the ZeRO-1 update of a
 rank's slice and the gather of the parameters after it, the EMA of the local
 shards, and the full state of the one-process checkpoint format, gathered to
-rank 0 (over dp, ep and tp) and cut again on load.
+rank 0 (over dp, ep and tp, then each stage's blocks over pp, in the
+one-process order) and cut again on load.
 """
 
 from __future__ import annotations
@@ -62,7 +76,8 @@ import torch.distributed as dist
 from torch import nn
 
 __all__ = [
-    "EXPERT_KEYS", "ZERO1_EP_ERROR", "is_expert", "is_block", "largest_axis", "fsdp_axis", "local_numels",
+    "EXPERT_KEYS", "ZERO1_EP_ERROR", "PIPELINE_BLOCKS", "is_expert", "is_block", "stage_block", "pp_order",
+    "largest_axis", "fsdp_axis", "local_numels",
     "tp_axis", "tp_shard", "tp_unshard", "tp_shard_state_dict", "apply_fsdp", "ShardedParams",
 ]
 
@@ -81,6 +96,54 @@ def is_expert(name: str) -> bool:
 
 def is_block(name: str) -> bool:
     return name.startswith("blocks.")
+
+
+# the block lists a pipeline stage splits: Latte's, LatteT2V's two
+PIPELINE_BLOCKS = ("blocks", "transformer_blocks", "temporal_transformer_blocks")
+
+
+def stage_block(name: str) -> Optional[Tuple[str, int, str]]:
+    """``(list, index, rest)`` of an entry of a pipeline block list, else
+    None."""
+    parts = name.split(".", 2)
+    if len(parts) == 3 and parts[0] in PIPELINE_BLOCKS and parts[1].isdigit():
+        return parts[0], int(parts[1]), parts[2]
+    return None
+
+
+def stage_spans(names: Iterable[str]) -> Dict[str, Tuple[int, int]]:
+    """(first index, count) of each block list among a stage's entries."""
+    held: Dict[str, set] = {}
+    for name in names:
+        sb = stage_block(name)
+        if sb is not None:
+            held.setdefault(sb[0], set()).add(sb[1])
+    return {c: (min(ix), len(ix)) for c, ix in held.items()}
+
+
+def pp_order(names: List[str], spans: Dict[str, Tuple[int, int]], pp: int) -> List[Tuple[str, Optional[int], str]]:
+    """The one-process entries of a stage's ``names`` (in its state-dict
+    order) over ``pp`` stages that hold ``spans`` blocks each: ``(one-process
+    name, stage or None for a replicated entry, this stage's like entry)`` in
+    the one-process order (each run of a block list's entries repeated for
+    every stage, its indices shifted)."""
+    out, i = [], 0
+    while i < len(names):
+        sb = stage_block(names[i])
+        if sb is None:
+            out.append((names[i], None, names[i]))
+            i += 1
+            continue
+        j = i
+        while j < len(names) and (stage_block(names[j]) or ("",))[0] == sb[0]:
+            j += 1
+        first, count = spans[sb[0]]
+        for s in range(pp):
+            for name in names[i:j]:
+                c, idx, rest = stage_block(name)
+                out.append((f"{c}.{idx - first + s * count}.{rest}", s, name))
+        i = j
+    return out
 
 
 def largest_axis(shape, n: int, skip: Iterable[int] = ()) -> Optional[int]:
@@ -264,6 +327,8 @@ class _Entry:
                 self.leaf = nn.Parameter(local)
             else:
                 self.leaf = param
+        # a pipeline stage's own block entry, or one replicated over pp
+        self.stage_local = ctx.pp > 1 and stage_block(name) is not None
         # the axes whose ranks hold this entry and average its gradient: those
         # that see other rows (dp, sp), and those that hold the same copy
         # (ep for a dense entry, tp for one tp does not split); FSDP's
@@ -271,10 +336,14 @@ class _Entry:
         axes = ("dp", "sp") + (() if self.expert else ("ep",)) + (() if self.tp_split else ("tp",))
         if self.fsdp:
             axes = tuple(a for a in axes if a != "dp")
-        self.group, self.n = ctx.group(*axes), ctx.size(*axes)
+        self.n = ctx.size(*axes)
+        # a replicated entry's stage shares are summed over pp (not averaged)
+        summed = ("pp",) if ctx.pp > 1 and not self.stage_local else ()
+        self.group = ctx.group(*axes, *summed)
         # the group the squares of a gradient's local part sum over for the
         # norm: the axes that split it
-        split = (("dp",) if self.fsdp else ()) + (("ep",) if self.expert else ()) + (("tp",) if self.tp_split else ())
+        split = ((("dp",) if self.fsdp else ()) + (("ep",) if self.expert else ()) + (("tp",) if self.tp_split else ())
+                 + (("pp",) if self.stage_local else ()))
         self.norm_group = ctx.group(*split)
 
 
@@ -289,6 +358,8 @@ class ShardedParams:
             raise ValueError(ZERO1_EP_ERROR)
         self.ctx = ctx
         self.entries = [_Entry(n, p, ctx, zero1) for n, p in model.named_parameters() if p.requires_grad]
+        # the blocks of each list a pipeline stage holds
+        self.spans = stage_spans(model.state_dict()) if ctx.pp > 1 else {}
         # a norm that sums over no group is the one-process norm, to the bit
         self.plain_norm = all(e.norm_group is None for e in self.entries)
 
@@ -382,7 +453,33 @@ class ShardedParams:
             parts = [torch.empty_like(t) for _ in range(ctx.tp)]
             dist.all_gather(parts, t.contiguous(), group=ctx.tp_group)
             t = tp_unshard(name, parts)
-        return t.detach().cpu() if ctx.rank == 0 else None
+        # rank 0 of each pipeline stage (ranks 0..pp-1, pp innermost)
+        return t.detach().cpu() if ctx.rank < ctx.pp else None
+
+    def _gather_stages(self, local: Dict[str, Optional[torch.Tensor]]) -> Optional[Dict[str, torch.Tensor]]:
+        """The one-process dict on rank 0 from each stage's rank 0's
+        ``local`` entries (a collective; None elsewhere): the replicated
+        entries are rank 0's, each stage's blocks are sent to it, in the
+        one-process order."""
+        ctx = self.ctx
+        if ctx.pp == 1:
+            return local if ctx.rank == 0 else None
+        order = pp_order(list(local), self.spans, ctx.pp)
+        if ctx.rank == 0:
+            out = {}
+            for name, stage, mine in order:
+                if not stage:
+                    out[name] = local[mine]
+                    continue
+                buf = torch.empty_like(local[mine], device=ctx.device)
+                dist.recv(buf, src=ctx.stage_rank(stage))
+                out[name] = buf.cpu()
+            return out
+        if ctx.rank < ctx.pp:
+            for name, stage, mine in order:
+                if stage == ctx.pp_rank:
+                    dist.send(local[mine].to(ctx.device), dst=0)
+        return None
 
     def _part(self, name: str, full: torch.Tensor, like: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
         """This rank's part of a whole tensor, the inverse of :meth:`_full`."""
@@ -405,13 +502,16 @@ class ShardedParams:
         """``module``'s state dict with every tensor whole, on the CPU of
         rank 0 (None elsewhere; a collective: every rank calls it)."""
         params = dict(module.named_parameters())
-        return {name: self._full(name, t, params.get(name, t)) for name, t in module.state_dict().items()}
+        return self._gather_stages({name: self._full(name, t, params.get(name, t))
+                                    for name, t in module.state_dict().items()})
 
     @torch.no_grad()
     def load_full_state_dict(self, module: nn.Module, full: Dict[str, torch.Tensor]) -> None:
         """Each parameter takes its part of a whole state dict (strict)."""
         params = dict(module.named_parameters())
-        missing = set(module.state_dict()) ^ set(full)
+        names = list(module.state_dict())
+        want = [n for n, _, _ in pp_order(names, self.spans, self.ctx.pp)] if self.ctx.pp > 1 else names
+        missing = set(want) ^ set(full)
         if missing:
             raise KeyError(f"state dict keys differ: {sorted(missing)[:8]}")
         for name, p in params.items():
@@ -421,6 +521,8 @@ class ShardedParams:
         """The optimizer's state dict in the one-process layout, every
         moment whole (on rank 0, as :meth:`full_state_dict`)."""
         sd = optimizer.state_dict()
+        if self.ctx.pp > 1:
+            return self._full_pp_optimizer_state(sd)
         for i, e in enumerate(self.entries):
             st = sd["state"].get(i)
             if st is None:
@@ -431,10 +533,35 @@ class ShardedParams:
             sd["state"][i] = st
         return sd
 
+    def _one_process_index(self) -> Dict[str, int]:
+        """Each trainable entry's index in the one-process optimizer."""
+        order = pp_order([e.name for e in self.entries], self.spans, self.ctx.pp)
+        return {name: i for i, (name, _, _) in enumerate(order)}
+
+    def _full_pp_optimizer_state(self, sd: dict) -> Optional[dict]:
+        """:meth:`full_optimizer_state` over pipeline stages: every stage's
+        moments gathered to rank 0 by name, indexed as the one-process
+        optimizer indexes its parameters."""
+        moments = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments[key] = self._gather_stages({e.name: self._full(e.name, sd["state"][i][key], e.param, e.axis)
+                                                for i, e in enumerate(self.entries)})
+        if self.ctx.rank != 0:
+            return None
+        rest = {k: v for k, v in sd["state"][0].items() if k not in moments}  # the step
+        index = self._one_process_index()
+        state = {index[name]: dict(rest, exp_avg=mu, exp_avg_sq=moments["exp_avg_sq"][name])
+                 for name, mu in moments["exp_avg"].items()}
+        groups = [dict(g, params=list(range(len(index)))) for g in sd["param_groups"]]
+        return {"state": state, "param_groups": groups}
+
     def load_full_optimizer_state(self, optimizer: torch.optim.Optimizer, full: dict) -> None:
         sd = {"state": {}, "param_groups": full["param_groups"]}
+        index = self._one_process_index() if self.ctx.pp > 1 else None
+        if index is not None:
+            sd["param_groups"] = [dict(g, params=list(range(len(self.entries)))) for g in full["param_groups"]]
         for i, e in enumerate(self.entries):
-            st = full["state"].get(i)
+            st = full["state"].get(i if index is None else index[e.name])
             if st is None:
                 continue
             st = dict(st)

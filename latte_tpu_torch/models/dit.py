@@ -67,6 +67,13 @@ DistContext`):
   (:mod:`latte_tpu_torch.dist.seq`). The conditioning rows are cut to the
   rank's. The block-cache hooks do not run under it.
 
+Pipeline parallelism (``pp > 1``): the model holds stage ``pp_rank``'s
+block pairs alone, under their one-process names
+(:class:`~latte_tpu_torch.dist.pipeline.StageBlocks`), and the embedders and
+the final layer; ``initialize_weights`` draws what the whole model draws for
+them. Such a model runs through ``dist.pipeline.pipelined_latte_forward``;
+its own ``forward`` needs every block.
+
 ``attention_mode: "ring"`` with ``ring_mesh`` runs every self-attention as
 ring attention over the ring's ranks (:mod:`latte_tpu_torch.dist.ring`),
 which hold the same activations; a sequence the ring's size does not divide
@@ -82,6 +89,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from latte_tpu_torch.dist.pipeline import block_list, init_modules
 from latte_tpu_torch.dist.seq import Relayout, gather_rows, local_rows
 from latte_tpu_torch.models.embeddings import (
     LabelEmbedder,
@@ -146,6 +154,8 @@ class Latte(nn.Module):
         moe_mesh=None,
         mesh=None,
         ring_mesh=None,
+        pp: int = 1,
+        pp_rank: int = 0,
     ):
         super().__init__()
         if extras not in (1, 2, 78):
@@ -179,14 +189,16 @@ class Latte(nn.Module):
             self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
         elif extras == 78:
             self.text_embedding_projection = Linear(self.TEXT_EMBEDDING_WIDTH, hidden_size)
-        self.blocks = nn.ModuleList(
-            AdaLNBlock(
+        # pipeline parallelism: stage pp_rank's pairs alone
+        self.pp, self.pp_rank = pp, pp_rank
+        self.blocks = block_list(
+            lambda i: AdaLNBlock(
                 hidden_size, num_heads, mlp_ratio, plain=plain, quantized=quantized,
                 int8_attention=int8_attention, attention_mode=attention_mode,
                 moe_experts=moe_experts, moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
                 moe_mesh=moe_mesh, tp=self.tp, tp_mesh=mesh if self.tp > 1 else None, ring_mesh=ring_mesh,
-            )
-            for _ in range(depth)
+            ),
+            depth, 2, pp, pp_rank,
         )
         self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
         grid = input_size // patch_size
@@ -206,12 +218,13 @@ class Latte(nn.Module):
         """The reference's init (as the JAX modules' initializers): xavier-uniform
         linears and patch embedding with zero biases, N(0, 0.02) timestep MLP and
         label table, zero adaLN modulations and output layer (adaLN-Zero);
-        the experts' own init (``MoEMlp.reset_parameters``). An int8 serving
-        model has no fp weights to draw: it loads the output of
+        the experts' own init (``MoEMlp.reset_parameters``). A pipeline
+        stage draws, for its blocks, what the whole model draws. An int8
+        serving model has no fp weights to draw: it loads the output of
         ``quant.quantize_params``."""
         if self.quantized in (True, "static"):
             raise ValueError("an int8 model loads quantize_params' output; initialise its fp twin")
-        for m in self.modules():
+        for m in init_modules(self):
             if isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)

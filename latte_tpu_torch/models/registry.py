@@ -65,7 +65,8 @@ def get_models(args, quantized=False, moe_mesh=None, mesh=None, ring_mesh=None) 
     ``moe_top_k`` and ``moe_capacity_factor``. ``quantized`` is the blocks'
     int8 mode (see ``models.layers``); ``moe_mesh`` the ``DistContext`` the
     experts are split over (``models.moe``), ``mesh`` the one whose tp and sp
-    axes split the model, ``ring_mesh`` ring attention's."""
+    axes split the model and whose pp axis picks the stage's pairs
+    (``dist.pipeline``), ``ring_mesh`` ring attention's."""
     mode = str(getattr(args, "attention_mode", None) or "auto")
     if mode not in _ATTENTION_MODES:
         raise NotImplementedError(
@@ -85,6 +86,8 @@ def get_models(args, quantized=False, moe_mesh=None, mesh=None, ring_mesh=None) 
     )
     if mesh is not None:
         common["mesh"] = mesh
+        if getattr(mesh, "pp", 1) > 1:  # a pipeline stage's pairs alone
+            common.update(pp=mesh.pp, pp_rank=mesh.pp_rank)
     if ring_mesh is not None:
         common["ring_mesh"] = ring_mesh
     ia = getattr(args, "int8_attention", False)

@@ -59,6 +59,11 @@ length the ring's size divides as ring attention
 self-attention take their usual route, as in JAX. Without a ring it raises
 the JAX model's ``ValueError``.
 
+Pipeline parallelism (``pp > 1``): the model holds stage ``pp_rank``'s
+pairs of both block lists alone, under their one-process names
+(:class:`~latte_tpu_torch.dist.pipeline.StageBlocks`), and everything
+else; it runs through ``dist.pipeline.pipelined_t2v_forward``.
+
 Not ported: ``gradient_checkpointing`` (no entry point trains LatteT2V): it
 raises ``NotImplementedError``.
 """
@@ -71,6 +76,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from latte_tpu_torch.dist.pipeline import block_list, init_modules, init_named_parameters
 from latte_tpu_torch.dist.ring import ring_attention_sharded, ring_size
 from latte_tpu_torch.kernels import (
     attention_reference,
@@ -384,6 +390,8 @@ class LatteT2V(_Fp32Scales):
         gradient_checkpointing: bool = False,
         plain: bool = False,
         ring_mesh=None,
+        pp: int = 1,
+        pp_rank: int = 0,
     ):
         super().__init__()
         if attention_mode == "ring" and ring_mesh is None:
@@ -415,15 +423,17 @@ class LatteT2V(_Fp32Scales):
         block = dict(activation_fn=activation_fn, quantized=quantized, plain=plain,
                      moe=(moe_experts, moe_top_k, moe_capacity_factor, moe_mesh),
                      ring_mesh=ring_mesh if attention_mode == "ring" else None)
-        self.transformer_blocks = nn.ModuleList(
-            T2VSpatialBlock(D, num_attention_heads, attention_head_dim,
-                            ff_chunk_size=feed_forward_chunk_size, **block)
-            for _ in range(num_layers)
+        # pipeline parallelism: stage pp_rank's pairs alone
+        self.pp, self.pp_rank = pp, pp_rank
+        self.transformer_blocks = block_list(
+            lambda i: T2VSpatialBlock(D, num_attention_heads, attention_head_dim,
+                                      ff_chunk_size=feed_forward_chunk_size, **block),
+            num_layers, 1, pp, pp_rank,
         )
         if enable_temporal_attentions:
-            self.temporal_transformer_blocks = nn.ModuleList(
-                T2VTemporalBlock(D, num_attention_heads, attention_head_dim, **block)
-                for _ in range(num_layers)
+            self.temporal_transformer_blocks = block_list(
+                lambda i: T2VTemporalBlock(D, num_attention_heads, attention_head_dim, **block),
+                num_layers, 1, pp, pp_rank,
             )
         self.scale_shift_table = nn.Parameter(torch.randn(2, D) / D**0.5)
         self.proj_out = Linear(D, patch_size * patch_size * out_channels)
@@ -442,11 +452,12 @@ class LatteT2V(_Fp32Scales):
     def initialize_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX modules' initializers: xavier-uniform linears and patch
         embedding with zero biases, N(0, 0.02²) timestep MLP and caption
-        projection, N(0, 1/D) adaLN tables, the experts' own init. An int8
-        model loads ``quant.quantize_params``' output instead."""
+        projection, N(0, 1/D) adaLN tables, the experts' own init; a
+        pipeline stage draws, for its blocks, what the whole model draws. An
+        int8 model loads ``quant.quantize_params``' output instead."""
         if self.quantized:
             raise ValueError("an int8 model loads quantize_params' output; initialise its fp twin")
-        for m in self.modules():
+        for m in init_modules(self):
             if isinstance(m, nn.Linear):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 nn.init.zeros_(m.bias)
@@ -460,7 +471,7 @@ class LatteT2V(_Fp32Scales):
                     self.caption_projection.linear_2):
             nn.init.normal_(lin.weight, std=0.02, generator=generator)
         std = self.inner_dim**-0.5
-        for name, p in self.named_parameters():
+        for name, p in init_named_parameters(self):
             if name.endswith("scale_shift_table"):
                 nn.init.normal_(p, std=std, generator=generator)
 
@@ -490,6 +501,14 @@ class LatteT2V(_Fp32Scales):
         if Fv < F:
             video = torch.cat([video, x[:, :, Fv:]], dim=2)
         return video.transpose(1, 2).contiguous().view(B * F, T, D), pair_losses(aux)
+
+    def _head(self, x: torch.Tensor, emb: torch.Tensor, B: int) -> torch.Tensor:
+        """The adaLN-single output layer, (2, D) table + the timestep
+        embedding, then unpatchify: (B·F, T, D) -> (B·F, C_out, H, W)."""
+        mods = (self.scale_shift_table.float()[None] + emb.float()[:, None]).to(x.dtype)
+        ln_mod = ln_modulate_reference if self.plain else ln_modulate
+        x = self.proj_out(ln_mod(x.view(B, -1, x.shape[2]), mods[:, 0], mods[:, 1]).view(x.shape))
+        return unpatchify(x, self.patch_size, self.out_channels)
 
     def forward(
         self,
@@ -558,11 +577,7 @@ class LatteT2V(_Fp32Scales):
             if i == return_front - 1:
                 front = x
 
-        # adaLN-single output layer: (2, D) table + the timestep embedding
-        mods = (self.scale_shift_table.float()[None] + emb.float()[:, None]).to(dtype)
-        ln_mod = ln_modulate_reference if self.plain else ln_modulate
-        x = self.proj_out(ln_mod(x.view(B, -1, x.shape[2]), mods[:, 0], mods[:, 1]).view(x.shape))
-        x = unpatchify(x, p, self.out_channels)  # (B·F, C_out, H, W)
+        x = self._head(x, emb, B)
         out = x.view(B, F, *x.shape[1:]).transpose(1, 2).to(in_dtype)
         if return_aux:
             return out, loss_columns(aux)

@@ -23,8 +23,16 @@ the transformer's block list at that pair from it. Interval 0 or 1 is the
 exact loop.
 
 Stochastic schedulers draw each step's noise from the same generator as z,
-after it. ``pp_mesh`` (pipeline-parallel serving) raises
-``NotImplementedError``: it comes with pipeline parallelism (ROADMAP M6b.2).
+after it.
+
+Pipeline-parallel serving (``pp_mesh``, a ``DistContext`` with a pp axis, or
+a stage count for the one-process virtual pipeline): the transformer is a
+stage's (its pairs alone, built with ``pp``/``pp_rank``) and each step runs
+``dist.pipeline.pipelined_t2v_forward`` with the largest microbatch count
+not above ``pp_microbatches`` that divides the step's batch, as the JAX
+pipeline does; the output is replicated, so every stage runs the scheduler
+loop on the same latents. The block cache does not compose with it (the
+JAX pipeline's ``ValueError``).
 
 The text encoder's features may be tensors on the device (the port's T5)
 or numpy arrays (the caption stub); they reach the transformer as fp32 on
@@ -47,6 +55,12 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.vae import cudnn_tf32, make_decode_fn
+
+
+# the JAX pipeline's refusal of the block cache under pp_mesh
+PP_BLOCK_CACHE_ERROR = (
+    "block_cache_interval does not compose with pp_mesh (the pipelined forward has no staging hooks)"
+)
 
 
 @dataclasses.dataclass
@@ -72,13 +86,10 @@ class LattePipeline:
         vae_scale: float = 0.18215,
         vae_spatial_scale: int = 8,
         pp_mesh=None,
+        pp_microbatches: int = 2,
         block_cache_interval: int = 0,
         block_cache_pairs: Optional[int] = None,
     ):
-        if pp_mesh is not None:
-            raise NotImplementedError(
-                "pp_mesh (pipeline-parallel serving) is not ported yet (ROADMAP M6b.2, pipeline parallelism)"
-            )
         self.transformer = transformer
         self.scheduler = scheduler
         self.text_encoder = text_encoder
@@ -88,11 +99,19 @@ class LattePipeline:
         self.vae_spatial_scale = vae_spatial_scale
         self.bc_interval = int(block_cache_interval or 0)
         if self.bc_interval > 1:
+            if pp_mesh is not None:
+                raise ValueError(PP_BLOCK_CACHE_ERROR)
             n_pairs = transformer.num_layers
             self.bc_pairs = int(block_cache_pairs or (n_pairs * 2) // 3)
             if not 1 <= self.bc_pairs < n_pairs:
                 raise ValueError(f"block_cache_pairs must be in [1, {n_pairs}), got {self.bc_pairs}")
         self._decode = None if vae is None else make_decode_fn(vae)
+        self.pp_microbatches = int(pp_microbatches)
+        self.pp_hop = None
+        if pp_mesh is not None:
+            from latte_tpu_torch.dist.pipeline import make_hop
+
+            self.pp_hop = make_hop(pp_mesh)
 
     @property
     def device(self) -> torch.device:
@@ -122,7 +141,17 @@ class LattePipeline:
 
     def _forward(self, latent_in, t, ctx, mask, cache: Optional[str], front):
         """The transformer: the exact forward, or the cache's full forward
-        (returning the front too) or partial forward (from the front)."""
+        (returning the front too) or partial forward (from the front); under
+        ``pp_mesh`` the pipelined forward."""
+        if self.pp_hop is not None:
+            from latte_tpu_torch.dist.pipeline import pipelined_t2v_forward
+
+            # the largest feasible microbatch count not above the requested one
+            mb = min(self.pp_microbatches, latent_in.shape[0])
+            while latent_in.shape[0] % mb:
+                mb -= 1
+            return pipelined_t2v_forward(self.transformer, latent_in, t, ctx, mask, mesh=self.pp_hop,
+                                         microbatches=mb), front
         if cache == "full":
             return self.transformer(latent_in, t, ctx, mask, return_front=self.bc_pairs)
         if cache == "partial":

@@ -29,7 +29,15 @@ with seed ``seed + i``, and writes a png (``video_length: 1``) or an mp4 at
   Mixture-of-Experts feed-forward in every block; with ``quantized: true``
   it raises ``NotImplementedError`` (no int8 expert path, as in JAX), and a
   ``ckpt`` raises ``KeyError`` naming the expert weights it lacks.
-- ``pipeline_parallel > 1`` raises ``NotImplementedError`` (ROADMAP M6b.2).
+- ``pipeline_parallel`` S > 1 (with ``pp_microbatches``, default 2):
+  exactly S processes, one a GPU (``torchrun``; dp 1, as the JAX sampler's
+  ``pp`` devices), each building and holding its stage's pairs of the
+  transformer alone (``dist/pipeline.py``). Every rank encodes the prompts
+  itself (the same text encoder on the same ids gives the same features),
+  runs the scheduler loop on the same latents (the pipelined forward's
+  output is replicated), and rank 0 alone decodes and writes the outputs.
+  Another process count raises the JAX sampler's ``AssertionError``; the
+  block cache with it, the JAX pipeline's ``ValueError``.
 
 Runs on ``cuda`` unless asked for the CPU::
 
@@ -50,10 +58,12 @@ import torch
 from latte_tpu_torch.config import Config, load_config
 from latte_tpu_torch.convert import load_t2v_state_dict
 from latte_tpu_torch.core.scheduler import get_scheduler
+from latte_tpu_torch.dist.mesh import MeshConfig, barrier, setup
+from latte_tpu_torch.dist.pipeline import stage_state_dict
 from latte_tpu_torch.models.layers import MOE_INT8_REFUSAL
 from latte_tpu_torch.models.t2v import LatteT2V
 from latte_tpu_torch.quant import quantize_params
-from latte_tpu_torch.sample.pipeline_t2v import LattePipeline
+from latte_tpu_torch.sample.pipeline_t2v import PP_BLOCK_CACHE_ERROR, LattePipeline
 from latte_tpu_torch.sample.sample import load_vae
 from latte_tpu_torch.text import StubTextEncoder, T5TextEncoder
 from latte_tpu_torch.utils import create_logger, resolve_device, save_image, save_video
@@ -88,13 +98,16 @@ def transformer_kwargs(config: Config) -> dict:
     )
 
 
-def build_transformer(config: Config, device: torch.device) -> LatteT2V:
+def build_transformer(config: Config, device: torch.device, ctx=None) -> LatteT2V:
     """LatteT2V on ``device`` in the config's type, from ``ckpt`` or, when
     it is null, the JAX modules' init drawn from ``torch.Generator`` seed 0
     on the device. A t2i model (``enable_temporal_attentions: false``) has
     no temporal blocks and leaves a checkpoint's out. With ``quantized:
-    true`` the int8 model, quantized from the fp32 weights."""
+    true`` the int8 model, quantized from the fp32 weights. ``ctx`` with a
+    pp axis: the stage's pairs alone, with the one-process weights."""
     kwargs = transformer_kwargs(config)
+    if ctx is not None and ctx.pp > 1:
+        kwargs.update(pp=ctx.pp, pp_rank=ctx.pp_rank)
     with torch.device(device):
         model = LatteT2V(**kwargs)
     ckpt = getattr(config, "ckpt", None)
@@ -104,6 +117,8 @@ def build_transformer(config: Config, device: torch.device) -> LatteT2V:
         sd = load_t2v_state_dict(str(ckpt), model.num_layers, model.moe_experts)
         if not model.enable_temporal_attentions:
             sd = {k: v for k, v in sd.items() if not k.startswith("temporal_transformer_blocks.")}
+        if model.pp > 1:
+            sd = stage_state_dict(sd, model)
         model.load_state_dict(sd, strict=True)
     else:
         model.initialize_weights(torch.Generator(device=device).manual_seed(0))
@@ -134,16 +149,20 @@ def build_text_encoder(config: Config, device: torch.device = None):
     return StubTextEncoder(dim=int(getattr(config, "caption_channels", None) or 4096))
 
 
-def check_config(config: Config) -> None:
-    """Raise for pipeline-parallel serving, which this port does not carry,
-    and for int8 serving of an MoE model, which neither package carries,
-    before anything is built."""
+def check_config(config: Config, world: int = None) -> None:
+    """Raise before anything is built: for int8 serving of an MoE model,
+    which neither package carries; for ``pipeline_parallel`` S on another
+    number of processes than S (``world``, once known; the JAX sampler's
+    ``AssertionError``), and with the block cache (the JAX pipeline's
+    ``ValueError``)."""
     pp = int(getattr(config, "pipeline_parallel", 1) or 1)
     if pp > 1:
-        raise NotImplementedError(
-            f"pipeline_parallel={pp}: pipeline-parallel serving is not ported yet "
-            "(ROADMAP M6b.2, pipeline parallelism)"
-        )
+        if int(getattr(config, "block_cache_interval", 0) or 0) > 1:
+            raise ValueError(PP_BLOCK_CACHE_ERROR)
+        if world is not None and world != pp:
+            raise AssertionError(
+                f"pipeline_parallel={pp} needs {pp} devices, have {world} (one process a GPU, dp 1)"
+            )
     if getattr(config, "quantized", False) and int(getattr(config, "moe_experts", 0) or 0) > 1:
         raise NotImplementedError(MOE_INT8_REFUSAL)
 
@@ -152,13 +171,23 @@ def main(config: Config, device: Optional[str] = None) -> List[dict]:
     """One output per prompt. Returns a record per prompt: ``prompt``,
     ``path``, ``latents`` (fp32, on the host), ``latents_s`` (host seconds
     to the latents, ending in a synchronize) and ``decode_s`` (the decode
-    to host frames; None without a VAE)."""
-    logger = create_logger()
+    to host frames; None without a VAE). Under ``pipeline_parallel`` every
+    rank returns its records, ``path`` None but on rank 0."""
     check_config(config)
-    dev = resolve_device(device)
+    pp = int(getattr(config, "pipeline_parallel", 1) or 1)
+    if pp > 1:
+        dev, ctx = setup(config, device, check=lambda world: check_config(config, world),
+                         mesh=MeshConfig(dp=1, pp=pp))
+    else:
+        dev, ctx = resolve_device(device), None
+    main_rank = ctx is None or ctx.rank == 0
     text_encoder = build_text_encoder(config, dev)
-    vae = load_vae(config, dev)
-    model = build_transformer(config, dev)
+    vae = load_vae(config, dev) if main_rank else None
+    model = build_transformer(config, dev, ctx)
+    logger = create_logger(enabled=main_rank)  # after the loaders above, which reset the logger
+    if ctx is not None:
+        logger.info(f"pipeline-parallel serving: pp={pp}, stage {ctx.pp_rank} holds pairs "
+                    f"{model.num_layers // pp * ctx.pp_rank}..{model.num_layers // pp * (ctx.pp_rank + 1) - 1}")
     if not getattr(config, "ckpt", None):
         logger.info("WARNING: no T2V checkpoint — sampling from random init")
     scheduler = get_scheduler(
@@ -171,6 +200,7 @@ def main(config: Config, device: Optional[str] = None) -> List[dict]:
         transformer=model, scheduler=scheduler, text_encoder=text_encoder, vae=vae,
         block_cache_interval=int(getattr(config, "block_cache_interval", 0) or 0),
         block_cache_pairs=getattr(config, "block_cache_pairs", None),
+        pp_mesh=ctx, pp_microbatches=int(getattr(config, "pp_microbatches", 2) or 2),
     )
     h, w = image_hw(config)
     video_length = int(getattr(config, "video_length", 16))
@@ -178,7 +208,8 @@ def main(config: Config, device: Optional[str] = None) -> List[dict]:
     if isinstance(prompts, str):
         prompts = [prompts]  # a scalar string would explode into characters
     out_dir = str(getattr(config, "save_video_path", None) or "./sample_videos/t2v")
-    os.makedirs(out_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(out_dir, exist_ok=True)
     records = []
     for i, prompt in enumerate(prompts):
         t0 = time.perf_counter()
@@ -193,11 +224,11 @@ def main(config: Config, device: Optional[str] = None) -> List[dict]:
             torch.cuda.synchronize(dev)
         latents_s = time.perf_counter() - t0
         tag = prompt.replace(" ", "_")[:40]
-        decode_s = None
-        if vae is None:
+        decode_s = path = None
+        if main_rank and vae is None:  # rank 0 writes
             path = os.path.join(out_dir, f"{i:02d}_{tag}.npz")
             np.savez(path, latents=latents.cpu().numpy())
-        else:
+        elif main_rank:
             t0 = time.perf_counter()
             video = pipeline.decode_latents(latents)  # ends in a copy to the host
             decode_s = time.perf_counter() - t0
@@ -212,6 +243,8 @@ def main(config: Config, device: Optional[str] = None) -> List[dict]:
                     + ("" if decode_s is None else f", decoded in {decode_s:.2f} s") + f" on {dev} -> {path}")
         records.append(dict(prompt=prompt, path=path, latents=latents.float().cpu(),
                             latents_s=latents_s, decode_s=decode_s))
+    if ctx is not None:
+        barrier()
     return records
 
 

@@ -9,10 +9,12 @@ port's sampler reads it through
 and the trainer's ``pretrained`` option through :func:`load_pretrained`.
 
 Over several GPUs (``shards``, a ``dist.sharding.ShardedParams``) every
-rank takes part in gathering the full state from its FSDP, ZeRO-1 and
-expert shards, rank 0 writes it in the same format (the names carry no
-wrapper prefix), and the others wait at a barrier; on load each rank takes
-its parts, whatever world size wrote the file.
+rank takes part in gathering the full state from its FSDP, ZeRO-1, expert
+and tensor-parallel shards and its pipeline stage's blocks, rank 0 writes
+it in the same format (the names carry no wrapper prefix; the optimizer's
+entries indexed as one process indexes them), and the others wait at a
+barrier; on load each rank takes its parts, a stage its blocks, whatever
+world size wrote the file.
 """
 
 from __future__ import annotations
@@ -125,7 +127,8 @@ def load_pretrained(model: torch.nn.Module, path: str, ctx=None) -> int:
     (EMA preferred, :func:`find_model`), every parameter whose name and shape
     match overwrites the model's; every other keeps its value. Returns the
     number kept. Under expert parallelism (``ctx``) an expert weight is
-    cut to this rank's experts first. A path that does not exist raises ``FileNotFoundError``
+    cut to this rank's experts first; a pipeline stage's model takes its
+    own blocks (it holds no other names). A path that does not exist raises ``FileNotFoundError``
     (the JAX trainer ignores it), a directory (an orbax checkpoint)
     ``NotImplementedError``."""
     if not os.path.exists(path):

@@ -18,7 +18,8 @@ only ones updated and decayed (the JAX trainer's decay mask).
 Over several GPUs the optimizer holds this rank's parts of them instead
 (``dist.sharding.ShardedParams.leaves``: a ZeRO-1 slice or an FSDP shard,
 each an alias of its parameter's storage), so its moments are that part's
-alone; the arithmetic is elementwise, and so the same.
+alone; the arithmetic is elementwise, and so the same. A pipeline stage's
+model holds its blocks alone, so its EMA copy and moments are the stage's.
 """
 
 from __future__ import annotations

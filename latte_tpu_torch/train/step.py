@@ -1,5 +1,5 @@
 """The training step (port of ``latte_tpu/train/step.py``), on one device or
-on each rank of a (dp, ep, sp, tp) mesh.
+on each rank of a (dp, ep, sp, tp, pp) mesh.
 
 [VAE encode of a pixel batch ->] q_sample -> model forward (``train=True``:
 class labels dropped to the null class at the model's dropout rate) ->
@@ -33,6 +33,14 @@ generator and each rank takes its rows; the gradients are averaged over the
 ranks that share a parameter, the norm is the full gradient's, and the
 metrics are the global batch's means (all-reduced on the device, without a
 host sync).
+
+Under pipeline parallelism the step takes the pipelined forward
+(``apply_fn``, ``dist.pipeline.make_pipelined_apply``; the JAX step's
+``apply_fn``): every stage of a dp row draws from the same generator in the
+same order as one process (posterior, t, noise, label dropout), runs the
+forward whose output every stage holds, and takes the same loss; the
+backward runs the schedule in reverse, and ``ShardedParams`` sums each
+non-block gradient over the stages.
 """
 
 from __future__ import annotations
@@ -130,6 +138,7 @@ def make_train_step(
     grad_accum: int = 1,
     moe_aux_weight: float = 0.0,
     shards=None,
+    apply_fn: Optional[Callable] = None,
 ) -> Callable[[TrainState, Batch, torch.Generator], Dict[str, torch.Tensor]]:
     """Build ``train_step(state, batch, generator) -> metrics``, which updates
     ``state`` in place.
@@ -160,6 +169,9 @@ def make_train_step(
     global batch, as the module docstring says; the batch then holds those
     rows alone, and ``"t"``/``"noise"``/``"force_drop_ids"``, when given,
     too.
+
+    ``apply_fn(x, t, train=, generator=, **conditioning)`` replaces the
+    model's call (the pipelined forward).
     """
     ctx = shards.ctx if shards is not None else None
     draws = Draws(ctx.dp, ctx.dp_rank) if ctx is not None else Draws()
@@ -192,9 +204,9 @@ def make_train_step(
 
         def model_fn(x, tt, **kw):
             if moe_aux_weight <= 0.0:
-                return model(x, tt, train=True, generator=generator, **kw)
+                return (apply_fn or model)(x, tt, train=True, generator=generator, **kw)
             # training_losses calls the model once: its losses land here
-            out, aux = model(x, tt, train=True, generator=generator, return_aux=True, **kw)
+            out, aux = (apply_fn or model)(x, tt, train=True, generator=generator, return_aux=True, **kw)
             aux_box.append(aux)
             return out
 

@@ -31,19 +31,26 @@ with MoE raises (no int8 expert path, as in JAX).
 
 Several GPUs, one process each (``torchrun``, or the JAX trainer's
 ``coordinator_address``/``num_processes``/``process_id``): the mesh is dp ×
-``expert_parallel`` × ``sequence_parallel`` × ``tensor_parallel``
-(``dist/mesh.py``), the global batch ``local_batch_size·dp`` (each rank its
-dp index's rows; the members of an ep, sp or tp group share them), the
+``expert_parallel`` × ``sequence_parallel`` × ``tensor_parallel`` ×
+``pipeline_parallel`` (``dist/mesh.py``), the global batch
+``local_batch_size·dp`` (each rank its dp index's rows; the members of an
+ep, sp, tp or pp group share them), the
 experts split over ep, the blocks' heads and MLP columns over tp (Megatron,
 ``dist/tp.py``; the model is initialised whole and each rank keeps its
 part), the model's fused batch·token rows over sp (``models/dit.py``,
 ``dist/seq.py``), ``fsdp`` splits the block weights, their EMA and their
 moments over dp and ``zero1`` the moments (``dist/sharding.py``); tp
 composes with each of dp, ep, fsdp and zero1, as the JAX rules compose.
+``pipeline_parallel`` S splits the block pairs by depth (each rank builds
+and holds its stage's pairs alone, ``dist/pipeline.py``) and streams
+``pp_microbatches`` (default ``max(2, 2·S)``) of each forward's rows
+through the stages; it composes with dp and ``zero1`` only (the JAX
+trainer's errors otherwise), and turns the MoE Switch loss off with the JAX
+trainer's warning. Every stage of a dp row reads the same rows: each takes
+the loss on the replicated output, so each needs the latents and targets.
 Rank 0 makes the experiment directory, logs and writes the full checkpoints
-(the one-process format, gathered over dp, ep and tp); the logged metrics
-are the global batch's. ``pipeline_parallel`` above 1 raises
-``NotImplementedError`` naming ROADMAP M6b.2. Unlike the JAX trainer, the
+(the one-process format, gathered over dp, ep, tp and pp); the logged
+metrics are the global batch's. Unlike the JAX trainer, the
 port keeps its fused adaLN kernels on any mesh: each rank runs them on its
 own rows (the JAX trainer drops ``fused_adaln`` there because a
 ``pallas_call`` is opaque to GSPMD's partitioner).
@@ -71,7 +78,7 @@ from latte_tpu_torch.config import Config, load_config
 from latte_tpu_torch.config.loader import save_config
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.timestep_samplers import LossAwareSampler, create_named_schedule_sampler
-from latte_tpu_torch.dist.mesh import barrier, batch_rows, refuse_m6b, setup, shard_batch
+from latte_tpu_torch.dist.mesh import barrier, batch_rows, setup, shard_batch
 from latte_tpu_torch.dist.sharding import ZERO1_EP_ERROR, ShardedParams, apply_fsdp, tp_shard_state_dict
 from latte_tpu_torch.models import get_models
 from latte_tpu_torch.models.registry import LatteIMG_models
@@ -96,17 +103,26 @@ from latte_tpu_torch.vae import build_vae, make_encode_fn
 
 __all__ = [
     "build_encode_fn", "build_encode_fn_raw", "check_config", "make_batch_iterator", "moe_aux_weight",
-    "main", "cli",
+    "pp_microbatches", "main", "cli",
 ]
+
+# the JAX trainer's warning for MoE under pipeline parallelism
+PP_MOE_AUX_WARNING = (
+    "pipeline_parallel > 1 discards moe_aux_weight={}: the MoE load-balancing loss is not collectable "
+    "through the pipelined forward; routing balance is unregularized on this run"
+)
 
 def check_config(config: Config, world: int = 1) -> None:
     """Raise for what the trainer refuses before anything is built: the JAX
     trainer's mesh errors (``pipeline_parallel`` with tensor or sequence
-    parallelism or with ``fsdp``, ``ValueError``; then ``NotImplementedError``
-    naming ROADMAP M6b.2 for ``pipeline_parallel`` above 1; a mesh that does
-    not divide the ``world`` size, ``AssertionError``; ``moe_experts`` that
-    ``expert_parallel`` does not divide and ``zero1`` with
-    ``expert_parallel``, ``ValueError``), ``ValueError`` for a LatteIMG
+    parallelism, with ``fsdp`` or with ``expert_parallel``, ``ValueError``; a
+    mesh that does not divide the ``world`` size, ``AssertionError``; a
+    per-forward batch that ``pp_microbatches`` does not divide,
+    ``AssertionError``; ``moe_experts`` that ``expert_parallel`` does not
+    divide and ``zero1`` with ``expert_parallel``, ``ValueError``), and the
+    port's own ``AssertionError`` when a rank's share of a forward's rows is
+    not a multiple of ``pp_microbatches`` (each rank streams its own rows),
+    ``ValueError`` for a LatteIMG
     model with ``sequence_parallel`` (which the JAX LatteIMG cannot take),
     and ``ValueError`` for gradient accumulation that does not divide the
     batch and for ``extras: 78`` on batches that carry no text (a dataset, a
@@ -122,12 +138,30 @@ def check_config(config: Config, world: int = 1) -> None:
         if getattr(config, "fsdp", False):
             raise ValueError("pipeline_parallel already shards the block stack; disable fsdp (zero1 moment "
                              "sharding is compatible)")
-        refuse_m6b(pp)
+        if ep > 1:
+            raise ValueError("expert_parallel does not compose with pipeline_parallel (the pipelined stage "
+                             "shards the pair stack wholesale)")
     if world % (tp * sp * pp * ep):
         raise AssertionError(
             f"tensor_parallel={tp} x sequence_parallel={sp} x pipeline_parallel={pp} x "
             f"expert_parallel={ep} must divide {world} devices"
         )
+    if pp > 1:
+        accum = int(getattr(config, "gradient_accumulation_steps", 1) or 1)
+        local = int(getattr(config, "local_batch_size", 5))
+        dp = world // (tp * sp * pp * ep)
+        global_batch, m = local * dp, pp_microbatches(config)
+        fwd_batch = global_batch // accum
+        if fwd_batch % m:
+            raise AssertionError(
+                f"per-forward batch {fwd_batch} (global {global_batch} / grad_accum {accum}) not divisible by "
+                f"pp_microbatches={m}"
+            )
+        if (local // accum) % m:
+            raise AssertionError(
+                f"a rank's per-forward rows {local // accum} (local_batch_size {local} / grad_accum {accum}) "
+                f"not divisible by pp_microbatches={m}: each rank streams its own rows through the stages"
+            )
     moe_experts = int(getattr(config, "moe_experts", 0) or 0)
     if ep > 1 and (moe_experts % ep != 0 or moe_experts < ep):
         raise ValueError(f"expert_parallel={ep} needs moe_experts (got {moe_experts}) divisible by it")
@@ -152,6 +186,13 @@ def check_config(config: Config, world: int = 1) -> None:
     batch = int(getattr(config, "local_batch_size", 5))
     if accum < 1 or batch % accum:
         raise ValueError(f"gradient_accumulation_steps={accum} must divide local_batch_size={batch}")
+
+
+def pp_microbatches(config: Config) -> int:
+    """The microbatches a pipelined forward streams: ``pp_microbatches``,
+    by default ``max(2, 2·pipeline_parallel)``, as in the JAX trainer."""
+    pp = int(getattr(config, "pipeline_parallel", 1) or 1)
+    return int(getattr(config, "pp_microbatches", 0) or 0) or max(2, 2 * pp)
 
 
 def moe_aux_weight(config: Config) -> float:
@@ -385,7 +426,7 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
             f"{ctx.world} processes ({torch.distributed.get_backend()}): dp {ctx.dp} x ep {ctx.ep}, global batch "
             f"{int(getattr(config, 'local_batch_size', 5)) * ctx.dp}, fsdp {fsdp}, "
             f"zero1 {bool(getattr(config, 'zero1', False)) and not fsdp}, sequence_parallel {ctx.sp}, "
-            f"tensor_parallel {ctx.tp}"
+            f"tensor_parallel {ctx.tp}, pipeline_parallel {ctx.pp}"
         )
     optimizer = make_optimizer(model, float(getattr(config, "weight_decay", 0.0)), mu_dtype=mu_dtype,
                                params=shards.leaves if shards is not None else None)
@@ -436,6 +477,18 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     if not needs_encode and getattr(config, "vae_ckpt", None):
         logger.info(f"{data_kind} batches: VAE encode skipped (latents direct)")
     diffusion = create_diffusion("", diffusion_steps=1000)
+    aux_weight, apply_fn = moe_aux_weight(config), None
+    if ctx is not None and ctx.pp > 1:
+        from latte_tpu_torch.dist.pipeline import make_pipelined_apply
+
+        # each rank's forward rows stream through the stages in M microbatches
+        apply_fn = make_pipelined_apply(model, ctx, pp_microbatches(config))
+        logger.info(f"pipeline parallelism: pp={ctx.pp} stages x {pp_microbatches(config)} microbatches "
+                    f"(this stage: pairs {model.pp_rank * (model.depth // 2 // ctx.pp)}.."
+                    f"{(model.pp_rank + 1) * (model.depth // 2 // ctx.pp) - 1})")
+        if aux_weight > 0.0:
+            logger.warning(PP_MOE_AUX_WARNING.format(aux_weight))
+            aux_weight = 0.0
     train_step = make_train_step(
         diffusion,
         ema_decay=float(getattr(config, "ema_decay", 0.9999)),
@@ -445,8 +498,9 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         vae_scale=float(getattr(config, "vae_scale", 0.18215)),
         encode_fn=encode_fn,
         grad_accum=grad_accum,
-        moe_aux_weight=moe_aux_weight(config),
+        moe_aux_weight=aux_weight,
         shards=shards,
+        apply_fn=apply_fn,
     )
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion

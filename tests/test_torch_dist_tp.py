@@ -593,8 +593,8 @@ def test_ring_mode_refusals_and_the_int8_warning():
 
 
 @pytest.mark.parametrize("override, world, error, match", [
-    ("pipeline_parallel=2", 2, NotImplementedError, r"pipeline_parallel=2: not ported yet; comes with pipeline "
-                                                    r"parallelism \(ROADMAP M6b\.2\)"),
+    ("pipeline_parallel=2 pp_microbatches=3", 2, AssertionError, r"per-forward batch 5 \(global 5 / grad_accum 1\) "
+                                                                 r"not divisible by pp_microbatches=3"),
     ("pipeline_parallel=2 tensor_parallel=2", 4, ValueError, "composes with data parallelism only"),
     ("pipeline_parallel=2 fsdp=true", 2, ValueError, "already shards the block stack"),
     ("tensor_parallel=2 sequence_parallel=2", 2, AssertionError, "must divide 2 devices"),
@@ -602,7 +602,8 @@ def test_ring_mode_refusals_and_the_int8_warning():
     ("model=LatteIMG-XL/2 sequence_parallel=2", 2, ValueError, "no activation_sharding"),
 ], ids=["pp", "pp_tp", "pp_fsdp", "mesh", "tp3", "img_sp"])
 def test_mesh_refusals(override, world, error, match):
-    """The JAX trainer's mesh errors, pipeline parallelism (M6b.2) and
+    """The JAX trainer's mesh errors (with pipeline parallelism: a
+    per-forward batch the microbatches do not divide, tp, fsdp) and
     LatteIMG with sequence parallelism, before any process group."""
     with pytest.raises(error, match=match):
         train.check_config(load_config(FFS_TRAIN, override.split()), world)

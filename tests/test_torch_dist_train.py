@@ -455,7 +455,7 @@ def test_moe_sample_many_on_two_ranks_writes_one_process_latents(runs, name):
     ("tensor_parallel=2", 2, AssertionError, r"tensor_parallel=2 x sequence_parallel=1 x pipeline_parallel=1 x "
                                              r"expert_parallel=4 must divide 2 devices"),
     ("sequence_parallel=2", 2, AssertionError, r"sequence_parallel=2 x .* must divide 2 devices"),
-    ("pipeline_parallel=2", 2, NotImplementedError, r"pipeline_parallel=2: .*ROADMAP M6b\.2"),
+    ("pipeline_parallel=2", 2, ValueError, "expert_parallel does not compose with pipeline_parallel"),
     ("expert_parallel=4", 2, AssertionError, "expert_parallel=4 must divide 2 devices"),
     ("expert_parallel=4", 6, AssertionError, "expert_parallel=4 must divide 6 devices"),
     ("zero1=true", 4, ValueError, "zero1 \\+ expert_parallel: use fsdp instead"),
@@ -463,7 +463,8 @@ def test_moe_sample_many_on_two_ranks_writes_one_process_latents(runs, name):
 ], ids=["tp", "sp", "pp", "mesh2", "mesh6", "zero1_ep", "experts"])
 def test_refusals(override, world, error, match):
     """What the trainer refuses at a world size, before any process group:
-    pipeline parallelism (M6b.2), and the JAX trainer's errors for a mesh
+    the JAX trainer's errors for pipeline parallelism with the shipped MoE
+    config's ``expert_parallel: 4``, for a mesh
     that does not divide the world (the shipped MoE config's
     ``expert_parallel: 4`` times a tp or sp of 2 at world 2), zero1 with
     expert parallelism and experts that ep does not divide."""

@@ -141,8 +141,8 @@ def test_stub_embeddings_equal_the_jax_samplers():
 def test_pipeline_refusals(models):
     _, _, tm = models
     sched = get_scheduler("DDIM")
-    with pytest.raises(NotImplementedError, match="M6"):
-        LattePipeline(tm, sched, pp_mesh=object())
+    with pytest.raises(ValueError, match="block_cache_interval does not compose with pp_mesh"):
+        LattePipeline(tm, sched, pp_mesh=2, block_cache_interval=2)
     with pytest.raises(ValueError, match="block_cache_pairs"):
         LattePipeline(tm, sched, block_cache_interval=2, block_cache_pairs=3)
     tp = LattePipeline(tm, sched, text_encoder=StubTextEncoder(64, max_length=10), vae_spatial_scale=2)

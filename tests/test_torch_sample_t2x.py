@@ -84,12 +84,13 @@ def test_cli_quantized_and_block_cache(tmp_path):
 
 
 @pytest.mark.parametrize("override, exc, match", [
-    ("pipeline_parallel=2", NotImplementedError, "M6"),
+    ("pipeline_parallel=2", AssertionError, "pipeline_parallel=2 needs 2 devices, have 1"),
+    ("pipeline_parallel=2 block_cache_interval=2", ValueError, "block_cache_interval does not compose with pp_mesh"),
     ("moe_experts=2 quantized=true", NotImplementedError, "no int8 expert path"),
     ("ckpt=/nonexistent/t2v.safetensors", FileNotFoundError, "does not exist"),
     ("quantized=static", ValueError, "quantized"),
     ("sample_method=LMSDiscrete", ValueError, "unknown scheduler"),
-], ids=["pipeline_parallel", "moe", "missing_ckpt", "static_int8", "scheduler"])
+], ids=["pipeline_parallel", "pp_block_cache", "moe", "missing_ckpt", "static_int8", "scheduler"])
 def test_refusals(tmp_path, override, exc, match):
     with pytest.raises(exc, match=match):
         sample_t2x.main(tiny(T2V, tmp_path, "video_length=4", *override.split()), device="cpu")

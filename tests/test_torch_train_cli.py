@@ -159,20 +159,16 @@ def test_entry_point_refuses_cuda_without_a_gpu(tmp_path):
     ],
 )
 def test_unported_options_raise(tmp_path, override):
-    """The multi-GPU keys in one process: pipeline parallelism names the
-    slice that brings it (ROADMAP M6b.2); a ``tensor_parallel``,
-    ``sequence_parallel`` or ``expert_parallel`` the world size does not
-    divide, and ``num_processes`` without a coordinator, raise as the JAX
-    trainer does; ``fsdp``, ``zero1`` and a lone ``coordinator_address`` or
+    """The multi-GPU keys in one process: a ``tensor_parallel``,
+    ``sequence_parallel``, ``pipeline_parallel`` or ``expert_parallel`` the
+    world size does not divide, and ``num_processes`` without a coordinator,
+    raise as the JAX trainer does; ``fsdp``, ``zero1`` and a lone ``coordinator_address`` or
     ``process_id`` train on one device, as the JAX trainer's one-device
     mesh does (their multi-process runs: tests/test_torch_dist_train.py,
     tests/test_torch_dist_tp.py)."""
     cfg = _cfg(tmp_path, "max_train_steps=1", override)
     key = override.split("=")[0]
-    if key == "pipeline_parallel":
-        with pytest.raises(NotImplementedError, match=r"comes with pipeline parallelism \(ROADMAP M6b\.2\)"):
-            train.main(cfg, device="cpu")
-    elif key in ("tensor_parallel", "sequence_parallel", "expert_parallel"):
+    if key in ("tensor_parallel", "sequence_parallel", "pipeline_parallel", "expert_parallel"):
         with pytest.raises(AssertionError, match=f"{key}=2 x .*must divide 1 devices|{key}=2 must divide 1 devices"):
             train.main(cfg, device="cpu")
     elif key == "num_processes":

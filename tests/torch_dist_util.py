@@ -146,7 +146,7 @@ class Record(Callback):
         self.metrics, self.experts = [], 0
 
     def on_train_start(self, config, state, experiment_dir):
-        block = state.model.blocks[0]
+        block = next(iter(state.model.blocks))  # a pipeline stage's first
         self.experts = block.moe.local_experts if getattr(block, "is_moe", False) else 0
 
     def on_log(self, step, metrics):
@@ -222,3 +222,120 @@ def warm_train_run(rank: int, world: int, config_path: str, overrides, out: str)
         train_run(rank, world, config_path, overrides, out)
     finally:
         train.create_named_schedule_sampler = plain
+
+
+# -- pipeline parallelism (tests/test_torch_dist_pp.py) -------------------------
+
+def pp_context(pp: int):
+    """The (dp, pp) context of the world at ``pp`` stages."""
+    from latte_tpu_torch.dist.mesh import DistContext, MeshConfig, make_mesh
+
+    return DistContext(make_mesh(MeshConfig(pp=pp), "cpu"), torch.device("cpu"))
+
+
+def _tensor(v):
+    """An input array as a tensor; a flag, a seed or None as it is."""
+    return v if v is None or isinstance(v, (bool, int, torch.Tensor)) else torch.as_tensor(v)
+
+
+def _stage_model(case, ctx):
+    """A case's model built for this rank's stage, with its pairs of the
+    case's JAX parameters (through the converters' stage split)."""
+    from latte_tpu_torch.convert import flax_t2v_to_state_dict, load_flax_params
+    from latte_tpu_torch.models import Latte
+    from latte_tpu_torch.models.dit_img import LatteIMG
+    from latte_tpu_torch.models.t2v import LatteT2V
+
+    if case["kind"] == "t2v":
+        model = LatteT2V(**case["kw"], pp=ctx.pp, pp_rank=ctx.pp_rank)
+        model.load_state_dict(flax_t2v_to_state_dict(case["params"], pp=ctx.pp, pp_rank=ctx.pp_rank), strict=True)
+        return model
+    cls = LatteIMG if case["kind"] == "img" else Latte
+    return load_flax_params(cls(**case["kw"], pp=ctx.pp, pp_rank=ctx.pp_rank), case["params"])
+
+
+def pp_forward_cases(rank: int, world: int, path: str) -> None:
+    """Each case of ``path`` (its kind, model, JAX parameters, inputs and
+    microbatches) through the pipelined forward at pp = ``world``: the
+    output and, for a ``grad`` case, every parameter's gradient of
+    mean(out²) (a non-block one summed over the stages, by
+    ``ShardedParams.reduce_grads``); rank 0 writes ``path + ".fwd"``."""
+    from latte_tpu_torch.dist.pipeline import (
+        pipelined_latte_forward,
+        pipelined_latte_img_forward,
+        pipelined_t2v_forward,
+    )
+    from latte_tpu_torch.dist.sharding import ShardedParams
+
+    fns = {"latte": pipelined_latte_forward, "img": pipelined_latte_img_forward, "t2v": pipelined_t2v_forward}
+    data = torch.load(path, weights_only=False)
+    ctx = pp_context(world)
+    out = {}
+    for name, case in data.items():
+        model = _stage_model(case, ctx)
+        kwargs = {k: _tensor(v) for k, v in case.get("kwargs", {}).items()}
+        if "generator_seed" in kwargs:
+            kwargs["generator"] = torch.Generator().manual_seed(kwargs.pop("generator_seed"))
+        args = [None if a is None else torch.as_tensor(a) for a in case["args"]]
+        with torch.set_grad_enabled(case.get("grad", False)):
+            y = fns[case["kind"]](model, *args, mesh=ctx, microbatches=case["M"], **kwargs)
+        grads = None
+        if case.get("grad"):
+            y.square().mean().backward()
+            ShardedParams(model, ctx).reduce_grads()
+            mine = {n: p.grad for n, p in model.named_parameters()}
+            parts = [None] * world
+            dist.all_gather_object(parts, mine)
+            grads = {k: v for part in parts for k, v in part.items()}
+        out[name] = dict(out=y.detach(), grads=grads)
+    if rank == 0:
+        torch.save(out, path + ".fwd")
+
+
+def pp_step_cases(rank: int, world: int, path: str) -> None:
+    """Two steps of ``make_train_step`` (AdamW lr 1e-3, weight decay 0.01,
+    clip 0.1, EMA 0.9) through the pipelined apply for each case of
+    ``path`` (name, pp, zero1, microbatches) from the JAX parameters and
+    global batches there; rank 0 writes the metrics, the full parameters,
+    EMA and optimizer state after the steps and every rank's block
+    parameter count to ``path + ".step"``."""
+    from latte_tpu_torch.core.diffusion import create_diffusion
+    from latte_tpu_torch.dist.mesh import shard_batch
+    from latte_tpu_torch.dist.pipeline import make_pipelined_apply
+    from latte_tpu_torch.dist.sharding import ShardedParams, stage_block
+    from latte_tpu_torch.train.state import create_train_state, make_lr_schedule, make_optimizer
+    from latte_tpu_torch.train.step import make_train_step
+
+    data = torch.load(path, weights_only=False)
+    out = {}
+    for name, pp, zero1, M in data["cases"]:
+        ctx = pp_context(pp)
+        model = _stage_model(dict(kind="latte", kw=data["kw"], params=data["params"]), ctx)
+        ema = copy.deepcopy(model).requires_grad_(False)
+        shards = ShardedParams(model, ctx, zero1=zero1)
+        opt = make_optimizer(model, 0.01, params=shards.leaves)
+        state = create_train_state(model, opt, make_lr_schedule(1e-3), ema)
+        step = make_train_step(create_diffusion(""), ema_decay=0.9, clip_max_norm=0.1, start_clip_iter=0,
+                               shards=shards, apply_fn=make_pipelined_apply(model, ctx, M))
+        metrics = []
+        for batch in data["batches"]:
+            m = step(state, shard_batch(batch, ctx), torch.Generator())
+            metrics.append({k: float(v) for k, v in m.items() if v.ndim == 0})
+        full = shards.full_state_dict(model), shards.full_state_dict(ema), shards.full_optimizer_state(opt)
+        blocks = [None] * world
+        dist.all_gather_object(blocks, sum(p.numel() for n, p in model.named_parameters() if stage_block(n)))
+        if rank == 0:
+            out[name] = dict(metrics=metrics, model=full[0], ema=full[1], opt=full[2], blocks=blocks,
+                             dp=ctx.dp, pp=ctx.pp)
+    if rank == 0:
+        torch.save(out, path + ".step")
+
+
+def sample_t2x_run(rank: int, world: int, config_path: str, overrides, out: str) -> None:
+    """``sample_t2x.main`` on the CPU at this world size; rank 0 writes the
+    records' latents and paths, the others their paths."""
+    from latte_tpu_torch.config import load_config
+    from latte_tpu_torch.sample import sample_t2x
+
+    records = sample_t2x.main(load_config(config_path, list(overrides)), device="cpu")
+    torch.save([dict(latents=r["latents"], path=r["path"]) for r in records], f"{out}.{rank}")
