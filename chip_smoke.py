@@ -118,6 +118,23 @@ non-zero exit and a traceback:
    To run it alone: ``import chip_smoke as c; c.build.build();
    c.build.load_library(); c.t2v_phase(tmp, smi, torch.device("cuda", 0),
    c.Timer(torch.device("cuda", 0)))``;
+5f. eval (right after 5d, on its mp4s): the port's metric stack
+   (``latte_tpu_torch.eval``) with I3D, Inception and C3D on the card from
+   seeded random weights (``eval_phase``): each detector against the same
+   module on the CPU in fp32 on the sampler's 256^2 frames (relative L2 <=
+   EVAL_REL), a 16-clip (Inception: 64-frame) call timed host to host with
+   its device time, idle share and FLOP bound; 8 real clips written as
+   frame folders and 5d's mp4s converted by
+   ``tools.convert_videos_to_frames``; fvd2048_16f, kid50k_full, is50k and
+   isv2048_ucf through ``calc_metric``, fid50k_full through the
+   ``calc_metrics`` CLI in a process of its own (Inception loaded from a
+   torchscript file), all finite; the FVD again from ``cache_dir`` to the
+   bit, the cached real stats against a fresh run's, the FVD with I3D
+   loaded from a torchscript file;
+   fvd2048_16f from ``sample_many.BatchGenerator`` at DDIM-50 (1400
+   launches of B1, B2, B3 on the tensor-core and vector routes); the host's
+   decode time a clip against the detector's, and the 2 x 2048-clip FVD
+   projected from them. Prints an ``eval: {...}`` line;
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -319,12 +336,12 @@ non-zero exit and a traceback:
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp: {...}``, ``dist:
-{...}``), the total seconds,
+{...}``, ``eval: {...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp:
+{...}``, ``dist: {...}``), the total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
 phase 10a's and the tp and sp runs' launches, ``launches_ring``, ``launches_tp`` and
 ``launches_sp`` (``tp_sp_launches``), phase 10b's and the 4-GPU pp runs' launches,
-``launches_pp`` (``pp_launches``),
+``launches_pp`` (``pp_launches``), phase 5f's FVD from the sampler's, ``launches_eval``,
 phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
@@ -2157,6 +2174,350 @@ def sample_many_phase(tmp: str, ckpt: str, ddim_s: float, device, smi: str) -> d
     return dict(videos=total, batch=MANY_BATCH, files=files, bundle_shape=list(bundle.shape),
                 launches=launches, tc_launches=tc, vec_launches=vec, batch_secs=secs,
                 s_per_video_batch2=s_video, s_per_video_batch1=ddim_s, main_s=main_s, device=smi)
+
+
+# phase "eval": the detectors on the card, the metric chain from files and
+# from the sampler
+EVAL_REL = 1e-4  # a detector on the card (fp32, TF32 off) against the same module on the CPU: relative L2
+EVAL_REAL_CLIPS, EVAL_REAL_FRAMES = 8, 64  # the real frame folders, written from a seed at 256^2
+EVAL_BATCH = 16  # clips of a timed I3D or C3D call; a timed Inception call takes the sampled videos' 64 frames
+FVD_CLIPS = 2048  # clips a side of the fvd2048_16f protocol
+EVAL_CLI_S = 240  # the calc_metrics process's time limit
+
+
+def randomize_detector_(model, seed: int) -> None:
+    """Seeded random detector weights on the model's device: conv and
+    linear weights N(0, 2/fan_in) (the variance kept through the ReLUs),
+    BatchNorm scales in [0.8, 1.2], biases in [-0.1, 0.1] and the
+    statistics near 0 and 1 (means in [-0.2, 0.2], variances in [0.5,
+    1.5]), so the activations stay finite through the depth."""
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():  # tensors that share the weights' storage
+            leaf = name.rsplit(".", 1)[1]
+            if leaf == "running_var":
+                t.uniform_(0.5, 1.5, generator=gen)
+            elif leaf == "running_mean":
+                t.uniform_(-0.2, 0.2, generator=gen)
+            elif leaf == "bias":
+                t.uniform_(-0.1, 0.1, generator=gen)
+            elif t.dim() == 1:
+                t.uniform_(0.8, 1.2, generator=gen)
+            else:
+                t.normal_(0.0, (2.0 / t[0].numel()) ** 0.5, generator=gen)
+
+
+def eval_models(device) -> dict:
+    """I3D, Inception and C3D on ``device`` from seeded random weights; C3D's
+    first conv scaled by 1/128, as its input is pixels less the mean, not
+    [-1, 1] (its softmax would saturate)."""
+    from latte_tpu_torch.eval import c3d, i3d, inception
+
+    with torch.device(device):
+        models = dict(i3d=i3d.InceptionI3d(), inception=inception.FIDInceptionV3(), c3d=c3d.C3D())
+    for seed, model in enumerate(models.values()):
+        randomize_detector_(model, 40 + seed)
+    with torch.no_grad():
+        models["c3d"].conv1a.weight.div_(128.0)
+    return models
+
+
+def eval_detector(name: str, model, device):
+    from latte_tpu_torch.eval import c3d, i3d, inception
+
+    if name == "i3d":
+        return i3d.i3d_detector(model, device)
+    if name == "c3d":
+        return c3d.c3d_detector(model, None, device)
+    return inception.inception_detector(model, device)
+
+
+class DetectorFile(torch.nn.Module):
+    """A stand-in for the reference's torchscript detector file (not in the
+    repository): the port's module under ``net.``, a prefix the converters
+    strip. The loader reads only the file's weights, so the traced graph
+    passes its input through."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.net = model
+
+    def forward(self, x):
+        return x
+
+
+def save_torchscript_detector(name: str, model, folder: str) -> None:
+    """The I3D or Inception stand-in file under its reference name."""
+    from latte_tpu_torch.eval.detectors import DETECTOR_FILES
+
+    os.makedirs(folder, exist_ok=True)
+    traced = torch.jit.trace(DetectorFile(model), torch.zeros(1, device=next(model.parameters()).device))
+    torch.jit.save(traced, os.path.join(folder, DETECTOR_FILES[name]))
+
+
+def write_real_frames(folder: str) -> None:
+    """EVAL_REAL_CLIPS frame folders of EVAL_REAL_FRAMES jpgs at 256^2 from
+    a numpy seed: noise at 1/16 of the size, blown up (as
+    ``write_pixel_videos``)."""
+    import cv2
+
+    rng = np.random.default_rng(12)
+    for c in range(EVAL_REAL_CLIPS):
+        small = rng.integers(0, 256, size=(EVAL_REAL_FRAMES, 16, 16, 3), dtype=np.uint8)
+        os.makedirs(os.path.join(folder, f"{c:03d}"))
+        for i, frame in enumerate(small.repeat(16, axis=1).repeat(16, axis=2)):
+            cv2.imwrite(os.path.join(folder, f"{c:03d}", f"{i:06d}.jpg"), frame)
+
+
+EVAL_CASES = dict(i3d=[("features", 2)], inception=[("pool3", 8), ("probs_no_bias", 8)], c3d=[("probs", 2)])
+
+
+def eval_check_outputs(dets: dict, videos: np.ndarray) -> dict:
+    """(a)'s checked outputs of each detector on the sampler's 256^2 frames
+    (EVAL_CASES): I3D's features of 2 clips of 16 frames, Inception's pool3
+    and the IS call's probabilities of 8 frames, C3D's probabilities of 2
+    clips."""
+    from latte_tpu_torch.eval import detectors
+
+    fns = dict(features=detectors.i3d_features, pool3=detectors.inception_features,
+               probs_no_bias=detectors.inception_probs, probs=detectors.c3d_probs)
+    return {(name, label): fns[label](dets[name], videos[:n] if name != "inception" else videos[0, :n])
+            for name, cases in EVAL_CASES.items() for label, n in cases}
+
+
+def eval_time_detectors(dets: dict, videos: np.ndarray, smi: str) -> dict:
+    """(a) A batch of EVAL_BATCH clips (Inception: the 64 frames of the
+    videos) through each detector on the card, timed host to host (median
+    of 3 after a warm-up), its device time and idle share (profiler), the
+    convolutions' and the input's pageable copy's share of it (a profile
+    records that copy in some calls and not in others), and its bound from
+    the FLOPs of its convolutions and products (``FlopCounterMode``) at the
+    fp32 rate."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from latte_tpu_torch.eval import detectors
+
+    timed = dict(i3d=detectors.i3d_features, inception=detectors.inception_features, c3d=detectors.c3d_probs)
+    clips = np.concatenate([videos] * (EVAL_BATCH // len(videos)))
+    out = {}
+    for name, det in dets.items():
+        batch = videos.reshape(-1, *videos.shape[2:]) if name == "inception" else clips
+        timed[name](det, batch)  # warm-up: cuDNN's first choices
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed[name](det, batch)
+            secs.append(time.perf_counter() - t0)
+        call_ms = sorted(secs)[1] * 1e3
+        counter = FlopCounterMode(display=False)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, counter:
+            timed[name](det, batch)
+        groups, busy, top = device_ms_by_kind(prof)
+        copy = sum(ms for kernel, ms in top.items() if kernel.startswith("Memcpy"))
+        conv = groups.get("matmul", 0.0)
+        flops = counter.get_total_flops()
+        bound = flops / FP32_FLOP_PER_S * 1e3
+        out[name] = dict(items=len(batch), call_ms=call_ms, call_secs=secs, device_busy_ms=busy, copy_ms=copy,
+                         conv_ms=conv, idle=1 - busy / call_ms if busy else None, gflop=flops / 1e9, bound_ms=bound)
+        print(f"  {name}: {len(batch)} {'frames' if name == 'inception' else 'clips'} a call {call_ms:.2f} ms host "
+              f"to host (median of {[round(s * 1e3, 2) for s in secs]}), device busy {busy:.2f} ms (the input's "
+              f"copy {copy:.2f} of it as traced, the convolutions {conv:.2f}; idle {1 - busy / call_ms:.3f}), bound "
+              f"{bound:.2f} ms ({flops / 1e9:.1f} GFLOP at the fp32 rate) on {smi}", flush=True)
+    return out
+
+
+def eval_phase(tmp: str, ckpt: str, device, smi: str) -> dict:
+    """Phase 5f: evaluation (``latte_tpu_torch.eval``) with the port's
+    detectors on the card, from seeded random weights.
+
+    - Files: EVAL_REAL_CLIPS real clips written as frame folders, phase 5d's
+      mp4s converted by ``tools.convert_videos_to_frames``, torchscript
+      stand-ins of I3D and Inception (``save_torchscript_detector``).
+    - fid50k_full through the ``calc_metrics`` CLI on the card, in a process
+      of its own that runs beside the rest of the phase (its fp64
+      ``scipy.linalg.sqrtm`` of a 2048^2 matrix holds the host's interpreter
+      for ~25 s), its Inception loaded from the torchscript file by
+      ``load_detector``.
+    - (a) The detectors' outputs on the card (``eval_check_outputs``)
+      against the same modules' on the CPU, computed in a thread beside the
+      chain, within EVAL_REL; each detector timed (``eval_time_detectors``).
+    - (b) fvd2048_16f, kid50k_full, is50k and isv2048_ucf through
+      ``calc_metric`` with the port's detectors, budgets cut to the clip
+      counts, every result finite; the FVD again from ``cache_dir``, equal
+      to the bit; the real folder's cached FVD stats against a fresh run's
+      0 within 1e-3 of FVD(real, fake); the FVD through ``load_detector``
+      from the I3D torchscript file within EVAL_REL of the injected
+      detector's.
+    - (c) fvd2048_16f with ``fake_gen`` a ``sample_many.BatchGenerator``
+      (ffs_sample.yaml, DDIM-50, batch 2, the full random VAE): 1400
+      launches of B1, B2 and B3 on the tensor-core and vector routes, none
+      of another kernel.
+    - (d) The file route's host time to decode a clip against the
+      detector's, and the 2 x 2048-clip fvd2048_16f projected from them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from latte_tpu_torch.eval import detectors, metrics
+    from latte_tpu_torch.eval.dataset import MetricVideoDataset
+    from latte_tpu_torch.eval.feature_stats import FeatureStats
+    from latte_tpu_torch.eval.scores import frechet_distance
+    from latte_tpu_torch.tools import convert_videos_to_frames
+    from latte_tpu_torch.utils import read_video
+
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    many = os.path.join(tmp, "fvd_samples")
+    videos = np.stack([read_video(v) for v in convert_videos_to_frames.find_videos(many)])
+    models = eval_models(device)
+    root = os.path.join(tmp, "eval")
+    real, fake, cache, ts_dir, report = (os.path.join(root, d) for d in ("real", "fake", "cache", "detectors",
+                                                                          "report"))
+    write_real_frames(real)
+    # each video through the converter's per-video step (its pool would spawn
+    # processes that import this script again)
+    frames = [convert_videos_to_frames.convert_one(v, many, fake) for v in convert_videos_to_frames.find_videos(many)]
+    if frames != [FRAMES] * len(videos):
+        raise AssertionError(f"convert_videos_to_frames wrote {frames} frames, expected {FRAMES} a video")
+    save_torchscript_detector("inception", models["inception"], ts_dir)
+    total, sampled = EVAL_REAL_CLIPS * EVAL_REAL_FRAMES, len(videos) * FRAMES
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "latte_tpu_torch.eval.calc_metrics", "--real_data_path", real, "--fake_data_path",
+         fake, "--metrics", "fid50k_full", "--report_dir", report, "--max_real", str(total), "--max_fake",
+         str(sampled)],
+        cwd=ROOT, env=dict(os.environ, LATTE_TPU_DETECTORS=ts_dir),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        save_torchscript_detector("i3d", models["i3d"], ts_dir)
+        part("files")
+        dets = {name: eval_detector(name, model, device) for name, model in models.items()}
+        on_card = eval_check_outputs(dets, videos)
+        timing = eval_time_detectors(dets, videos, smi)
+        part("detectors")
+        # (a)'s CPU side in a thread beside the chain (torch's CPU kernels
+        # release the interpreter)
+        cpu_models = {name: copy.deepcopy(model).cpu() for name, model in models.items()}
+        on_cpu = pool.submit(lambda: eval_check_outputs(
+            {name: eval_detector(name, model, "cpu") for name, model in cpu_models.items()}, videos))
+
+        # (b) the chain from files, in this process
+        common = dict(real_path=real, fake_path=fake, seed=0, report_dir=report)
+        results, protocol_s = {}, {}
+        for name, det, kw in (
+            ("fvd2048_16f", dets["i3d"], dict(max_real=EVAL_REAL_CLIPS, max_fake=len(videos), cache_dir=cache)),
+            ("kid50k_full", dets["inception"], dict(max_real=total, max_fake=sampled)),
+            ("is50k", dets["inception"], dict(max_fake=sampled)),
+            # the protocol's 10 splits need 10 clips: every clip of the phase, real and fake
+            ("isv2048_ucf", dets["c3d"], dict(fake_path=root, max_fake=EVAL_REAL_CLIPS + len(videos))),
+        ):
+            t1 = time.perf_counter()
+            results.update(metrics.calc_metric(name, detector=det, **dict(common, **kw))["results"])
+            protocol_s[name] = time.perf_counter() - t1
+        fvd = results["fvd2048_16f"]
+        again = metrics.calc_metric("fvd2048_16f", detector=dets["i3d"], max_real=EVAL_REAL_CLIPS,
+                                    max_fake=len(videos), cache_dir=cache, **common)["results"]["fvd2048_16f"]
+        (cached,) = os.listdir(cache)
+        fresh = metrics._video_stats(real, dets["i3d"], detectors.i3d_features, FRAMES, EVAL_REAL_CLIPS,
+                                     subsample_factor=3)
+        self_fvd = frechet_distance(*FeatureStats.load(os.path.join(cache, cached)).get_mean_cov(),
+                                    *fresh.get_mean_cov())
+        print(f"  fvd {fvd!r}, from the cache {again!r}; the real stats, cached against fresh, {self_fvd!r}",
+              flush=True)
+        if again != fvd or os.listdir(cache) != [cached]:
+            raise AssertionError(f"the cached FVD {again!r} is not the first run's {fvd!r}")
+        if not abs(self_fvd) <= 1e-3 * fvd:
+            raise AssertionError(f"FVD of the real stats against themselves {self_fvd!r}, FVD(real, fake) {fvd!r}")
+        i3d_file = detectors.load_detector("i3d", path=os.path.join(ts_dir, detectors.DETECTOR_FILES["i3d"]),
+                                           device=device)
+        loaded = metrics.calc_metric("fvd2048_16f", detector=i3d_file, max_real=EVAL_REAL_CLIPS,
+                                     max_fake=len(videos), **common)["results"]["fvd2048_16f"]
+        print(f"  fvd through load_detector from a torchscript file: {loaded!r} against {fvd!r}", flush=True)
+        if not abs(loaded - fvd) <= EVAL_REL * fvd:
+            raise AssertionError(f"FVD through load_detector {loaded!r}, with the injected detector {fvd!r}")
+        part("chain")
+
+        # (c) the chain from the sampler, no file
+        cfg = load_config(FFS_CONFIG, ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}", f"ckpt={ckpt}",
+                                       f"per_proc_batch_size={MANY_BATCH}", "vae_ckpt=random"])
+        gen = sample_many.BatchGenerator(cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        gen_fvd = metrics.calc_metric("fvd2048_16f", real_path=real, fake_gen=gen, detector=dets["i3d"],
+                                      max_real=EVAL_REAL_CLIPS, max_fake=MANY_BATCH, cache_dir=cache,
+                                      seed=0)["results"]["fvd2048_16f"]
+        gen_s = time.perf_counter() - t0
+        launches = counts()
+        calls = BC_STEPS * DEPTH
+        tc = check_tc(f"fvd from the sampler, {MANY_BATCH} videos at DDIM-{BC_STEPS}", calls)
+        vec = check_vec(f"fvd from the sampler, {MANY_BATCH} videos at DDIM-{BC_STEPS}")
+        if launches != {k: calls if k in FORWARD else 0 for k in KERNELS} or not np.isfinite(gen_fvd) or gen.it != 1:
+            raise AssertionError(f"fvd from the sampler: {gen_fvd!r} after {gen.it} batches, launches {launches}")
+        launches.update({f"{n}_f32": KERNELS[n]["fn"].f32_launches for n in ("flash_attention", *BACKWARD)})
+        launches[f"{INT8}_qk"] = launches[INT8]
+        del gen
+        part("generator")
+        print(f"  fvd from BatchGenerator ({MANY_BATCH} videos, DDIM-{BC_STEPS}, the real side from the cache): "
+              f"{gen_fvd!r} in {gen_s:.2f} s; launches {launches}", flush=True)
+
+        # (a) the card against the CPU
+        on_cpu = on_cpu.result()
+        errs = {}
+        for (name, label), got in on_card.items():
+            want = on_cpu[(name, label)]
+            errs.setdefault(name, {})[label] = err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            if got.shape != want.shape or not np.isfinite(got).all() or err > EVAL_REL:
+                raise AssertionError(f"{name} {label} on the card: {got.shape}, relative L2 {err:.3g} against "
+                                     f"the CPU (limit {EVAL_REL})")
+        print(f"  the detectors on the card against the CPU, relative L2: {errs}", flush=True)
+        part("cpu_check")
+
+        # (d) the file route's host wait for clips against the detector's time
+        decode = {}
+        for label, path, sub in (("real_frames", real, 3), ("fake_frames", fake, 1), ("fake_mp4", many, 1)):
+            ds = MetricVideoDataset(path, num_frames=FRAMES, subsample_factor=sub, seed=0)
+            t0 = time.perf_counter()
+            for i in range(len(ds)):
+                ds[i]
+            decode[label] = (time.perf_counter() - t0) / len(ds)
+        part("decode")
+        out, err = cli.communicate(timeout=EVAL_CLI_S)
+    finally:
+        pool.shutdown(wait=True)
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    part("cli_wait")
+    if cli.returncode != 0:
+        raise AssertionError(f"calc_metrics exited {cli.returncode}: {err[-3000:]}")
+    records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for rec in records:
+        results.update(rec["results"])
+        protocol_s[rec["metric"]] = rec["total_time"]
+    print(f"  from files ({EVAL_REAL_CLIPS} real clips of {EVAL_REAL_FRAMES} frames, {len(videos)} sampled): "
+          f"{results} ({protocol_s} s; fid by the calc_metrics CLI on the card in a process of its own)", flush=True)
+    if [r["metric"] for r in records] != ["fid50k_full"] or not all(np.isfinite(v) for v in results.values()):
+        raise AssertionError(f"a metric is missing or not finite: {results}")
+    per_clip = 1e3 * timing["i3d"]["items"]
+    i3d_call_s, i3d_busy_s = timing["i3d"]["call_ms"] / per_clip, timing["i3d"]["device_busy_ms"] / per_clip
+    protocol = FVD_CLIPS * (decode["real_frames"] + decode["fake_mp4"] + 2 * i3d_call_s)
+    idle = 1 - 2 * FVD_CLIPS * i3d_busy_s / protocol
+    print(f"  fvd2048_16f file route: decode s a clip {decode}; I3D {i3d_call_s * 1e3:.3f} ms a clip host to host, "
+          f"{i3d_busy_s * 1e3:.3f} device; 2 x {FVD_CLIPS} clips (real frames, sampled mp4s) projected "
+          f"{protocol / 60:.3f} min on one card, the device idle {idle:.3f} of it; eval parts (s) {parts}; "
+          f"on {smi}", flush=True)
+    del models, dets, cpu_models
+    return dict(detectors=dict(rel_l2=errs, timing=timing), parts_s=parts, protocol_s=protocol_s, results=results,
+                fvd_cached=again, fvd_self=self_fvd, fvd_from_file=loaded,
+                generator=dict(fvd=gen_fvd, s=gen_s, tc_launches=tc, vec_launches=vec),
+                launches=launches, decode_s_per_clip=decode, i3d_ms_per_clip=i3d_call_s * 1e3,
+                i3d_device_ms_per_clip=i3d_busy_s * 1e3, fvd_protocol_min=protocol / 60, fvd_protocol_idle=idle,
+                device=smi)
 
 
 def t2v_launches(pairs: int, forwards: int = 1, temporal: bool = True) -> dict:
@@ -5049,6 +5410,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("sample many", t0)
 
+        # 5f. evaluation: the detectors on the card, the metrics from 5d's files and from the sampler
+        t0 = time.perf_counter()
+        eval_run = eval_phase(tmp, ckpt, device, smi)
+        torch.cuda.empty_cache()
+        phase("eval", t0)
+
         # 5e. text-to-video and text-to-image serving, LatteT2V at full width
         t0 = time.perf_counter()
         t2v_run = t2v_phase(tmp, smi, device, timer)
@@ -5095,6 +5462,7 @@ def main() -> int:
     print("vae: " + json.dumps(vae_run, default=str), flush=True)
     print("block_cache: " + json.dumps(bc_run, default=str), flush=True)
     print("sample_many: " + json.dumps(many, default=str), flush=True)
+    print("eval: " + json.dumps(eval_run, default=str), flush=True)
     print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
     print("moe: " + json.dumps(moe, default=str), flush=True)
 
@@ -5227,6 +5595,7 @@ def main() -> int:
         name = row["name"].removesuffix("_f32").removesuffix("_qk")
         row.update(tp_sp_launches(name, ring, vtp, dist))
         row["launches_pp"] = pp_launches(name, pp_run, dist)
+        row["launches_eval"] = eval_run["launches"][row["name"]]
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -587,3 +587,47 @@ def load_temporal_decoder_state_dict(model: torch.nn.Module, sd: Mapping[str, An
         sd = {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")}
     model.load_state_dict(_vae_attention_names(sd), strict=True)
     return model
+
+
+# the eval detectors: Flax leaf names -> torch's, and the inception head
+_DETECTOR_LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+_INCEPTION_HEAD = {"fc_w": "fc.weight", "fc_b": "fc.bias"}
+
+
+def _flax_detector_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX eval detector's params (``latte_tpu/eval/{i3d,inception,c3d}.py``)
+    -> the port's state dict under the same module names: conv kernels
+    (kt, kh, kw, I, O) / (kh, kw, I, O) -> (O, I, ...), Dense kernels (and
+    Inception's ``fc_w``) (I, O) -> (O, I), ``EvalBatchNorm``'s ``scale`` /
+    ``mean`` / ``var`` -> ``weight`` / ``running_mean`` / ``running_var``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for key, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [key])
+                continue
+            a = np.asarray(v)
+            if key in ("kernel", "fc_w"):
+                a = a.transpose(tuple(range(a.ndim - 1, a.ndim - 3, -1)) + tuple(range(a.ndim - 2)))
+            name = _INCEPTION_HEAD.get(key) if not path and key in _INCEPTION_HEAD else None
+            name = name or ".".join(path + [_DETECTOR_LEAVES.get(key, key)])
+            sd[name] = _tensor(np.ascontiguousarray(a))
+
+    walk(params, [])
+    return sd
+
+
+def flax_i3d_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``InceptionI3d``'s params -> ``eval.i3d.InceptionI3d``'s state dict."""
+    return _flax_detector_to_state_dict(params)
+
+
+def flax_inception_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``FIDInceptionV3``'s params -> ``eval.inception.FIDInceptionV3``'s."""
+    return _flax_detector_to_state_dict(params)
+
+
+def flax_c3d_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``C3D``'s params -> ``eval.c3d.C3D``'s state dict."""
+    return _flax_detector_to_state_dict(params)

@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels of the port, each beside its plain version."""
+"""Hand-written CUDA kernels of the port, each beside its plain version; and
+the metric tools' ops, which the JAX package writes in XLA, as plain torch
+(``upfirdn``, ``bias_act``, ``gradfix``, ``conv2d_resample``)."""
 
 from latte_tpu_torch.kernels.adaln import (
     ln_modulate,

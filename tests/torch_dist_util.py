@@ -339,3 +339,34 @@ def sample_t2x_run(rank: int, world: int, config_path: str, overrides, out: str)
 
     records = sample_t2x.main(load_config(config_path, list(overrides)), device="cpu")
     torch.save([dict(latents=r["latents"], path=r["path"]) for r in records], f"{out}.{rank}")
+
+
+# -- evaluation (tests/test_torch_eval_metrics.py) ------------------------------
+
+def eval_stats_run(rank: int, world: int, config_path: str, overrides, real: str, fake: str, kw: dict,
+                   out: str) -> None:
+    """The metric stats at this world size with the stand-in detector: from
+    a tiny ``sample_many.BatchGenerator`` (its clips of each call recorded)
+    and from the files (``_video_stats`` on ``real``, ``_frame_stats`` on
+    ``fake``, batch sizes ``kw`` that the world does not divide); every
+    rank writes its clips and stats to ``out.<rank>``."""
+    from latte_tpu_torch.config import load_config
+    from latte_tpu_torch.eval import detectors, metrics
+    from latte_tpu_torch.sample import sample_many
+
+    det = detectors.standin_detector()
+    gen = sample_many.BatchGenerator(load_config(config_path, list(overrides)), device="cpu")
+    clips = []
+
+    def gen_fn(n):
+        clips.append(gen(n))
+        return clips[-1]
+
+    stats = dict(
+        generator=metrics.generator_stats(gen_fn, det, detectors.i3d_features, max_items=kw["gen_items"],
+                                          num_frames=16),
+        video=metrics._video_stats(real, det, detectors.i3d_features, 16, kw["clips"], subsample_factor=3,
+                                   batch_size=kw["video_batch"], capture_all=True),
+        frames=metrics._frame_stats(fake, det, kw["frames"], batch_size=kw["frame_batch"], capture_all=True),
+    )
+    torch.save({"clips": clips, "stats": {k: v.__dict__ for k, v in stats.items()}}, f"{out}.{rank}")

@@ -1,6 +1,8 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): random
 Flax params from a numpy seed, and their carry-over into torch modules."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,25 @@ from latte_tpu_torch.models.moe import MoEMlp
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """torch, numpy's BLAS and OpenCV on one thread each. A test of small
+    arrays gains little from more, and beside the other pytest-xdist
+    workers their idle threads spin on the cores those workers need."""
+    import cv2
+    from threadpoolctl import threadpool_limits
+
+    threads, cv_threads = torch.get_num_threads(), cv2.getNumThreads()
+    torch.set_num_threads(1)
+    cv2.setNumThreads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+        cv2.setNumThreads(cv_threads)
 
 
 def randomize(params, seed=0, std=0.2):
