@@ -5,6 +5,10 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py serve ckpt`` runs the build and phase 5g alone, and
+a one-process ffs_train checkpoint written in the background and then
+blocking, timed; see ``alone``.)
+
 Phases, each printed with its seconds; any failure ends the script with a
 non-zero exit and a traceback:
 
@@ -135,6 +139,26 @@ non-zero exit and a traceback:
    launches of B1, B2, B3 on the tensor-core and vector routes); the host's
    decode time a clip against the detector's, and the 2 x 2048-clip FVD
    projected from them. Prints an ``eval: {...}`` line;
+5g. serve (after 5f, from phase 5's checkpoint): the sampler as a serving
+   artifact (``latte_tpu_torch.serve``): the ``export_aot`` CLI on
+   ffs_sample.yaml at DDIM-50 for the card from fake tensors in a process
+   that sees no GPU (``CUDA_VISIBLE_DEVICES=""``, as a host without one
+   exports: the graph recorded under ``aot._FakeCudaIndexing``), and for the
+   three variants below, four processes side by side while the live
+   references run (its seconds, the file's bytes, no state-dict entry in
+   it); ``load_sampler``, and the
+   call with the checkpoint's EMA state dict as a serving host reads it:
+   latents equal to the live ``sample_loop``'s on the same z to the bit
+   (else the first product or kernel of a step that differs is named,
+   ``first_divergence``), 1400 launches of each of B1-B3 on the
+   tensor-core and vector routes counted by the kernels' own counters; the
+   artifact's DDIM-50 seconds against the live one's in SERVE_PAIRS
+   alternating pairs, and one step of each with its idle share
+   (``profiling.trace``); DDPM-3 from a seeded generator, the block cache at
+   interval 2 (950 launches of B1-B3) and static W8A8 with int8 attention
+   (1400 tensor-core launches of B6, the calibrated state dict), each
+   exported, loaded and equal to the live sampler to the bit. Prints a
+   ``serve: {...}`` line, and every kernel row gets ``launches_serve``;
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -285,7 +309,12 @@ non-zero exit and a traceback:
    shipped, dp 1 x ep 4) for 3 steps, counted from 0 on every rank (the
    kernels line's ``launches_dist``), its step gaps, peak memory, the NCCL
    kernels of its profiled third step and the full checkpoint's gather and
-   write. The world-1 DDP gate runs with ``tensor_parallel=1
+   write, which ``async_checkpoint`` (the default) puts in a background
+   thread: ``TimedSaves`` prints the save call's seconds (the gather and
+   the copy to the host: what the step loop waits for), the
+   ``wait_for_saves`` seconds after it, and that the file read back equals
+   the model, EMA, moments and optimizer ``step`` counters at the save to
+   the bit (each changed in place right after the call returns). The world-1 DDP gate runs with ``tensor_parallel=1
    sequence_parallel=1`` named, through the (dp, ep, sp, tp) mesh. At 4
    GPUs (a one-GPU machine skips this part) it first takes, on one GPU,
    ffs_train.yaml's 3 steps from seeded Latte-XL/2 weights (``pretrained``)
@@ -336,12 +365,13 @@ non-zero exit and a traceback:
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``eval: {...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp:
+{...}``, ``eval: {...}``, ``serve: {...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp:
 {...}``, ``dist: {...}``), the total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
 phase 10a's and the tp and sp runs' launches, ``launches_ring``, ``launches_tp`` and
 ``launches_sp`` (``tp_sp_launches``), phase 10b's and the 4-GPU pp runs' launches,
 ``launches_pp`` (``pp_launches``), phase 5f's FVD from the sampler's, ``launches_eval``,
+phase 5g's artifact runs, ``launches_serve``,
 phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
@@ -3243,6 +3273,98 @@ class NoCheckpoints:
         train.save_checkpoint = self.real
 
 
+class TimedSaves:
+    """Within it ``train.main``'s checkpoint calls are timed: each save call
+    (under ``async_checkpoint``, the default, the copy to the host and the
+    writer's start: what the step loop waits for) and the first
+    ``wait_for_saves`` after it (the rest of the write). On rank 0 the
+    model's, the EMA's and the optimizer's state at an asynchronous save is
+    kept on the host, and after the call returns the state is changed in
+    place as the next optimizer step changes it (one parameter, the first
+    entry's moments, every entry's ``step`` counter, which AdamW keeps on
+    the CPU), and put back after the wait: ``check()`` then holds the file
+    to the state at the save, to the bit: the model and EMA, every ``step``
+    counter, and the moments where rank 0's optimizer holds them whole (at
+    world 1)."""
+
+    def __enter__(self):
+        self.real_save, self.real_wait = train.save_checkpoint, train.wait_for_saves
+        self.records = []
+
+        def save(path, state, *args, block=True, **kwargs):
+            rank0 = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+            want = None
+            if rank0 and not block:
+                want = {part: {k: v.detach().cpu().clone() for k, v in getattr(state, part).state_dict().items()}
+                        for part in ("model", "ema")}
+                want["opt"] = {i: {k: v.detach().cpu().clone() for k, v in st.items() if torch.is_tensor(v)}
+                               for i, st in state.optimizer.state_dict()["state"].items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real_save(path, state, *args, block=block, **kwargs)
+            rec = dict(path=path, block=block, save_s=time.perf_counter() - t0, wait_s=None, want=want)
+            if want is not None:
+                p = next(p for p in state.model.parameters() if p.is_floating_point())
+                opt = list(state.optimizer.state.values())
+                live = [p, *(opt[0][k] for k in ("exp_avg", "exp_avg_sq")), *(st["step"] for st in opt)]
+                rec["nudged"] = [(t, t.detach().clone()) for t in live]
+                with torch.no_grad():
+                    for t in live:
+                        t.add_(1)
+            self.records.append(rec)
+            return out
+
+        def wait():
+            t0 = time.perf_counter()
+            self.real_wait()
+            secs = time.perf_counter() - t0
+            for rec in self.records:
+                if rec["wait_s"] is None:
+                    rec["wait_s"] = secs
+                    if "nudged" in rec:
+                        with torch.no_grad():
+                            for t, value in rec.pop("nudged"):
+                                t.copy_(value)
+
+        train.save_checkpoint, train.wait_for_saves = save, wait
+        return self
+
+    def __exit__(self, *exc):
+        train.save_checkpoint, train.wait_for_saves = self.real_save, self.real_wait
+
+    def check(self, label: str) -> list:
+        """Each save's seconds and, for the asynchronous ones rank 0 kept,
+        whether the file read back equals the state at the save."""
+        out = []
+        for rec in self.records:
+            row = dict(block=rec["block"], save_s=rec["save_s"], wait_s=rec["wait_s"])
+            if rec["want"] is not None:
+                got = torch.load(rec["path"], map_location="cpu", mmap=True, weights_only=True)
+                equal = True
+                for part in ("model", "ema"):
+                    want = rec["want"][part]
+                    shared = set(want) & set(got[part])
+                    equal = equal and bool(shared) and all(torch.equal(got[part][k], want[k]) for k in shared)
+                    row[f"{part}_entries_compared"] = len(shared)
+                # every step counter; the moments where rank 0 holds them whole
+                want, got_opt = rec["want"]["opt"], got["opt"]["state"]
+                steps = {float(st["step"]) for st in want.values()}
+                equal = equal and len(steps) == 1 and {float(st["step"]) for st in got_opt.values()} == steps
+                whole = want.keys() == got_opt.keys() and all(
+                    want[i][k].shape == got_opt[i][k].shape for i in want for k in ("exp_avg", "exp_avg_sq"))
+                if whole:
+                    equal = equal and all(torch.equal(got_opt[i][k], want[i][k])
+                                          for i in want for k in ("exp_avg", "exp_avg_sq"))
+                row.update(opt_step=steps.pop() if len(steps) == 1 else sorted(steps),
+                           opt_steps_compared=len(got_opt), opt_moments_compared=2 * len(want) if whole else 0)
+                row["file_equals_state_at_save"] = equal
+                if not equal:
+                    raise AssertionError(f"{label}: the checkpoint {rec['path']} differs from the state at its save")
+            out.append(row)
+        print(f"  {label}: checkpoint saves {out}", flush=True)
+        return out
+
+
 def run_timed(config, callbacks) -> tuple:
     """``train.main(config)`` with its batch iterator timed; returns its
     result, the data kind and the TimedBatches."""
@@ -4967,8 +5089,9 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
         torch.cuda.reset_peak_memory_stats(device)
         held = torch.cuda.memory_allocated(device) / 2**30
         reset_counts()
-        # the tp, sp and MoE runs write no checkpoint (the dp and pp runs gather one)
-        with contextlib.nullcontext() if write_ckpt else NoCheckpoints():
+        # the tp, sp and MoE runs write no checkpoint (the dp and pp runs gather
+        # one, in the background: async_checkpoint's default)
+        with TimedSaves() if write_ckpt else NoCheckpoints() as saves:
             out = train.main(load_config(path, [f"results_dir={tmp}/results_{name}", f"max_train_steps={DIST_STEPS}",
                                                 "log_every=1", f"ckpt_every={DIST_STEPS}", *extra]), callbacks=[log])
         torch.cuda.synchronize(device)
@@ -4983,6 +5106,7 @@ def dist_worker(rank: int, world: int, port: int, tmp: str, smi: str) -> None:
             raise AssertionError(f"rank {rank} {name}: the run failed: {out}, {log.records}")
         ckpt = os.path.join(out["experiment_dir"], "checkpoints", f"{DIST_STEPS:07d}.pt")
         res["train"][name] = dict(
+            async_checkpoint=saves.check(f"rank {rank} {name}") if write_ckpt else None,
             launches=launches, routes=routes, step_seconds=secs, peak_gib=peak, held_gib=held,
             nccl_profiled_step=nccl,
             losses=[r[2] for r in log.records], grad_norms=[r[3] for r in log.records],
@@ -5223,6 +5347,274 @@ def pp_launches(name: str, pp_run: dict, dist: dict) -> dict:
     return out
 
 
+# phase "serve": the ops whose outputs first_divergence compares between the
+# live step and the artifact's, in their order (the products and the kernels)
+DIVERGENCE_OPS = ("aten.mm", "aten.addmm", "aten.bmm", "aten._int_mm", "latte_tpu_torch.")
+SERVE_PAIRS = 3  # alternating DDIM-50 pairs, artifact against the live sampler
+SERVE_DDPM_STEPS = 3
+
+
+def first_divergence(live_step, art_step, args) -> str:
+    """Run one step of the live sampler and of the artifact on the same
+    inputs with every aten op's output recorded, and name the first product
+    or kernel (DIVERGENCE_OPS, in order) whose outputs differ; "" when none
+    does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if name.startswith(DIVERGENCE_OPS):
+                self.outs.append((name, [o.clone() for o in (out if isinstance(out, (tuple, list)) else [out])
+                                         if isinstance(o, torch.Tensor)]))
+            return out
+
+    runs = []
+    for step in (live_step, art_step):
+        with torch.inference_mode(), Record() as rec:
+            step(*args)
+        runs.append(rec.outs)
+    for i, ((a, xs), (b, ys)) in enumerate(zip(*runs)):
+        if a != b:
+            return f"op {i}: the live step ran {a}, the artifact {b}"
+        for x, y in zip(xs, ys):
+            if x.shape != y.shape or not torch.equal(x, y):
+                return f"op {i} ({a}, output {tuple(x.shape)}) differs"
+    if len(runs[0]) != len(runs[1]):
+        return f"the live step ran {len(runs[0])} products and kernels, the artifact {len(runs[1])}"
+    return ""
+
+
+GPU_LESS_EXPORT = "ffs_xl"  # the serve phase's export made with no GPU visible
+
+
+def start_export(tmp: str, name: str, overrides, gpu_less: bool = False) -> tuple:
+    """The ``export_aot`` CLI on ffs_sample.yaml with ``overrides`` for the
+    card, in a process of its own on one thread: exports are host work, and
+    the phase's four run side by side while it computes the live
+    references (it times nothing until they end). ``gpu_less``: the process
+    sees no GPU (``CUDA_VISIBLE_DEVICES=""``), as a host without one, so the
+    export records its graph under ``aot._FakeCudaIndexing``."""
+    cmd = [sys.executable, "-m", "latte_tpu_torch.serve.export_aot", "--config", FFS_CONFIG,
+           "--out", os.path.join(tmp, name), "--device", "cuda", *overrides]
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    if gpu_less:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), time.perf_counter()
+
+
+def serve_artifact(tmp: str, name: str, started) -> tuple:
+    """The artifact ``start_export`` (``started``) writes for the card (from
+    fake tensors: no weight is made), once its process ends; then
+    ``load_sampler``; the file checked to hold no state-dict entry. Returns
+    the call and the export's record (``export_s``: from the process's
+    start to its end)."""
+    import io
+
+    from latte_tpu_torch.serve import aot
+
+    proc, t0 = started
+    out, _ = proc.communicate()
+    export_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export of {name} failed ({proc.returncode}):\n{out[-4000:]}")
+    path = os.path.join(tmp, name + ".ltpu-aot")
+    header, blobs = aot.read_artifact(path)
+    names = {n for n, *_ in header["state"]}
+    held = {}
+    for prog, blob in blobs.items():
+        ep = torch.export.load(io.BytesIO(blob))
+        consts = {k: tuple(v.shape) for k, v in ep.constants.items()}
+        if dict(ep.state_dict) or set(consts) & names or not all(k.startswith(("model_table_", "diffusion_"))
+                                                                 for k in consts):
+            raise AssertionError(f"{name}: the {prog} program holds weights: {list(ep.state_dict)[:4]}, {consts}")
+        held[prog] = dict(nodes=len(ep.graph.nodes), constants=len(consts),
+                          ops={op: sum(str(n.target) == op.replace("::", ".") + ".default" for n in ep.graph.nodes)
+                               for op in ("latte_tpu_torch::flash_attention", "latte_tpu_torch::ln_modulate",
+                                          "latte_tpu_torch::residual_ln_modulate",
+                                          "latte_tpu_torch::flash_attention_int8")})
+    t0 = time.perf_counter()
+    call = aot.load_sampler(path)
+    load_s = time.perf_counter() - t0
+    rec = dict(export_s=export_s, load_s=load_s, bytes=os.path.getsize(path), programs=held,
+               state_entries=len(names), state_entries_in_file=0)
+    print(f"  {name}: exported in {export_s:.2f} s, {rec['bytes']} bytes ({len(names)} state-dict entries, "
+          f"none in the file), loaded in {load_s:.2f} s; programs {held}", flush=True)
+    return call, rec
+
+
+def serve_check(label: str, call, state, model, cfg, z, live, want: dict, gen_seed=None) -> dict:
+    """The artifact's latents against ``live``, the live ``sample_loop``'s
+    on the same z (and a generator of the same seed): equal to the bit,
+    else the first op that differs is named and the phase fails. The
+    artifact's launches since the reset, against ``want``."""
+    dev = z.device
+    gen = (lambda: torch.Generator(device=dev).manual_seed(gen_seed)) if gen_seed is not None else (lambda: None)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = call(state, z, generator=gen())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(counts(), tc=flash_attention.tc_launches, int8_tc=flash_attention_int8.tc_launches,
+                    f32=flash_attention.f32_launches,
+                    vec={n: KERNELS[n]["fn"].vec_launches for n in ADALN})
+    equal = torch.equal(got, live)
+    print(f"  {label}: artifact latents {tuple(got.shape)} equal to the live sampler's to the bit: {equal}; "
+          f"{secs:.3f} s; launches {launches}", flush=True)
+    if not equal:
+        from latte_tpu_torch.core.diffusion import create_diffusion as diffusion_of
+
+        placed = call.place(state)
+        diffusion = diffusion_of(str(cfg.num_sampling_steps))
+        live_step = sample.sampler_step(model, cfg, diffusion, model.depth)
+        prog = call.programs.get("step") or call.programs["full"]
+        t = torch.full((z.shape[0],), diffusion.num_timesteps - 1, dtype=torch.int64, device=dev)
+        noise = torch.zeros_like(z)
+        where = first_divergence(lambda *a: live_step(*a[1:]) if "step" in call.programs else
+                                 live_step(*a[1:], None), prog, (placed, z, t, noise, None))
+        raise AssertionError(f"{label}: the artifact's latents differ from the live sampler's "
+                             f"(max {(got - live).abs().max().item():.3g}); first differing op: {where or 'none'}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return dict(bit_equal=equal, seconds=secs, launches=launches)
+
+
+def serve_step_profile(label: str, step, args, tmp: str) -> dict:
+    """One sampler step's wall time (host clock to a synchronize) and, in a
+    second run under ``profiling.trace``, its device busy time: the idle
+    share."""
+    from latte_tpu_torch import profiling
+
+    with torch.inference_mode():
+        step(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profiling.trace(os.path.join(tmp, f"trace_{label.replace(' ', '_')}")) as prof:
+            step(*args)
+            torch.cuda.synchronize()
+    busy = device_ms_by_kind(prof)[1]
+    out = dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms)
+    print(f"  {label}: one step {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle {out['idle']:.3f}", flush=True)
+    return out
+
+
+def serve_phase(tmp: str, ckpt: str, device, smi: str) -> dict:
+    """Phase 5g (see the module docstring): the sampler as a serving
+    artifact through ``export_aot`` and ``load_sampler``; every export
+    process it starts is stopped when it ends."""
+    base = ["sample_method=ddim", "num_sampling_steps=50", f"ckpt={ckpt}"]
+    jobs = {
+        "ffs_xl": base,
+        "ffs_xl_ddpm": ["sample_method=ddpm", f"num_sampling_steps={SERVE_DDPM_STEPS}", f"ckpt={ckpt}"],
+        "ffs_xl_bc": base + [f"block_cache_interval={BC_INTERVAL}"],
+        "ffs_xl_int8": base + ["quantized=static", "int8_attention=true", "attention_mode=flash"],
+    }
+    # the bf16 DDIM-50 artifact is written as a host without a GPU writes it
+    started = {name: start_export(tmp, name, over, gpu_less=name == GPU_LESS_EXPORT) for name, over in jobs.items()}
+    try:
+        return _serve_runs(tmp, device, smi, jobs, started)
+    finally:
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _serve_runs(tmp, device, smi, jobs, started) -> dict:
+    from latte_tpu_torch.convert import load_reference_checkpoint
+    from latte_tpu_torch.core.diffusion import create_diffusion as diffusion_of
+
+    cfgs = {name: load_config(FFS_CONFIG, over) for name, over in jobs.items()}
+    cfg = cfgs["ffs_xl"]
+    # while the exports run: the live sampler's latents of each mode (untimed)
+    sd = load_reference_checkpoint(cfg.ckpt)  # what a serving host reads: the EMA weights, on the CPU
+    model = sample.build_model(cfg, device)
+    z = torch.randn(sample.latent_shape(cfg, 1), generator=torch.Generator(device=device).manual_seed(0),
+                    device=device)
+    ddpm_gen = lambda: torch.Generator(device=device).manual_seed(5)  # noqa: E731
+    live = {name: sample.sample_loop(model, cfgs[name], z, None, ddpm_gen() if name == "ffs_xl_ddpm" else None)
+            for name in ("ffs_xl", "ffs_xl_ddpm", "ffs_xl_bc")}
+    qmodel = sample.build_model(cfgs["ffs_xl_int8"], device)
+    live["ffs_xl_int8"] = sample.sample_loop(qmodel, cfgs["ffs_xl_int8"], z)
+    res = {}
+    # every export first: nothing is timed while another holds the host's cores
+    calls, exports = {}, {}
+    for name in jobs:
+        calls[name], exports[name] = serve_artifact(tmp, name, started[name])
+    res["export"] = dict(exports["ffs_xl"], gpu_less=GPU_LESS_EXPORT == "ffs_xl")
+    call = calls["ffs_xl"]
+    per = {k: DEPTH * 50 for k in FORWARD}
+    res["bf16"] = serve_check("bf16 ddim-50 artifact", call, sd, model, cfg, z, live["ffs_xl"],
+                              dict(per, tc=DEPTH * 50, f32=0, **{INT8: 0}))
+    if res["bf16"]["launches"]["vec"] != {n: DEPTH * 50 for n in ADALN}:
+        raise AssertionError(f"an adaLN launch of the artifact left the vector route: {res['bf16']['launches']}")
+    # alternating pairs: the artifact (the state placed once) against the live loop
+    placed = call.place(sd)
+    secs = {"artifact": [], "live": []}
+    for i in range(SERVE_PAIRS):
+        for name in (("artifact", "live") if i % 2 == 0 else ("live", "artifact")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "artifact":
+                call(placed, z)
+            else:
+                sample.sample_loop(model, cfg, z)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    res["pairs"] = dict(seconds=secs, median_s=med, artifact_over_live=med["artifact"] / med["live"])
+    print(f"  ddim-50 pairs: artifact {med['artifact']:.3f} s (of {secs['artifact']}), live {med['live']:.3f} s "
+          f"(of {secs['live']}), ratio {res['pairs']['artifact_over_live']:.3f}; on {smi}", flush=True)
+    diffusion = diffusion_of("50")
+    x, noise = z.clone(), torch.zeros_like(z)
+    t = torch.full((1,), 25, dtype=torch.int64, device=device)
+    live_step = sample.sampler_step(model, cfg, diffusion, model.depth)
+    res["step_profile"] = dict(
+        artifact=serve_step_profile("artifact step", call.programs["step"], (placed, x, t, noise, None), tmp),
+        live=serve_step_profile("live step", live_step, (x, t, noise, None), tmp))
+    del placed
+    # DDPM from a seeded generator
+    res["ddpm"] = dict(export=exports["ffs_xl_ddpm"], **serve_check(
+        f"bf16 ddpm-{SERVE_DDPM_STEPS} artifact", calls["ffs_xl_ddpm"], sd, model, cfgs["ffs_xl_ddpm"], z,
+        live["ffs_xl_ddpm"], {k: DEPTH * SERVE_DDPM_STEPS for k in FORWARD}, gen_seed=5))
+    # the block cache at interval 2 (its default pairs)
+    k = sample.cache_pairs(cfgs["ffs_xl_bc"], DEPTH)
+    bc = BC_FULL * DEPTH + (BC_STEPS - BC_FULL) * (DEPTH - 2 * k)
+    res["block_cache"] = dict(export=exports["ffs_xl_bc"], pairs=k, **serve_check(
+        f"block-cache ddim-50 artifact (pairs {k}, interval {BC_INTERVAL})", calls["ffs_xl_bc"], sd, model,
+        cfgs["ffs_xl_bc"], z, live["ffs_xl_bc"], dict({n: bc for n in FORWARD}, tc=bc)))
+    # static W8A8 with int8 attention (flash route): the calibrated model's state dict
+    res["int8"] = dict(export=exports["ffs_xl_int8"], **serve_check(
+        "int8 ddim-50 artifact", calls["ffs_xl_int8"], qmodel.state_dict(), qmodel, cfgs["ffs_xl_int8"], z,
+        live["ffs_xl_int8"], {INT8: DEPTH * 50, "int8_tc": DEPTH * 50, "flash_attention": 0,
+                              "ln_modulate": DEPTH * 50, "residual_ln_modulate": DEPTH * 50}))
+    del calls, model, qmodel
+    torch.cuda.empty_cache()
+    res["device"] = smi
+    return res
+
+
+def serve_launches(name: str, serve: dict) -> dict:
+    """A kernel row's launches in phase "serve"'s artifact runs (the fp32
+    and "qk" rows: their routes', none)."""
+    runs = {"bf16_ddim50": serve["bf16"], "ddpm": serve["ddpm"], "block_cache": serve["block_cache"],
+            "int8_ddim50": serve["int8"]}
+    if name.endswith(("_f32", "_qk")):
+        key = "f32" if name.endswith("_f32") else None
+        return {run: (r["launches"][key] if key else 0) for run, r in runs.items()}
+    return {run: r["launches"][name] for run, r in runs.items()}
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, row: dict, **extra) -> dict:
     """One kernel's entry of the JSON line: its main-path launches and its
     measurements at the main path's shape (``row``)."""
@@ -5416,6 +5808,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("eval", t0)
 
+        # 5g. the sampler as a serving artifact (torch.export), from the same checkpoint
+        t0 = time.perf_counter()
+        serve_run = serve_phase(tmp, ckpt, device, smi)
+        phase("serve", t0)
+
         # 5e. text-to-video and text-to-image serving, LatteT2V at full width
         t0 = time.perf_counter()
         t2v_run = t2v_phase(tmp, smi, device, timer)
@@ -5463,6 +5860,7 @@ def main() -> int:
     print("block_cache: " + json.dumps(bc_run, default=str), flush=True)
     print("sample_many: " + json.dumps(many, default=str), flush=True)
     print("eval: " + json.dumps(eval_run, default=str), flush=True)
+    print("serve: " + json.dumps(serve_run, default=str), flush=True)
     print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
     print("moe: " + json.dumps(moe, default=str), flush=True)
 
@@ -5596,11 +5994,54 @@ def main() -> int:
         row.update(tp_sp_launches(name, ring, vtp, dist))
         row["launches_pp"] = pp_launches(name, pp_run, dist)
         row["launches_eval"] = eval_run["launches"][row["name"]]
+        row["launches_serve"] = serve_launches(row["name"], serve_run)
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 
 
+def alone(parts) -> int:
+    """``python3 chip_smoke.py serve ckpt`` (either or both): the build, then
+    phase 5g "serve" on a seeded Latte-XL/2 checkpoint as ``main`` writes
+    it, and ``train.main`` on ffs_train.yaml for 3 steps with its checkpoint
+    written in the background and then blocking, each save timed by
+    ``TimedSaves``. Prints the same lines as those parts of ``main``, and
+    no result line."""
+    if not torch.cuda.is_available() or not set(parts) <= {"serve", "ckpt"}:
+        print("usage on a GPU: chip_smoke.py [serve] [ckpt]", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}", flush=True)
+    t0 = time.perf_counter()
+    build.build()
+    build.load_library()
+    phase("build", t0)
+    device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        if "serve" in parts:
+            with torch.device(device):
+                model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES)
+            randomize_(model, seed=0)
+            model.to(torch.bfloat16).eval()
+            ckpt = os.path.join(tmp, "latte_xl2_random.pt")
+            torch.save({"ema": model.state_dict()}, ckpt)
+            del model
+            t0 = time.perf_counter()
+            serve_run = serve_phase(tmp, ckpt, device, smi)
+            phase("serve", t0)
+            print("serve: " + json.dumps(serve_run, default=str), flush=True)
+        if "ckpt" in parts:
+            for flag in ("true", "false"):
+                cfg = load_config(FFS_TRAIN, [f"results_dir={tmp}/results_{flag}", "max_train_steps=3",
+                                              "log_every=1", "ckpt_every=3", f"async_checkpoint={flag}"])
+                with TimedSaves() as saves:
+                    out = train.main(cfg)
+                saves.check(f"ffs_train, one process, async_checkpoint={flag}")
+                shutil.rmtree(out["experiment_dir"])
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(alone(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -15,6 +15,7 @@ trajectory (the entry point's ``block_cache_interval`` opts in).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,7 +23,61 @@ import torch
 from latte_tpu_torch.core.diffusion import GaussianDiffusion
 from latte_tpu_torch.core.samplers import _noise_for, cfg_combine
 
-__all__ = ["cached_sample_loop"]
+__all__ = ["cached_sample_loop", "cached_step", "run_cached_steps"]
+
+
+def cached_step(
+    diffusion: GaussianDiffusion,
+    model,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    front: Optional[torch.Tensor] = None,
+    *,
+    cache_pairs: int,
+    y: Optional[torch.Tensor] = None,
+    cfg_scale: float = 1.0,
+    ddim: bool = True,
+):
+    """One step of the cached loop: with ``front`` None the full forward,
+    which also returns the activation after pair ``cache_pairs`` - 1; else
+    the partial forward from ``front`` at pair ``cache_pairs``. Returns
+    ``(next x, front)``. ``model`` is called as ``model(x, t, y=...,
+    return_front=k)`` / ``model(x, t, y=..., front_state=..., start_pair=k)``."""
+    use_cfg = y is not None and cfg_scale > 1.0
+    xx = x
+    if use_cfg:
+        half = x[: x.shape[0] // 2]
+        xx = torch.cat([half, half], dim=0)
+    # the model sees the original schedule's timestep, as the step's own
+    # call would (p_mean_variance maps t before calling model_fn)
+    t_model = diffusion.map_t(t)
+    if front is None:
+        out, front = model(xx, t_model, y=y, return_front=cache_pairs)
+    else:
+        out = model(xx, t_model, y=y, front_state=front, start_pair=cache_pairs)
+    if use_cfg:
+        out = cfg_combine(out, float(cfg_scale))
+    step_fn = diffusion.ddim_sample if ddim else diffusion.p_sample
+    return step_fn(lambda *a, **kw: out, x, t, noise)["sample"], front
+
+
+@torch.no_grad()
+def run_cached_steps(
+    step, diffusion: GaussianDiffusion, x_T: torch.Tensor, cache_interval: int, ddim: bool,
+    generator: Optional[torch.Generator] = None, noise_schedule: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The cached loop's schedule over ``x, front = step(x, t, noise,
+    front)``: step i (i = 0 at t = T - 1) passes ``front=None`` (a full
+    forward) when ``i % cache_interval == 0``, else the last full forward's
+    front. DDIM steps take zeros; DDPM draws each step's noise by the
+    standard loops' rule."""
+    x, front = x_T, None
+    for i, t_scalar in enumerate(range(diffusion.num_timesteps - 1, -1, -1)):
+        t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)
+        noise = torch.zeros_like(x) if ddim else _noise_for(x, t_scalar, generator, noise_schedule)
+        x, front = step(x, t, noise, None if i % cache_interval == 0 else front)
+    return x
 
 
 @torch.no_grad()
@@ -54,26 +109,7 @@ def cached_sample_loop(
     interval = int(cache_interval)
     if interval < 1:
         raise ValueError(f"cache_interval must be >= 1, got {interval}")
-    use_cfg = y is not None and cfg_scale > 1.0
-    ddim = sample_method == "ddim"
-    step_fn = diffusion.ddim_sample if ddim else diffusion.p_sample
-
-    x, front = x_T, None
-    for i, t_scalar in enumerate(range(diffusion.num_timesteps - 1, -1, -1)):
-        t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)
-        xx = x
-        if use_cfg:
-            half = x[: x.shape[0] // 2]
-            xx = torch.cat([half, half], dim=0)
-        # the model sees the original schedule's timestep, as the step's own
-        # call would (p_mean_variance maps t before calling model_fn)
-        t_model = diffusion.map_t(t)
-        if i % interval == 0:
-            out, front = model(xx, t_model, y=y, return_front=k)
-        else:
-            out = model(xx, t_model, y=y, front_state=front, start_pair=k)
-        if use_cfg:
-            out = cfg_combine(out, float(cfg_scale))
-        noise = torch.zeros_like(x) if ddim else _noise_for(x, t_scalar, generator, noise_schedule)
-        x = step_fn(lambda *a, **kw: out, x, t, noise)["sample"]
-    return x
+    step = functools.partial(
+        cached_step, diffusion, model, cache_pairs=k, y=y, cfg_scale=cfg_scale, ddim=sample_method == "ddim"
+    )
+    return run_cached_steps(step, diffusion, x_T, interval, sample_method == "ddim", generator, noise_schedule)

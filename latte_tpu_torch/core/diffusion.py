@@ -109,16 +109,31 @@ class GaussianDiffusion:
             self._device_tables[key] = torch.as_tensor(arr, dtype=dtype, device=device)
         return self._device_tables[key]
 
+    def tables(self) -> Dict[str, torch.Tensor]:
+        """Every per-timestep table as the CPU tensor :meth:`_table` would
+        place on a device (int64 ``timestep_map``, the rest fp32)."""
+        return {
+            name: torch.as_tensor(arr, dtype=torch.int64 if name == "timestep_map" else torch.float32)
+            for name, arr in vars(self).items() if isinstance(arr, np.ndarray)
+        }
+
+    def place_tables(self, tables: Dict[str, torch.Tensor], device: torch.device) -> None:
+        """Use ``tables`` (those of :meth:`tables`, already on ``device``) for
+        ``device``: an exported step takes them as its constants."""
+        self._device_tables.update({(name, device): t for name, t in tables.items()})
+
     def _gather(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
         """fp32 per-timestep coefficients, shaped to broadcast over ``ndim`` axes."""
-        out = self._table(name, t.device)[t]
+        # index_select, not [t]: a tensor index has no fake-tensor rule for
+        # CUDA on a host without it (serve.aot traces for the card there)
+        out = torch.index_select(self._table(name, t.device), 0, t)
         return out.reshape(out.shape + (1,) * (ndim - 1))
 
     def map_t(self, t: torch.Tensor) -> torch.Tensor:
         """Map engine timestep indices to original model timesteps."""
         if self.timestep_map is None:
             return t
-        return self._table("timestep_map", t.device)[t]
+        return torch.index_select(self._table("timestep_map", t.device), 0, t)
 
     def q_sample(self, x_start, t, noise):
         """Diffuse x_0 to x_t given noise ~ N(0, I)."""

@@ -2,7 +2,9 @@
 
 Each step's noise comes from ``noise_schedule[t]`` when given (the tests
 inject the same numbers into the JAX loop), else from ``generator``, else
-zeros, the order the JAX loops use.
+zeros, the order the JAX loops use. :func:`run_steps` is that loop over any
+step function: the loops here, the sampler's and the loader of an exported
+sampler step (``serve.aot``) run it.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from latte_tpu_torch.core.diffusion import GaussianDiffusion, ModelFn
 
-__all__ = ["p_sample_loop", "ddim_sample_loop", "cfg_combine", "cfg_model_fn"]
+__all__ = ["p_sample_loop", "ddim_sample_loop", "run_steps", "denoise_step", "cfg_combine", "cfg_model_fn"]
 
 
 def _noise_for(x, t_scalar, generator, noise_schedule):
@@ -25,14 +27,26 @@ def _noise_for(x, t_scalar, generator, noise_schedule):
 
 
 @torch.no_grad()
-def _sample_loop(
-    step, diffusion: GaussianDiffusion, x_T: torch.Tensor, generator, noise_schedule
+def run_steps(
+    step, diffusion: GaussianDiffusion, x_T: torch.Tensor, generator=None, noise_schedule=None
 ) -> torch.Tensor:
+    """``x = step(x, t, noise)`` from t = T - 1 down to 0: t an int64 (B,)
+    tensor, the noise drawn before each step (see the module docstring)."""
     x = x_T
     for t_scalar in range(diffusion.num_timesteps - 1, -1, -1):
         t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)
-        x = step(x, t, _noise_for(x, t_scalar, generator, noise_schedule))["sample"]
+        x = step(x, t, _noise_for(x, t_scalar, generator, noise_schedule))
     return x
+
+
+def denoise_step(
+    diffusion: GaussianDiffusion, model_fn: ModelFn, method: str, x: torch.Tensor, t: torch.Tensor,
+    noise: torch.Tensor, model_kwargs: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """One step of the sampler: DDIM at eta 0 (``method`` "ddim") or DDPM,
+    with the x_0 clip; the next x."""
+    fn = diffusion.ddim_sample if method == "ddim" else diffusion.p_sample
+    return fn(model_fn, x, t, noise, clip_denoised=True, model_kwargs=model_kwargs)["sample"]
 
 
 def p_sample_loop(
@@ -51,9 +65,9 @@ def p_sample_loop(
         return diffusion.p_sample(
             model_fn, x, t, noise, clip_denoised=clip_denoised,
             denoised_fn=denoised_fn, model_kwargs=model_kwargs,
-        )
+        )["sample"]
 
-    return _sample_loop(step, diffusion, x_T, generator, noise_schedule)
+    return run_steps(step, diffusion, x_T, generator, noise_schedule)
 
 
 def ddim_sample_loop(
@@ -73,9 +87,9 @@ def ddim_sample_loop(
         return diffusion.ddim_sample(
             model_fn, x, t, noise, clip_denoised=clip_denoised,
             denoised_fn=denoised_fn, model_kwargs=model_kwargs, eta=eta,
-        )
+        )["sample"]
 
-    return _sample_loop(step, diffusion, x_T, generator, noise_schedule)
+    return run_steps(step, diffusion, x_T, generator, noise_schedule)
 
 
 def cfg_combine(model_out: torch.Tensor, cfg_scale: float, guidance_channels: int = 4) -> torch.Tensor:

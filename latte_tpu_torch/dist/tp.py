@@ -68,16 +68,31 @@ class _Reduce(torch.autograd.Function):
         return grad, None
 
 
+def _traced_all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """The all-reduce as a functional collective, which ``torch.export``
+    records as a graph node (an in-place ``dist.all_reduce`` it cannot
+    trace); ``group`` may be a process group's name, as in an exported
+    serving step (``serve.aot``), which names it at load time."""
+    from torch.distributed import _functional_collectives as fc
+
+    return fc.all_reduce(x, op, group if isinstance(group, str) else group.group_name)
+
+
 def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
     """The input of a column-parallel layer (see the module docstring); the
-    identity without a group."""
-    return x if group is None else _Enter.apply(x, group)
+    identity without a group (and in an export, which has no backward)."""
+    return x if group is None or torch.compiler.is_exporting() else _Enter.apply(x, group)
 
 
 def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of the ranks' row-parallel partial products (see the module
-    docstring); ``x`` itself without a group."""
-    return x if group is None else _Reduce.apply(x, group)
+    docstring); ``x`` itself without a group. In an export, the functional
+    all-reduce (the same sum)."""
+    if group is None:
+        return x
+    if torch.compiler.is_exporting():
+        return _traced_all_reduce(x, "sum", group)
+    return _Reduce.apply(x, group)
 
 
 def tp_amax(amax: torch.Tensor, group) -> torch.Tensor:
@@ -86,6 +101,8 @@ def tp_amax(amax: torch.Tensor, group) -> torch.Tensor:
     differentiable: the dynamic int8 path has no gradient."""
     if group is None:
         return amax
+    if torch.compiler.is_exporting():
+        return _traced_all_reduce(amax, "max", group)
     amax = amax.contiguous().clone()
     dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     return amax

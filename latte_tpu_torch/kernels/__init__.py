@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the port, each beside its plain version; and
+"""Hand-written CUDA kernels of the port, each beside its plain version (the
+serving path's forwards as ``torch.library`` custom ops, :mod:`.ops`); and
 the metric tools' ops, which the JAX package writes in XLA, as plain torch
 (``upfirdn``, ``bias_act``, ``gradfix``, ``conv2d_resample``)."""
 
@@ -24,6 +25,8 @@ from latte_tpu_torch.kernels.attention_int8 import (
     flash_scale_block,
     int8_attention,
 )
+# last: it registers the custom ops the wrappers above call
+from latte_tpu_torch.kernels import ops  # noqa: E402,F401
 
 __all__ = [
     "flash_attention",

@@ -18,7 +18,10 @@ LN has no affine terms, eps 1e-6, fp32 two-pass statistics E[(x - mu)^2].
 x and delta are (B, N, D) contiguous; shift, scale and gate are (B, D) with a
 contiguous last axis (column chunks of the modulation output are fine) and
 broadcast over N. A wrapper launches the kernel its route names for CUDA
-tensors and runs the plain version for CPU tensors, nothing else.
+tensors and runs the plain version for CPU tensors, nothing else, through
+the custom ops ``latte_tpu_torch::ln_modulate`` and
+``::residual_ln_modulate`` (:mod:`latte_tpu_torch.kernels.ops`; the
+``launch_*`` functions are their CUDA registrations).
 
 Both are differentiable. As in the JAX package, whose backward is jnp and not
 Pallas, the backward is plain PyTorch in fp32 with the same saved residuals
@@ -94,10 +97,10 @@ def _check(x: torch.Tensor, rows, vecs) -> int:
         raise ValueError(f"D = {D} exceeds the kernel's {MAX_DIM}")
     if not all(t.is_contiguous() for t in (x, *rows)):
         raise ValueError("x (and delta) must be contiguous")
-    vec_strides = {t.stride(0) for t in vecs}
-    if any(t.stride(1) != 1 for t in vecs) or len(vec_strides) != 1:
+    vec_strides = [t.stride(0) for t in vecs]  # a list: symbolic strides do not hash
+    if any(t.stride(1) != 1 for t in vecs) or any(st != vec_strides[0] for st in vec_strides):
         raise ValueError("shift/scale/gate need a contiguous last axis and one row stride")
-    return vec_strides.pop()
+    return vec_strides[0]
 
 
 def adaln_route(x: torch.Tensor, rows, vecs) -> str:
@@ -118,10 +121,46 @@ def adaln_route(x: torch.Tensor, rows, vecs) -> str:
 
 
 def _ln_modulate_forward(x, shift, scale) -> torch.Tensor:
-    """The ln_modulate kernel (or, for CPU tensors, its plain version)."""
+    """The ln_modulate kernel (or, for CPU tensors, its plain version),
+    through the custom op ``latte_tpu_torch::ln_modulate``, each of whose
+    registrations validates the operands. On the card, outside
+    ``torch.export``, the op's CUDA registration is called directly: the
+    dispatcher's trip to a Python registration costs the host-bound sampler
+    its time, and the launch and its count are the same."""
+    if x.is_cuda and not torch.compiler.is_exporting():
+        return launch_ln_modulate(x, shift, scale)
+    return torch.ops.latte_tpu_torch.ln_modulate.default(x, shift, scale)
+
+
+def _residual_ln_modulate_forward(x, delta, gate, shift, scale):
+    """The residual_ln_modulate kernel (or, for CPU tensors, its plain
+    version), through the custom op ``latte_tpu_torch::residual_ln_modulate``
+    (on the card, outside an export, its CUDA registration directly; see
+    :func:`_ln_modulate_forward`)."""
+    if x.is_cuda and not torch.compiler.is_exporting():
+        return launch_residual_ln_modulate(x, delta, gate, shift, scale)
+    return torch.ops.latte_tpu_torch.residual_ln_modulate.default(x, delta, gate, shift, scale)
+
+
+def plain_ln_modulate(x, shift, scale) -> torch.Tensor:
+    """The ln_modulate op's CPU registration: the operands validated as the
+    kernel takes them, then :func:`ln_modulate_reference`."""
+    _check(x, (), (shift, scale))
+    return ln_modulate_reference(x, shift, scale)
+
+
+def plain_residual_ln_modulate(x, delta, gate, shift, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual_ln_modulate op's CPU registration (see
+    :func:`plain_ln_modulate`)."""
+    _check(x, (delta,), (gate, shift, scale))
+    return residual_ln_modulate_reference(x, delta, gate, shift, scale)
+
+
+def launch_ln_modulate(x, shift, scale) -> torch.Tensor:
+    """The ln_modulate op's CUDA registration: the kernel :func:`adaln_route`
+    names (it validates the operands), on the current stream; counts the
+    launch."""
     route = adaln_route(x, (), (shift, scale))
-    if x.device.type == "cpu":
-        return ln_modulate_reference(x, shift, scale)
     B, N, D = x.shape
     out = torch.empty_like(x)
     lib = build.load_library()
@@ -137,11 +176,10 @@ def _ln_modulate_forward(x, shift, scale) -> torch.Tensor:
     return out
 
 
-def _residual_ln_modulate_forward(x, delta, gate, shift, scale):
-    """The residual_ln_modulate kernel (or, for CPU tensors, its plain version)."""
+def launch_residual_ln_modulate(x, delta, gate, shift, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual_ln_modulate op's CUDA registration (see
+    :func:`launch_ln_modulate`)."""
     route = adaln_route(x, (delta,), (gate, shift, scale))
-    if x.device.type == "cpu":
-        return residual_ln_modulate_reference(x, delta, gate, shift, scale)
     B, N, D = x.shape
     y = torch.empty_like(x)
     out = torch.empty_like(x)

@@ -22,7 +22,11 @@ Pallas kernels of that file:
 logsumexp; the backward computes ``delta = rowsum(dO * O)`` in fp32 and
 launches the dQ and dK/dV kernels. Each kernel wrapper launches its kernel
 for CUDA tensors and runs its plain version for CPU tensors, nothing else:
-there is no fallback from one to the other.
+there is no fallback from one to the other. The forward is the custom op
+``latte_tpu_torch::flash_attention`` (:mod:`latte_tpu_torch.kernels.ops`:
+:func:`launch_forward` its CUDA registration, :func:`plain_forward` its CPU
+one), which the autograd functions call too; the backward kernels are
+called directly.
 """
 
 from __future__ import annotations
@@ -262,21 +266,42 @@ def backward_route(
 def _forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel (or, for CPU tensors, its plain version)."""
+    """The forward kernel (or, for CPU tensors, its plain version), through
+    the custom op ``latte_tpu_torch::flash_attention``
+    (:mod:`latte_tpu_torch.kernels.ops`), which ``torch.export`` keeps as
+    one node. Each of the op's registrations validates the operands. On the
+    card, outside an export, the op's CUDA registration is called directly
+    (the dispatcher's trip to a Python registration costs the host-bound
+    sampler its time; the launch and its count are the same)."""
+    if q.is_cuda and not torch.compiler.is_exporting():
+        out, lse = launch_forward(q, k, v, return_lse)
+    else:
+        out, lse = torch.ops.latte_tpu_torch.flash_attention.default(q, k, v, return_lse)
+    return out, (lse if return_lse else None)
+
+
+def plain_forward(q, k, v, return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The custom op's CPU registration: :func:`attention_reference`, out
+    contiguous, and an empty fp32 lse unless asked for."""
+    _check(q, k, v)
+    if return_lse:
+        out, lse = attention_reference(q, k, v, return_lse=True)
+        return out.contiguous(), lse
+    return attention_reference(q, k, v).contiguous(), q.new_empty((0,), dtype=torch.float32)
+
+
+def launch_forward(q, k, v, return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The custom op's CUDA registration: the kernel :func:`forward_route`
+    names (it validates the operands), on the current stream; counts the
+    launch."""
     route = forward_route(q, k, v)
-    if q.device.type == "cpu":
-        if return_lse:
-            return attention_reference(q, k, v, return_lse=True)
-        return attention_reference(q, k, v), None
     lib = build.load_library()
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    lse: Optional[torch.Tensor] = (
-        torch.empty((B * H, N), dtype=torch.float32, device=q.device) if return_lse else None
-    )
+    lse = torch.empty((B * H, N) if return_lse else (0,), dtype=torch.float32, device=q.device)
     args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, N, H, D,
+        lse.data_ptr() if return_lse else None, B, N, H, D,
         *(t.stride(i) for t in (q, k, v) for i in range(3)), float(D**-0.5),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -35,7 +35,9 @@ by ~3e-3, since one rounds bf16(p / l) and the other bf16(p) / l.
 
 The wrapper launches the kernel :func:`int8_route` names for CUDA tensors
 and runs the plain version for CPU tensors; there is no fallback from one
-to the other.
+to the other. Both go through the custom op
+``latte_tpu_torch::flash_attention_int8`` (:mod:`latte_tpu_torch.kernels.ops`;
+:func:`launch_int8` its CUDA registration, :func:`plain_int8` its CPU one).
 """
 
 from __future__ import annotations
@@ -242,12 +244,35 @@ def flash_attention_int8(
     quantize them as they load them. ``scale_block``: see the module
     docstring. ``flash_attention_int8.launches`` counts the kernel launches,
     ``.tc_launches`` those of the tensor-core kernel among them (see
-    :func:`int8_route`).
+    :func:`int8_route`). On the card, outside ``torch.export``, the custom
+    op's CUDA registration is called directly (see ``adaln._ln_modulate_forward``).
     """
+    if q.is_cuda and not torch.compiler.is_exporting():
+        return launch_int8(q, k, v, q_amax, k_amax, v_amax, bool(pv_int8), scale_block)
+    return torch.ops.latte_tpu_torch.flash_attention_int8.default(
+        q, k, v, q_amax, k_amax, v_amax, bool(pv_int8), scale_block
+    )
+
+
+def check_int8(q, k, v, q_amax, k_amax, v_amax, scale_block: Optional[int]) -> None:
+    """Validate the operands as the kernels take them (each of the custom
+    op's registrations runs this)."""
+    _check_qkv(q, k, v, scale_block)
+    _check_amax(q, k, v, (q_amax, k_amax, v_amax))
+
+
+def plain_int8(q, k, v, q_amax, k_amax, v_amax, pv_int8: bool, scale_block: Optional[int]) -> torch.Tensor:
+    """The custom op's CPU registration: :func:`int8_attention` in q's type,
+    contiguous."""
+    check_int8(q, k, v, q_amax, k_amax, v_amax, scale_block)
+    return int8_attention(q, k, v, q_amax, k_amax, v_amax, q.dtype, pv_int8, scale_block).contiguous()
+
+
+def launch_int8(q, k, v, q_amax, k_amax, v_amax, pv_int8: bool, scale_block: Optional[int]) -> torch.Tensor:
+    """The custom op's CUDA registration: the kernel :func:`int8_route`
+    names, on the current stream; counts the launch."""
     route = int8_route(q, k, v, pv_int8, scale_block)
     _check_amax(q, k, v, (q_amax, k_amax, v_amax))
-    if q.device.type == "cpu":
-        return int8_attention(q, k, v, q_amax, k_amax, v_amax, q.dtype, pv_int8, scale_block)
     lib = build.load_library()
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)

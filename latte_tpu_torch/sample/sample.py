@@ -46,7 +46,6 @@ Runs on ``cuda`` unless asked for the CPU::
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import time
 from typing import Optional
@@ -56,9 +55,9 @@ import torch
 
 from latte_tpu_torch.config import Config, load_config
 from latte_tpu_torch.convert import load_reference_checkpoint
-from latte_tpu_torch.core.block_cache import cached_sample_loop
+from latte_tpu_torch.core.block_cache import cached_step, run_cached_steps
 from latte_tpu_torch.core.diffusion import create_diffusion
-from latte_tpu_torch.core.samplers import ddim_sample_loop, p_sample_loop
+from latte_tpu_torch.core.samplers import cfg_model_fn, denoise_step, run_steps
 from latte_tpu_torch.dist.mesh import MeshConfig, barrier, setup
 from latte_tpu_torch.dist.sharding import tp_shard_state_dict
 from latte_tpu_torch.models import Latte, get_models
@@ -196,6 +195,70 @@ def build_model(config: Config, device: torch.device, ctx=None, moe_mesh=None) -
     return model.to(device=device, dtype=dtype).eval()
 
 
+def cfg_of(config: Config) -> tuple:
+    """``(use_cfg, cfg_scale)``: classifier-free guidance is on for a
+    class-conditional model (``extras: 2``) at ``cfg_scale`` > 1."""
+    cfg_scale = float(getattr(config, "cfg_scale", 1.0))
+    return int(getattr(config, "extras", 1)) == 2 and cfg_scale > 1.0, cfg_scale
+
+
+def cache_pairs(config: Config, depth: int) -> int:
+    """The block cache's pair k: ``block_cache_pairs``, by default 2/3 of
+    the model's pairs (rounded down); raises outside [1, pairs)."""
+    n_pairs = depth // 2
+    k = int(getattr(config, "block_cache_pairs", 0) or (n_pairs * 2) // 3)
+    if not 1 <= k < n_pairs:
+        raise ValueError(f"cache_pairs must be in [1, {n_pairs}), got {k}")
+    return k
+
+
+def sampler_step(model, config: Config, diffusion, depth: int):
+    """The configured sampler's step over ``model`` (the module, or any
+    callable taking its arguments): ``step(x, t, noise, y)`` -> next x, or
+    with the block cache ``step(x, t, noise, y, front)`` -> ``(next x,
+    front)`` (``front`` None: a full forward). x carries the CFG batch's
+    [cond | uncond] halves. The live loop (:func:`sample_loop`) and the
+    exported artifact (``serve.aot``) run this one construction."""
+    method = str(getattr(config, "sample_method", "ddpm")).lower()
+    use_cfg, cfg_scale = cfg_of(config)
+    if block_cache_interval(config):
+        k = cache_pairs(config, depth)
+
+        def cached(x, t, noise, y, front):
+            return cached_step(diffusion, model, x, t, noise, front, cache_pairs=k, y=y,
+                               cfg_scale=cfg_scale, ddim=method == "ddim")
+
+        return cached
+
+    model_fn = cfg_model_fn(model, cfg_scale) if use_cfg else model
+
+    def step(x, t, noise, y):
+        return denoise_step(diffusion, model_fn, method, x, t, noise, None if y is None else {"y": y})
+
+    return step
+
+
+def run_sampler(step, diffusion, x: torch.Tensor, y: Optional[torch.Tensor], *, interval: int, ddim: bool,
+                generator: Optional[torch.Generator] = None, noise_schedule=None) -> torch.Tensor:
+    """The timestep loop over a :func:`sampler_step` (or an exported one):
+    the standard loop, or with ``interval`` the block cache's schedule; each
+    step's noise by the loops' rule (``noise_schedule[t]``, else
+    ``generator``; the cached DDIM takes zeros)."""
+    if interval:
+        return run_cached_steps(lambda x, t, noise, front: step(x, t, noise, y, front), diffusion, x,
+                                interval, ddim, generator, noise_schedule)
+    return run_steps(lambda x, t, noise: step(x, t, noise, y), diffusion, x, generator, noise_schedule)
+
+
+def cfg_batch(use_cfg: bool, num_classes: int, z: torch.Tensor, y: Optional[torch.Tensor]):
+    """z and y as the sampler carries them: under CFG the [cond | uncond]
+    halves, the second half's labels the null class."""
+    if use_cfg:
+        z = torch.cat([z, z], dim=0)
+        y = torch.cat([y, torch.full_like(y, num_classes)], dim=0)
+    return z, y
+
+
 def sample_loop(
     model: Latte,
     config: Config,
@@ -213,28 +276,11 @@ def sample_loop(
     n = z.shape[0]
     diffusion = create_diffusion(str(config.num_sampling_steps))
     method = str(getattr(config, "sample_method", "ddpm")).lower()
-    cfg_scale = float(getattr(config, "cfg_scale", 1.0))
-    use_cfg = int(getattr(config, "extras", 1)) == 2 and cfg_scale > 1.0
-    if use_cfg:
-        # cond ∥ null-class halves
-        z = torch.cat([z, z], dim=0)
-        y = torch.cat([y, torch.full_like(y, model.num_classes)], dim=0)
-    interval = block_cache_interval(config)
+    z, y = cfg_batch(cfg_of(config)[0], model.num_classes, z, y)
+    step = sampler_step(model, config, diffusion, model.depth)
     with torch.inference_mode():
-        if interval:
-            n_pairs = model.depth // 2
-            k = int(getattr(config, "block_cache_pairs", 0) or (n_pairs * 2) // 3)
-            latents = cached_sample_loop(
-                diffusion, model, z, cache_pairs=k, cache_interval=interval, y=y,
-                cfg_scale=cfg_scale, sample_method=method, generator=generator,
-                noise_schedule=noise_schedule,
-            )
-        else:
-            model_fn = functools.partial(model.forward_with_cfg, cfg_scale=cfg_scale) if use_cfg else model
-            loop = ddim_sample_loop if method == "ddim" else p_sample_loop
-            kwargs = {} if y is None else {"y": y}
-            latents = loop(diffusion, model_fn, z, generator=generator, model_kwargs=kwargs,
-                           noise_schedule=noise_schedule)
+        latents = run_sampler(step, diffusion, z, y, interval=block_cache_interval(config), ddim=method == "ddim",
+                              generator=generator, noise_schedule=noise_schedule)
     return latents[:n]
 
 

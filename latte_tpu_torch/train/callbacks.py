@@ -21,7 +21,9 @@ class Callback:
         """After each log interval, with host-materialized metrics."""
 
     def on_checkpoint(self, step: int, path: str) -> None:
-        """After a checkpoint save has been issued."""
+        """After a checkpoint save has been issued. Under
+        ``async_checkpoint`` (the default) the file is complete only after
+        ``train.checkpoint.wait_for_saves()``, as in JAX."""
 
     def on_train_end(self, result: Dict[str, Any]) -> None:
         pass

@@ -15,11 +15,17 @@ it in the same format (the names carry no wrapper prefix; the optimizer's
 entries indexed as one process indexes them), and the others wait at a
 barrier; on load each rank takes its parts, a stage its blocks, whatever
 world size wrote the file.
+
+``save_checkpoint(..., block=False)`` is the trainer's ``async_checkpoint``
+(on by default, as in the JAX trainer): the state is copied to the host
+before the call returns and the file is written in a background thread;
+:func:`wait_for_saves` waits for it.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Dict, Optional
 
 import torch
@@ -27,11 +33,12 @@ import yaml
 
 from latte_tpu_torch.convert import load_reference_checkpoint
 from latte_tpu_torch.dist.mesh import barrier, is_main_process
-from latte_tpu_torch.dist.sharding import is_expert
+from latte_tpu_torch.dist.sharding import _local, is_expert
 from latte_tpu_torch.train.state import TrainState
 
 __all__ = [
     "save_checkpoint",
+    "wait_for_saves",
     "load_checkpoint",
     "restore_train_state",
     "latest_checkpoint",
@@ -41,9 +48,21 @@ __all__ = [
 ]
 
 
-def save_checkpoint(path: str, state: TrainState, args: Optional[Dict[str, Any]] = None, shards=None) -> str:
+def save_checkpoint(
+    path: str, state: TrainState, args: Optional[Dict[str, Any]] = None, shards=None, *, block: bool = True
+) -> str:
     """Write the whole train state to ``path``; atomic (a reader never sees
-    a partial file). With ``shards`` every rank must call it."""
+    a partial file). With ``shards`` every rank must call it.
+
+    ``block=False`` (the trainer's ``async_checkpoint``, as in JAX): the
+    state is copied to the host before the call returns, so the next
+    optimizer step may change it at once, and rank 0's ``torch.save`` runs
+    in a background thread. At most one write is in flight: a call first
+    waits for the last one. Call :func:`wait_for_saves` before reading the
+    file or exiting; an error of the background write is raised there or by
+    the next call. Under ``shards`` the gathers stay collective and
+    synchronous; only rank 0's write leaves the step loop."""
+    wait_for_saves()
     if shards is None:
         model, ema, opt = state.model.state_dict(), state.ema.state_dict(), state.optimizer.state_dict()
     else:
@@ -52,12 +71,71 @@ def save_checkpoint(path: str, state: TrainState, args: Optional[Dict[str, Any]]
     if is_main_process():
         payload = {"model": model, "ema": ema, "opt": opt, "step": int(state.step), "args": dict(args or {})}
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        if block:
+            _write(path, payload)
+        else:
+            payload = _snapshot(payload, _live_storages(state))
+            _WRITER["thread"] = threading.Thread(target=_write_in_background, args=(path, payload),
+                                                 name="latte-checkpoint-writer", daemon=True)
+            _WRITER["thread"].start()
+        del payload
     del model, ema, opt
     barrier()
     return path
+
+
+# the background write in flight, and the error of the last one
+_WRITER: Dict[str, Any] = {"thread": None, "error": None}
+
+
+def _write(path: str, payload: dict) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _write_in_background(path: str, payload: dict) -> None:
+    try:
+        _write(path, payload)
+    except Exception as e:  # raised by the caller's next wait
+        _WRITER["error"] = (path, e)
+
+
+def _live_storages(state: TrainState) -> set:
+    """The addresses of the train state's host storages: the model's, the
+    EMA's and the optimizer's CPU tensors (its ``step`` counters among them,
+    even in a CUDA run), which the next step changes in place."""
+    tensors = [*state.model.state_dict().values(), *state.ema.state_dict().values(),
+               *(v for st in state.optimizer.state.values() for v in st.values() if isinstance(v, torch.Tensor))]
+    return {_local(t).untyped_storage().data_ptr() for t in tensors if t.device.type == "cpu"}
+
+
+def _snapshot(obj, live: set):
+    """A copy of the payload on the host that shares no storage with the
+    live state: CUDA tensors copied to the host, CPU tensors whose storage
+    is in ``live`` cloned (a gather's own host copies are kept as they are)."""
+    if isinstance(obj, torch.Tensor):
+        if obj.device.type != "cpu":
+            return obj.detach().to("cpu")
+        return obj.detach().clone() if _local(obj).untyped_storage().data_ptr() in live else obj.detach()
+    if isinstance(obj, dict):
+        return type(obj)((k, _snapshot(v, live)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_snapshot(v, live) for v in obj)
+    return obj
+
+
+def wait_for_saves() -> None:
+    """Block until the background checkpoint write (if any) is on disk;
+    raise its error, if it had one."""
+    thread = _WRITER["thread"]
+    if thread is not None:
+        thread.join()
+        _WRITER["thread"] = None
+    if _WRITER["error"] is not None:
+        path, err = _WRITER["error"]
+        _WRITER["error"] = None
+        raise RuntimeError(f"the background write of checkpoint {path} failed: {err!r}") from err
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -12,7 +12,10 @@ the checkpoint. The kernels of
 ``latte_tpu_torch/kernels`` carry every attention and adaLN forward, and
 the flash-attention backward. It syncs with the host once per
 ``log_every`` steps, writes a checkpoint every ``ckpt_every`` steps and at
-the end, and resumes from ``resume_from_checkpoint``.
+the end, and resumes from ``resume_from_checkpoint``. The step loop's
+checkpoints are written in a background thread after a copy to the host
+(``async_checkpoint``, default true as in the JAX trainer); the final one
+blocks, and every exit path waits for the write in flight.
 
 It trains the video model (``Latte-*``) and the joint video-image model
 (``LatteIMG-*`` with ``use_image_num`` still images behind the video frames),
@@ -90,6 +93,7 @@ from latte_tpu_torch.train.checkpoint import (
     load_pretrained,
     restore_train_state,
     save_checkpoint,
+    wait_for_saves,
 )
 from latte_tpu_torch.train.state import (
     create_train_state,
@@ -505,13 +509,35 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion
     )
-    loss_aware = isinstance(schedule_sampler, LossAwareSampler)
 
     log_every = int(getattr(config, "log_every", 100))
     ckpt_every = int(getattr(config, "ckpt_every", 10000))
+    # the step loop's saves write in the background (JAX's default)
+    async_ckpt = bool(getattr(config, "async_checkpoint", True))
     args = config.to_dict() if isinstance(config, Config) else dict(config)
     generator = torch.Generator(device=dev)
     cbs.on_train_start(config, state, experiment_dir)
+    try:
+        result = _train_loop(
+            config, state, cbs, batches, train_step, schedule_sampler, generator, logger, dev, ctx, shards, args,
+            ckpt_dir=ckpt_dir, seed=seed, start_step=start_step, max_steps=max_steps, local_batch=local_batch,
+            grad_accum=grad_accum, log_every=log_every, ckpt_every=ckpt_every, async_ckpt=async_ckpt,
+        )
+    finally:
+        # on every exit path the write in flight reaches the disk, and no
+        # writer thread outlives the run (a failed write raises here)
+        wait_for_saves()
+    barrier()
+    result = {"experiment_dir": experiment_dir, **result}
+    cbs.on_train_end(result)
+    return result
+
+
+def _train_loop(config, state, cbs, batches, train_step, schedule_sampler, generator, logger, dev, ctx, shards, args,
+                *, ckpt_dir, seed, start_step, max_steps, local_batch, grad_accum, log_every, ckpt_every,
+                async_ckpt) -> dict:
+    """The step loop and its checkpoints; the final checkpoint blocking."""
+    loss_aware = isinstance(schedule_sampler, LossAwareSampler)
     running, t_start = 0, time.perf_counter()
     last_metrics: dict = {}
     stop_step, last_ckpt_step = max_steps, None
@@ -546,19 +572,20 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
                 break
             running, t_start = 0, time.perf_counter()
         if (step_idx + 1) % ckpt_every == 0:
-            path = save_checkpoint(os.path.join(ckpt_dir, f"{step_idx + 1:07d}.pt"), state, args, shards)
+            path = save_checkpoint(os.path.join(ckpt_dir, f"{step_idx + 1:07d}.pt"), state, args, shards,
+                                   block=not async_ckpt)
             last_ckpt_step = step_idx + 1
-            logger.info(f"saved checkpoint {path}")
+            logger.info(f"saved checkpoint {path}" + (" (writing in the background)" if async_ckpt else ""))
             cbs.on_checkpoint(step_idx + 1, path)
 
-    # a final checkpoint unless that step was just saved or nothing trained
+    # a final checkpoint unless that step was just saved or nothing trained;
+    # the write in flight lands first, as in JAX
+    wait_for_saves()
     if last_ckpt_step != stop_step and stop_step > start_step:
         path = save_checkpoint(os.path.join(ckpt_dir, f"{stop_step:07d}.pt"), state, args, shards)
         logger.info(f"saved checkpoint {path}")
         cbs.on_checkpoint(stop_step, path)
-    result = {"experiment_dir": experiment_dir, "final_step": stop_step, **last_metrics}
-    cbs.on_train_end(result)
-    return result
+    return {"final_step": stop_step, **last_metrics}
 
 
 def gather_rows(x: torch.Tensor, ctx, chunks: int = 1) -> torch.Tensor:

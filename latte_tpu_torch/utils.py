@@ -1,9 +1,12 @@
-"""Logging, experiment directories, device choice and video reading and
-writing for the port's entry points (counterpart of ``latte_tpu/utils.py``)."""
+"""Logging, experiment directories, device choice, video reading and
+writing, and construction by dotted name for the port's entry points
+(counterpart of ``latte_tpu/utils.py``)."""
 
 from __future__ import annotations
 
+import importlib
 import logging
+import math
 import os
 from typing import Optional
 
@@ -108,3 +111,40 @@ def read_video(path: str, max_frames: Optional[int] = None) -> np.ndarray:
 def to_uint8(video: np.ndarray) -> np.ndarray:
     """[-1, 1] float video -> uint8 (truncating, as the JAX package does)."""
     return (np.clip((video + 1.0) / 2.0, 0, 1) * 255).astype(np.uint8)
+
+
+def save_video_grid(path: str, videos: np.ndarray, fps: int = 8, ncols: Optional[int] = None) -> None:
+    """(B, F, H, W, 3) uint8 videos -> one mp4 of a grid of them, ``ncols``
+    wide (default ceil(sqrt(B))), the empty cells black."""
+    b, f, h, w, c = videos.shape
+    ncols = ncols or int(math.ceil(math.sqrt(b)))
+    nrows = int(math.ceil(b / ncols))
+    pad = nrows * ncols - b
+    if pad:
+        videos = np.concatenate([videos, np.zeros((pad, f, h, w, c), videos.dtype)], axis=0)
+    grid = videos.reshape(nrows, ncols, f, h, w, c)
+    grid = grid.transpose(2, 0, 3, 1, 4, 5).reshape(f, nrows * h, ncols * w, c)
+    save_video(path, grid, fps=fps)
+
+
+def get_obj_by_name(name: str):
+    """The object at a dotted path such as ``latte_tpu_torch.models.Latte``;
+    raises ``ImportError`` when no module prefix and attribute chain resolve."""
+    parts = name.split(".")
+    for split in range(len(parts) - 1, 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:split]))
+        except ImportError:
+            continue
+        try:
+            for attr in parts[split:]:
+                obj = getattr(obj, attr)
+            return obj
+        except AttributeError:
+            continue
+    raise ImportError(f"cannot resolve {name!r}")
+
+
+def construct_class_by_name(class_name: str, *args, **kwargs):
+    """Instantiate a class from its dotted name (config-driven construction)."""
+    return get_obj_by_name(class_name)(*args, **kwargs)

@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_nothing_of_latte_tpu():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('vae.autoencoder_kl', 'data.datasets', 'data.video_transforms', 'tools.cache_latents',\n"
-        "          'core.block_cache', 'sample.sample_many', 'models.dit_img', 'train.trainer'):\n"
+        "          'core.block_cache', 'sample.sample_many', 'models.dit_img', 'train.trainer',\n"
+        "          'serve.aot', 'serve.export_aot', 'kernels.ops', 'stats', 'diagnostics', 'profiling',\n"
+        "          'persistence'):\n"
         "    assert 'latte_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latte_tpu'))\n"
         "print(len([m for m in sys.modules if m.startswith('latte_tpu_torch')]), bad)\n"

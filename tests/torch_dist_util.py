@@ -370,3 +370,47 @@ def eval_stats_run(rank: int, world: int, config_path: str, overrides, real: str
         frames=metrics._frame_stats(fake, det, kw["frames"], batch_size=kw["frame_batch"], capture_all=True),
     )
     torch.save({"clips": clips, "stats": {k: v.__dict__ for k, v in stats.items()}}, f"{out}.{rank}")
+
+
+def support_run(rank: int, world: int, out: str) -> None:
+    """``stats.Collector`` over gloo (each rank its own reports) and
+    ``diagnostics.check_params_consistency`` on a replicated module, then
+    with rank 1's tensor nudged; each rank writes what it saw."""
+    import json
+
+    from latte_tpu_torch import diagnostics, stats
+
+    join_cpu()
+    rng = torch.Generator().manual_seed(rank)
+    stats.reset()
+    stats.report("loss", torch.randn(5 + rank, generator=rng, dtype=torch.float64))
+    stats.report0("only0", [1.0, 2.0, 4.0])
+    stats.report("x", 3.0 + rank)
+    col = stats.Collector(regex="loss|only0|x")
+    col.update()
+    torch.manual_seed(0)
+    layer = torch.nn.Linear(4, 3)
+    seen = {"stats": col.as_dict(), "consistent": diagnostics.check_params_consistency(layer)}
+    with torch.no_grad():
+        if rank == 1:
+            layer.bias[1] += 1e-6
+    try:
+        diagnostics.check_params_consistency(layer)
+        seen["nudged"] = None
+    except AssertionError as e:
+        seen["nudged"] = str(e)
+    with open(os.path.join(out, f"support{rank}.json"), "w") as f:
+        json.dump(seen, f)
+
+
+def aot_tp_run(rank: int, world: int, paths, state_path: str, z_path: str, out: str) -> None:
+    """Each tensor-parallel artifact of ``paths`` loaded and called with the
+    whole state dict on this rank (the loader keeps the rank's part); the
+    latents to ``out/aot<i>.<rank>.pt``."""
+    from latte_tpu_torch.serve import aot
+
+    join_cpu()
+    state, z = torch.load(state_path), torch.load(z_path)
+    for i, path in enumerate(paths):
+        call = aot.load_sampler(path)
+        torch.save(call(state, z), os.path.join(out, f"aot{i}.{rank}.pt"))
