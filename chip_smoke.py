@@ -5,9 +5,10 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py serve ckpt`` runs the build and phase 5g alone, and
-a one-process ffs_train checkpoint written in the background and then
-blocking, timed; see ``alone``.)
+(``python3 chip_smoke.py [serve] [ckpt] [t2vgrad]`` runs the build, then
+for "serve" phase 5g alone, for "ckpt" a one-process ffs_train checkpoint
+written in the background and then blocking, timed, for "t2vgrad" phase 5h
+with the backward kernels' T2V cases; see ``alone``.)
 
 Phases, each printed with its seconds; any failure ends the script with a
 non-zero exit and a traceback:
@@ -48,7 +49,9 @@ non-zero exit and a traceback:
    in bf16 at both shapes, at the mixed-precision trainer's batch 5, at a
    ragged N and at a misaligned layout, in fp32 at the spatial shape, at
    the training config's batch 5 (spatial and temporal), at a ragged N, at
-   a temporal N = 40 and at a misaligned layout, with the backward of
+   a temporal N = 40 and at a misaligned layout, and in both dtypes at
+   LatteT2V 512^2's N = 1024 and N = 16 (T2V_BWD_SHAPES; each case names
+   the source's kernel that took it, spatial or temporal), with the backward of
    scaled_dot_product_attention as the yardstick. Each takes the route it
    names: bf16 the tensor-core kernels, also held to the bit against the
    plain versions (all but 1% of the outputs), fp32 the register-tiled fp32
@@ -106,14 +109,14 @@ non-zero exit and a traceback:
    of another kernel; s a video to latents and with decode (median of
    prompts 2-3), peak memory. On the same seeded weights: one CFG forward
    against the plain bf16 and fp32 paths (cosine >= 0.999, error <= 1.25x
-   the plain bf16 path's + 1e-3) and the DDIM-50 latents of prompt 1
-   against the plain path's (cosine >= 0.99); one profiled DDIM step by
+   the plain bf16 path's + 1e-3) and prompt 1's DDIM-10 latents
+   (T2V_PLAIN_STEPS) against the plain path's (cosine >= 0.99); one profiled DDIM step by
    kind (the cross-attention, plain torch as in JAX, a kind of its own) and
    its idle share; t2i_sample.yaml as shipped (a 512^2 png, B1 1400, B2
    1450, B3 1400); the block cache at interval 2 (18 of 28 pairs: B1 and
    B3 1900, B2 1950; its latent cosine against the exact run) and at
-   interval 1 equal to the exact loop to the bit; ``quantized: true`` (one
-   CFG forward against the bf16 one, cosine >= 0.99; DDIM-10 seconds beside
+   interval 1 equal to the exact DDIM-10 loop to the bit; ``quantized: true`` (one
+   CFG forward against the bf16 one, cosine >= 0.99; DDIM-5 seconds beside
    bf16's; one int8 DDIM step profiled by kind); B2 and B3 on the operands
    one CFG forward hands them (pair 0's spatial and temporal norms, the
    spatial norm3's unit gate, norm_out) on the vector route against their
@@ -159,6 +162,31 @@ non-zero exit and a traceback:
    (1400 tensor-core launches of B6, the calibrated state dict), each
    exported, loaded and equal to the live sampler to the bit. Prints a
    ``serve: {...}`` line, and every kernel row gets ``launches_serve``;
+5h. diffusion and t2v grad (after 5e, from phase 5's checkpoint and
+   latents; ``diffusion_t2v_grad_phase``): (a) on Latte-XL/2 in bf16, each
+   on the kernel path and on the plain path of the same weights
+   (``set_plain``; latents at cosine >= 0.99, 1400 launches of each of
+   B1-B3 a loop on the tensor-core and vector routes): the DDIM-50
+   inversion of phase 5's latents (``ddim_reverse_loop``) and the DDIM-50
+   back from it, a DDIM-50 guided by the analytic classifier gradient
+   -GUIDE_SCALE·(x - phase 5's latents) (``cond_fn``), and the bits-per-dim
+   loop over a 50-step engine (its vb and eps terms at cosine >= 0.99, the
+   per-step relative differences printed); one ``use_kl`` gradient of the
+   fp32 ffs_train.yaml model at batch 1 under full remat against the plain
+   path (cosine >= 0.999, STEP_LAUNCHES on the fp32 and vector routes).
+   (b) LatteT2V at t2v_sample.yaml's width at batch 1 (seeded init, a
+   120-token caption 4096 wide): the hybrid loss's gradient under "full"
+   remat in fp32 against the plain path under the same remat (cosine >=
+   0.999) and in bf16 (B4/B5 on the tensor cores), with seconds, peak
+   memory and launches (``t2v_grad_launches``: B1 112, B2 113, B3 112, B4
+   and B5 56); 4 pairs without remat, under "full" and under "dots" on the
+   same weights (bit-equal or the largest relative difference, peak memory
+   each), and no remat at 28 pairs run only if its projected peak fits
+   the card. Prints a ``diffusion_t2v_grad: {...}`` line; every kernel row
+   gets ``launches_diffusion`` and ``launches_t2v_grad``. The backward
+   kernels' T2V cases (T2V_BWD_SHAPES, N = 1024 and 16) run in phase 3.
+   Alone: ``python3 chip_smoke.py t2vgrad`` (the build, the T2V backward
+   cases, a seeded checkpoint, a DDIM-50 through ``sample.main``, then 5h);
 6. train: (a) one full-width train step (fp32, batch 1, gradient
    checkpointing) on the kernel path against the plain path from the same
    weights, t and noise, and the same in mixed precision; (b) the entry
@@ -254,10 +282,10 @@ non-zero exit and a traceback:
    and backward) timed by CUDA events. (c) ``sample.main`` on
    ffs_sample.yaml with ``moe_experts: 8``, DDIM-50, batch 1, bf16, from a
    checkpoint of seeded random weights: 1400 launches of B1, B2, B3 on the
-   tensor-core and vector routes, finite latents, s a video (median of 3),
-   the idle share of a profiled DDIM-10, each MoE part timed alone at the
-   spatial and temporal shapes, the latents against the plain path's
-   (cosine >= 0.99), ``quantized: static`` refused. (d)
+   tensor-core and vector routes, finite latents, s a video (one more
+   run), the idle share of a profiled DDIM-10, each MoE part timed alone at
+   the spatial and temporal shapes, that DDIM-10's latents against the
+   plain path's (cosine >= 0.99), ``quantized: static`` refused. (d)
    ``sample_t2x.main`` on configs/t2x/t2v_sample.yaml as shipped with
    ``moe_experts=8`` at DDIM-10 (three prompts, CFG): launches
    (``t2v_launches(28, 30)``), finite latents, s a step, peak memory with
@@ -365,13 +393,14 @@ non-zero exit and a traceback:
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``eval: {...}``, ``serve: {...}``, ``t2v: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp:
-{...}``, ``dist: {...}``), the total seconds,
+{...}``, ``eval: {...}``, ``serve: {...}``, ``t2v: {...}``, ``diffusion_t2v_grad: {...}``, ``moe: {...}``,
+``text: {...}``, ``tp_sp: {...}``, ``pp: {...}``, ``dist: {...}``), the total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
 phase 10a's and the tp and sp runs' launches, ``launches_ring``, ``launches_tp`` and
 ``launches_sp`` (``tp_sp_launches``), phase 10b's and the 4-GPU pp runs' launches,
 ``launches_pp`` (``pp_launches``), phase 5f's FVD from the sampler's, ``launches_eval``,
-phase 5g's artifact runs, ``launches_serve``,
+phase 5g's artifact runs, ``launches_serve``, phase 5h's, ``launches_diffusion`` and
+``launches_t2v_grad``,
 phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
 B1, B2, B3 with ``launches_t2v``, ``launches_t2i`` and
@@ -580,6 +609,12 @@ FLASH_SHAPES = {
     "temporal_b5": (TRAIN_BATCH * TOKENS, FRAMES, 0),
     "spatial_misaligned": (FRAMES, TOKENS, 1),
 }
+T2V_BWD_SHAPES = {
+    "t2v": (FRAMES, 1024, torch.bfloat16, 0),
+    "t2v_temporal": (1024, FRAMES, torch.bfloat16, 0),
+    "t2v_fp32": (FRAMES, 1024, torch.float32, 0),
+    "t2v_temporal_fp32": (1024, FRAMES, torch.float32, 0),
+}
 # the backward kernels' cases: (rows, tokens, dtype, storage offset in
 # elements). b5 is the trainer's batch 5: in bf16 the mixed-precision
 # trainer's shapes (spatial_b5 is the JSON line's row), in fp32 the training
@@ -601,6 +636,9 @@ BWD_SHAPES = {
     "ragged_fp32": (FRAMES, 200, torch.float32, 0),
     "temporal_ragged_fp32": (FRAMES, 40, torch.float32, 0),
     "spatial_b5_fp32_misaligned": (TRAIN_BATCH * FRAMES, TOKENS, torch.float32, 1),
+    # LatteT2V 512^2 at batch 1 (the gradient of phase 5h): 16 frames of
+    # N = 1024 spatially, 1024 patches of N = 16 temporally
+    **T2V_BWD_SHAPES,
 }
 # the attention forward in fp32: (rows, tokens, storage offset in elements).
 # batch 1 (the sampler with use_fp16: false) and the training config's batch
@@ -625,8 +663,9 @@ FLASH_FP32_SHAPES = {
 # pairs of runs in one process, a kernel's own route against its first
 # version forced: DDIM-50 runs (phases 5, 7c), and steps in fp32 after the
 # resume (phase 6b) and in mixed precision after its TRAIN_STEPS steps (6c);
-# 2, and BC_TIMED_PAIRS 3, keep the whole script well inside its time limit
-ROUTE_PAIRS = 2
+# 1 (2 until the script neared its time limit), and BC_TIMED_PAIRS 1, keep
+# the whole script inside it
+ROUTE_PAIRS = 1
 # phase "block cache": bench.py:580's setting, also the sampler's default
 # (14·2)//3 pairs. A DDIM-50 runs 25 full forwards and 25 of the back 5
 # pairs (10 blocks): 950 launches of each per-block kernel, 0.679 of 1400
@@ -636,9 +675,10 @@ BC_LAUNCHES = BC_FULL * DEPTH + (BC_STEPS - BC_FULL) * (DEPTH - 2 * BC_PAIRS)
 # the block cache's latents against the exact sampler's: cosine above
 # tests/test_block_cache.py:135's bound
 BC_COSINE = 0.9
-# pairs of DDIM-50 runs, block cache against exact: the host's speed drifts
-# by up to 2x between runs on a shared host, so more than ROUTE_PAIRS
-BC_TIMED_PAIRS = 3
+# pairs of DDIM-50 runs, block cache against exact (the host's speed drifts
+# by up to 2x between runs on a shared host: 3 until the script neared its
+# time limit)
+BC_TIMED_PAIRS = 1
 # phase "sample many": batch 2, 3 videos asked for (rounded up to 4)
 MANY_BATCH, MANY_SAMPLES = 2, 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -647,7 +687,11 @@ FFS_CONFIG = os.path.join(ROOT, "configs", "ffs", "ffs_sample.yaml")
 # frames at 512^2, DDIM-50, CFG 7.5, bf16), on seeded random weights
 T2V_CONFIG = os.path.join(ROOT, "configs", "t2x", "t2v_sample.yaml")
 T2I_CONFIG = os.path.join(ROOT, "configs", "t2x", "t2i_sample.yaml")
-T2V_INT8_STEPS = 10
+T2V_INT8_STEPS = 5  # 10 until the script neared its time limit
+# DDIM steps of the t2v phase's kernels-against-plain latents and of its
+# block cache at interval 1 against the exact loop (t2v_sample.yaml's 50,
+# cut for the script's time limit)
+T2V_PLAIN_STEPS = 10
 # the block cache every 2nd call, at the pipeline's default (28·2)//3 = 18
 # pairs cached: 25 full forwards and 25 of the back 10 pairs
 T2V_BC_INTERVAL = 2
@@ -1372,15 +1416,27 @@ def check_kernels(device, timer) -> dict:
                   f"ms, device {r['cuda_core_device_ms']:.4f} ms", flush=True)
         del case
         torch.cuda.empty_cache()
-    for shape, (rows, n, dtype, offset) in BWD_SHAPES.items():
+    check_backward(BWD_SHAPES, device, gen, timer, results)
+    return results
+
+
+def check_backward(shapes: dict, device, gen, timer, results: dict) -> None:
+    """The dQ and dK/dV kernels at ``shapes`` (BWD_SHAPES' form) into
+    ``results[name][shape]``, each with its route and, on the tensor-core
+    and fp32 routes, which of the source's kernels takes N: "spatial" (N >
+    64, streamed 64-row tiles) or "temporal" (N <= 64, a sequence a warp or
+    thread group)."""
+    for shape, (rows, n, dtype, offset) in shapes.items():
         bf16 = dtype == torch.bfloat16
         tol, route = (BF16_TOL, "tensor_core") if bf16 else (FP32_TOL, "fp32_tiled")
         want = "cuda_core" if offset * dtype.itemsize % 16 else route
         for name, case in backward_cases(rows, n, device, gen, dtype, offset).items():
             label = f"{shape} B*H={rows * HEADS} N={n} offset={offset}"
-            results[name][shape] = measure_backward(name, label, case, tol, timer, want)
+            r = results[name][shape] = measure_backward(name, label, case, tol, timer, want)
+            if want != "cuda_core":
+                r["kernel"] = "spatial" if n > 64 else "temporal"
+                print(f"  {name} {label}: {want} route, its {r['kernel']} kernel", flush=True)
         torch.cuda.empty_cache()
-    return results
 
 
 TC_SOURCES = ("flash_attention_tc.cu", "flash_attention_bwd_tc.cu", "flash_attention_int8_tc.cu")
@@ -2786,16 +2842,20 @@ def t2v_phase(tmp: str, smi: str, device, timer) -> dict:
             and vs32["rel_l2"] <= 1.25 * plain_vs32["rel_l2"] + 1e-3):
         raise AssertionError("the t2v kernel path disagrees with the plain fp32 path")
     del out_p16, out_p32
+    # prompt 1's latents on the kernels against the plain path's, at
+    # T2V_PLAIN_STEPS (the plain DDIM-50 alone took 38 s of the phase)
+    run_short = {**run, "num_inference_steps": T2V_PLAIN_STEPS}
+    lat_short = LattePipeline(model, get_scheduler("DDIM"), stub).sample_latents(prompts[0], **run_short)
     t0 = time.perf_counter()
-    ref = LattePipeline(plain16, get_scheduler("DDIM"), stub).sample_latents(prompts[0], **run)
+    ref = LattePipeline(plain16, get_scheduler("DDIM"), stub).sample_latents(prompts[0], **run_short)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     del plain16
     torch.cuda.empty_cache()
-    lat_vs_plain = compare(f"t2v DDIM-{steps} latents of prompt 1, entry point vs plain path",
-                           records[0]["latents"], ref.float().cpu())
+    lat_vs_plain = compare(f"t2v DDIM-{T2V_PLAIN_STEPS} latents of prompt 1, kernels vs plain path",
+                           lat_short.float().cpu(), ref.float().cpu())
     if not lat_vs_plain["cosine"] >= 0.99:
-        raise AssertionError("the t2v DDIM-50 latents disagree with the plain path's")
+        raise AssertionError(f"the t2v DDIM-{T2V_PLAIN_STEPS} latents disagree with the plain path's")
 
     # 3. one DDIM step profiled: the CFG forward and the scheduler's update
     sched = pipe.scheduler
@@ -2836,8 +2896,8 @@ def t2v_phase(tmp: str, smi: str, device, timer) -> dict:
     bc_vs_exact = compare(f"t2v block-cache latents vs the exact DDIM-{steps}", lat_bc.float().cpu(),
                           records[0]["latents"])
     one = LattePipeline(model, get_scheduler("DDIM"), stub, block_cache_interval=1).sample_latents(
-        prompts[0], **run)
-    interval1_exact = torch.equal(one.float().cpu(), records[0]["latents"])
+        prompts[0], **run_short)
+    interval1_exact = torch.equal(one, lat_short)
     print(f"  t2v block cache: {bc_s:.4f} s a video to latents against the exact {lat_s:.4f}; "
           f"interval 1 equal to the exact loop to the bit: {interval1_exact}", flush=True)
     if not interval1_exact:
@@ -2852,15 +2912,15 @@ def t2v_phase(tmp: str, smi: str, device, timer) -> dict:
     int8_vs_bf16 = compare("t2v int8 forward vs the bf16 kernel forward", out_q, out_k)
     if not (int8_vs_bf16["finite"] and int8_vs_bf16["cosine"] >= 0.99):
         raise AssertionError("the t2v int8 forward disagrees with the bf16 forward")
-    ddim10 = {}
+    short = {}
     for name, m in (("bf16", model), ("int8", qmodel)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         LattePipeline(m, get_scheduler("DDIM"), stub).sample_latents(
             prompts[1], **{**run, "num_inference_steps": T2V_INT8_STEPS})
         torch.cuda.synchronize()
-        ddim10[name] = time.perf_counter() - t0
-    print(f"  t2v DDIM-{T2V_INT8_STEPS} s: {json.dumps(ddim10)}", flush=True)
+        short[name] = time.perf_counter() - t0
+    print(f"  t2v DDIM-{T2V_INT8_STEPS} s: {json.dumps(short)}", flush=True)
     qpipe = LattePipeline(qmodel, get_scheduler("DDIM"), stub)
 
     def int8_step():
@@ -2883,15 +2943,338 @@ def t2v_phase(tmp: str, smi: str, device, timer) -> dict:
         prompt_seconds=[(r["latents_s"], r["decode_s"]) for r in records], main_s=main_s,
         peak_gib=peak / 2**30, launches=launches, forward_ms=fwd_ms,
         forward=dict(vs_plain_bf16=vs_plain, vs_plain_fp32=vs32, plain_bf16_vs_fp32=plain_vs32),
-        latents_vs_plain=lat_vs_plain, plain_ddim50_s=plain_s, step_ms=step_ms, step_profile=profile,
+        latents_vs_plain=lat_vs_plain, plain_short_s=plain_s, step_ms=step_ms, step_profile=profile,
         t2i=dict(path=os.path.basename(rec_i["path"]), launches=t2i_launches,
                  latents_s=rec_i["latents_s"], decode_s=rec_i["decode_s"]),
         block_cache=dict(pairs=bc_pairs, interval=T2V_BC_INTERVAL, launches=bc_launches, s=bc_s,
                          vs_exact=bc_vs_exact, interval1_exact=interval1_exact),
-        int8=dict(vs_bf16=int8_vs_bf16, ddim10_s=ddim10, step_ms=int8_step_ms,
-                  step_profile=int8_profile),
+        int8=dict(vs_bf16=int8_vs_bf16, ddim_short_s=short, ddim_short_steps=T2V_INT8_STEPS,
+                  step_ms=int8_step_ms, step_profile=int8_profile),
         adaln=adaln_checks, b1=b1,
     )
+
+
+# phase "diffusion and t2v grad": the diffusion engine's second half on
+# Latte-XL/2, and LatteT2V's gradient under gradient checkpointing
+DIFF_STEPS = 50  # the engine of the phase's diffusion runs: ffs_sample.yaml's DDIM-50 ("50")
+GUIDE_SCALE = 0.5  # s of the analytic classifier gradient -s·(x - target)
+KL_T = 137  # the timestep of the KL-loss gradient (train parity's)
+T2V_GRAD_T = 500  # the timestep of the LatteT2V gradient
+T2V_CAPTION = 120  # caption tokens of the T2V gradient (t2v_sample.yaml's T5 length), 4096 wide
+T2V_CAPTION_KEPT = 80  # of them unmasked
+REMAT_PAIRS = 4  # LatteT2V's depth of the remat-against-none comparison
+BF16_GRAD_COSINE = 0.99  # the bf16 T2V gradient against the fp32 one
+
+
+def loop_launches(steps: int) -> dict:
+    """B1-B3 once a block of a Latte-XL/2 forward, ``steps`` forwards."""
+    return {k: steps * DEPTH if k in FORWARD else 0 for k in KERNELS}
+
+
+def on_both_paths(model, label: str, fn, want: dict) -> tuple:
+    """``fn()`` on the kernel path (launches ``want``, B1 on the tensor
+    cores, B2/B3 on the vector route) and on the plain path of the same
+    weights (no launch): (kernel result, plain result, (kernel s, plain
+    s), the kernel path's launches)."""
+    out, secs = [], []
+    for plain in (False, True):
+        set_plain(model, plain)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out.append(fn())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if plain:
+            if any(counts().values()):
+                raise AssertionError(f"{label}, plain path: kernel launches {counts()}")
+        else:
+            launches = expect_launches(label, want)
+    set_plain(model, False)
+    print(f"  {label}: {secs[0]:.3f} s on the kernels, {secs[1]:.3f} s on the plain path", flush=True)
+    return out[0], out[1], secs, launches
+
+
+def diffusion_runs(ckpt: str, lat_bf16, device) -> dict:
+    """(a) On phase 4's Latte-XL/2 weights in bf16 (phase 5's checkpoint):
+    DDIM-50 inversion of phase 5's latents and DDIM-50 back, a DDIM-50
+    guided by an analytic classifier gradient, and the bits-per-dim loop
+    over a 50-step engine, each on the kernel path and the plain path
+    (latents at cosine >= 0.99, the sampler's gate; the bound's per-step
+    terms likewise, their relative difference printed), 1400 launches of
+    each of B1-B3 a loop. Then one KL-loss gradient (use_kl) of the fp32
+    ffs_train.yaml model at batch 1 under "full" remat against the plain
+    path (cosine >= 0.999, train parity's gate)."""
+    from latte_tpu_torch.core.samplers import ddim_reverse_loop, ddim_sample_loop
+
+    with torch.device(device):
+        model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES)
+    model.load_state_dict(find_model(ckpt))
+    model.to(torch.bfloat16).eval()
+    diffusion = create_diffusion(str(DIFF_STEPS))
+    want = loop_launches(DIFF_STEPS)
+    x0 = lat_bf16.to(device)
+    runs, launches = {}, {}
+
+    def gate(label, got, plain):
+        r = compare(f"{label}, kernels vs plain path", got, plain)
+        if not (r["finite"] and r["cosine"] >= 0.99):
+            raise AssertionError(f"{label}: the kernel path disagrees with the plain path's")
+        return r
+
+    # DDIM inversion of phase 5's latents, and DDIM back from the encoding
+    xt_k, xt_p, s_inv, launches["ddim_inversion"] = on_both_paths(
+        model, "ddim-50 inversion", lambda: ddim_reverse_loop(diffusion, model, x0), want)
+    back_k, back_p, s_back, launches["ddim_back"] = on_both_paths(
+        model, "ddim-50 from the inversion", lambda: ddim_sample_loop(diffusion, model, xt_k), want)
+    recon = compare("ddim-50 inversion and back, kernels, vs phase 5's latents", back_k, x0)
+    runs["inversion"] = dict(x_T=gate("ddim-50 inversion x_T", xt_k, xt_p),
+                             back=gate("ddim-50 back", back_k, back_p), reconstruction_vs_x0=recon,
+                             s=s_inv, back_s=s_back)
+    # DDIM-50 guided toward phase 5's latents
+    z = torch.randn(x0.shape, generator=torch.Generator(device=device).manual_seed(21), device=device)
+
+    def cond_fn(x, t):
+        return -GUIDE_SCALE * (x - x0)
+
+    g_k, g_p, secs, launches["guided_ddim"] = on_both_paths(
+        model, "guided ddim-50", lambda: ddim_sample_loop(diffusion, model, z, cond_fn=cond_fn), want)
+    runs["guided"] = dict(vs_plain=gate("guided ddim-50", g_k, g_p), s=secs,
+                          to_target=compare("guided ddim-50, kernels, vs the target", g_k, x0))
+    # the bits-per-dim loop, the same noise on both paths
+    bpd_k, bpd_p, s_bpd, launches["bpd"] = on_both_paths(
+        model, "bits-per-dim loop", lambda: diffusion.calc_bpd_loop(
+            model, x0, generator=torch.Generator(device=device).manual_seed(22)), want)
+    rel = {k: ((bpd_k[k] - bpd_p[k]).abs() / bpd_p[k].abs()).flatten().tolist() for k in ("vb", "xstart_mse", "mse")}
+    total = dict(kernel=bpd_k["total_bpd"].item(), plain=bpd_p["total_bpd"].item(),
+                 prior=bpd_k["prior_bpd"].item())
+    print(f"  bits per dim: total {total}; per-step relative difference, kernels vs plain: largest "
+          f"{ {k: max(v) for k, v in rel.items()} }, median { {k: statistics.median(v) for k, v in rel.items()} }",
+          flush=True)
+    runs["bpd"] = dict(vb=gate("bits-per-dim vb terms", bpd_k["vb"], bpd_p["vb"]),
+                       mse=gate("bits-per-dim eps mse terms", bpd_k["mse"], bpd_p["mse"]),
+                       total_bpd=total, rel_diff=rel, s=s_bpd)
+    if not all(torch.isfinite(bpd_k[k]).all() for k in bpd_k):
+        raise AssertionError("the bits-per-dim loop is not finite")
+    del model
+    torch.cuda.empty_cache()
+
+    # one KL-loss gradient of the fp32 ffs_train.yaml model, full remat
+    with torch.device(device):
+        model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES, gradient_checkpointing=True)
+    randomize_(model, seed=4)
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn((1, FRAMES, 4, 32, 32), generator=gen, device=device)
+    noise = torch.randn(x.shape, generator=gen, device=device)
+    t = torch.tensor([KL_T], device=device)
+    kl = create_diffusion("", use_kl=True)
+    # an untimed gradient first: the first fp32 backward at these shapes
+    # pays cuBLAS's first calls, seconds that would land on the kernel path
+    kl.training_losses(model, x, t, noise)["loss"].mean().backward()
+    model.zero_grad(set_to_none=True)
+    grads, losses, secs = [], [], []
+    for plain in (False, True):
+        set_plain(model, plain)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = kl.training_losses(model, x, t, noise)["loss"].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        grads.append([p.grad for p in model.parameters()])
+        losses.append(loss.item())
+        model.zero_grad(set_to_none=True)
+        if not plain:
+            kl_launches = check_grad_launches("kl gradient (fp32, full remat)", STEP_LAUNCHES, torch.float32)
+    set_plain(model, False)
+    r = compare("kl gradient (fp32, full remat): kernel grads vs plain grads", grads[0], grads[1])
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"  kl gradient: loss {losses[0]} vs {losses[1]} (rel {loss_rel}); {secs[0]:.3f} s on the "
+          f"kernels, {secs[1]:.3f} s plain", flush=True)
+    if not (r["finite"] and r["cosine"] >= 0.999 and loss_rel <= 1e-4):
+        raise AssertionError("the kl gradient on the kernels disagrees with the plain path's")
+    launches["kl_grad"] = kl_launches
+    runs["kl_grad"] = dict(vs_plain=r, loss=losses, loss_rel=loss_rel, s=secs)
+    del model, grads
+    torch.cuda.empty_cache()
+    runs["launches"] = {name: {run: launches[run][name] for run in launches} for name in KERNELS}
+    return runs
+
+
+def check_grad_launches(label: str, want: dict, dtype) -> dict:
+    """The launches of one gradient since the last reset_counts() are
+    ``want``, every one on its dtype's route: bf16 B1, B4, B5 on the tensor
+    cores, fp32 on the fp32 routes, B2/B3 on the vector route."""
+    got = counts()
+    print(f"  {label}: launches {got} (expected {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    bf16 = dtype == torch.bfloat16
+    n1, n4 = want["flash_attention"], want["flash_attention_bwd_dq"]
+    check_tc(label, n1 if bf16 else 0, f32=0 if bf16 else n1)
+    check_vec(label)
+    check_bwd_routes(label, tc=n4 if bf16 else 0, f32=0 if bf16 else n4)
+    return got
+
+
+def t2v_grad_launches(pairs: int, remat: bool) -> dict:
+    """One LatteT2V gradient over ``pairs`` pairs: the forward's B1-B3
+    (``t2v_launches``), under remat each pair's again in the recompute
+    (norm_out, B2's last launch, is outside the pairs), and B4, B5 once a
+    block."""
+    want = t2v_launches(pairs)
+    if remat:
+        for k, n in t2v_launches(pairs).items():
+            want[k] += n
+        want["ln_modulate"] -= 1
+    for k in BACKWARD:
+        want[k] = 2 * pairs
+    return want
+
+
+def t2v_gradient(model, batch: tuple, label: str, want) -> tuple:
+    """The hybrid loss's gradient of ``model`` (LatteT2V) at batch 1: its
+    record (loss, s, peak GiB, launches; ``want`` the kernel path's, None
+    the plain path, which launches none) and the gradients, a list."""
+    x0, noise, t, ctx, mask = batch
+
+    def fn(x, tt):
+        return model(x.transpose(1, 2), tt.float(), ctx, mask).transpose(1, 2)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = create_diffusion("").training_losses(fn, x0, t, noise)["loss"].mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = [p.grad for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    dtype = model.proj_out.weight.dtype
+    if want is None:
+        launches = counts()
+        if any(launches.values()):
+            raise AssertionError(f"{label}, plain path: kernel launches {launches}")
+    else:
+        launches = check_grad_launches(label, want, dtype)
+    print(f"  {label}: loss {loss.item()}, {secs:.3f} s, peak {peak:.3f} GiB", flush=True)
+    return dict(loss=loss.item(), s=secs, peak_gib=peak, launches=launches), grads
+
+
+def grads_apart(got: list, want: list) -> dict:
+    """Whether two gradients are equal to the bit, and else the largest
+    difference over the largest magnitude of any parameter's gradient."""
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    worst = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(got, want))
+    return dict(bit_equal=equal, max_rel=worst)
+
+
+def t2v_grad_runs(device, smi: str) -> dict:
+    """(b) LatteT2V at t2v_sample.yaml's width (28 pairs, 16 x 512^2, a
+    caption of T2V_CAPTION tokens 4096 wide), batch 1, the seeded init of
+    ``sample_t2x.build_transformer``: the hybrid loss's gradient (learned
+    sigma) under "full" remat in fp32 against the plain path under the same
+    remat (cosine >= 0.999), then in bf16 (B4/B5 on the tensor cores;
+    against the fp32 gradient at cosine >= BF16_GRAD_COSINE); each run's
+    seconds, peak memory and launches (``t2v_grad_launches``). Then
+    REMAT_PAIRS pairs in fp32 without remat, under "full" and under "dots"
+    on the same weights (gradients equal to the bit, or their largest
+    relative difference; peak memory of each), and the fp32 gradient
+    without remat at full depth if its peak, projected from those runs,
+    fits the card."""
+    from latte_tpu_torch.sample import sample_t2x
+
+    kw = sample_t2x.transformer_kwargs(load_config(T2V_CONFIG))
+    pairs, frames, side = kw["num_layers"], kw["video_length"], kw["sample_size"]
+    gen = torch.Generator(device=device).manual_seed(23)
+    x0 = torch.randn((1, frames, 4, side, side), generator=gen, device=device)
+    noise = torch.randn(x0.shape, generator=gen, device=device)
+    ctx = torch.randn((1, T2V_CAPTION, kw["caption_channels"]), generator=gen, device=device)
+    mask = (torch.arange(T2V_CAPTION, device=device) < T2V_CAPTION_KEPT).long()[None]
+    batch = (x0, noise, torch.tensor([T2V_GRAD_T], device=device), ctx, mask)
+
+    def build(n_pairs: int):
+        return sample_t2x.build_transformer(load_config(T2V_CONFIG, ["use_fp16=false", f"num_layers={n_pairs}"]),
+                                            device)
+
+    out = {}
+    model = build(pairs)
+    model.gradient_checkpointing = True
+    want = t2v_grad_launches(pairs, remat=True)
+    out["fp32_full"], g_k = t2v_gradient(model, batch, "t2v gradient, fp32, full remat", want)
+    set_plain(model, True)
+    out["fp32_full_plain"], g_p = t2v_gradient(model, batch, "t2v gradient, fp32, full remat, plain path", None)
+    set_plain(model, False)
+    r = compare("t2v gradient (fp32, full remat): kernel grads vs plain grads", g_k, g_p)
+    loss_rel = abs(out["fp32_full"]["loss"] - out["fp32_full_plain"]["loss"]) / abs(out["fp32_full_plain"]["loss"])
+    if not (r["finite"] and r["cosine"] >= 0.999 and loss_rel <= 1e-4):
+        raise AssertionError("the t2v gradient on the kernels disagrees with the plain path's")
+    out["fp32_vs_plain"] = dict(r, loss_rel=loss_rel)
+    del g_p
+    model.to(torch.bfloat16)
+    out["bf16_full"], g_b = t2v_gradient(model, batch, "t2v gradient, bf16, full remat", want)
+    r = compare("t2v gradient: bf16 kernel grads vs fp32 kernel grads", g_b, g_k)
+    if not (r["finite"] and r["cosine"] >= BF16_GRAD_COSINE):
+        raise AssertionError("the bf16 t2v gradient disagrees with the fp32 one")
+    out["bf16_vs_fp32"] = r
+    del model, g_b, g_k
+    torch.cuda.empty_cache()
+
+    # REMAT_PAIRS pairs: none, "full" and "dots" on the same weights
+    model = build(REMAT_PAIRS)
+    small, grads = {}, {}
+    for policy in (None, "full", "dots"):
+        model.gradient_checkpointing, model.remat_policy = policy is not None, policy or "full"
+        small[policy or "none"], grads[policy] = t2v_gradient(
+            model, batch, f"t2v gradient, fp32, {REMAT_PAIRS} pairs, remat {policy}",
+            t2v_grad_launches(REMAT_PAIRS, remat=policy is not None))
+    for policy in ("full", "dots"):
+        small[policy]["vs_none"] = apart = grads_apart(grads[policy], grads[None])
+        print(f"  t2v gradient, {REMAT_PAIRS} pairs: remat {policy} against none {apart}", flush=True)
+    out["pairs4"] = small
+    del model, grads
+    torch.cuda.empty_cache()
+
+    # no remat at full depth, if it fits: each pair's activations, from the
+    # 4-pair runs, on top of the full-remat run's peak
+    per_pair = (small["none"]["peak_gib"] - small["full"]["peak_gib"]) / (REMAT_PAIRS - 1)
+    projected = out["fp32_full"]["peak_gib"] + (pairs - 1) * per_pair
+    card = torch.cuda.get_device_properties(device).total_memory / 2**30
+    fits = projected <= 0.9 * card
+    print(f"  t2v gradient without remat at {pairs} pairs, fp32: {per_pair:.3f} GiB of activations a "
+          f"pair, projected peak {projected:.3f} GiB of the card's {card:.3f}: "
+          f"{'fits, run' if fits else 'does not fit, not run'}", flush=True)
+    out["no_remat_full_depth"] = dict(per_pair_gib=per_pair, projected_peak_gib=projected, card_gib=card,
+                                      fits=fits)
+    if fits:
+        model = build(pairs)
+        rec, g = t2v_gradient(model, batch, "t2v gradient, fp32, no remat", t2v_grad_launches(pairs, False))
+        out["no_remat_full_depth"].update(rec)
+        del model, g
+        torch.cuda.empty_cache()
+    out["device"] = smi
+    return out
+
+def diffusion_t2v_grad_phase(ckpt: str, lat_bf16, device, smi: str) -> dict:
+    """Phase 5h "diffusion and t2v grad": ``diffusion_runs`` (a) and
+    ``t2v_grad_runs`` (b); returns the ``diffusion_t2v_grad: {...}`` line's
+    dict, with each kernel's launches in each run."""
+    t0 = time.perf_counter()
+    diff = diffusion_runs(ckpt, lat_bf16, device)
+    t1 = time.perf_counter()
+    grad = t2v_grad_runs(device, smi)
+    runs = {"fp32_full": grad["fp32_full"], "bf16_full": grad["bf16_full"],
+            **{f"pairs{REMAT_PAIRS}_{k}": v for k, v in grad["pairs4"].items()}}
+    if "launches" in grad["no_remat_full_depth"]:
+        runs["fp32_no_remat"] = grad["no_remat_full_depth"]
+    return dict(diffusion=diff, t2v_grad=grad, s=dict(diffusion=t1 - t0, t2v_grad=time.perf_counter() - t1),
+                launches_diffusion=diff.pop("launches"),
+                launches_t2v_grad={name: {run: r["launches"][name] for run, r in runs.items()} for name in KERNELS})
 
 
 def train_quant(tmp: str, smi: str) -> dict:
@@ -3783,6 +4166,9 @@ MOE_AUX_WEIGHT = 0.01  # ffs_train_moe.yaml's moe_aux_weight
 MOE_AUX_MIN = 1 - 1e-3  # E·Σ f·P is 1 at a uniform split and more otherwise
 MOE_T2V_STEPS = 10
 MOE_PARTS = ("route", "dispatch", "experts", "combine")
+# timed MoE DDIM-50 runs after the entry point's (3 until the script neared
+# its time limit)
+MOE_TIMED_RUNS = 1
 
 
 def set_plain(model, plain: bool) -> None:
@@ -4049,11 +4435,11 @@ def moe_part_ms(moe, x, timer) -> dict:
 def moe_sampler(tmp: str, smi: str, device, timer) -> dict:
     """Phase "moe" (c): ``sample.main`` on ffs_sample.yaml with moe_experts: 8,
     DDIM-50, batch 1, bf16, from a checkpoint of seeded random weights: 1400
-    launches of B1, B2, B3, finite latents, s a video (median of 3), the idle
-    share of a profiled DDIM-10 against its unprofiled run, the MoE parts
-    at the sampler's spatial and temporal shapes timed alone, the latents
-    against the plain path's (cosine >= 0.99); quantized: static with MoE
-    refused."""
+    launches of B1, B2, B3, finite latents, s a video (MOE_TIMED_RUNS more
+    runs), the idle share of a profiled DDIM-10 against its unprofiled run,
+    the MoE parts at the sampler's spatial and temporal shapes timed alone,
+    that DDIM-10's latents against the plain path's (cosine >= 0.99);
+    quantized: static with MoE refused."""
     with torch.device(device):
         model = get_model("Latte-XL/2", **MOE_ARCH)
     randomize_(model, seed=45)
@@ -4078,17 +4464,17 @@ def moe_sampler(tmp: str, smi: str, device, timer) -> dict:
 
     model = sample.build_model(cfg, device)
     secs = []
-    for _ in range(3):
+    for _ in range(MOE_TIMED_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sample.sample_latents(model, cfg, device)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    video_s = sorted(secs)[1]
+    video_s = statistics.median(secs)
     cfg10 = load_config(FFS_CONFIG, over + ["num_sampling_steps=10"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sample.sample_latents(model, cfg10, device)
+    lat10 = sample.sample_latents(model, cfg10, device)
     torch.cuda.synchronize()
     prof = profile_sampler(model, cfg10, device, time.perf_counter() - t0, "moe ddim-10 sampler")
     gen = torch.Generator(device=device).manual_seed(47)
@@ -4098,17 +4484,17 @@ def moe_sampler(tmp: str, smi: str, device, timer) -> dict:
         parts[name] = moe_part_ms(model.blocks[blk].moe, x, timer)
     per_video = {k: 50 * DEPTH // 2 * (parts["spatial"][k] + parts["temporal"][k]) for k in MOE_PARTS}
     set_plain(model, True)
-    ref = sample.sample_latents(model, cfg, device)
+    ref = sample.sample_latents(model, cfg10, device)
     set_plain(model, False)
-    vs_plain = compare("moe ddim-50 latents, entry point vs plain path", lat, ref.float().cpu())
+    vs_plain = compare("moe ddim-10 latents, kernels vs plain path", lat10, ref)
     print(f"  moe ddim-50 batch 1 bf16: {video_s:.4f} s a video (runs {secs}) -> {60 / video_s:.3f} "
           f"videos/min; MoE parts of one layer call, each alone (device ms) {json.dumps(parts)}, "
           f"so in a video {json.dumps(per_video)} on {smi}", flush=True)
-    del model, ref
+    del model, ref, lat10
     os.remove(ckpt)
     torch.cuda.empty_cache()
     if not vs_plain["cosine"] >= 0.99:
-        raise AssertionError("the MoE DDIM latents disagree with the plain path's")
+        raise AssertionError("the MoE DDIM-10 latents disagree with the plain path's")
     refusal = refused(lambda: sample.main(load_config(FFS_CONFIG, over + ["quantized=static"])))
     return dict(launches=launches, s_per_video=video_s, runs_s=secs, profile_ddim10=prof, parts_ms=parts,
                 parts_ms_per_video=per_video, latents_vs_plain=vs_plain, quantized_static=refusal)
@@ -5350,7 +5736,9 @@ def pp_launches(name: str, pp_run: dict, dist: dict) -> dict:
 # phase "serve": the ops whose outputs first_divergence compares between the
 # live step and the artifact's, in their order (the products and the kernels)
 DIVERGENCE_OPS = ("aten.mm", "aten.addmm", "aten.bmm", "aten._int_mm", "latte_tpu_torch.")
-SERVE_PAIRS = 3  # alternating DDIM-50 pairs, artifact against the live sampler
+# alternating DDIM-50 pairs, artifact against the live sampler (3 until the
+# script neared its time limit)
+SERVE_PAIRS = 2
 SERVE_DDPM_STEPS = 3
 
 
@@ -5819,6 +6207,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("t2v", t0)
 
+        # 5h. the diffusion engine's second half on phase 4's weights, LatteT2V's gradient
+        t0 = time.perf_counter()
+        dg_run = diffusion_t2v_grad_phase(ckpt, lat_bf16, device, smi)
+        torch.cuda.empty_cache()
+        phase("diffusion and t2v grad", t0)
+
     # 6. training
     t0 = time.perf_counter()
     parity = train_step_parity(device)
@@ -5862,6 +6256,7 @@ def main() -> int:
     print("eval: " + json.dumps(eval_run, default=str), flush=True)
     print("serve: " + json.dumps(serve_run, default=str), flush=True)
     print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
+    print("diffusion_t2v_grad: " + json.dumps(dg_run, default=str), flush=True)
     print("moe: " + json.dumps(moe, default=str), flush=True)
 
     # 9. text: T5-XXL through sample_t2x, the SVD temporal decoder, CLIP and extras: 78
@@ -5995,6 +6390,8 @@ def main() -> int:
         row["launches_pp"] = pp_launches(name, pp_run, dist)
         row["launches_eval"] = eval_run["launches"][row["name"]]
         row["launches_serve"] = serve_launches(row["name"], serve_run)
+        row["launches_diffusion"] = dg_run["launches_diffusion"][name]
+        row["launches_t2v_grad"] = dg_run["launches_t2v_grad"][name]
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -6002,14 +6399,16 @@ def main() -> int:
 
 
 def alone(parts) -> int:
-    """``python3 chip_smoke.py serve ckpt`` (either or both): the build, then
-    phase 5g "serve" on a seeded Latte-XL/2 checkpoint as ``main`` writes
-    it, and ``train.main`` on ffs_train.yaml for 3 steps with its checkpoint
-    written in the background and then blocking, each save timed by
-    ``TimedSaves``. Prints the same lines as those parts of ``main``, and
-    no result line."""
-    if not torch.cuda.is_available() or not set(parts) <= {"serve", "ckpt"}:
-        print("usage on a GPU: chip_smoke.py [serve] [ckpt]", file=sys.stderr)
+    """``python3 chip_smoke.py serve ckpt t2vgrad`` (any of them): the
+    build, then for "serve" phase 5g on a seeded Latte-XL/2 checkpoint as
+    ``main`` writes it; for "ckpt" ``train.main`` on ffs_train.yaml for 3
+    steps with its checkpoint written in the background and then blocking,
+    each save timed by ``TimedSaves``; for "t2vgrad" the backward kernels
+    at T2V_BWD_SHAPES, then phase 5h on that checkpoint and its DDIM-50
+    latents through ``sample.main``. Prints the same lines as those parts
+    of ``main``, and no result line."""
+    if not torch.cuda.is_available() or not set(parts) <= {"serve", "ckpt", "t2vgrad"}:
+        print("usage on a GPU: chip_smoke.py [serve] [ckpt] [t2vgrad]", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -6020,18 +6419,33 @@ def alone(parts) -> int:
     phase("build", t0)
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
-        if "serve" in parts:
+        ckpt = os.path.join(tmp, "latte_xl2_random.pt")
+        if {"serve", "t2vgrad"} & set(parts):
             with torch.device(device):
                 model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES)
             randomize_(model, seed=0)
             model.to(torch.bfloat16).eval()
-            ckpt = os.path.join(tmp, "latte_xl2_random.pt")
             torch.save({"ema": model.state_dict()}, ckpt)
             del model
+        if "serve" in parts:
             t0 = time.perf_counter()
             serve_run = serve_phase(tmp, ckpt, device, smi)
             phase("serve", t0)
             print("serve: " + json.dumps(serve_run, default=str), flush=True)
+        if "t2vgrad" in parts:
+            t0 = time.perf_counter()
+            results = {name: {} for name in BACKWARD}
+            check_backward(T2V_BWD_SHAPES, device, torch.Generator(device=device).manual_seed(0),
+                           Timer(device), results)
+            phase("kernels at T2V_BWD_SHAPES", t0)
+            print("t2v_backward: " + json.dumps(results, default=str), flush=True)
+            cfg = load_config(FFS_CONFIG, ["sample_method=ddim", "num_sampling_steps=50", "per_proc_batch_size=1",
+                                           f"ckpt={ckpt}", f"save_video_path={tmp}/ffs.mp4"])
+            lat = torch.from_numpy(np.load(sample.main(cfg))["latents"])
+            t0 = time.perf_counter()
+            dg_run = diffusion_t2v_grad_phase(ckpt, lat, device, smi)
+            phase("diffusion and t2v grad", t0)
+            print("diffusion_t2v_grad: " + json.dumps(dg_run, default=str), flush=True)
         if "ckpt" in parts:
             for flag in ("true", "false"):
                 cfg = load_config(FFS_TRAIN, [f"results_dir={tmp}/results_{flag}", "max_train_steps=3",

@@ -1,4 +1,4 @@
-"""Gaussian diffusion engine, sampling half (port of ``latte_tpu/core/diffusion.py``).
+"""Gaussian diffusion engine (port of ``latte_tpu/core/diffusion.py``).
 
 Schedule tables are fp64 numpy, computed once; each step gathers its
 coefficients in fp32 on the tensor's device, as the JAX engine does.
@@ -7,9 +7,10 @@ Respacing is folded into the engine: loops run over respaced indices and
 
 The model contract: ``model_fn(x, t, **model_kwargs)`` with ``x`` of shape
 (B, F, C, H, W), returning (B, F, 2C, H, W) when the variance is learned.
-``training_losses`` is the training loss of the MSE loss type (the one the
-trainer builds; the KL loss types and the bits-per-dim evaluation loop are
-not ported).
+Besides the reverse steps it carries the classifier-guidance hooks
+(``cond_fn(x, t, **model_kwargs)``, the classifier's gradient), the DDIM
+reverse (encoding) step, the training losses of the four loss types and the
+bits-per-dim evaluation of the full variational bound.
 """
 
 from __future__ import annotations
@@ -43,6 +44,16 @@ class ModelVarType(enum.Enum):
     LEARNED_RANGE = enum.auto()
 
 
+class LossType(enum.Enum):
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()
+    KL = enum.auto()
+    RESCALED_KL = enum.auto()
+
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
+
+
 class GaussianDiffusion:
     """The diffusion engine over fp64 ``betas`` (possibly respaced, with
     ``timestep_map`` from engine index to original model timestep)."""
@@ -53,6 +64,7 @@ class GaussianDiffusion:
         betas: np.ndarray,
         model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
         model_var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+        loss_type: LossType = LossType.MSE,
         timestep_map: Optional[np.ndarray] = None,
         original_num_steps: Optional[int] = None,
     ):
@@ -63,6 +75,7 @@ class GaussianDiffusion:
         self.num_timesteps = int(betas.shape[0])
         self.model_mean_type = model_mean_type
         self.model_var_type = model_var_type
+        self.loss_type = loss_type
         self.timestep_map = (
             None if timestep_map is None else np.asarray(timestep_map, dtype=np.int64)
         )
@@ -71,8 +84,11 @@ class GaussianDiffusion:
         alphas = 1.0 - betas
         self.alphas_cumprod = np.cumprod(alphas, axis=0)
         self.alphas_cumprod_prev = np.append(1.0, self.alphas_cumprod[:-1])
+        self.alphas_cumprod_next = np.append(self.alphas_cumprod[1:], 0.0)
         self.sqrt_alphas_cumprod = np.sqrt(self.alphas_cumprod)
         self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - self.alphas_cumprod)
+        self.log_one_minus_alphas_cumprod = np.log(1.0 - self.alphas_cumprod)
+        self._one_minus_alphas_cumprod = 1.0 - self.alphas_cumprod
         self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / self.alphas_cumprod)
         self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / self.alphas_cumprod - 1.0)
         self.log_betas = np.log(betas)
@@ -134,6 +150,15 @@ class GaussianDiffusion:
         if self.timestep_map is None:
             return t
         return torch.index_select(self._table("timestep_map", t.device), 0, t)
+
+    def q_mean_variance(self, x_start, t):
+        """q(x_t | x_0): its mean, variance and log-variance."""
+        n = x_start.dim()
+        return (
+            self._gather("sqrt_alphas_cumprod", t, n) * x_start,
+            self._gather("_one_minus_alphas_cumprod", t, n),
+            self._gather("log_one_minus_alphas_cumprod", t, n),
+        )
 
     def q_sample(self, x_start, t, noise):
         """Diffuse x_0 to x_t given noise ~ N(0, I)."""
@@ -226,22 +251,44 @@ class GaussianDiffusion:
             "pred_xstart": pred_xstart,
         }
 
+    def condition_mean(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """The mean shifted by the variance times the classifier gradient
+        ``cond_fn(x, t, **model_kwargs)`` (t the model's timesteps)."""
+        gradient = cond_fn(x, self.map_t(t), **(model_kwargs or {}))
+        return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+    def condition_score(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """``p_mean_var`` with the score conditioned on the classifier
+        gradient (DDIM's guidance): eps - sqrt(1 - alpha_bar)·gradient, and
+        x_0 and the mean predicted from it."""
+        alpha_bar = self._gather("alphas_cumprod", t, x.dim())
+        eps = self._predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, self.map_t(t), **(model_kwargs or {}))
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self._predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x, t)
+        return out
+
     def p_sample(
         self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True,
-        denoised_fn=None, model_kwargs=None,
+        denoised_fn=None, cond_fn=None, model_kwargs=None,
     ):
         """One DDPM ancestral step; ``noise`` is caller-supplied N(0, I)."""
         out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn, model_kwargs)
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t, model_kwargs)
         nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
     def ddim_sample(
         self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True,
-        denoised_fn=None, model_kwargs=None, eta: float = 0.0,
+        denoised_fn=None, cond_fn=None, model_kwargs=None, eta: float = 0.0,
     ):
         """One DDIM step (deterministic at eta=0)."""
         out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn, model_kwargs)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t, model_kwargs)
         eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
         n = x.dim()
         alpha_bar = self._gather("alphas_cumprod", t, n)
@@ -258,6 +305,19 @@ class GaussianDiffusion:
         nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (n - 1))
         return {"sample": mean_pred + nonzero * sigma * noise, "pred_xstart": out["pred_xstart"]}
 
+    def ddim_reverse_sample(
+        self, model_fn: ModelFn, x, t, clip_denoised: bool = True, denoised_fn=None,
+        model_kwargs=None, eta: float = 0.0,
+    ):
+        """One step of the reverse (encoding) ODE, x_t to x_{t+1}; ``eta``
+        must be 0 (else the JAX engine's ``AssertionError``)."""
+        if eta != 0.0:
+            raise AssertionError("ReverseODE only for deterministic path")
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn, model_kwargs)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = self._gather("alphas_cumprod_next", t, x.dim())
+        mean_pred = out["pred_xstart"] * torch.sqrt(alpha_bar_next) + torch.sqrt(1 - alpha_bar_next) * eps
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
 
     # ------------------------------------------------------------------
     # Variational bound and training losses
@@ -283,15 +343,32 @@ class GaussianDiffusion:
         return {"output": output, "pred_xstart": out["pred_xstart"]}
 
     def training_losses(
-        self, model_fn: ModelFn, x_start, t, noise, model_kwargs=None
+        self, model_fn: ModelFn, x_start, t, noise: Optional[torch.Tensor] = None, model_kwargs=None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Per-example training losses (shape [B]) for the given ``noise``:
-        ``mse`` and, with a learned variance, the hybrid loss ``mse + vb``,
+        """Per-example training losses (shape [B]) for ``noise`` (else drawn
+        from ``generator``). KL types: ``loss`` is the VB term, the model's
+        mean not detached, times ``num_timesteps`` for RESCALED_KL. MSE
+        types: ``mse`` and, with a learned variance, the hybrid ``mse + vb``,
         where the VB term sees a detached mean so only the variance head
-        learns from it (``diffusion.py:426-488`` of the JAX engine)."""
+        learns from it, times ``num_timesteps / 1000`` for RESCALED_MSE
+        (``diffusion.py:426-488`` of the JAX engine)."""
+        if noise is None:
+            if generator is None:
+                raise ValueError("training_losses needs `noise` or `generator`")
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
         x_t = self.q_sample(x_start, t, noise)
-        model_output = model_fn(x_t, self.map_t(t), **(model_kwargs or {}))
         terms: Dict[str, torch.Tensor] = {}
+        if self.loss_type.is_vb():
+            terms["loss"] = self._vb_terms_bpd(
+                model_fn, x_start, x_t, t, clip_denoised=False, model_kwargs=model_kwargs
+            )["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output = model_fn(x_t, self.map_t(t), **(model_kwargs or {}))
         if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
             c = x_t.shape[2]
             mean_out, var_values = torch.split(model_output, [c, model_output.shape[2] - c], dim=2)
@@ -299,6 +376,8 @@ class GaussianDiffusion:
             terms["vb"] = self._vb_terms_bpd(
                 model_fn, x_start, x_t, t, clip_denoised=False, model_output=frozen_out
             )["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
             model_output = mean_out
 
         if self.model_mean_type == ModelMeanType.PREVIOUS_X:
@@ -311,18 +390,75 @@ class GaussianDiffusion:
         terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
         return terms
 
+    # ------------------------------------------------------------------
+    # Bits-per-dim evaluation
+    # ------------------------------------------------------------------
+    def _prior_bpd(self, x_start):
+        """KL of q(x_T | x_0) against N(0, I), in bits per dim, (B,)."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.int64, device=x_start.device)
+        qt_mean, _, qt_log_variance = self.q_mean_variance(x_start, t)
+        zero = torch.zeros((), dtype=x_start.dtype, device=x_start.device)
+        return mean_flat(normal_kl(qt_mean, qt_log_variance, zero, zero)) / np.log(2.0)
+
+    def calc_bpd_loop(
+        self, model_fn: ModelFn, x_start, generator: Optional[torch.Generator] = None,
+        noise_schedule: Optional[torch.Tensor] = None, clip_denoised: bool = True, model_kwargs=None,
+    ) -> Dict[str, torch.Tensor]:
+        """The full variational bound in bits per dim, over t = T - 1 down
+        to 0. Step t's noise is ``noise_schedule[t]`` when given, else drawn
+        from ``generator``. ``vb``, ``xstart_mse`` and ``mse`` are (B, T),
+        their columns in that order (column 0 is t = T - 1), as the JAX
+        scan stacks them; ``total_bpd`` is the vb terms' sum plus
+        ``prior_bpd``."""
+        if noise_schedule is None and generator is None:
+            raise ValueError("calc_bpd_loop needs `noise_schedule` or `generator`")
+        batch = x_start.shape[0]
+        vb, xstart_mse, mse = [], [], []
+        for t_scalar in range(self.num_timesteps - 1, -1, -1):
+            t = torch.full((batch,), t_scalar, dtype=torch.int64, device=x_start.device)
+            if noise_schedule is not None:
+                noise = noise_schedule[t_scalar].to(x_start.device, x_start.dtype)
+            else:
+                noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                    dtype=x_start.dtype)
+            x_t = self.q_sample(x_start, t, noise)
+            out = self._vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised, model_kwargs)
+            eps = self._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            mse.append(mean_flat((eps - noise) ** 2))
+        vb_t = torch.stack(vb, dim=1)
+        prior_bpd = self._prior_bpd(x_start)
+        return {
+            "total_bpd": vb_t.sum(dim=1) + prior_bpd,
+            "prior_bpd": prior_bpd,
+            "vb": vb_t,
+            "xstart_mse": torch.stack(xstart_mse, dim=1),
+            "mse": torch.stack(mse, dim=1),
+        }
+
 
 def create_diffusion(
     timestep_respacing: Union[str, Sequence[int], None],
     noise_schedule: str = "linear",
+    use_kl: bool = False,
     sigma_small: bool = False,
     predict_xstart: bool = False,
     learn_sigma: bool = True,
+    rescale_learned_sigmas: bool = False,
     diffusion_steps: int = 1000,
 ) -> GaussianDiffusion:
     """The reference defaults: 1000 linear steps, epsilon prediction,
-    LEARNED_RANGE variance. ``"ddim50"`` or ``"250"`` respaces the process."""
+    LEARNED_RANGE variance, MSE loss (``use_kl``: RESCALED_KL, else
+    ``rescale_learned_sigmas``: RESCALED_MSE). ``"ddim50"`` or ``"250"``
+    respaces the process."""
     betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
+    if use_kl:
+        loss_type = LossType.RESCALED_KL
+    elif rescale_learned_sigmas:
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     use_timesteps = space_timesteps(diffusion_steps, timestep_respacing)
@@ -345,6 +481,7 @@ def create_diffusion(
             if learn_sigma
             else (ModelVarType.FIXED_SMALL if sigma_small else ModelVarType.FIXED_LARGE)
         ),
+        loss_type=loss_type,
         timestep_map=(
             np.array(timestep_map, dtype=np.int64) if len(timestep_map) != diffusion_steps else None
         ),

@@ -4,7 +4,8 @@ Each step's noise comes from ``noise_schedule[t]`` when given (the tests
 inject the same numbers into the JAX loop), else from ``generator``, else
 zeros, the order the JAX loops use. :func:`run_steps` is that loop over any
 step function: the loops here, the sampler's and the loader of an exported
-sampler step (``serve.aot``) run it.
+sampler step (``serve.aot``) run it. The loops run without autograd: a
+``cond_fn`` that differentiates a classifier enables grad itself.
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ import torch
 
 from latte_tpu_torch.core.diffusion import GaussianDiffusion, ModelFn
 
-__all__ = ["p_sample_loop", "ddim_sample_loop", "run_steps", "denoise_step", "cfg_combine", "cfg_model_fn"]
+__all__ = [
+    "p_sample_loop", "ddim_sample_loop", "ddim_reverse_loop", "run_steps", "denoise_step", "cfg_combine",
+    "cfg_model_fn",
+]
 
 
 def _noise_for(x, t_scalar, generator, noise_schedule):
@@ -28,15 +32,20 @@ def _noise_for(x, t_scalar, generator, noise_schedule):
 
 @torch.no_grad()
 def run_steps(
-    step, diffusion: GaussianDiffusion, x_T: torch.Tensor, generator=None, noise_schedule=None
-) -> torch.Tensor:
+    step, diffusion: GaussianDiffusion, x_T: torch.Tensor, generator=None, noise_schedule=None,
+    collect_trajectory: bool = False,
+):
     """``x = step(x, t, noise)`` from t = T - 1 down to 0: t an int64 (B,)
-    tensor, the noise drawn before each step (see the module docstring)."""
-    x = x_T
+    tensor, the noise drawn before each step (see the module docstring).
+    With ``collect_trajectory``: ``(x, trajectory)``, every step's x
+    stacked, (T, ...)."""
+    x, trajectory = x_T, []
     for t_scalar in range(diffusion.num_timesteps - 1, -1, -1):
         t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)
         x = step(x, t, _noise_for(x, t_scalar, generator, noise_schedule))
-    return x
+        if collect_trajectory:
+            trajectory.append(x)
+    return (x, torch.stack(trajectory)) if collect_trajectory else x
 
 
 def denoise_step(
@@ -56,18 +65,21 @@ def p_sample_loop(
     generator: Optional[torch.Generator] = None,
     clip_denoised: bool = True,
     denoised_fn=None,
+    cond_fn=None,
     model_kwargs: Optional[Dict[str, Any]] = None,
     noise_schedule: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Ancestral DDPM sampling from pure noise x_T."""
+    collect_trajectory: bool = False,
+):
+    """Ancestral DDPM sampling from pure noise x_T (``collect_trajectory``:
+    also every step's x, as :func:`run_steps`)."""
 
     def step(x, t, noise):
         return diffusion.p_sample(
             model_fn, x, t, noise, clip_denoised=clip_denoised,
-            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+            denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=model_kwargs,
         )["sample"]
 
-    return run_steps(step, diffusion, x_T, generator, noise_schedule)
+    return run_steps(step, diffusion, x_T, generator, noise_schedule, collect_trajectory)
 
 
 def ddim_sample_loop(
@@ -77,19 +89,41 @@ def ddim_sample_loop(
     generator: Optional[torch.Generator] = None,
     clip_denoised: bool = True,
     denoised_fn=None,
+    cond_fn=None,
     model_kwargs: Optional[Dict[str, Any]] = None,
     eta: float = 0.0,
     noise_schedule: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """DDIM sampling (deterministic at eta=0)."""
+    collect_trajectory: bool = False,
+):
+    """DDIM sampling (deterministic at eta=0; ``collect_trajectory`` as in
+    :func:`p_sample_loop`)."""
 
     def step(x, t, noise):
         return diffusion.ddim_sample(
             model_fn, x, t, noise, clip_denoised=clip_denoised,
-            denoised_fn=denoised_fn, model_kwargs=model_kwargs, eta=eta,
+            denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=model_kwargs, eta=eta,
         )["sample"]
 
-    return run_steps(step, diffusion, x_T, generator, noise_schedule)
+    return run_steps(step, diffusion, x_T, generator, noise_schedule, collect_trajectory)
+
+
+@torch.no_grad()
+def ddim_reverse_loop(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    x_0: torch.Tensor,
+    clip_denoised: bool = True,
+    model_kwargs: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """Deterministic encoding x_0 -> x_T through the reverse ODE, over
+    t = 0 ... T - 1."""
+    x = x_0
+    for t_scalar in range(diffusion.num_timesteps):
+        t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)
+        x = diffusion.ddim_reverse_sample(
+            model_fn, x, t, clip_denoised=clip_denoised, model_kwargs=model_kwargs
+        )["sample"]
+    return x
 
 
 def cfg_combine(model_out: torch.Tensor, cfg_scale: float, guidance_channels: int = 4) -> torch.Tensor:

@@ -40,12 +40,13 @@ is its stage's own.
 The pipelined forwards (:func:`pipelined_latte_forward`,
 :func:`pipelined_latte_img_forward`, :func:`pipelined_t2v_forward`) mirror
 ``:326``, ``:426`` and ``:533``: the model's embedders, the pairs through
-the schedule (``Latte._pair`` under its remat policy, LatteIMG's joint pair,
-LatteT2V's ``_pair``), then the final layer. The microbatch axis is the
-sample batch B (temporal blocks mix frames within a sample); the temporal
-position embedding is added at the model's global pair 0 only. The models'
-own ``forward`` is unchanged. :func:`make_pipelined_apply` plugs the
-forward into the train step (``train.step.make_train_step(apply_fn=)``).
+the schedule (each under the model's remat policy: ``Latte._pair``,
+LatteIMG's joint pair, LatteT2V's ``_pair``), then the final layer. The
+microbatch axis is the sample batch B (temporal blocks mix frames within a
+sample); the temporal position embedding is added at the model's global
+pair 0 only. The models' own ``forward`` is unchanged.
+:func:`make_pipelined_apply` plugs the forward into the train step
+(``train.step.make_train_step(apply_fn=)``).
 """
 
 from __future__ import annotations
@@ -545,7 +546,7 @@ def pipelined_t2v_forward(model, hidden_states: torch.Tensor, timestep: torch.Te
         xt, tm, cx, cb = carry
         b = tm.shape[0]
         for i in pairs:
-            xt, _ = model._pair(i, xt, tm, cx, cb, temp if i == 0 else None, b, F, Fv)
+            xt, _ = model._run_pair(model._pair, i, xt, tm, cx, cb, temp if i == 0 else None, b, F, Fv)
         return xt, tm, cx, cb
 
     x = gpipe(stage_fn, range(model.num_layers), (x, t_mod, ctx, ctx_bias), M, hop)[0]

@@ -15,15 +15,9 @@ gradients reach the fp32 masters. Sincos tables and inputs follow; the
 output comes back in the input's type.
 
 ``gradient_checkpointing`` recomputes each spatial/temporal pair in the
-backward (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` does
-around the JAX model's scanned pair. ``remat_policy`` "full" recomputes the
-whole pair; "dots" (``jax.checkpoint_policies.
-dots_with_no_batch_dims_saveable``) saves the outputs of the products
-without batch dimensions, every ``Linear`` of the pair (``aten.mm`` and
-``aten.addmm``), and recomputes the rest: the glue, the adaLN kernels and
-the attention, whose kernels run again in the recompute as under "full"
-(selective activation checkpointing; the hand-written kernels are not
-dispatcher ops, so the policy never caches their outputs).
+backward under ``remat_policy`` "full" or "dots"
+(:mod:`latte_tpu_torch.models.remat`), as ``nn.remat`` does around the JAX
+model's scanned pair.
 
 Class labels (``extras: 2``) are dropped to the null class only under
 ``train=True``, from the caller's ``generator`` (see
@@ -82,12 +76,10 @@ falls back to the standard attention, as in JAX.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from latte_tpu_torch.dist.pipeline import block_list, init_modules
 from latte_tpu_torch.dist.seq import Relayout, gather_rows, local_rows
@@ -99,19 +91,9 @@ from latte_tpu_torch.models.embeddings import (
 )
 from latte_tpu_torch.models.layers import AdaLNBlock, FinalLayer, Linear, PatchEmbed, unpatchify
 from latte_tpu_torch.models.moe import MoEMlp, collect_loss, loss_columns, pair_losses
+from latte_tpu_torch.models.remat import check_remat_policy, run_pair
 
 __all__ = ["Latte"]
-
-REMAT_POLICIES = ("full", "dots")
-# the products the "dots" policy saves: those without batch dimensions
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
-
-
-_dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 class Latte(nn.Module):
@@ -162,8 +144,7 @@ class Latte(nn.Module):
             raise ValueError(f"extras={extras}: expected 1 (unconditional), 2 (class) or 78 (text)")
         if depth % 2:
             raise ValueError(f"depth must be even (spatial/temporal pairs); got {depth}")
-        if remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"unknown remat_policy {remat_policy!r} (use 'full' or 'dots')")
+        check_remat_policy(remat_policy)
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -283,11 +264,7 @@ class Latte(nn.Module):
     def _run_pair(self, fn, *args):
         """``fn(*args)``, under gradient checkpointing with the remat policy
         when the graph is recorded."""
-        if not (self.gradient_checkpointing and torch.is_grad_enabled()):
-            return fn(*args)
-        if self.remat_policy == "dots":
-            return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_contexts)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return run_pair(self.gradient_checkpointing, self.remat_policy, fn, *args)
 
     def _embed_labels(self, y, train: bool, force_drop_ids, generator, dtype) -> torch.Tensor:
         return self.y_embedder(y, train=train, force_drop_ids=force_drop_ids, generator=generator).to(dtype)

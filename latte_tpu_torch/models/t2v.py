@@ -64,8 +64,9 @@ pairs of both block lists alone, under their one-process names
 (:class:`~latte_tpu_torch.dist.pipeline.StageBlocks`), and everything
 else; it runs through ``dist.pipeline.pipelined_t2v_forward``.
 
-Not ported: ``gradient_checkpointing`` (no entry point trains LatteT2V): it
-raises ``NotImplementedError``.
+``gradient_checkpointing`` recomputes each pair in the backward under
+``remat_policy`` "full" or "dots" (:mod:`latte_tpu_torch.models.remat`, as
+Latte's), only while grad is enabled: serving runs each pair once.
 """
 
 from __future__ import annotations
@@ -100,6 +101,7 @@ from latte_tpu_torch.models.layers import (
     unpatchify,
 )
 from latte_tpu_torch.models.moe import MoEMlp, collect_loss, loss_columns, pair_losses
+from latte_tpu_torch.models.remat import check_remat_policy, run_pair
 
 __all__ = [
     "T2VFeedForward",
@@ -388,6 +390,7 @@ class LatteT2V(_Fp32Scales):
         moe_capacity_factor: float = 1.25,
         moe_mesh=None,
         gradient_checkpointing: bool = False,
+        remat_policy: str = "full",
         plain: bool = False,
         ring_mesh=None,
         pp: int = 1,
@@ -401,11 +404,7 @@ class LatteT2V(_Fp32Scales):
             )
         if attention_mode not in ATTENTION_MODES:
             raise ValueError(f"attention_mode {attention_mode!r}; expected one of {ATTENTION_MODES}")
-        if gradient_checkpointing:
-            raise NotImplementedError(
-                "LatteT2V gradient_checkpointing: no entry point trains LatteT2V, in the port or "
-                "in the JAX package"
-            )
+        check_remat_policy(remat_policy)
         D = num_attention_heads * attention_head_dim
         self.inner_dim = D
         self.in_channels = in_channels
@@ -416,6 +415,8 @@ class LatteT2V(_Fp32Scales):
         self.quantized = quantized
         self.moe_experts = moe_experts
         self.plain = plain
+        self.gradient_checkpointing = gradient_checkpointing
+        self.remat_policy = remat_policy
 
         self.pos_embed = PatchEmbed(patch_size, in_channels, D)
         self.adaln_single = AdaLayerNormSingle(D)
@@ -502,6 +503,11 @@ class LatteT2V(_Fp32Scales):
             video = torch.cat([video, x[:, :, Fv:]], dim=2)
         return video.transpose(1, 2).contiguous().view(B * F, T, D), pair_losses(aux)
 
+    def _run_pair(self, fn, *args):
+        """``fn(*args)``, under gradient checkpointing with the remat policy
+        when the graph is recorded."""
+        return run_pair(self.gradient_checkpointing, self.remat_policy, fn, *args)
+
     def _head(self, x: torch.Tensor, emb: torch.Tensor, B: int) -> torch.Tensor:
         """The adaLN-single output layer, (2, D) table + the timestep
         embedding, then unpatchify: (B·F, T, D) -> (B·F, C_out, H, W)."""
@@ -572,7 +578,8 @@ class LatteT2V(_Fp32Scales):
         temp = self._table(self.temp_table, get_1d_sincos_pos_embed, Fv, Fv, dtype) if Fv > 1 else None
         front, aux = None, []
         for i in range(start_pair, self.num_layers):
-            x, pair_aux = self._pair(i, x, t_mod, ctx, ctx_bias, temp if i == 0 else None, B, F, Fv)
+            x, pair_aux = self._run_pair(self._pair, i, x, t_mod, ctx, ctx_bias, temp if i == 0 else None, B, F,
+                                         Fv)
             aux.append(pair_aux)
             if i == return_front - 1:
                 front = x

@@ -254,7 +254,7 @@ def test_safetensors_reader_matches_the_package(tmp_path):
 @pytest.mark.parametrize("kw, exc, match", [
     (dict(moe_experts=2, quantized=True), NotImplementedError, "no int8 expert path"),
     (dict(attention_mode="ring"), ValueError, "requires constructing the model with ring_mesh"),
-    (dict(gradient_checkpointing=True), NotImplementedError, "trains LatteT2V"),
+    (dict(gradient_checkpointing=True, remat_policy="offload"), ValueError, "unknown remat_policy"),
     (dict(attention_mode="pallas"), ValueError, "attention_mode"),
 ], ids=["moe", "ring", "gradient_checkpointing", "unknown_mode"])
 def test_unported_options_raise(kw, exc, match):
