@@ -5,10 +5,11 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py [serve] [ckpt] [t2vgrad]`` runs the build, then
-for "serve" phase 5g alone, for "ckpt" a one-process ffs_train checkpoint
-written in the background and then blocking, timed, for "t2vgrad" phase 5h
-with the backward kernels' T2V cases; see ``alone``.)
+(``python3 chip_smoke.py [graph] [serve] [ckpt] [t2vgrad]`` runs the build,
+then for "graph" phase "graph" with phase 5d (G7), for "serve" phase 5g
+alone, for "ckpt" a one-process ffs_train checkpoint written in the
+background and then blocking, timed, for "t2vgrad" phase 5h with the
+backward kernels' T2V cases; see ``alone``.)
 
 Phases, each printed with its seconds; any failure ends the script with a
 non-zero exit and a traceback:
@@ -69,7 +70,25 @@ non-zero exit and a traceback:
    that forces the CUDA-core attention forward), the device's idle share in a
    profiled DDIM-50 run, and the
    DDIM latents against the plain path's; every bf16 attention call of
-   both runs goes through the tensor-core kernel, and none of a forced run;
+   both runs goes through the tensor-core kernel, and none of a forced run.
+   Under ``loop_mode: scan`` (the default, so in this and every later
+   phase's sampler) the step runs as a CUDA graph: the first step eagerly,
+   then captured and replayed (``core/step_graph.py``), launching the same
+   kernels as many times; a profiled run is one of a sampler that has
+   captured already;
+5-graph. graph (after 5): ``loop_mode: scan`` (the graphed sampler, built
+   once) against the eager loop on Latte-XL/2 at 16 x 256^2, latents to the
+   bit, launches of the graphed run, seconds with the capture, replayed and
+   eager: G1 ffs_sample.yaml at DDIM-50, batch 1, bf16 (1400 each of B1-B3;
+   GRAPH_PAIRS alternating pairs, and one replayed video under the profiler:
+   busy ms, idle share, each hand-written kernel's launches in the trace
+   against the counters'); G2 ffs_sample.yaml as shipped (DDPM-250 from a
+   seeded generator, one run each way); G3 ucf101_sample.yaml at cfg_scale
+   7, DDIM-50, seeded weights; G4 the block cache (950 each); G5 static
+   W8A8 with int8 attention (1400 B6 on the tensor cores); G6 the MoE
+   sampler (8 experts, top 2), one process. G7 (phase 5d) and G8 (phase
+   5g) are held there. Prints a ``graph: {...}`` line; every kernel row
+   gets ``launches_graph``;
 5b. vae: ``sample.main`` with DDIM-50 and ``vae_ckpt: random`` (the full SD
    VAE from a seed) from the same checkpoint: the mp4 read back through cv2
    as 16 frames of 256x256x3, the DiT's launches alone (the
@@ -100,7 +119,9 @@ non-zero exit and a traceback:
    0000-0003 read back as 16x256x256x3, ``create_npz_from_sample_folder``'s
    (4, 16, 256, 256, 3), every launch on the tensor-core and vector routes,
    s a video at batch 2 (the generator's runs, to latents) beside phase 5's
-   batch 1;
+   batch 1; G7: the generator's second and third batches capture nothing
+   (they replay the first one's graph), the second equal to the eager loop
+   to the bit;
 5e. t2v: ``sample_t2x.main`` on configs/t2x/t2v_sample.yaml as shipped
    (LatteT2V, 28 pairs, three prompts, 16 frames at 512^2, DDIM-50, CFG
    7.5, bf16, the hash-embedding caption stub) with ``vae_ckpt: random``:
@@ -156,7 +177,9 @@ non-zero exit and a traceback:
    ``first_divergence``), 1400 launches of each of B1-B3 on the
    tensor-core and vector routes counted by the kernels' own counters; the
    artifact's DDIM-50 seconds against the live one's in SERVE_PAIRS
-   alternating pairs, and one step of each with its idle share
+   alternating pairs (both built once, replaying their graphs; G8: the
+   artifact's replays capture nothing and equal the live graphed sampler
+   to the bit), and one step of each with its idle share
    (``profiling.trace``); DDPM-3 from a seeded generator, the block cache at
    interval 2 (950 launches of B1-B3) and static W8A8 with int8 attention
    (1400 tensor-core launches of B6, the calibrated state dict), each
@@ -393,13 +416,14 @@ non-zero exit and a traceback:
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
 ``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
-{...}``, ``eval: {...}``, ``serve: {...}``, ``t2v: {...}``, ``diffusion_t2v_grad: {...}``, ``moe: {...}``,
-``text: {...}``, ``tp_sp: {...}``, ``pp: {...}``, ``dist: {...}``), the total seconds,
+{...}``, ``eval: {...}``, ``serve: {...}``, ``graph: {...}``, ``t2v: {...}``,
+``diffusion_t2v_grad: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp: {...}``, ``dist: {...}``), the total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
 phase 10a's and the tp and sp runs' launches, ``launches_ring``, ``launches_tp`` and
 ``launches_sp`` (``tp_sp_launches``), phase 10b's and the 4-GPU pp runs' launches,
 ``launches_pp`` (``pp_launches``), phase 5f's FVD from the sampler's, ``launches_eval``,
-phase 5g's artifact runs, ``launches_serve``, phase 5h's, ``launches_diffusion`` and
+phase 5g's artifact runs, ``launches_serve``, phase "graph"'s (with G7 and G8),
+``launches_graph``, phase 5h's, ``launches_diffusion`` and
 ``launches_t2v_grad``,
 phase "text"'s launches, ``launches_text`` or ``launches_text_train``, and
 the MoE runs', ``launches_moe`` or ``launches_moe_train``; rows
@@ -1670,15 +1694,25 @@ def route_runs(model, cfg, device, module, route_name: str, fn) -> dict:
     return secs
 
 
-def profile_sampler(model, cfg, device, wall_s: float, label: str = None) -> dict:
+def profile_sampler(model, cfg, device, label: str = None) -> dict:
     """Device time of one DDIM run by kind of kernel, and the device's idle
-    share against ``wall_s``, the same run's unprofiled host time (the
-    profiler slows the host, not the device)."""
+    share against the same run's unprofiled host time (the profiler slows
+    the host, not the device): one sampler (``sample.build_sample_fn``) run
+    once, which captures its graphs outside the profiler, then timed, then
+    profiled."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn = sample.build_sample_fn(model, cfg, create_diffusion(str(cfg.num_sampling_steps)))
+    sample.sample_latents(model, cfg, device, fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample.sample_latents(model, cfg, device, fn)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sample.sample_latents(model, cfg, device)
+        sample.sample_latents(model, cfg, device, fn)
         torch.cuda.synchronize()
+    fn.release()
     groups = print_profile(label or f"ddim-{cfg.num_sampling_steps} sampler", prof, wall_s * 1e3)
     busy = device_ms_by_kind(prof)[1]
     return dict(device_ms_by_kind=groups, busy_ms=busy, wall_ms=wall_s * 1e3,
@@ -2186,8 +2220,7 @@ def block_cache_phase(tmp: str, ckpt: str, lat_bf16, exact_profile: dict, device
 
     cfg_exact = load_config(FFS_CONFIG, base)
     pairs, _ = cache_runs(model, cfg, cfg_exact, device, flash_attention, "bf16 ddim-50")
-    prof = profile_sampler(model, cfg, device, pairs["median_s"]["block_cache"],
-                           "block-cache ddim-50 sampler")
+    prof = profile_sampler(model, cfg, device, "block-cache ddim-50 sampler")
     busy_ratio = prof["busy_ms"] / exact_profile["busy_ms"] if exact_profile["busy_ms"] else None
     print(f"  block-cache device busy {prof['busy_ms']:.4f} ms against the exact run's "
           f"{exact_profile['busy_ms']:.4f} (ratio {busy_ratio}); idle {prof['idle']} against "
@@ -2216,16 +2249,29 @@ def sample_many_phase(tmp: str, ckpt: str, ddim_s: float, device, smi: str) -> d
     base = ["sample_method=ddim", f"num_sampling_steps={BC_STEPS}", f"ckpt={ckpt}",
             f"per_proc_batch_size={MANY_BATCH}"]
     gen = sample_many.BatchGenerator(load_config(FFS_CONFIG, base))
-    secs = []
+    secs, lats, captures = [], [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lat = gen.sample_latents()
+        lats.append(gen.sample_latents())
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        captures.append(gen.sample_fn.graphed.captures)
+    lat = lats[-1]
     if lat.shape != (MANY_BATCH, FRAMES, 4, 32, 32) or not torch.isfinite(lat).all():
         raise AssertionError(f"sample_many latents {tuple(lat.shape)} are not finite")
-    del gen, lat
+    # G7: the later batches replay the first one's graph, and batch 2 equals the eager loop's
+    z, y = gen.draw(1)
+    impl, _ = sample.build_sample_impl(gen.model, gen.config, create_diffusion(str(BC_STEPS)), loop="host")
+    eager = impl(z, y, gen._generator(sample_many.NOISE_STREAM, 1))
+    g7 = dict(captures_after_each_batch=captures, batch2_bit_equal=torch.equal(lats[1], eager),
+              batch2_max_gap=(lats[1] - eager).abs().max().item(),
+              replays=gen.sample_fn.graphed.graphs["step"].replays)
+    print(f"  G7 BatchGenerator: captures after each batch {captures}; batch 2 equal to the eager loop to the "
+          f"bit: {g7['batch2_bit_equal']} (max gap {g7['batch2_max_gap']:.3g}); replays {g7['replays']}", flush=True)
+    if captures != [1, 1, 1] or not g7["batch2_bit_equal"]:
+        raise AssertionError(f"G7: the generator's later batches captured again or differ from eager: {g7}")
+    del gen, lat, lats, eager
     torch.cuda.empty_cache()
     s_video = sorted(secs)[1] / MANY_BATCH
 
@@ -2258,8 +2304,193 @@ def sample_many_phase(tmp: str, ckpt: str, ddim_s: float, device, smi: str) -> d
           f"halved) against {ddim_s:.4f} s at batch 1 (phase sampler); sample_many.main "
           f"{main_s / total:.4f} s a video with the model's build, decode and mp4; on {smi}", flush=True)
     return dict(videos=total, batch=MANY_BATCH, files=files, bundle_shape=list(bundle.shape),
-                launches=launches, tc_launches=tc, vec_launches=vec, batch_secs=secs,
+                launches=launches, tc_launches=tc, vec_launches=vec, batch_secs=secs, g7=g7,
                 s_per_video_batch2=s_video, s_per_video_batch1=ddim_s, main_s=main_s, device=smi)
+
+
+# phase "graph": loop_mode scan (the sampler's step as a CUDA graph, replayed
+# once a timestep) against host (the eager loop) at full width
+UCF_SAMPLE = os.path.join(ROOT, "configs", "ucf101", "ucf101_sample.yaml")
+GRAPH_PAIRS = 5  # G1's alternating pairs of DDIM-50 runs, graph against eager
+GRAPH_CFG_SCALE = 7.0  # G3's cfg_scale on ucf101_sample.yaml
+
+
+def launch_record() -> dict:
+    """Each kernel's launches since the last reset_counts(), with the
+    attention's routes and the adaLN vector route's."""
+    return dict(counts(), tc=flash_attention.tc_launches, int8_tc=flash_attention_int8.tc_launches,
+                f32=flash_attention.f32_launches, vec={n: KERNELS[n]["fn"].vec_launches for n in ADALN})
+
+
+def timed_run(fn) -> tuple:
+    """``fn()`` and its host seconds, from a synchronize to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def graph_case(label: str, model, cfg, z, want: dict, smi: str, y=None, seed=None, timed: int = 1) -> tuple:
+    """One case of phase "graph": ``cfg``'s sampler under ``loop_mode: scan``
+    (``sample.build_sample_fn``, built once: its first call runs the first
+    step eagerly and captures, every later step replays) against the same
+    construction's eager loop (``sample.build_sample_impl`` with loop
+    "host") on ``model``, z, y and, for DDPM, a generator seeded ``seed``.
+    The graphed latents must equal the eager ones to the bit, and its first
+    call's launches since the reset ``want`` (a capture launches nothing;
+    each replay adds the kernels it recorded). ``timed`` more graphed calls
+    (replays only) and one eager call, timed host to host. Returns the
+    record and the graphed sampler."""
+    diffusion = create_diffusion(str(cfg.num_sampling_steps))
+    fn = sample.build_sample_fn(model, cfg, diffusion)
+    impl, use_cfg = sample.build_sample_impl(model, cfg, diffusion, loop="host")
+    gen = (lambda: torch.Generator(device=z.device).manual_seed(seed)) if seed is not None else (lambda: None)
+
+    def eager():
+        x, yy = sample.cfg_batch(use_cfg, model.num_classes, z, y)
+        return impl(x, yy, gen())[: z.shape[0]]
+
+    reset_counts()
+    lat, first_s = timed_run(lambda: fn(z, y, gen()))
+    launches = launch_record()
+    if fn.graphed is None or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: graphed {fn.graphed is not None}, launches {launches}, expected {want}")
+    graph_s = []
+    for _ in range(timed):
+        again, secs = timed_run(lambda: fn(z, y, gen()))
+        graph_s.append(secs)
+        if not torch.equal(again, lat):
+            raise AssertionError(f"{label}: a replayed trajectory differs from the first graphed one")
+    ref, eager_s = timed_run(eager)
+    gap = (lat.float() - ref.float()).abs().max().item()
+    rec = dict(bit_equal=torch.equal(lat, ref), max_abs_gap=gap, first_call_s=first_s, graph_s=graph_s,
+               eager_s=eager_s, captures=fn.graphed.captures,
+               replays={n: g.replays for n, g in fn.graphed.graphs.items()},
+               per_replay=fn.graphed.launches, launches=launches)
+    speed = f"; eager over graph {eager_s / graph_s[0]:.3f}x" if graph_s else ""
+    print(f"  {label}: graphed latents {tuple(lat.shape)} equal to eager to the bit: {rec['bit_equal']} "
+          f"(max gap {gap:.3g}); graph {first_s:.4f} s with its capture, {graph_s} s replayed, eager "
+          f"{eager_s:.4f} s{speed}; captures {rec['captures']}, replays {rec['replays']}, one replay's "
+          f"launches {rec['per_replay']}; launches {launches}; on {smi}", flush=True)
+    if not rec["bit_equal"] or not torch.isfinite(lat).all():
+        raise AssertionError(f"{label}: the graphed latents differ from the eager loop's (max gap {gap:.3g})")
+    return rec, fn
+
+
+def graph_profile(fn, z, wall_ms: float, want: int, smi: str) -> dict:
+    """One replayed DDIM-50 of ``fn`` under torch.profiler: the device's busy
+    ms and idle share against ``wall_ms`` (the unprofiled replayed run), and
+    the launches of each hand-written forward kernel in the trace by name
+    against the counters' replay accounting (``want`` each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(z)
+        torch.cuda.synchronize()
+    counted = {k: KERNELS[k]["fn"].launches for k in FORWARD}
+    kernels = {(ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)}
+    traced = {k: 0 for k in FORWARD}
+    for name, _, _ in kernels:
+        kind = kernel_kind(name)
+        if kind in traced:
+            traced[kind] += 1
+    groups, busy, _ = device_ms_by_kind(prof)
+    rec = dict(busy_ms=busy, wall_ms=wall_ms, idle=1 - busy / wall_ms if busy else None, device_ms_by_kind=groups,
+               traced_launches=traced, counted_launches=counted, kernels_in_trace=len(kernels))
+    seen = "the profiler sees the graph's kernels" if busy else "the profiler sees no device time (not measured)"
+    print(f"  G1 profile of one replayed ddim-50: {seen}; busy {busy:.4f} of {wall_ms:.4f} ms wall (idle "
+          f"{rec['idle']}); hand-written launches in the trace {traced}, by the counters {counted}; on {smi}",
+          flush=True)
+    if any(v != want for v in counted.values()) or (busy and traced != counted):
+        raise AssertionError(f"G1 profile: launches traced {traced}, counted {counted}, expected {want} each")
+    return rec
+
+
+def graph_phase(tmp: str, ckpt: str, device, smi: str) -> dict:
+    """Phase "graph" (see the module docstring): G1-G6, each graphed sampler
+    against the eager loop to the bit at full width; G7 and G8 are held in
+    phases "sample many" and "serve". Returns the record."""
+    base = [f"ckpt={ckpt}", "per_proc_batch_size=1"]
+    ddim = base + ["sample_method=ddim", "num_sampling_steps=50"]
+    per = {k: DEPTH * 50 for k in FORWARD}
+    model = sample.build_model(load_config(FFS_CONFIG, ddim), device)
+    z = torch.randn((1, FRAMES, 4, 32, 32), generator=torch.Generator(device=device).manual_seed(3), device=device)
+    res = {}
+    # G1: DDIM-50, batch 1, bf16
+    cfg = load_config(FFS_CONFIG, ddim)
+    res["G1"], fn = graph_case("G1 bf16 ddim-50", model, cfg, z, dict(per, tc=DEPTH * 50, int8_tc=0), smi)
+    impl, _ = sample.build_sample_impl(model, cfg, create_diffusion("50"), loop="host")
+    secs = {"graph": [], "eager": []}
+    for i in range(GRAPH_PAIRS):
+        for name in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            secs[name].append(timed_run(lambda: fn(z) if name == "graph" else impl(z))[1])
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    res["G1"]["pairs"] = dict(seconds=secs, median_s=med, eager_over_graph=med["eager"] / med["graph"],
+                              videos_per_min={k: 60.0 / v for k, v in med.items()})
+    print(f"  G1 pairs: graph {med['graph']:.4f} s -> {60 / med['graph']:.3f} videos/min (of {secs['graph']}), "
+          f"eager {med['eager']:.4f} s -> {60 / med['eager']:.3f} videos/min (of {secs['eager']}); "
+          f"eager over graph {med['eager'] / med['graph']:.3f}x on {smi}", flush=True)
+    res["G1"]["profile"] = graph_profile(fn, z, med["graph"] * 1e3, DEPTH * 50, smi)
+    fn.release()
+    # G2: ffs_sample.yaml as shipped, DDPM-250 from a generator
+    cfg = load_config(FFS_CONFIG, base)
+    steps = int(cfg.num_sampling_steps)
+    res["G2"], fn = graph_case(f"G2 bf16 ddpm-{steps} (as shipped)", model, cfg, z,
+                               {k: DEPTH * steps for k in FORWARD}, smi, seed=5, timed=0)
+    fn.release()
+    # G4: the block cache
+    cfg = load_config(FFS_CONFIG, ddim + [f"block_cache_pairs={BC_PAIRS}", f"block_cache_interval={BC_INTERVAL}"])
+    res["G4"], fn = graph_case(f"G4 block-cache ddim-50 (pairs {BC_PAIRS}, interval {BC_INTERVAL})", model, cfg, z,
+                               dict({k: BC_LAUNCHES for k in FORWARD}, tc=BC_LAUNCHES), smi)
+    fn.release()
+    del model
+    torch.cuda.empty_cache()
+    # G3: classifier-free guidance, ucf101_sample.yaml at cfg_scale 7, seeded weights
+    cfg = load_config(UCF_SAMPLE, ["sample_method=ddim", "num_sampling_steps=50", f"cfg_scale={GRAPH_CFG_SCALE}"])
+    model = sample.build_model(cfg, device)
+    randomize_(model, seed=46)
+    res["G3"], fn = graph_case(f"G3 cfg {GRAPH_CFG_SCALE} ddim-50 (ucf101, 101 classes)", model, cfg, z,
+                               dict(per, tc=DEPTH * 50), smi, y=torch.tensor([7], device=device))
+    fn.release()
+    del model
+    torch.cuda.empty_cache()
+    # G5: static W8A8 with int8 attention (flash route), calibrated from the checkpoint
+    cfg = load_config(FFS_CONFIG, ddim + ["quantized=static", "int8_attention=true", "attention_mode=flash"])
+    model = sample.build_model(cfg, device)
+    res["G5"], fn = graph_case("G5 static int8 ddim-50", model, cfg, z,
+                               {INT8: DEPTH * 50, "int8_tc": DEPTH * 50, "flash_attention": 0,
+                                "ln_modulate": DEPTH * 50, "residual_ln_modulate": DEPTH * 50}, smi)
+    fn.release()
+    del model
+    torch.cuda.empty_cache()
+    # G6: the MoE sampler, one process, no mesh
+    with torch.device(device):
+        model = get_model("Latte-XL/2", **MOE_ARCH)
+    randomize_(model, seed=45)
+    model.to(torch.bfloat16).eval()
+    cfg = load_config(FFS_CONFIG, ddim + [f"moe_experts={MOE_EXPERTS}"])
+    res["G6"], fn = graph_case(f"G6 moe ({MOE_EXPERTS} experts, top 2) ddim-50", model, cfg, z,
+                               dict(per, tc=DEPTH * 50), smi)
+    fn.release()
+    del model
+    torch.cuda.empty_cache()
+    res["device"] = smi
+    return res
+
+
+def graph_launches(name: str, graph: dict, many: dict, serve: dict) -> dict:
+    """A kernel row's launches in phase "graph"'s graphed runs (each case's
+    first call: its capture launches nothing) and in G7's and G8's (the
+    fp32 and "qk" rows: their routes', none)."""
+    runs = {case: graph[case]["launches"] for case in ("G1", "G2", "G3", "G4", "G5", "G6")}
+    runs["G7_sample_many"] = many["launches"]
+    runs["G8_serve_bf16"] = serve["bf16"]["launches"]
+    if name.endswith(("_f32", "_qk")):
+        return {run: (r.get("f32", 0) if name.endswith("_f32") else 0) for run, r in runs.items()}
+    return {run: r[name] for run, r in runs.items()}
 
 
 # phase "eval": the detectors on the card, the metric chain from files and
@@ -3071,7 +3302,7 @@ def diffusion_runs(ckpt: str, lat_bf16, device) -> dict:
     kl = create_diffusion("", use_kl=True)
     # an untimed gradient first: the first fp32 backward at these shapes
     # pays cuBLAS's first calls, seconds that would land on the kernel path
-    kl.training_losses(model, x, t, noise)["loss"].mean().backward()
+    kl.training_losses(model, x, t, noise=noise)["loss"].mean().backward()
     model.zero_grad(set_to_none=True)
     grads, losses, secs = [], [], []
     for plain in (False, True):
@@ -3079,7 +3310,7 @@ def diffusion_runs(ckpt: str, lat_bf16, device) -> dict:
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = kl.training_losses(model, x, t, noise)["loss"].mean()
+        loss = kl.training_losses(model, x, t, noise=noise)["loss"].mean()
         loss.backward()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
@@ -3147,7 +3378,7 @@ def t2v_gradient(model, batch: tuple, label: str, want) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loss = create_diffusion("").training_losses(fn, x0, t, noise)["loss"].mean()
+    loss = create_diffusion("").training_losses(fn, x0, t, noise=noise)["loss"].mean()
     loss.backward()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -3352,7 +3583,7 @@ def train_step_parity(device) -> dict:
 
     def step(m, compute_dtype):
         m.compute_dtype = compute_dtype
-        loss = diffusion.training_losses(m, x0, t, noise)["loss"].mean()
+        loss = diffusion.training_losses(m, x0, t, noise=noise)["loss"].mean()
         loss.backward()
         g = torch.cat([p.grad.flatten() for p in m.parameters()])
         m.zero_grad(set_to_none=True)
@@ -4333,7 +4564,7 @@ def moe_train_step_parity(device) -> dict:
             aux.append(columns)
             return out
 
-        loss = diffusion.training_losses(fn, x0, t, noise)["loss"].mean()
+        loss = diffusion.training_losses(fn, x0, t, noise=noise)["loss"].mean()
         loss = loss + MOE_AUX_WEIGHT * aux[0].mean(dim=1).sum() / aux[0].shape[0]
         loss.backward()
         return loss.detach()
@@ -4472,11 +4703,8 @@ def moe_sampler(tmp: str, smi: str, device, timer) -> dict:
         secs.append(time.perf_counter() - t0)
     video_s = statistics.median(secs)
     cfg10 = load_config(FFS_CONFIG, over + ["num_sampling_steps=10"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     lat10 = sample.sample_latents(model, cfg10, device)
-    torch.cuda.synchronize()
-    prof = profile_sampler(model, cfg10, device, time.perf_counter() - t0, "moe ddim-10 sampler")
+    prof = profile_sampler(model, cfg10, device, "moe ddim-10 sampler")
     gen = torch.Generator(device=device).manual_seed(47)
     parts = {}
     for name, (blk, rows, n) in (("spatial", (0, FRAMES, TOKENS)), ("temporal", (1, TOKENS, FRAMES))):
@@ -5850,9 +6078,7 @@ def serve_check(label: str, call, state, model, cfg, z, live, want: dict, gen_se
     got = call(state, z, generator=gen())
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(counts(), tc=flash_attention.tc_launches, int8_tc=flash_attention_int8.tc_launches,
-                    f32=flash_attention.f32_launches,
-                    vec={n: KERNELS[n]["fn"].vec_launches for n in ADALN})
+    launches = launch_record()
     equal = torch.equal(got, live)
     print(f"  {label}: artifact latents {tuple(got.shape)} equal to the live sampler's to the bit: {equal}; "
           f"{secs:.3f} s; launches {launches}", flush=True)
@@ -5946,19 +6172,32 @@ def _serve_runs(tmp, device, smi, jobs, started) -> dict:
                               dict(per, tc=DEPTH * 50, f32=0, **{INT8: 0}))
     if res["bf16"]["launches"]["vec"] != {n: DEPTH * 50 for n in ADALN}:
         raise AssertionError(f"an adaLN launch of the artifact left the vector route: {res['bf16']['launches']}")
-    # alternating pairs: the artifact (the state placed once) against the live loop
+    # alternating pairs: the artifact (the state placed once) against the live
+    # sampler (built once), each replaying its graph after its first call
     placed = call.place(sd)
+    live_fn = sample.build_sample_fn(model, cfg, diffusion_of("50"))
+    call(placed, z)
+    live_fn(z)
+    captures = call.graphed.captures
     secs = {"artifact": [], "live": []}
     for i in range(SERVE_PAIRS):
         for name in (("artifact", "live") if i % 2 == 0 else ("live", "artifact")):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if name == "artifact":
-                call(placed, z)
+                got = call(placed, z)
             else:
-                sample.sample_loop(model, cfg, z)
+                live_fn(z)
             torch.cuda.synchronize()
             secs[name].append(time.perf_counter() - t0)
+    # G8: the artifact's step replayed under the graph runner, bit-equal to the live graphed sampler
+    res["g8"] = dict(bit_equal=torch.equal(got, live["ffs_xl"]), captures_before_pairs=captures,
+                     captures_after_pairs=call.graphed.captures, replays=call.graphed.graphs["step"].replays,
+                     per_replay=call.graphed.launches)
+    print(f"  G8 artifact under the graph: {res['g8']}", flush=True)
+    if not res["g8"]["bit_equal"] or call.graphed.captures != captures:
+        raise AssertionError(f"G8: the artifact's replays captured again or differ from the live sampler: {res['g8']}")
+    live_fn.release()
     med = {k: statistics.median(v) for k, v in secs.items()}
     res["pairs"] = dict(seconds=secs, median_s=med, artifact_over_live=med["artifact"] / med["live"])
     print(f"  ddim-50 pairs: artifact {med['artifact']:.3f} s (of {secs['artifact']}), live {med['live']:.3f} s "
@@ -6149,7 +6388,7 @@ def main() -> int:
               f"(median of {route_s['tensor_core']}; with the CUDA-core attention forward "
               f"{core_s:.3f} s -> {60.0 / core_s:.3f} videos/min, median of "
               f"{route_s['cuda_core']}; plain path {plain_s:.3f} s) on {smi}", flush=True)
-        exact_prof = profile_sampler(model, cfg, device, kernel_s)
+        exact_prof = profile_sampler(model, cfg, device)
 
         cfg = load_config(FFS_CONFIG, [
             "sample_method=ddpm", "num_sampling_steps=5", f"ckpt={ckpt}",
@@ -6167,6 +6406,11 @@ def main() -> int:
         del model, plain16
         torch.cuda.empty_cache()
         phase("sampler", t0)
+
+        # the sampler as one program: loop_mode scan (CUDA graphs of the step) against host
+        t0 = time.perf_counter()
+        graph_run = graph_phase(tmp, ckpt, device, smi)
+        phase("graph", t0)
 
         # 5b. the entry point to decoded frames, and the VAE at full width
         t0 = time.perf_counter()
@@ -6255,6 +6499,7 @@ def main() -> int:
     print("sample_many: " + json.dumps(many, default=str), flush=True)
     print("eval: " + json.dumps(eval_run, default=str), flush=True)
     print("serve: " + json.dumps(serve_run, default=str), flush=True)
+    print("graph: " + json.dumps(dict(graph_run, G7=many["g7"], G8=serve_run["g8"]), default=str), flush=True)
     print("t2v: " + json.dumps(t2v_run, default=str), flush=True)
     print("diffusion_t2v_grad: " + json.dumps(dg_run, default=str), flush=True)
     print("moe: " + json.dumps(moe, default=str), flush=True)
@@ -6390,6 +6635,7 @@ def main() -> int:
         row["launches_pp"] = pp_launches(name, pp_run, dist)
         row["launches_eval"] = eval_run["launches"][row["name"]]
         row["launches_serve"] = serve_launches(row["name"], serve_run)
+        row["launches_graph"] = graph_launches(row["name"], graph_run, many, serve_run)
         row["launches_diffusion"] = dg_run["launches_diffusion"][name]
         row["launches_t2v_grad"] = dg_run["launches_t2v_grad"][name]
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
@@ -6399,16 +6645,17 @@ def main() -> int:
 
 
 def alone(parts) -> int:
-    """``python3 chip_smoke.py serve ckpt t2vgrad`` (any of them): the
-    build, then for "serve" phase 5g on a seeded Latte-XL/2 checkpoint as
-    ``main`` writes it; for "ckpt" ``train.main`` on ffs_train.yaml for 3
+    """``python3 chip_smoke.py graph serve ckpt t2vgrad`` (any of them): the
+    build, then for "graph" phase "graph" (G1-G6) and phase 5d with G7 on a
+    seeded Latte-XL/2 checkpoint as ``main`` writes it, for "serve" phase 5g
+    (with G8) on that checkpoint; for "ckpt" ``train.main`` on ffs_train.yaml for 3
     steps with its checkpoint written in the background and then blocking,
     each save timed by ``TimedSaves``; for "t2vgrad" the backward kernels
     at T2V_BWD_SHAPES, then phase 5h on that checkpoint and its DDIM-50
     latents through ``sample.main``. Prints the same lines as those parts
     of ``main``, and no result line."""
-    if not torch.cuda.is_available() or not set(parts) <= {"serve", "ckpt", "t2vgrad"}:
-        print("usage on a GPU: chip_smoke.py [serve] [ckpt] [t2vgrad]", file=sys.stderr)
+    if not torch.cuda.is_available() or not set(parts) <= {"graph", "serve", "ckpt", "t2vgrad"}:
+        print("usage on a GPU: chip_smoke.py [graph] [serve] [ckpt] [t2vgrad]", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -6420,13 +6667,21 @@ def alone(parts) -> int:
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "latte_xl2_random.pt")
-        if {"serve", "t2vgrad"} & set(parts):
+        if {"graph", "serve", "t2vgrad"} & set(parts):
             with torch.device(device):
                 model = get_model("Latte-XL/2", input_size=32, num_frames=FRAMES)
             randomize_(model, seed=0)
             model.to(torch.bfloat16).eval()
             torch.save({"ema": model.state_dict()}, ckpt)
             del model
+        if "graph" in parts:
+            t0 = time.perf_counter()
+            graph_run = graph_phase(tmp, ckpt, device, smi)
+            phase("graph", t0)
+            t0 = time.perf_counter()
+            many = sample_many_phase(tmp, ckpt, graph_run["G1"]["pairs"]["median_s"]["graph"], device, smi)
+            phase("sample many", t0)
+            print("graph: " + json.dumps(dict(graph_run, G7=many["g7"]), default=str), flush=True)
         if "serve" in parts:
             t0 = time.perf_counter()
             serve_run = serve_phase(tmp, ckpt, device, smi)

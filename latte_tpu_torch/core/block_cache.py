@@ -8,9 +8,12 @@ list at pair k from the activation the last full forward left there
 
 The JAX loop is one ``lax.scan`` whose body takes a ``lax.cond`` between the
 full and the partial forward; here it is a Python loop and an ``if``, so a
-partial step launches only the back pairs' kernels. ``cache_interval=1``
-reproduces the standard sampler exactly; larger intervals change the
-trajectory (the entry point's ``block_cache_interval`` opts in).
+partial step launches only the back pairs' kernels. Under the sampler's
+``loop_mode: scan`` the step is a ``core.step_graph.GraphedStep`` holding
+two CUDA graphs, the full and the partial forward, which the ``if`` picks.
+``cache_interval=1`` reproduces the standard sampler exactly; larger
+intervals change the trajectory (the entry point's ``block_cache_interval``
+opts in).
 """
 
 from __future__ import annotations
@@ -70,7 +73,8 @@ def run_cached_steps(
     """The cached loop's schedule over ``x, front = step(x, t, noise,
     front)``: step i (i = 0 at t = T - 1) passes ``front=None`` (a full
     forward) when ``i % cache_interval == 0``, else the last full forward's
-    front. DDIM steps take zeros; DDPM draws each step's noise by the
+    front (a ``GraphedStep`` returns its static x and front, passed back
+    in). DDIM steps take zeros; DDPM draws each step's noise by the
     standard loops' rule."""
     x, front = x_T, None
     for i, t_scalar in enumerate(range(diffusion.num_timesteps - 1, -1, -1)):

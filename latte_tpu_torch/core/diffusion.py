@@ -343,12 +343,13 @@ class GaussianDiffusion:
         return {"output": output, "pred_xstart": out["pred_xstart"]}
 
     def training_losses(
-        self, model_fn: ModelFn, x_start, t, noise: Optional[torch.Tensor] = None, model_kwargs=None,
+        self, model_fn: ModelFn, x_start, t, model_kwargs=None, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Per-example training losses (shape [B]) for ``noise`` (else drawn
-        from ``generator``). KL types: ``loss`` is the VB term, the model's
-        mean not detached, times ``num_timesteps`` for RESCALED_KL. MSE
+        from ``generator``), in the JAX engine's argument order
+        (``model_kwargs`` fourth, ``noise`` fifth, ``generator`` in ``rng``'s
+        place). KL types: ``loss`` is the VB term, the model's mean not detached, times ``num_timesteps`` for RESCALED_KL. MSE
         types: ``mse`` and, with a learned variance, the hybrid ``mse + vb``,
         where the VB term sees a detached mean so only the variance head
         learns from it, times ``num_timesteps / 1000`` for RESCALED_MSE

@@ -4,8 +4,12 @@ Each step's noise comes from ``noise_schedule[t]`` when given (the tests
 inject the same numbers into the JAX loop), else from ``generator``, else
 zeros, the order the JAX loops use. :func:`run_steps` is that loop over any
 step function: the loops here, the sampler's and the loader of an exported
-sampler step (``serve.aot``) run it. The loops run without autograd: a
-``cond_fn`` that differentiates a classifier enables grad itself.
+sampler step (``serve.aot``) run it. The step may be a
+``core.step_graph.GraphedStep``, which replays it as a CUDA graph on static
+buffers (``loop_mode: scan``, the counterpart of the JAX loops' ``loop``
+argument); the generic loops here (``cond_fn`` differentiates,
+``collect_trajectory`` keeps every x) run it eagerly. The loops run without
+autograd: a ``cond_fn`` that differentiates a classifier enables grad itself.
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ def run_steps(
     collect_trajectory: bool = False,
 ):
     """``x = step(x, t, noise)`` from t = T - 1 down to 0: t an int64 (B,)
-    tensor, the noise drawn before each step (see the module docstring).
+    tensor, the noise drawn before each step (see the module docstring), x
+    passed back as the step returned it (a ``GraphedStep``'s static x).
     With ``collect_trajectory``: ``(x, trajectory)``, every step's x
-    stacked, (T, ...)."""
+    stacked, (T, ...), of an eager step."""
     x, trajectory = x_T, []
     for t_scalar in range(diffusion.num_timesteps - 1, -1, -1):
         t = torch.full((x.shape[0],), t_scalar, dtype=torch.int64, device=x.device)

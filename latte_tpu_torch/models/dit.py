@@ -228,14 +228,24 @@ class Latte(nn.Module):
     def _pos_embed(self, grid: int, dtype: torch.dtype) -> torch.Tensor:
         if self.pos_embed.shape[1] == grid * grid:
             return self.pos_embed.to(dtype)
-        table = get_2d_sincos_pos_embed(self.hidden_size, grid)
-        return torch.from_numpy(table).to(self.pos_embed.device, dtype)[None]
+        return self._sincos(get_2d_sincos_pos_embed, grid, self.pos_embed.device, dtype)
 
     def _temp_embed(self, frames: int, dtype: torch.dtype) -> torch.Tensor:
         if self.temp_embed.shape[1] == frames:
             return self.temp_embed.to(dtype)
-        table = get_1d_sincos_pos_embed(self.hidden_size, frames)
-        return torch.from_numpy(table).to(self.temp_embed.device, dtype)[None]
+        return self._sincos(get_1d_sincos_pos_embed, frames, self.temp_embed.device, dtype)
+
+    def _sincos(self, table_fn, n: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """The sincos table of another size than the built one, made on the
+        device at its first use and kept there, so that a forward copies
+        nothing from the host (a CUDA graph of the sampler's step could not
+        capture the copy)."""
+        cache = self.__dict__.setdefault("_sincos_tables", {})
+        key = (table_fn.__name__, n, device, dtype)
+        if key not in cache:
+            with torch.inference_mode(False), torch.no_grad():
+                cache[key] = torch.from_numpy(table_fn(self.hidden_size, n)).to(device, dtype)[None]
+        return cache[key]
 
     def _pair(self, x, c_spatial, c_temp, temp_embed, i: int, B: int, F: int, relayout: Optional[Relayout] = None):
         """Blocks i (spatial) and i + 1 (temporal) on (B·F, T, D) tokens:

@@ -23,6 +23,15 @@ each attention and each MLP. Rank 0 decodes and writes the video. It
 composes with CFG, the block cache and the int8 modes; as in JAX it needs
 ``loop_mode: scan`` (``ValueError``), and N processes.
 
+``loop_mode`` is JAX's: ``scan`` (the default) runs the trajectory as one
+program, a CUDA graph of the sampler's step captured once on static buffers
+and replayed once a timestep (:mod:`latte_tpu_torch.core.step_graph`; on
+the CPU the same static-buffer runner calls the step), ``host`` the eager
+Python loop over the step. :func:`build_sample_fn` builds the sampler once
+for many calls, as JAX's does. A step that holds a collective (tensor
+parallelism's all-reduces, an MoE model's dispatch over a mesh) runs the
+eager loop under ``scan``: no collective is captured in a graph.
+
 ``block_cache_interval: N`` (> 1) samples with the block cache
 (:mod:`latte_tpu_torch.core.block_cache`): the first ``block_cache_pairs``
 pairs (default 2/3 of them, rounded down) are recomputed only every Nth
@@ -46,6 +55,7 @@ Runs on ``cuda`` unless asked for the CPU::
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 from typing import Optional
@@ -58,10 +68,12 @@ from latte_tpu_torch.convert import load_reference_checkpoint
 from latte_tpu_torch.core.block_cache import cached_step, run_cached_steps
 from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.core.samplers import cfg_model_fn, denoise_step, run_steps
+from latte_tpu_torch.core.step_graph import GraphedStep
 from latte_tpu_torch.dist.mesh import MeshConfig, barrier, setup
 from latte_tpu_torch.dist.sharding import tp_shard_state_dict
 from latte_tpu_torch.models import Latte, get_models
 from latte_tpu_torch.models.layers import MOE_INT8_REFUSAL
+from latte_tpu_torch.models.moe import MoEMlp
 from latte_tpu_torch.quant import calibrate_act_amax, merge_amax, quantize_params
 from latte_tpu_torch.utils import create_logger, resolve_device, save_video, to_uint8
 from latte_tpu_torch.vae import AutoencoderKL, build_vae, make_decode_fn
@@ -81,7 +93,7 @@ def check_config(config: Config, world: Optional[int] = None) -> None:
     sampler passes no text to."""
     block_cache_interval(config)
     tp = tensor_parallel(config)
-    if tp > 1 and str(getattr(config, "loop_mode", "scan") or "scan") != "scan":
+    if tp > 1 and loop_mode(config) != "scan":
         raise ValueError("tensor_parallel serving requires loop_mode=scan")
     if tp > 1 and world is not None and world != tp:
         raise ValueError(f"tensor_parallel={tp} needs {tp} processes (one a GPU), have {world}")
@@ -96,14 +108,19 @@ def check_config(config: Config, world: Optional[int] = None) -> None:
         raise NotImplementedError(MOE_INT8_REFUSAL)
 
 
+def loop_mode(config: Config) -> str:
+    """``loop_mode``, "scan" by default: "host" runs the eager loop, any
+    other value the graphed one (the JAX loops' test)."""
+    return str(getattr(config, "loop_mode", "scan") or "scan")
+
+
 def block_cache_interval(config: Config) -> int:
     """``block_cache_interval`` when it turns the block cache on (> 1), else
-    0. As in the JAX sampler it needs ``loop_mode: scan`` (which is a JAX
-    compile hint: the port's loops are Python loops either way)."""
+    0. As in the JAX sampler it needs ``loop_mode: scan``."""
     interval = int(getattr(config, "block_cache_interval", 0) or 0)
     if interval <= 1:
         return 0
-    if str(getattr(config, "loop_mode", "scan") or "scan") != "scan":
+    if loop_mode(config) != "scan":
         raise ValueError("block_cache_interval requires loop_mode=scan")
     return interval
 
@@ -259,6 +276,68 @@ def cfg_batch(use_cfg: bool, num_classes: int, z: torch.Tensor, y: Optional[torc
     return z, y
 
 
+def holds_collectives(model) -> bool:
+    """Whether ``model``'s forward runs a collective: tensor parallelism's
+    all-reduces, or an MoE layer's dispatch over a mesh."""
+    return int(getattr(model, "tp", 1) or 1) > 1 or any(
+        m.mesh is not None for m in model.modules() if isinstance(m, MoEMlp))
+
+
+def build_sample_impl(model, config: Config, diffusion, loop: str = "scan"):
+    """``(sample_impl, use_cfg)``: ``sample_impl(x, y, generator=None,
+    noise_schedule=None)`` the final latents of the sampler's batch x (under
+    CFG the [cond | uncond] halves of :func:`cfg_batch`), fp32, a new tensor;
+    the counterpart of the JAX package's ``build_sample_impl``, the one
+    construction of the sampler (the CFG combine, DDPM or DDIM, the
+    standard or the block-cache loop). ``loop`` "scan" replays the step as
+    a CUDA graph (:class:`~latte_tpu_torch.core.step_graph.GraphedStep`,
+    ``sample_impl.graphed``), built at the first call and kept for the next
+    ones, unless the step holds a collective (:func:`holds_collectives`),
+    which runs the eager loop as "host" does. ``generator`` draws DDPM's
+    per-step noise, unless ``noise_schedule[t]`` gives it (the loops' rule)."""
+    use_cfg = cfg_of(config)[0]
+    interval = block_cache_interval(config)
+    if loop == "host" and int(getattr(model, "tp", 1) or 1) > 1:
+        raise ValueError("tensor_parallel serving requires loop_mode=scan")
+    ddim = str(getattr(config, "sample_method", "ddpm")).lower() == "ddim"
+    step = sampler_step(model, config, diffusion, model.depth)
+    graphed = None
+    if loop != "host" and not holds_collectives(model):
+        # the graphs read the model's tensors by address: a moved tensor captures again
+        graphed = step = GraphedStep(step, cached=bool(interval),
+                                     weights=lambda: itertools.chain(model.parameters(), model.buffers()))
+
+    def sample_impl(x, y=None, generator=None, noise_schedule=None) -> torch.Tensor:
+        with torch.inference_mode():
+            latents = run_sampler(step, diffusion, x, y, interval=interval, ddim=ddim, generator=generator,
+                                  noise_schedule=noise_schedule)
+            return latents.clone() if graphed is not None else latents
+
+    sample_impl.graphed = graphed
+    return sample_impl, use_cfg
+
+
+def build_sample_fn(model, config: Config, diffusion):
+    """The configured sampler over ``model``: ``fn(z, y=None, generator=None,
+    noise_schedule=None)`` -> the final latents (B, F, 4, L, L), fp32, from
+    noise z (B, F, 4, L, L) and, for a class-conditional model, labels y
+    (B,) (the CFG doubling inside). Built once for many calls, as the JAX
+    package's ``build_sample_fn``: under ``loop_mode: scan`` its graphs
+    (``fn.graphed``) are captured at the first call and captured again only
+    when the batch shape, the dtype, the device or the model's tensors
+    change; ``fn.release()`` frees them. ``fn.use_cfg`` is the CFG flag."""
+    impl, use_cfg = build_sample_impl(model, config, diffusion, loop=loop_mode(config))
+
+    def sample_fn(z, y=None, generator=None, noise_schedule=None) -> torch.Tensor:
+        n = z.shape[0]
+        x, y = cfg_batch(use_cfg, model.num_classes, z, y)
+        return impl(x, y, generator, noise_schedule)[:n]
+
+    sample_fn.use_cfg, sample_fn.graphed = use_cfg, impl.graphed
+    sample_fn.release = impl.graphed.release if impl.graphed is not None else lambda: None
+    return sample_fn
+
+
 def sample_loop(
     model: Latte,
     config: Config,
@@ -268,33 +347,28 @@ def sample_loop(
     noise_schedule=None,
 ) -> torch.Tensor:
     """Final latents (B, F, 4, L, L), fp32, from noise ``z`` (B, F, 4, L, L)
-    and, for a class-conditional model, labels ``y`` (B,): the one
-    construction of the sampler (the CFG doubling and combine, DDPM or DDIM,
-    the standard or the block-cache loop), the counterpart of the JAX
-    package's ``build_sample_impl``. ``generator`` draws DDPM's per-step
-    noise, unless ``noise_schedule[t]`` gives it (the loops' rule)."""
-    n = z.shape[0]
-    diffusion = create_diffusion(str(config.num_sampling_steps))
-    method = str(getattr(config, "sample_method", "ddpm")).lower()
-    z, y = cfg_batch(cfg_of(config)[0], model.num_classes, z, y)
-    step = sampler_step(model, config, diffusion, model.depth)
-    with torch.inference_mode():
-        latents = run_sampler(step, diffusion, z, y, interval=block_cache_interval(config), ddim=method == "ddim",
-                              generator=generator, noise_schedule=noise_schedule)
-    return latents[:n]
+    and, for a class-conditional model, labels ``y`` (B,): one call of a
+    :func:`build_sample_fn` built for it, whose graphs it frees."""
+    sample_fn = build_sample_fn(model, config, create_diffusion(str(config.num_sampling_steps)))
+    try:
+        return sample_fn(z, y, generator, noise_schedule)
+    finally:
+        sample_fn.release()
 
 
-def sample_latents(
-    model: Latte, config: Config, device: torch.device
-) -> torch.Tensor:
+def sample_latents(model: Latte, config: Config, device: torch.device, sample_fn=None) -> torch.Tensor:
     """One video's final latents (1, F, 4, L, L), fp32, from ``config.seed``:
-    z, then DDPM's noise, from one ``torch.Generator``."""
+    z, then DDPM's noise, from one ``torch.Generator``; through
+    ``sample_fn`` (a :func:`build_sample_fn`) when given, else one built
+    for the call."""
     generator = torch.Generator(device=device).manual_seed(int(getattr(config, "seed", 0) or 0))
     z = torch.randn(latent_shape(config, 1), generator=generator, device=device)
     y = None
     if int(getattr(config, "extras", 1)) == 2:
         y = torch.full((1,), int(getattr(config, "sample_class", 0)), device=device)
-    return sample_loop(model, config, z, y, generator)
+    if sample_fn is None:
+        return sample_loop(model, config, z, y, generator)
+    return sample_fn(z, y, generator)
 
 
 def load_vae(config: Config, device: torch.device) -> Optional[AutoencoderKL]:
@@ -352,10 +426,13 @@ def main(config: Config, device: Optional[str] = None) -> str:
     )
 
     t0 = time.perf_counter()
-    latents = sample_latents(model, config, dev)
+    sample_fn = build_sample_fn(model, config, create_diffusion(str(config.num_sampling_steps)))
+    latents = sample_latents(model, config, dev, sample_fn)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    logger.info(f"sampled in {time.perf_counter() - t0:.2f}s on {dev}")
+    logger.info(f"sampled in {time.perf_counter() - t0:.2f}s on {dev} (loop_mode={loop_mode(config)}, "
+                f"graphed={sample_fn.graphed is not None})")
+    sample_fn.release()  # the graphs' memory, before the decode
 
     out_path = getattr(config, "save_video_path", None) or "./sample_videos/sample.mp4"
     if vae is None:

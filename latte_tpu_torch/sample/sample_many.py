@@ -18,8 +18,12 @@ tokens by the routing choices all-gathered over the world (``models/moe.py``,
 whose rows are then this run's dp split, and under CFG the [cond | uncond]
 halves of the global batch). ``tensor_parallel`` is ignored, as the JAX
 generator ignores it. The model comes from ``sample.build_model`` and the sampler
-from ``sample.sample_loop``, so the int8 modes and the block cache apply as
-in the single-video entry point. Runs on ``cuda`` unless asked for the CPU::
+from ``sample.build_sample_fn``, built once and called for every batch (as
+the JAX generator does), so the int8 modes, the block cache and
+``loop_mode`` apply as in the single-video entry point: under ``scan`` each
+batch replays the CUDA graphs the first one captured (an MoE model over
+several processes, whose step holds collectives, runs the eager loop).
+Runs on ``cuda`` unless asked for the CPU::
 
     python -m latte_tpu_torch.sample.sample_many --config configs/ffs/ffs_sample.yaml \
         [--device cpu] [key=value ...]
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from latte_tpu_torch.config import Config, load_config
+from latte_tpu_torch.core.diffusion import create_diffusion
 from latte_tpu_torch.dist.mesh import DistContext, MeshConfig, barrier, initialize_distributed, is_main_process, make_mesh
 from latte_tpu_torch.sample import sample
 from latte_tpu_torch.utils import create_logger, read_video, resolve_device, save_video
@@ -81,6 +86,7 @@ class BatchGenerator:
             moe_mesh = DistContext(make_mesh(MeshConfig(dp=self.n_dev), self.device.type), self.device,
                                    cfg_halves=self.cfg)
         self.model = sample.build_model(config, self.device, moe_mesh=moe_mesh)
+        self.sample_fn = sample.build_sample_fn(self.model, config, create_diffusion(str(config.num_sampling_steps)))
         if logger and not getattr(config, "ckpt", None):
             logger.info("WARNING: no checkpoint given — sampling from random init")
         self.vae = sample.load_vae(config, self.device)
@@ -117,7 +123,7 @@ class BatchGenerator:
         noise = None
         if self.n_dev > 1:
             noise = ShardNoise(generator, (self.global_batch,) + tuple(z.shape[1:]), self._rows(), self.cfg)
-        latents = sample.sample_loop(self.model, self.config, z, y, generator, noise_schedule=noise)
+        latents = self.sample_fn(z, y, generator, noise_schedule=noise)
         self.it += 1
         return latents
 
@@ -137,7 +143,7 @@ class ShardNoise:
     """DDPM's per-step noise of one shard, as ``noise_schedule``: each step
     draws the noise of the global x (``global_shape``; twice the rows under
     CFG, [cond | uncond]) from ``generator`` and returns the shard's
-    ``rows`` of each half."""
+    ``rows`` of each half. The loops read it outside a graph, per step."""
 
     def __init__(self, generator: torch.Generator, global_shape, rows: slice, cfg: bool):
         self.generator, self.rows, self.cfg = generator, rows, cfg

@@ -17,7 +17,12 @@ step's noise from the caller's ``torch.Generator`` (or ``noise_schedule[t]``)
 in the live loops' order (``core.samplers.run_steps``,
 ``core.block_cache.run_cached_steps``), so a DDPM artifact gives the live
 sampler's latents from the same seed. (The JAX artifact scans inside its
-blob and takes a PRNG key instead.) With the block cache two programs are
+blob and takes a PRNG key instead.) The loader replays the step program as
+the live sampler's ``loop_mode: scan`` does, as a CUDA graph captured once
+on static buffers (``core.step_graph.GraphedStep``; on the CPU the same
+runner calls the program), which is the counterpart of the JAX artifact's
+whole trajectory; a tensor-parallel artifact, whose step holds all-reduces,
+runs the eager loop. With the block cache two programs are
 exported: the full step, which also returns the front, and the partial step
 from pair k; the loader runs the cached loop's schedule over them.
 
@@ -40,6 +45,7 @@ import dataclasses
 import io
 import json
 import struct
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -394,9 +400,16 @@ def load_sampler(path: str):
     initialized process group of world N (else ``ValueError``); each builds
     the (dp 1, tp N) mesh, and ``call`` takes the whole state dict and keeps
     the rank's Megatron part (``dist.sharding.tp_shard_state_dict``), as the
-    live sampler does; every rank returns the latents."""
+    live sampler does; every rank returns the latents.
+
+    One process replays the step program as a CUDA graph (``call.graphed``,
+    a ``core.step_graph.GraphedStep``), captured at the first call and
+    again when the placed weights' addresses change: a caller that passes
+    the same placed state dict replays. Calls from several threads take
+    turns on it."""
     import latte_tpu_torch.kernels  # noqa: F401  (registers the custom ops)
     from latte_tpu_torch.core.diffusion import create_diffusion
+    from latte_tpu_torch.core.step_graph import GraphedStep
     from latte_tpu_torch.sample.sample import cfg_batch, run_sampler
 
     header, blobs = read_artifact(path)
@@ -429,6 +442,7 @@ def load_sampler(path: str):
         programs[name] = module
     diffusion = create_diffusion(str(header["num_sampling_steps"]))
     n, use_cfg = header["batch"], header["cfg"]
+    bc = header["block_cache"]
 
     def stepper(placed: dict):
         """The loop's step over the programs, with this call's weights."""
@@ -442,6 +456,11 @@ def load_sampler(path: str):
 
         return step
 
+    graphed, weights, lock = None, {}, threading.Lock()
+    if ctx is None:
+        graphed = GraphedStep(lambda *args: stepper(weights)(*args), cached=bc is not None,
+                              weights=lambda: weights.values())
+
     def call(state_dict: dict, z: torch.Tensor, y: Optional[torch.Tensor] = None, *,
              generator: Optional[torch.Generator] = None, noise_schedule=None) -> torch.Tensor:
         if list(z.shape) != header["z_shape"]:
@@ -452,18 +471,25 @@ def load_sampler(path: str):
             from latte_tpu_torch.dist.sharding import tp_shard_state_dict
 
             state_dict = tp_shard_state_dict(state_dict, tp, ctx.tp_rank)
-        step = stepper(_place(state_dict, header["state"], device))
+        placed = _place(state_dict, header["state"], device)
         x = z.to(device=device, dtype=torch.float32)
         if y is not None:
             x, y = cfg_batch(use_cfg, header["num_classes"], x, y.to(device=device, dtype=torch.int64))
-        bc = header["block_cache"]
+        kwargs = dict(interval=bc[1] if bc else 0, ddim=header["sample_method"] == "ddim", generator=generator,
+                      noise_schedule=noise_schedule)
         with torch.inference_mode():
-            latents = run_sampler(step, diffusion, x, y, interval=bc[1] if bc else 0,
-                                  ddim=header["sample_method"] == "ddim", generator=generator,
-                                  noise_schedule=noise_schedule)
-        return latents[:n]
+            if graphed is None:
+                return run_sampler(stepper(placed), diffusion, x, y, **kwargs)[:n]
+            with lock:
+                weights.clear()
+                weights.update(placed)
+                try:
+                    return run_sampler(graphed, diffusion, x, y, **kwargs)[:n].clone()
+                finally:
+                    weights.clear()
 
     call.header = header
+    call.graphed = graphed
     call.programs = programs  # each program's module: (state, x, t, noise, y[, front]) -> ...
     call.place = lambda state_dict: _place(state_dict, header["state"], device)
     return call

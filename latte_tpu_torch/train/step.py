@@ -210,7 +210,7 @@ def make_train_step(
             aux_box.append(aux)
             return out
 
-        terms = diffusion.training_losses(model_fn, latents, t, noise, model_kwargs=kwargs)
+        terms = diffusion.training_losses(model_fn, latents, t, model_kwargs=kwargs, noise=noise)
         per_sample = terms["loss"]
         if "t_weights" in batch:
             # importance-sampling correction: E_p[w(t) L(t)] = E_U[L]

@@ -136,7 +136,7 @@ def test_training_losses_of_every_loss_type(loss_type):
     want = jax_terms(jnp.asarray(out))
     t_out = torch.from_numpy(out).requires_grad_()
     got = td.training_losses(lambda x, tt: t_out * 1.0, torch.from_numpy(x0), torch.from_numpy(t),
-                             torch.from_numpy(noise))
+                             noise=torch.from_numpy(noise))
     assert set(got) == set(want)
     for k in want:
         close(got[k], want[k])
@@ -148,6 +148,29 @@ def test_training_losses_of_every_loss_type(loss_type):
         close(g[:1], want_g[:1], 1e-3, 1e-3)
 
 
+def test_training_losses_by_position_in_jax_order():
+    """Both engines called by position, ``(model_fn, x_start, t,
+    model_kwargs, noise)``: the labels reach a class-conditional model_fn
+    and the noise is the one given, in both."""
+    x0, noise = _target((3,) + SHAPE[1:], seed=5), _target((3,) + SHAPE[1:], seed=6)
+    t, y = np.array(BATCH_T), np.array([1, 4, 9])
+    out = _fixed_output((3, 4, 8, 8, 8))[0]
+
+    def jfn(x, tt, y):
+        return jnp.asarray(out) * (1.0 + y.astype(jnp.float32) / 10.0).reshape(-1, 1, 1, 1, 1)
+
+    def tfn(x, tt, y):
+        return torch.from_numpy(out) * (1.0 + y.float() / 10.0).reshape(-1, 1, 1, 1, 1)
+
+    want = jdiff.create_diffusion("50").training_losses(
+        jfn, jnp.asarray(x0), jnp.asarray(t, jnp.int32), {"y": jnp.asarray(y, jnp.int32)}, jnp.asarray(noise))
+    got = create_diffusion("50").training_losses(
+        tfn, torch.from_numpy(x0), torch.from_numpy(t), {"y": torch.from_numpy(y)}, torch.from_numpy(noise))
+    assert set(got) == set(want) == {"mse", "vb", "loss"}
+    for k in want:
+        close(got[k], want[k])
+
+
 def test_training_losses_draw_noise_from_the_generator():
     td = create_diffusion("50")
     x0 = torch.from_numpy(_target((2,) + SHAPE[1:]))
@@ -155,7 +178,7 @@ def test_training_losses_draw_noise_from_the_generator():
     _, _, fn = _fixed_output((2, 4, 8, 8, 8))
     got = td.training_losses(fn, x0, t, generator=torch.Generator().manual_seed(9))
     noise = torch.randn(x0.shape, generator=torch.Generator().manual_seed(9))
-    want = td.training_losses(fn, x0, t, noise)
+    want = td.training_losses(fn, x0, t, noise=noise)
     for k in want:
         assert torch.equal(got[k], want[k]), k
     with pytest.raises(ValueError, match="noise"):

@@ -136,7 +136,7 @@ def _grads_match(jm, params, model, x, t, noise, text, **apply_kw):
     want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     fn = functools.partial(model, **apply_kw)
     terms = create_diffusion("").training_losses(fn, torch.from_numpy(x), torch.from_numpy(t),
-                                                 torch.from_numpy(noise),
+                                                 noise=torch.from_numpy(noise),
                                                  model_kwargs={"text_embedding": torch.from_numpy(text)})
     loss = terms["loss"].mean()
     loss.backward()

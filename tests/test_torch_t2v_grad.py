@@ -80,7 +80,7 @@ def _port_loss(model, forward=None):
     def fn(x, t):
         return _to_video(forward(_to_video(x), t.float(), ctx, mask))
 
-    return create_diffusion("").training_losses(fn, x0, torch.from_numpy(T), noise)["loss"].mean()
+    return create_diffusion("").training_losses(fn, x0, torch.from_numpy(T), noise=noise)["loss"].mean()
 
 
 def _grads(model, params, forward=None):

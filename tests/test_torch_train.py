@@ -86,7 +86,7 @@ def test_training_losses_match_jax():
     want = jax_terms(jnp.asarray(out))
     t_out = torch.from_numpy(out).requires_grad_()
     got = td.training_losses(lambda x, tt: t_out, torch.from_numpy(x0), torch.from_numpy(t),
-                             torch.from_numpy(noise))
+                             noise=torch.from_numpy(noise))
     assert set(got) == set(want) == {"mse", "vb", "loss"}
     for k in want:
         close(got[k], want[k], LOSS_REL, LOSS_REL)
@@ -125,7 +125,7 @@ def test_tiny_latte_gradients_match_jax(checkpointing):
     t = GRAD_T
     model = _port_model(params, gradient_checkpointing=checkpointing)
     terms = create_diffusion("").training_losses(
-        model, torch.from_numpy(x0), torch.from_numpy(t), torch.from_numpy(noise)
+        model, torch.from_numpy(x0), torch.from_numpy(t), noise=torch.from_numpy(noise)
     )
     loss = terms["loss"].mean()
     loss.backward()

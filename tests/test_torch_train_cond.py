@@ -265,7 +265,7 @@ def test_latte_img_gradients_match_flax(extras):
         tkw = dict(y=torch.from_numpy(y), y_image=torch.from_numpy(y_image), **_drop_kwargs(drops))
     fn = functools.partial(model, train=True)
     terms = create_diffusion("").training_losses(fn, torch.from_numpy(x0), torch.from_numpy(t),
-                                                 torch.from_numpy(noise), model_kwargs=tkw)
+                                                 noise=torch.from_numpy(noise), model_kwargs=tkw)
     loss = terms["loss"].mean()
     loss.backward()
     close(loss, want_loss, LOSS_REL, LOSS_REL)

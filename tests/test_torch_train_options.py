@@ -263,7 +263,7 @@ def _remat_grads(cls, policy, **kw):
     x0 = torch.from_numpy(rng.standard_normal((2, frames, 4, 8, 8)).astype(np.float32))
     noise = torch.from_numpy(rng.standard_normal(x0.shape).astype(np.float32))
     fn = lambda x, t: model(x, t, train=True)  # noqa: E731
-    loss = create_diffusion("").training_losses(fn, x0, torch.tensor([1, 500]), noise)["loss"].mean()
+    loss = create_diffusion("").training_losses(fn, x0, torch.tensor([1, 500]), noise=noise)["loss"].mean()
     with _CountMatmuls() as count:
         loss.backward()
     return loss, {n: p.grad for n, p in model.named_parameters()}, count.addmm
