@@ -5,11 +5,12 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py [graph] [serve] [ckpt] [t2vgrad]`` runs the build,
-then for "graph" phase "graph" with phase 5d (G7), for "serve" phase 5g
-alone, for "ckpt" a one-process ffs_train checkpoint written in the
+(``python3 chip_smoke.py [graph] [serve] [ckpt] [t2vgrad] [traingraph]`` runs
+the build, then for "graph" phase "graph" with phase 5d (G7), for "serve"
+phase 5g alone, for "ckpt" a one-process ffs_train checkpoint written in the
 background and then blocking, timed, for "t2vgrad" phase 5h with the
-backward kernels' T2V cases; see ``alone``.)
+backward kernels' T2V cases, for "traingraph" phase 6d and phase "train
+graph"; see ``alone``.)
 
 Phases, each printed with its seconds; any failure ends the script with a
 non-zero exit and a traceback:
@@ -259,7 +260,29 @@ non-zero exit and a traceback:
    and ``pretrained`` from the six-step run's checkpoint with
    ``fixed_spatial`` through ``train.main`` (only the temporal attention
    changed, every other parameter equal to the loaded one to the bit).
-   Prints a ``train_more: {...}`` line;
+   Prints a ``train_more: {...}`` line.
+   Every ``train.main`` run on one process in this and the later phases
+   runs its steps as CUDA graphs (``train.step.GraphedTrainStep``: step 1
+   eager, then captured and replayed), and its launch checks count the
+   replays' launches; the runs of PairLog's pairs (6b's resume, 6c) take
+   ``graph_step=False``, since they patch a route between steps;
+6g. train graph: the train step as one program, graphed against eager on
+   twin states of one seed (``TwinRun``, built as ``train.main`` builds
+   them), stepped in turn on the same batches and generator seeds: T1
+   ffs_train.yaml as shipped (fp32, batch 5, full remat), T2 the JAX
+   bench's cell (batch 1, mixed precision) with TG_PAIRS alternating pairs
+   and one profiled step each way (busy ms, idle share, the hand-written
+   launches in the trace against the counters'), T3 quant_train at batch 1
+   with the clip switched on at step 3 and the EMA every 2 steps (its own
+   program), T4 ffs_train_moe.yaml cut to TG_MOE_DEPTH blocks, T5 pixel
+   batches through the VAE encode (the encode's share from the eager
+   step's trace). Each: parameters, EMA, both moments and every metric
+   equal to eager's to the bit (T4, whose backward adds with atomics:
+   within TG_SPREAD times the gap of two eager runs), each step's launches
+   by kernel and route equal to eager's (T1: 56 of B1-B3 and 28 of B4/B5),
+   the resident state and the graph's pool against the eager step's
+   working memory. Prints a ``train_graph: {...}`` line; every kernel row
+   gets ``launches_train_graph``;
 7. int8: (a) the int8 flash-attention kernel against its plain version
    in bf16 at the spatial, temporal and T2V 512^2 (N = 1024) shapes and at
    N = 2048 (two scale blocks), in both P.V modes, every case on the
@@ -415,7 +438,7 @@ non-zero exit and a traceback:
    ``pp: {...}`` line.
 
 Prints the phases' JSON lines (``train: {...}``, ``pixel_train: {...}``,
-``train_more: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
+``train_more: {...}``, ``train_graph: {...}``, ``int8: {...}``, ``vae: {...}``, ``block_cache: {...}``, ``sample_many:
 {...}``, ``eval: {...}``, ``serve: {...}``, ``graph: {...}``, ``t2v: {...}``,
 ``diffusion_t2v_grad: {...}``, ``moe: {...}``, ``text: {...}``, ``tp_sp: {...}``, ``pp: {...}``, ``dist: {...}``), the total seconds,
 the kernels' JSON line (every row with phase "dist"'s per-rank launches, ``launches_dist``,
@@ -3674,11 +3697,11 @@ def train_entry_point(tmp: str, smi: str) -> dict:
     # the backward's pairs, then the forward's (csrc/flash_attention.cu forced)
     resumed_log = Resumed("fp32_tiled", first=TRAIN_STEPS + 2)
     fwd_log = PairLog("fp32_tiled", first=resumed_log.steps + 2, forward=True)
-    try:
+    try:  # eager: the pairs patch a route between steps, which a captured graph would not see
         resumed = train.main(load_config(FFS_TRAIN, [
             f"results_dir={tmp}/results", f"max_train_steps={fwd_log.steps}", "log_every=1",
             f"resume_from_checkpoint={ckpt}",
-        ]), callbacks=[resumed_log, fwd_log])
+        ]), callbacks=[resumed_log, fwd_log], graph_step=False)
     finally:
         resumed_log.restore()
         fwd_log.restore()
@@ -3794,11 +3817,11 @@ def train_mixed_precision(tmp: str, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
-        with NoCheckpoints():
+        with NoCheckpoints():  # eager, for the pairs' route patches (T2 of "train graph" is this graphed)
             out = train.main(load_config(FFS_TRAIN, [
                 f"results_dir={tmp}/results", f"max_train_steps={log.steps}", "log_every=1",
                 "mixed_precision=true",
-            ]), callbacks=[log])
+            ]), callbacks=[log], graph_step=False)
     finally:
         log.restore()
     check_vec(f"mixed precision, all {log.steps} steps")
@@ -3998,9 +4021,12 @@ def run_timed(config, callbacks) -> tuple:
     return out, seen[0][1], seen[0][0]
 
 
-def encode_device_ms(prof) -> float:
+def encode_device_ms(prof):
     """Device ms of the kernels launched under the trainer's
-    ``record_function("vae_encode")`` range (the fused encode)."""
+    ``record_function("vae_encode")`` range (the fused encode); None when
+    the trace holds no such range (a graph's replay has no host ranges)."""
+    if not any(ev.name == "vae_encode" for ev in prof.events()):
+        return None
     total = 0.0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
@@ -4091,11 +4117,12 @@ def pixel_train(tmp: str, smi: str, device) -> dict:
     wait = timed.waits[2:5]
     groups = print_profile("pixel train step", log.prof, secs[-1] * 1e3)
     enc_ms, total_ms = encode_device_ms(log.prof), sum(groups.values())
-    share = enc_ms / total_ms if total_ms else None
+    share = enc_ms / total_ms if total_ms and enc_ms is not None else None
     shutil.rmtree(out["experiment_dir"])
     print(f"  pixel train fp32 batch {TRAIN_BATCH}: {out}; step gaps (s) {secs}; median of steps 3-5 "
-          f"{s_step:.4f} s/step; loader waits (s) {timed.waits}; encode {enc_ms:.4f} of {total_ms:.4f} "
-          f"device ms in step {TRAIN_STEPS}; peak memory {peak_gib:.3f} GiB on {smi}", flush=True)
+          f"{s_step:.4f} s/step; loader waits (s) {timed.waits}; encode {enc_ms} of {total_ms:.4f} "
+          f"device ms in step {TRAIN_STEPS} (None: a replay has no host ranges; T5 of \"train graph\" "
+          f"measures it on the eager step); peak memory {peak_gib:.3f} GiB on {smi}", flush=True)
 
     # the latent-cache writer, and its step against the fused one
     cfg = load_config(FFS_TRAIN, base + [f"data_path={videos}", "cache_batch_size=5"])
@@ -4214,13 +4241,13 @@ def step_grads(model, batch: dict, grad_accum: int = 1, mu_dtype=None, lr: float
     moments of its new state) and the train state."""
     state = create_train_state(model, make_optimizer(model, mu_dtype=mu_dtype), make_lr_schedule(lr))
     step = make_train_step(create_diffusion(""), clip_max_norm=1e30, grad_accum=grad_accum)
-    update, peaks = state.optimizer.step, []
+    update, peaks = state.optimizer.apply, []
 
     def measured_update(*args, **kwargs):
         peaks.append(torch.cuda.max_memory_allocated())
         return update(*args, **kwargs)
 
-    state.optimizer.step = measured_update
+    state.optimizer.apply = measured_update
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -4230,7 +4257,7 @@ def step_grads(model, batch: dict, grad_accum: int = 1, mu_dtype=None, lr: float
     secs = time.perf_counter() - t0
     working = dict(backward_gib=(peaks[0] - held) / 2**30,
                    step_gib=(torch.cuda.max_memory_allocated() - held) / 2**30)
-    del state.optimizer.step  # the method again, and no cycle through the wrapper
+    del state.optimizer.apply  # the method again, and no cycle through the wrapper
     if not torch.isfinite(metrics["loss"]):
         raise AssertionError("a step gave a non-finite loss")
     return torch.cat([p.grad.flatten() for p in model.parameters()]), secs, working, state
@@ -4387,6 +4414,263 @@ def train_more(tmp: str, smi: str, device) -> dict:
     shutil.rmtree(os.path.dirname(os.path.dirname(ckpt)))
     torch.cuda.empty_cache()
     return res
+
+
+# phase "train graph": the train step as one program (train.step.GraphedTrainStep)
+TG_STEPS = 3  # steps of each case both ways (the first the graph's eager warm-up)
+TG_PAIRS = 5  # T2's alternating pairs of steps, graph and eager
+TG_MOE_DEPTH = 8  # T4's blocks (4 pairs of the shipped 28), for the time and for three states on the card
+TG_SPREAD = 2.0  # T4: the graphed run's largest difference from an eager one, at most this times two eager runs'
+TG_CASES = {
+    "T1": (FFS_TRAIN, [], "ffs_train.yaml as shipped: fp32, batch 5, full remat"),
+    "T2": (FFS_TRAIN, ["local_batch_size=1", "mixed_precision=true"],
+           "the JAX bench's training cell: batch 1, bf16 compute over fp32 masters, full remat"),
+    "T3": (FFS_TRAIN, ["local_batch_size=1", "quant_train=true", "start_clip_iter=2", "ema_every=2"],
+           "quant_train at batch 1, the clip from step 3 and the EMA every 2 steps"),
+    "T4": (os.path.join(ROOT, "configs", "ffs", "ffs_train_moe.yaml"),
+           ["expert_parallel=1", f"model_overrides={{depth: {TG_MOE_DEPTH}}}"],
+           f"ffs_train_moe.yaml, {TG_MOE_DEPTH} of its 28 blocks"),
+    "T5": (FFS_TRAIN, ["synthetic_kind=pixels", "vae_ckpt=random"],
+           "pixel batches through the VAE encode: ffs_train.yaml, batch 5, synthetic uint8 pixels"),
+}
+
+
+class TwinRun:
+    """One side of a train-graph case: a train state, step and batches built
+    as ``train.main`` builds them on one process for the config (the weights
+    ``randomize_``d from a seed, so every block carries signal), and the
+    graphed runner or the eager step over them."""
+
+    def __init__(self, path: str, overrides, graphed: bool, encode_fn=None, seed: int = 61):
+        import logging
+
+        from latte_tpu_torch.models import get_models
+        from latte_tpu_torch.train.step import GraphedTrainStep
+
+        cfg = self.cfg = load_config(path, list(overrides))
+        device = torch.device("cuda", 0)
+        with torch.device(device):
+            model = get_models(cfg, quantized="train" if getattr(cfg, "quant_train", False) else False)
+        randomize_(model, seed)
+        if getattr(cfg, "mixed_precision", False):
+            model.compute_dtype = torch.bfloat16
+        model.train()
+        mu = torch.bfloat16 if str(getattr(cfg, "adam_mu_dtype", "") or "") == "bfloat16" else None
+        self.state = create_train_state(
+            model, make_optimizer(model, float(getattr(cfg, "weight_decay", 0.0)), mu_dtype=mu),
+            make_lr_schedule(float(cfg.learning_rate), int(getattr(cfg, "lr_warmup_steps", 0) or 0)),
+            copy.deepcopy(model).requires_grad_(False))
+        self.batches, kind = train.make_batch_iterator(cfg, logging.getLogger("chip_smoke"),
+                                                       int(cfg.local_batch_size))
+        if kind in ("real", "synthetic_pixels") and encode_fn is None:
+            encode_fn = train.build_encode_fn(cfg, device)
+        self.encode_fn = encode_fn
+        self.step = make_train_step(
+            create_diffusion("", diffusion_steps=1000), ema_decay=float(cfg.ema_decay),
+            ema_every=int(getattr(cfg, "ema_every", 1) or 1), clip_max_norm=float(cfg.clip_max_norm),
+            start_clip_iter=int(cfg.start_clip_iter or 0), vae_scale=float(cfg.vae_scale), encode_fn=encode_fn,
+            grad_accum=int(getattr(cfg, "gradient_accumulation_steps", 1) or 1),
+            moe_aux_weight=train.moe_aux_weight(cfg))
+        self.run = GraphedTrainStep(self.step) if graphed else self.step
+        self.seed, self.steps, self.seconds, self.records, self.metrics = int(cfg.global_seed), 0, [], [], []
+        self.working_gib = 0.0
+
+    def one(self, batch: dict) -> float:
+        """One step on ``batch`` (host arrays), timed from a synchronize to
+        a synchronize; records its launches by route, metrics and working
+        memory (eager: the peak above what stays allocated, before or after
+        the step, which the first step's new gradients and moments join;
+        graphed: the reserved memory its first call added beyond what it
+        allocated, the graph's pool)."""
+        gen = torch.Generator(device="cuda").manual_seed(train._step_seed(self.seed, self.steps))
+        dev_batch = {k: torch.as_tensor(v).to("cuda", non_blocking=True) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = self.run(self.state, dev_batch, gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        if self.steps == 0 or not hasattr(self.run, "graphs"):
+            work = (torch.cuda.memory_reserved() - reserved - (after - held) if hasattr(self.run, "graphs")
+                    else torch.cuda.max_memory_allocated() - max(held, after))
+            self.working_gib = max(self.working_gib, work / 2**30)
+        self.records.append(dict(launch_record(), bwd_tc=bwd_counts("tc_launches"), bwd_f32=bwd_counts("f32_launches")))
+        self.metrics.append({k: v.detach().clone() for k, v in metrics.items()})
+        self.seconds.append(secs)
+        self.steps += 1
+        return secs
+
+    def leaves(self) -> dict:
+        st = self.state
+        out = {f"model.{n}": p.detach() for n, p in st.model.named_parameters()}
+        out.update({f"ema.{n}": p for n, p in st.ema.named_parameters()})
+        for i, s in enumerate(st.optimizer.state.values()):
+            out.update({f"opt.{i}.{k}": v for k, v in s.items() if k != "step"})
+        return out
+
+    def state_gib(self) -> float:
+        st = self.state
+        ts = [*st.model.parameters(), *st.ema.parameters(),
+              *(p.grad for p in st.model.parameters() if p.grad is not None),
+              *(v for s in st.optimizer.state.values() for k, v in s.items() if k != "step")]
+        return sum(t.numel() * t.element_size() for t in ts) / 2**30
+
+    def release(self) -> None:
+        if hasattr(self.run, "release"):
+            self.run.release()
+        self.state = self.run = self.step = None
+
+
+def twin_gap(a: TwinRun, b: TwinRun) -> dict:
+    """The largest absolute difference of two runs' state tensors by kind
+    (parameters, EMA, first and second moments) and of their metrics, and
+    whether all are equal to the bit."""
+    la, lb = a.leaves(), b.leaves()
+    if la.keys() != lb.keys():
+        raise AssertionError("the two runs' states hold different tensors")
+    gap, equal = {}, True
+    for k in la:
+        kind = "exp_avg" if k.endswith(".exp_avg") else "exp_avg_sq" if k.endswith("exp_avg_sq") else k.split(".")[0]
+        same = torch.equal(la[k], lb[k])
+        equal &= same
+        d = 0.0 if same else (la[k].float() - lb[k].float()).abs().max().item()
+        gap[kind] = max(gap.get(kind, 0.0), d)
+    for ma, mb in zip(a.metrics, b.metrics):
+        for k in ma:
+            same = torch.equal(ma[k], mb[k])
+            equal &= same
+            gap[f"metric {k}"] = max(gap.get(f"metric {k}", 0.0),
+                                     0.0 if same else (ma[k].float() - mb[k].float()).abs().max().item())
+    return dict(bit_equal=bool(equal), max_abs=gap)
+
+
+def tg_profile(twin: TwinRun, batch: dict, wall_ms: float, label: str, smi: str) -> dict:
+    """One step of ``twin`` under torch.profiler: busy ms and idle share
+    against ``wall_ms`` (its unprofiled steps' median), and each
+    hand-written kernel's launches in the trace by name against the
+    counters'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        twin.one(batch)
+    counted = {k: twin.records[-1][k] for k in (*FORWARD, *BACKWARD)}
+    kernels = {(ev.name, ev.time_range.start, ev.time_range.end) for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)}
+    traced = {k: 0 for k in counted}
+    for name, _, _ in kernels:
+        if kernel_kind(name) in traced:
+            traced[kernel_kind(name)] += 1
+    groups, busy, _ = device_ms_by_kind(prof)
+    rec = dict(busy_ms=busy, wall_ms=wall_ms, idle=1 - busy / wall_ms if busy else None, device_ms_by_kind=groups,
+               traced_launches=traced, counted_launches=counted, encode_device_ms=encode_device_ms(prof))
+    print(f"  {label} profiled step: busy {busy:.4f} of {wall_ms:.4f} ms wall (idle {rec['idle']}); "
+          f"hand-written launches in the trace {traced}, by the counters {counted}; VAE encode device ms "
+          f"{rec['encode_device_ms']}; on {smi}", flush=True)
+    if busy and traced != counted:
+        raise AssertionError(f"{label}: launches traced {traced}, counted {counted}")
+    return rec
+
+
+def train_graph_case(name: str, smi: str) -> dict:
+    """One case of phase "train graph": the graphed runner and the eager
+    step on twin states from the same seed, stepped in turn on the same
+    batches and generator seeds (TG_STEPS steps; T2 then TG_PAIRS pairs in
+    alternating order and one profiled step each). The states (parameters,
+    EMA, both moments) and metrics must be equal to the bit (T4: within
+    TG_SPREAD times the gap between two eager runs), and each step's
+    launches by kernel and route equal to the eager step's."""
+    path, overrides, what = TG_CASES[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = TwinRun(path, overrides, graphed=True)
+    e = TwinRun(path, overrides, graphed=False, encode_fn=g.encode_fn)
+    e2 = TwinRun(path, overrides, graphed=False, encode_fn=g.encode_fn) if name == "T4" else None
+    twins = [t for t in (g, e, e2) if t is not None]
+    steps = TG_STEPS + (1 if name == "T3" else 0)  # T3: the EMA program captured at step 2, replayed at 4
+    host = [next(g.batches) for _ in range(steps + {"T2": TG_PAIRS + 1, "T5": 1}.get(name, 0))]
+    build_s = time.perf_counter() - t0
+    for i in range(steps):
+        for twin in twins:
+            twin.one(host[i])
+    rec = dict(config=what, build_s=build_s, state_gib=g.state_gib(), per_replay=g.run.launches)
+    if name == "T2":
+        pair_s = {"graph": [], "eager": []}
+        for i in range(TG_PAIRS):
+            order = (("graph", g), ("eager", e)) if i % 2 == 0 else (("eager", e), ("graph", g))
+            for arm, twin in order:
+                pair_s[arm].append(twin.one(host[steps + i]))
+        med = {arm: statistics.median(v) for arm, v in pair_s.items()}
+        wins = sum(a < b for a, b in zip(pair_s["graph"], pair_s["eager"]))
+        last = host[steps + TG_PAIRS]
+        rec["pairs"] = dict(s_per_step=pair_s, median_s=med, graph_faster=wins)
+        rec["profile"] = {arm: tg_profile(twin, last, med[arm] * 1e3, f"T2 {arm}", smi)
+                          for arm, twin in (("graph", g), ("eager", e))}
+        print(f"  T2 pairs: graph {med['graph']:.4f} s/step (median of {pair_s['graph']}), eager "
+              f"{med['eager']:.4f} s/step (median of {pair_s['eager']}), graph faster in {wins} of {TG_PAIRS}; "
+              f"on {smi}", flush=True)
+    if name == "T5":  # the encode's share of the step, from the eager step's host ranges
+        walls = {arm: statistics.median(t.seconds[1:]) * 1e3 for arm, t in (("graph", g), ("eager", e))}
+        rec["profile"] = {arm: tg_profile(twin, host[steps], walls[arm], f"T5 {arm}", smi)
+                          for arm, twin in (("graph", g), ("eager", e))}
+        prof = rec["profile"]["eager"]
+        rec["encode_share_eager"] = (prof["encode_device_ms"] / prof["busy_ms"]
+                                     if prof["busy_ms"] and prof["encode_device_ms"] is not None else None)
+        print(f"  T5: the VAE encode {prof['encode_device_ms']} of {prof['busy_ms']:.4f} busy ms of the eager step "
+              f"(share {rec['encode_share_eager']}); on {smi}", flush=True)
+    rec.update(graph_step_s=g.seconds, eager_step_s=e.seconds,
+               captures={k: v.captures for k, v in g.run.graphs.items()},
+               replays={k: v.replays for k, v in g.run.graphs.items()})
+    # launches: every step of the graph (its warm-up and each replay) as the eager step's
+    for i, (rg, re_) in enumerate(zip(g.records, e.records)):
+        if rg != re_:
+            raise AssertionError(f"{name} step {i + 1}: graphed launches {rg}, eager {re_}")
+    depth = TG_MOE_DEPTH if name == "T4" else DEPTH
+    want = {k: 2 * depth for k in FORWARD} | {k: depth for k in BACKWARD} | {INT8: 0}
+    per_step = {k: e.records[0][k] for k in want}
+    if per_step != want:
+        raise AssertionError(f"{name}: launches a step {per_step}, expected {want}")
+    rec.update(launches_per_step=per_step, routes=dict(fwd_tc=e.records[0]["tc"], fwd_f32=e.records[0]["f32"],
+                                                       bwd_tc=e.records[0]["bwd_tc"],
+                                                       bwd_f32=e.records[0]["bwd_f32"]))
+    gap = twin_gap(g, e)
+    rec.update(bit_equal=gap["bit_equal"], max_abs_vs_eager=gap["max_abs"],
+               losses={"graph": [float(m["loss"]) for m in g.metrics], "eager": [float(m["loss"]) for m in e.metrics]},
+               memory_gib=dict(state=rec["state_gib"], graph_pool=g.working_gib, eager_working=e.working_gib,
+                               graph_total=rec["state_gib"] + g.working_gib,
+                               eager_total=rec["state_gib"] + e.working_gib))
+    finite = all(torch.isfinite(m["loss"]).item() and torch.isfinite(m["grad_norm"]).item() for m in g.metrics)
+    if name == "T4":
+        spread = twin_gap(e2, e)
+        other = twin_gap(g, e2)
+        top = max(spread["max_abs"].values())
+        worst = min(max(gap["max_abs"].values()), max(other["max_abs"].values()))
+        rec.update(eager_spread=spread, eager2_bit_equal=spread["bit_equal"], worst_vs_nearest_eager=worst,
+                   spread_max=top)
+        ok = gap["bit_equal"] or other["bit_equal"] or (top > 0 and worst <= TG_SPREAD * top)
+    else:
+        ok = gap["bit_equal"]
+    print(f"  {name} ({what}): graphed equal to eager to the bit {gap['bit_equal']}; largest gaps "
+          f"{gap['max_abs']}" + (f"; two eager runs' gaps {rec['eager_spread']['max_abs']}" if name == "T4" else "")
+          + f"; s/step graph {g.seconds}, eager {e.seconds}; captures {rec['captures']}, replays "
+          f"{rec['replays']}; launches a step {per_step}; memory (GiB) {rec['memory_gib']}; build "
+          f"{build_s:.1f} s; on {smi}", flush=True)
+    for twin in twins:
+        twin.release()
+    del g, e, e2, twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not finite or not ok:
+        raise AssertionError(f"{name}: the graphed train step departs from the eager one: {rec['max_abs_vs_eager']}")
+    return rec
+
+
+def train_graph_phase(smi: str) -> dict:
+    """Phase "train graph" (see the module docstring): T1-T5."""
+    return {name: train_graph_case(name, smi) for name in TG_CASES}
 
 
 # phase "moe": the Mixture-of-Experts feed-forward at full width
@@ -6481,6 +6765,11 @@ def main() -> int:
         more = train_more(tmp, smi, device)
     phase("train more", t0)
 
+    # 6g. the train step as one program: graphed against eager, T1-T5
+    t0 = time.perf_counter()
+    tgraph = train_graph_phase(smi)
+    phase("train graph", t0)
+
     # 8. Mixture-of-Experts: gradients, training, Latte and T2V serving
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -6491,6 +6780,7 @@ def main() -> int:
                                       quant_train=quant), default=str), flush=True)
     print("pixel_train: " + json.dumps(pixel, default=str), flush=True)
     print("train_more: " + json.dumps(more, default=str), flush=True)
+    print("train_graph: " + json.dumps(tgraph, default=str), flush=True)
     print("int8: " + json.dumps(dict(kernel_fp32=int8_fp32, forward=int8_fwd, sampler=int8_run),
                                 default=str), flush=True)
 
@@ -6638,6 +6928,7 @@ def main() -> int:
         row["launches_graph"] = graph_launches(row["name"], graph_run, many, serve_run)
         row["launches_diffusion"] = dg_run["launches_diffusion"][name]
         row["launches_t2v_grad"] = dg_run["launches_t2v_grad"][name]
+        row["launches_train_graph"] = {c: r["launches_per_step"][name] for c, r in tgraph.items()}
     print(f"total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -6645,17 +6936,18 @@ def main() -> int:
 
 
 def alone(parts) -> int:
-    """``python3 chip_smoke.py graph serve ckpt t2vgrad`` (any of them): the
+    """``python3 chip_smoke.py graph serve ckpt t2vgrad traingraph`` (any of them): the
     build, then for "graph" phase "graph" (G1-G6) and phase 5d with G7 on a
     seeded Latte-XL/2 checkpoint as ``main`` writes it, for "serve" phase 5g
     (with G8) on that checkpoint; for "ckpt" ``train.main`` on ffs_train.yaml for 3
     steps with its checkpoint written in the background and then blocking,
     each save timed by ``TimedSaves``; for "t2vgrad" the backward kernels
     at T2V_BWD_SHAPES, then phase 5h on that checkpoint and its DDIM-50
-    latents through ``sample.main``. Prints the same lines as those parts
-    of ``main``, and no result line."""
-    if not torch.cuda.is_available() or not set(parts) <= {"graph", "serve", "ckpt", "t2vgrad"}:
-        print("usage on a GPU: chip_smoke.py [graph] [serve] [ckpt] [t2vgrad]", file=sys.stderr)
+    latents through ``sample.main``; for "traingraph" phase 6d (two graphed
+    ``train.main`` steps with quant_train) and phase "train graph" (T1-T5).
+    Prints the same lines as those parts of ``main``, and no result line."""
+    if not torch.cuda.is_available() or not set(parts) <= {"graph", "serve", "ckpt", "t2vgrad", "traingraph"}:
+        print("usage on a GPU: chip_smoke.py [graph] [serve] [ckpt] [t2vgrad] [traingraph]", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -6701,6 +6993,14 @@ def alone(parts) -> int:
             dg_run = diffusion_t2v_grad_phase(ckpt, lat, device, smi)
             phase("diffusion and t2v grad", t0)
             print("diffusion_t2v_grad: " + json.dumps(dg_run, default=str), flush=True)
+        if "traingraph" in parts:
+            t0 = time.perf_counter()
+            quant = train_quant(tmp, smi)
+            phase("train int8", t0)
+            t0 = time.perf_counter()
+            tgraph = train_graph_phase(smi)
+            phase("train graph", t0)
+            print("train_graph: " + json.dumps(dict(tgraph, quant_train=quant), default=str), flush=True)
         if "ckpt" in parts:
             for flag in ("true", "false"):
                 cfg = load_config(FFS_TRAIN, [f"results_dir={tmp}/results_{flag}", "max_train_steps=3",

@@ -1,4 +1,6 @@
-"""The sampler's step as one CUDA graph: the port's ``loop_mode: scan``.
+"""The sampler's step as one CUDA graph: the port's ``loop_mode: scan``; and
+the program-holding class the trainer's graphed step reuses
+(``train.step.GraphedTrainStep``).
 
 JAX compiles the whole denoising trajectory into one XLA program, a
 ``lax.scan`` over the steps (``latte_tpu/core/samplers.py``), and the block
@@ -53,29 +55,44 @@ class CaptureError(RuntimeError):
 
 def launch_counters() -> tuple:
     """``(wrapper, attribute)`` of every launch counter of the hand-written
-    kernels a sampler step runs: B1's forward, B2, B3 and B6."""
+    kernels a sampler or train step runs: B1's forward, B2, B3, B6 and the
+    attention backward's B4 (dQ) and B5 (dK/dV)."""
     from latte_tpu_torch.kernels import adaln, attention, attention_int8
 
     fa, i8 = attention.flash_attention, attention_int8.flash_attention_int8
+    bwd = (attention.flash_attention_bwd_dq, attention.flash_attention_bwd_dkv)
     return (
         (fa, "launches"), (fa, "tc_launches"), (fa, "f32_launches"),
         (adaln.ln_modulate, "launches"), (adaln.ln_modulate, "vec_launches"),
         (adaln.residual_ln_modulate, "launches"), (adaln.residual_ln_modulate, "vec_launches"),
         (i8, "launches"), (i8, "tc_launches"),
+        *((k, a) for k in bwd for a in ("launches", "tc_launches", "f32_launches")),
     )
 
 
 class _NameTheOp(TorchDispatchMode):
-    """Re-raise an op's failure during a capture as :class:`CaptureError`
-    naming the op."""
+    """Re-raise an op's failure during a capture of ``program`` as
+    :class:`CaptureError` naming the op (running out of memory stays
+    ``torch.OutOfMemoryError``)."""
+
+    def __init__(self, program: str = "the sampler's step"):
+        super().__init__()
+        self.program = program
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         try:
             return func(*args, **(kwargs or {}))
-        except CaptureError:
+        except (CaptureError, torch.OutOfMemoryError):
             raise
         except Exception as err:
-            raise CaptureError(f"{func} cannot be captured in a CUDA graph of the sampler's step: {err}") from err
+            raise CaptureError(f"{func} cannot be captured in a CUDA graph of {self.program}: {err}") from err
+
+
+def _memory(device: torch.device) -> str:
+    free, total = torch.cuda.mem_get_info(device)
+    return (f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved(device) / 2**30:.2f} GiB reserved, {free / 2**30:.2f} GiB free "
+            f"of {total / 2**30:.2f} GiB")
 
 
 class StepGraph:
@@ -85,10 +102,14 @@ class StepGraph:
     device every call runs ``fn`` (and is counted as on the card: the first
     as the capture, the others as replays). ``launches`` is one replay's launches of
     each hand-written kernel (``"flash_attention.tc_launches"``: n);
-    ``captures`` and ``replays`` count."""
+    ``captures`` and ``replays`` count. ``program`` names the step in a
+    :class:`CaptureError`. The warm-up's freed blocks go back to the card
+    before the capture, whose private pool holds a second set of the step's
+    temporaries; a capture that does not fit raises :class:`CaptureError`
+    with the memory's sizes."""
 
-    def __init__(self, fn: Callable[[], None], device: torch.device):
-        self.fn, self.device = fn, torch.device(device)
+    def __init__(self, fn: Callable[[], None], device: torch.device, program: str = "the sampler's step"):
+        self.fn, self.device, self.program = fn, torch.device(device), program
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
         self._deltas: tuple = ()
@@ -116,11 +137,12 @@ class StepGraph:
         with torch.cuda.stream(side):
             self.fn()
         torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
         counters = launch_counters()
         before = [getattr(w, a) for w, a in counters]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.stream(side), _NameTheOp():
+            with torch.cuda.stream(side), _NameTheOp(self.program):
                 graph.capture_begin()
                 try:
                     self.fn()
@@ -132,6 +154,11 @@ class StepGraph:
                     raise
                 graph.capture_end()
             deltas = [getattr(w, a) - b for (w, a), b in zip(counters, before)]
+        except torch.OutOfMemoryError as err:
+            del graph  # its pool goes back with it
+            torch.cuda.empty_cache()
+            raise CaptureError(f"the CUDA graph of {self.program} does not fit on {self.device}: "
+                               f"{_memory(self.device)} after the capture failed: {err}") from err
         finally:  # a capture records launches and runs none
             for (w, a), b in zip(counters, before):
                 setattr(w, a, b)

@@ -10,6 +10,13 @@ the adaLN kernels and the attention, whose kernels run again in the
 recompute as under "full" (selective activation checkpointing; the
 hand-written kernels are not dispatcher ops, so the policy never caches
 their outputs). Both are non-reentrant ``torch.utils.checkpoint``.
+
+A pair draws no random number: the train step draws its noise, timesteps
+and label dropout before the forward (``train.step.TrainStep.prologue``),
+and the label embedder runs outside the pairs. So the checkpoint stashes
+no RNG state (``preserve_rng_state=False``): the recompute gives the
+forward's numbers without it, and nothing reads the generators' state
+while the train step is captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -45,5 +52,5 @@ def run_pair(enabled: bool, policy: str, fn, *args):
     if not (enabled and torch.is_grad_enabled()):
         return fn(*args)
     if policy == "dots":
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_contexts)
-    return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, context_fn=_dots_contexts)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)

@@ -58,6 +58,24 @@ port keeps its fused adaLN kernels on any mesh: each rank runs them on its
 own rows (the JAX trainer drops ``fused_adaln`` there because a
 ``pallas_call`` is opaque to GSPMD's partitioner).
 
+On one process the step runs as CUDA graphs (``train.step.
+GraphedTrainStep``, the JAX trainer's ``jax.jit(train_step,
+donate_argnums=(0,))``): the first step eagerly, as the warm-up, then the
+step is captured, and every later step copies its batch and its draws into
+the static buffers and replays it; the state (parameters, gradients, AdamW
+moments, EMA) is updated in place. The frozen VAE's encode of a pixel batch
+is inside the graph, as the JAX ``encode_fn`` is inside its jit. On the CPU,
+which only tests ask for, the same runner calls the step's body. What
+stays eager, and why, is logged once at the start:
+
+- any run over several processes (dp, ``zero1``, ``fsdp``, ep, tp, sp, pp:
+  a ``ShardedParams`` step): its collectives run over NCCL, which this port
+  does not capture in a graph;
+- pipeline parallelism (``apply_fn``), which is one of those runs.
+
+``main(..., graph_step=False)`` runs the same step eagerly on one process
+(the tests and the smoke script hold the graph against it).
+
 Runs on ``cuda`` unless asked for the CPU::
 
     python -m latte_tpu_torch.train.train --config configs/ffs/ffs_train.yaml \\
@@ -101,7 +119,7 @@ from latte_tpu_torch.train.state import (
     make_optimizer,
     trainable_temporal_attn_mask,
 )
-from latte_tpu_torch.train.step import make_train_step
+from latte_tpu_torch.train.step import GraphedTrainStep, make_train_step
 from latte_tpu_torch.utils import create_experiment_dir, create_logger
 from latte_tpu_torch.vae import build_vae, make_encode_fn
 
@@ -210,11 +228,14 @@ def moe_aux_weight(config: Config) -> float:
 
 def build_encode_fn(config: Config, device) -> Optional[Callable]:
     """The fused VAE encode, or ``None`` when ``vae_ckpt`` is not set:
-    ``encode(video, generator) -> latents``, (B, F, 3, H, W) fp32 pixels in
-    [-1, 1] to a posterior sample (B, F, 4, H/8, W/8) times ``vae_scale``,
-    the frames encoded in one (B·F, 3, H, W) batch. ``encode.raw`` is the
-    posterior encoder on flat frames (``vae.make_encode_fn``), ``encode.vae``
-    the frozen VAE.
+    ``encode(video, generator, noise=None) -> latents``, (B, F, 3, H, W)
+    fp32 pixels in [-1, 1] to a posterior sample (B, F, 4, H/8, W/8) times
+    ``vae_scale``, the frames encoded in one (B·F, 3, H, W) batch; the
+    sample's noise is ``noise`` when given (the train step draws it before
+    the step's arithmetic), else drawn from ``generator``.
+    ``encode.posterior_spec(video_shape)`` is that noise's (shape, dtype),
+    ``encode.raw`` the posterior encoder on flat frames
+    (``vae.make_encode_fn``), ``encode.vae`` the frozen VAE.
 
     ``vae_ckpt: random`` is the full SD VAE with seeded random weights; a
     file is a diffusers state dict (``vae.build_vae``). A path that does not
@@ -232,16 +253,26 @@ def build_encode_fn(config: Config, device) -> Optional[Callable]:
     raw = make_encode_fn(vae)
     scale = float(getattr(config, "vae_scale", 0.18215))
 
-    def encode(video: torch.Tensor, generator: torch.Generator, draws=None) -> torch.Tensor:
+    def encode(video: torch.Tensor, generator: Optional[torch.Generator], draws=None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         with torch.profiler.record_function("vae_encode"):
             B, F = video.shape[:2]
             post = raw(video.reshape(B * F, *video.shape[2:]))
-            # draws (train.step.Draws): the posterior noise of the global batch, cut to these rows
-            noise = None if draws is None else draws.randn(post.mean.shape, generator, video.device, post.mean.dtype)
+            if noise is None and draws is not None:
+                # draws (train.step.Draws): the posterior noise of the global batch, cut to these rows
+                noise = draws.randn(post.mean.shape, generator, video.device, post.mean.dtype)
             z = post.sample(generator, noise) * scale
             return z.reshape(B, F, *z.shape[1:])
 
-    encode.raw, encode.vae = raw, vae
+    def posterior_spec(video_shape) -> Tuple[tuple, torch.dtype]:
+        """The posterior's (B·F, C, h, w) and type for a (B, F, 3, H, W) video:
+        each of the encoder's downsamplers halves h and w, rounding down."""
+        B, F, _, h, w = video_shape
+        for _ in range(len(vae.encoder.down_blocks) - 1):
+            h, w = h // 2, w // 2
+        return (B * F, vae.quant_conv.out_channels // 2, h, w), vae.quant_conv.weight.dtype
+
+    encode.raw, encode.vae, encode.posterior_spec = raw, vae, posterior_spec
     return encode
 
 
@@ -362,11 +393,13 @@ def _step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (2**63)
 
 
-def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
+def main(config: Config, callbacks=None, device: Optional[str] = None, *, graph_step: bool = True) -> dict:
     """Train; returns ``{"experiment_dir", "final_step", "loss", "grad_norm",
     "steps_per_sec"}`` (the last three from the last log interval; an MoE
     model's ``moe_aux`` too). Over several GPUs every rank returns the same
-    metrics, and the experiment directory rank 0 made."""
+    metrics, and the experiment directory rank 0 made. On one process the
+    step is graphed (see the module docstring) unless ``graph_step`` is
+    False."""
     # the rendezvous before anything else, as the JAX trainer's
     dev, ctx = setup(config, device, check=lambda world: check_config(config, world))
     main_rank = ctx is None or ctx.rank == 0
@@ -506,6 +539,16 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         shards=shards,
         apply_fn=apply_fn,
     )
+    if ctx is None and graph_step:
+        train_step = GraphedTrainStep(train_step)
+        logger.info("train step: one program, a CUDA graph of forward, backward, clip, AdamW and EMA, "
+                    "captured after the first (eager) step and replayed every step"
+                    + ("" if dev.type == "cuda" else f" (on {dev}: the body is called instead)"))
+    elif ctx is None:
+        logger.info("train step: eager (graph_step=False)")
+    else:
+        logger.info(f"train step: eager over {ctx.world} processes: its collectives run over NCCL, which is "
+                    "not captured in a graph (dp, zero1, fsdp, ep, tp, sp and pp stay eager)")
     schedule_sampler = create_named_schedule_sampler(
         str(getattr(config, "schedule_sampler", "uniform") or "uniform"), diffusion
     )
@@ -527,6 +570,8 @@ def main(config: Config, callbacks=None, device: Optional[str] = None) -> dict:
         # on every exit path the write in flight reaches the disk, and no
         # writer thread outlives the run (a failed write raises here)
         wait_for_saves()
+        if isinstance(train_step, GraphedTrainStep):
+            train_step.release()  # the graphs' memory, before the caller's next run
     barrier()
     result = {"experiment_dir": experiment_dir, **result}
     cbs.on_train_end(result)
